@@ -1,0 +1,163 @@
+// Shared pieces of the port's Hopper kernels (fused_edge.cu, fused_decoder.cu).
+//
+// Both kernels are chains of [rows, C] x [C, N] products on a tile of rows
+// held in shared memory, with elementwise and LayerNorm epilogues between
+// them. block_mm is that product: nvcuda::wmma bf16 16x16x16 fragments with
+// f32 accumulation, the weight matrix streamed from global memory (where it
+// stays L2-resident: every block reads the same few 512x512 matrices)
+// through a [64, 128] shared-memory tile. A later PR replaces it with
+// wgmma + TMA; the epilogues stay.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+namespace gc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kNC = 128;        // output columns per block_mm pass
+constexpr int kKT = 64;         // K rows per staged weight tile
+constexpr int kLdW = kNC + 8;   // padded leading dim of the weight tile
+constexpr float kLnEps = 1e-5f;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// swish of x rounded to bf16 first: the TPU kernels apply the activation to
+// the bf16-rounded first-layer output.
+__device__ __forceinline__ float swish_of_bf16(float x) {
+  const float xb = round_bf16(x);
+  return xb / (1.0f + expf(-xb));
+}
+
+__device__ __forceinline__ float2 load_bf16x2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ void store_bf16x2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// dst[0:TM, 0:C] <- src rows row0.. (row-major [*, C]); rows >= `rows` zero.
+template <int TM>
+__device__ __forceinline__ void load_tile(bf16* dst, int ldd,
+                                          const bf16* __restrict__ src,
+                                          int row0, int rows, int C) {
+  const int c8n = C / 8;
+  for (int i = threadIdx.x; i < TM * c8n; i += kThreads) {
+    const int r = i / c8n, c = (i % c8n) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < rows) {
+      v = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * C + c);
+    }
+    *reinterpret_cast<uint4*>(dst + r * ldd + c) = v;
+  }
+}
+
+// LayerNorm of the first `rows` rows of X (+bias) over C columns, one warp
+// per row, statistics in f32; hands each normalised value to
+// fn(r, c, value), which may overwrite X[r, c]. Ends with a barrier.
+template <typename Fn>
+__device__ __forceinline__ void layer_norm_rows(float* X, int ldx, int rows,
+                                                int C,
+                                                const float* __restrict__ bias,
+                                                const float* __restrict__ scale,
+                                                const float* __restrict__ offset,
+                                                Fn fn) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < rows; r += kWarps) {
+    float* xr = X + r * ldx;
+    float s = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float v = xr[c] + bias[c];
+      xr[c] = v;
+      s += v;
+    }
+    const float mean = warp_sum(s) / C;
+    float q = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float d = xr[c] - mean;
+      q += d * d;
+    }
+    const float rstd = rsqrtf(warp_sum(q) / C + kLnEps);
+    for (int c = lane; c < C; c += 32) {
+      fn(r, c, (xr[c] - mean) * rstd * scale[c] + offset[c]);
+    }
+  }
+  __syncthreads();
+}
+
+// X[0:TM, 0:N] (+)= A[0:TM, 0:K] @ W[0:K, 0:N].
+//   A: shared bf16, leading dim lda (a multiple of 8, rows 32-byte aligned).
+//   W: global bf16, row-major [K, N], 16-byte aligned.
+//   X: shared f32, leading dim ldx (a multiple of 4).
+//   Wt: shared scratch of kKT * kLdW bf16.
+// K % kKT == 0 and N % kNC == 0. Every thread of the block calls it; it
+// begins and ends with a barrier.
+template <int TM>
+__device__ void block_mm(const bf16* A, int lda, const bf16* __restrict__ W,
+                         int K, int N, float* X, int ldx, bf16* Wt,
+                         bool accumulate) {
+  using namespace nvcuda;
+  constexpr int kWR = TM / 16;            // warps along rows
+  constexpr int kWC = kWarps / kWR;       // warps along columns
+  constexpr int kFN = kNC / 16 / kWC;     // fragments per warp per pass
+  static_assert(kWR * kWC == kWarps && kFN >= 1, "tile shape");
+  const int warp = threadIdx.x / 32;
+  const int wr = warp / kWC, wc = warp % kWC;
+  __syncthreads();
+  for (int n0 = 0; n0 < N; n0 += kNC) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kFN];
+    float* xblk = X + wr * 16 * ldx + n0 + wc * kFN * 16;
+#pragma unroll
+    for (int f = 0; f < kFN; ++f) {
+      if (accumulate) {
+        wmma::load_matrix_sync(acc[f], xblk + f * 16, ldx,
+                               wmma::mem_row_major);
+      } else {
+        wmma::fill_fragment(acc[f], 0.0f);
+      }
+    }
+    for (int k0 = 0; k0 < K; k0 += kKT) {
+      __syncthreads();
+      for (int i = threadIdx.x; i < kKT * kNC / 8; i += kThreads) {
+        const int r = i / (kNC / 8), c = (i % (kNC / 8)) * 8;
+        *reinterpret_cast<uint4*>(Wt + r * kLdW + c) =
+            *reinterpret_cast<const uint4*>(W + (size_t)(k0 + r) * N + n0 + c);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < kKT; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+        wmma::load_matrix_sync(a, A + wr * 16 * lda + k0 + kk, lda);
+#pragma unroll
+        for (int f = 0; f < kFN; ++f) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+          wmma::load_matrix_sync(b, Wt + kk * kLdW + (wc * kFN + f) * 16,
+                                 kLdW);
+          wmma::mma_sync(acc[f], a, b, acc[f]);
+        }
+      }
+    }
+#pragma unroll
+    for (int f = 0; f < kFN; ++f) {
+      wmma::store_matrix_sync(xblk + f * 16, acc[f], ldx, wmma::mem_row_major);
+    }
+  }
+  __syncthreads();
+}
+
+}  // namespace gc

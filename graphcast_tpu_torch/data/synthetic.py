@@ -1,0 +1,103 @@
+"""Synthetic data for tests, benchmarks and random-weights runs.
+
+Port of graphcast_tpu/data/synthetic.py: the same numpy draws from the same
+seed (tests/test_torch_rollout.py holds the arrays equal), handed back as
+FieldSets of CPU tensors; move them with ``FieldSet.to(device)``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from graphcast_tpu_torch.fields import FieldSet, from_numpy
+from graphcast_tpu_torch.models import configs
+
+
+def grid_coords(resolution: float, include_poles: bool = True):
+  """lat/lon coordinate vectors for a global grid of the given resolution."""
+  if include_poles:
+    lat = np.arange(-90.0, 90.0 + resolution / 2, resolution)
+  else:
+    lat = np.arange(-90.0 + resolution / 2, 90.0, resolution)
+  lon = np.arange(0.0, 360.0, resolution)
+  return lat.astype(np.float32), lon.astype(np.float32)
+
+
+def _random_field(rng, shape, dtype=np.float32):
+  return rng.randn(*shape).astype(dtype)
+
+
+def make_example_batch(
+    task_config: configs.TaskConfig,
+    resolution: float,
+    batch: int = 1,
+    num_input_times: int = 2,
+    num_target_times: int = 1,
+    time_step_hours: int = 6,
+    seed: int = 0,
+    dtype=np.float32,
+) -> tuple[FieldSet, FieldSet, FieldSet]:
+  """Returns (inputs, targets, forcings) for the task, random data.
+
+  Lead time 0h = last input frame; inputs at [-(n-1)Δ, ..., 0],
+  targets/forcings at [Δ, ..., TΔ] (reference: data_utils.py:212-290).
+  """
+  rng = np.random.RandomState(seed)
+  lat, lon = grid_coords(resolution)
+  nlat, nlon = lat.shape[0], lon.shape[0]
+  levels = np.asarray(task_config.pressure_levels, np.int32)
+  nlev = levels.shape[0]
+
+  step = np.timedelta64(time_step_hours, "h")
+  input_times = (np.arange(-(num_input_times - 1), 1) * step)
+  target_times = (np.arange(1, num_target_times + 1) * step)
+
+  def build(names, times, include_statics):
+    fields = {}
+    nt = times.shape[0]
+    for name in names:
+      if name in configs.STATIC_VARS:
+        if include_statics:
+          fields[name] = (_random_field(rng, (nlat, nlon), dtype),
+                          ("lat", "lon"))
+        continue
+      if name in configs.ALL_ATMOSPHERIC_VARS:
+        fields[name] = (_random_field(rng, (batch, nt, nlev, nlat, nlon),
+                                      dtype),
+                        ("batch", "time", "level", "lat", "lon"))
+      else:
+        fields[name] = (_random_field(rng, (batch, nt, nlat, nlon), dtype),
+                        ("batch", "time", "lat", "lon"))
+    return from_numpy(fields, coords={
+        "lat": lat, "lon": lon, "level": levels,
+        "time": times.astype("timedelta64[ns]")})
+
+  inputs = build(task_config.input_variables, input_times,
+                 include_statics=True)
+  targets = build(task_config.target_variables, target_times,
+                  include_statics=False)
+  forcings = build(task_config.forcing_variables, target_times,
+                   include_statics=False)
+  return inputs, targets, forcings
+
+
+def make_norm_stats(task_config: configs.TaskConfig, seed: int = 1):
+  """Random-but-positive per-variable normalization stats FieldSets:
+  (stddev_by_level, mean_by_level, diffs_stddev_by_level)."""
+  rng = np.random.RandomState(seed)
+  levels = np.asarray(task_config.pressure_levels, np.float32)
+  var_names = set(task_config.input_variables) | set(
+      task_config.target_variables) | set(task_config.forcing_variables)
+
+  def build(offset):
+    fields = {}
+    for name in sorted(var_names):
+      if name in configs.ALL_ATMOSPHERIC_VARS:
+        fields[name] = (
+            rng.rand(levels.shape[0]).astype(np.float32) + offset,
+            ("level",))
+      else:
+        fields[name] = (np.float32(rng.rand() + offset).reshape(()), ())
+    return from_numpy(fields, coords={"level": levels})
+
+  return build(0.5), build(0.0), build(0.5)

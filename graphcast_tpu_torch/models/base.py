@@ -1,0 +1,47 @@
+"""The Predictor interface (port of graphcast_tpu/models/base.py).
+
+A predictor is an ``nn.Module`` that maps FieldSets with (batch, time,
+[level,] lat, lon) dims to a prediction:
+
+- ``inputs``: the state at input times (time ≤ 0 lead), plus static vars;
+- ``targets_template``: shapes/coords of what to predict (data unused);
+- ``forcings``: externally-specified values at the target times.
+
+Parameters live in the modules (f32 masters); GraphCast is deterministic,
+so the JAX package's ``rng`` argument has no counterpart here.
+"""
+
+from __future__ import annotations
+
+import abc
+
+from torch import nn
+
+from graphcast_tpu_torch.fields import FieldSet
+
+
+class Predictor(nn.Module, abc.ABC):
+  """A one-or-multi-step weather predictor over FieldSets."""
+
+  @abc.abstractmethod
+  def forward(self, inputs: FieldSet, targets_template: FieldSet,
+              forcings: FieldSet, **kwargs) -> FieldSet:
+    """Predicts targets matching targets_template."""
+
+  def precompute_step_statics(self, inputs: FieldSet) -> dict:
+    """kwargs holding values that are constant across autoregressive steps
+    (e.g. embedded static edge features), computed once before a rollout.
+    {} when the model has nothing to hoist."""
+    del inputs
+    return {}
+
+
+class WrapperPredictor(Predictor):
+  """Base for wrappers around an inner predictor."""
+
+  def __init__(self, predictor: Predictor):
+    super().__init__()
+    self._predictor = predictor
+
+  def precompute_step_statics(self, inputs: FieldSet) -> dict:
+    return self._predictor.precompute_step_statics(inputs)

@@ -1,0 +1,87 @@
+"""K2's plain-PyTorch twin (ops/fused_decoder.py) against the JAX package's
+FusedMesh2GridDecoder in Pallas interpret mode and its ``_reference_math``.
+
+Inputs are made with numpy from a seed and fed to both; the JAX decoder
+takes the hoisted const slot-major and the output weights padded, the port
+takes both in the edge list's own order, unpadded.
+
+Tolerances: f32 1e-4; bf16 relative RMS <= 1e-2 and max-abs <= 0.1 (the
+twin's swish runs in f32 of the bf16-rounded input, the TPU kernel's in
+chained bf16 operations: about one bf16 ulp on an output).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from graphcast_tpu.ops.pallas_decoder import FusedMesh2GridDecoder
+from graphcast_tpu_torch.ops.fused_decoder import (
+    MATRICES, VECTORS, fused_decode)
+from graphcast_tpu_torch.ops.fused_edge import EdgeIndex
+
+_DTYPES = {"f32": (jnp.float32, torch.float32),
+           "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _case(seed, G=40, M=30, C=128, num_outputs=7):
+  rs = np.random.RandomState(seed)
+  senders = rs.randint(0, M, size=3 * G).astype(np.int32)
+  arrays = dict(grid=rs.randn(G, C), mesh_proj=rs.randn(M, C),
+                const=rs.randn(3 * G, C))
+  weights = {k: rs.randn(C, C) / np.sqrt(C) for k in MATRICES}
+  weights["wd1"] = rs.randn(C, num_outputs) / np.sqrt(C)
+  weights.update({k: 0.1 * rs.randn(C) for k in VECTORS})
+  weights["bd1"] = 0.1 * rs.randn(num_outputs)
+  for k in ("escale", "nscale"):
+    weights[k] = weights[k] + 1.0
+  f32 = lambda d: {k: v.astype(np.float32) for k, v in d.items()}  # noqa
+  return senders, f32(arrays), f32(weights)
+
+
+@pytest.mark.parametrize("compact", [False, True])
+@pytest.mark.parametrize("dtype_name", sorted(_DTYPES))
+def test_twin_matches_jax_fused_decoder(dtype_name, compact):
+  jdtype, tdtype = _DTYPES[dtype_name]
+  senders, a, w = _case(seed=5 if compact else 2,
+                        G=160 if compact else 40)
+  G, C = a["grid"].shape
+  num_outputs = w["wd1"].shape[1]
+  dec = FusedMesh2GridDecoder(senders, G, num_outputs,
+                              block_nodes=64 if compact else 8,
+                              interpret=True, compact_gather=compact)
+  jw = {k: jnp.asarray(v) for k, v in w.items()}
+  jw["wd1"] = jnp.pad(jw["wd1"], ((0, 0), (0, dec.out_pad - num_outputs)))
+  jw["bd1"] = jnp.pad(jw["bd1"], (0, dec.out_pad - num_outputs))
+  grid = jnp.asarray(a["grid"], jdtype)
+  mesh_proj = jnp.asarray(a["mesh_proj"], jdtype)
+  const_slot = dec.rearrange_edge_array(jnp.asarray(a["const"], jdtype))
+  kernel = np.asarray(dec(grid, mesh_proj, const_slot, jw), np.float32)
+  ref = np.asarray(dec._reference_math(grid, mesh_proj, const_slot, jw),
+                   np.float32)
+
+  edges = EdgeIndex(senders, np.repeat(np.arange(G), 3), a["mesh_proj"].shape[0],
+                    G)
+  out = fused_decode(
+      edges, torch.from_numpy(a["grid"]).to(tdtype),
+      torch.from_numpy(a["mesh_proj"]).to(tdtype),
+      torch.from_numpy(a["const"]).to(tdtype),
+      {k: torch.from_numpy(v) for k, v in w.items()})
+  assert out.dtype == tdtype and out.shape == (G, num_outputs)
+  got = out.float().numpy()
+  for want in (kernel, ref):
+    if dtype_name == "f32":
+      np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    else:
+      d = got - want
+      assert np.sqrt(np.mean(d * d) / np.mean(want * want)) <= 1e-2
+      assert np.abs(d).max() <= 0.1
+
+
+def test_decoder_refuses_edge_lists_without_three_edges_per_node():
+  senders, a, w = _case(seed=1, G=4)
+  edges = EdgeIndex(senders[:-1], np.sort(np.arange(11) % 4), 30, 4)
+  t = {k: torch.from_numpy(v) for k, v in a.items()}
+  with pytest.raises(ValueError, match="3 receiver-sorted edges"):
+    fused_decode(edges, t["grid"], t["mesh_proj"], t["const"][:-1],
+                 {k: torch.from_numpy(v) for k, v in w.items()})

@@ -1,0 +1,159 @@
+"""K1's plain-PyTorch twin (ops/fused_edge.py) against the JAX package's
+FusedEdgeStep, run as its own tests run it on the CPU (Pallas interpret
+mode) and through its ``_reference_math``, in processor and encoder mode.
+
+Inputs are made with numpy from a seed and fed to both. The JAX step works
+on the chunk-aligned padded layout; the port on the receiver-sorted edge
+list as is, so outputs are compared on the original edge order.
+
+Tolerances: f32 1e-4 (only the f32 summation order differs); bf16: relative
+RMS <= 1e-2 and max-abs <= 0.1, since the twin evaluates swish in f32 of the
+bf16-rounded input where the TPU kernel chains bf16 operations, which moves
+an output by about one bf16 ulp.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from graphcast_tpu.ops import pallas_edge, pallas_mp
+from graphcast_tpu_torch.ops.fused_edge import (
+    EdgeIndex, fused_edge, fused_edge_reference)
+
+_DTYPES = {"f32": (jnp.float32, torch.float32),
+           "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _case(seed, encoder, n=96, e=600, c=128, num_senders=150):
+  rng = np.random.RandomState(seed)
+  receivers = np.sort(rng.randint(0, n, e))
+  receivers[:n] = np.arange(n)  # no empty node block (TPU layout needs it)
+  receivers = np.sort(receivers).astype(np.int32)
+  senders = rng.randint(0, num_senders if encoder else n, e).astype(np.int32)
+  arrays = dict(
+      e=rng.randn(e, c).astype(np.float32),
+      sproj=rng.randn(num_senders if encoder else n, c).astype(np.float32),
+      rproj=rng.randn(n, c).astype(np.float32),
+      w1=(rng.randn(c, c) * 0.05).astype(np.float32),
+      b1=(rng.randn(c) * 0.1).astype(np.float32),
+      scale=(1.0 + 0.1 * rng.randn(c)).astype(np.float32),
+      offset=(0.1 * rng.randn(c)).astype(np.float32))
+  if not encoder:
+    arrays["we"] = (rng.randn(c, c) * 0.05).astype(np.float32)
+    arrays["b0"] = (rng.randn(c) * 0.1).astype(np.float32)
+  return senders, receivers, arrays
+
+
+def _jax_step(senders, receivers, a, encoder, dtype):
+  """FusedEdgeStep (interpret) and its _reference_math, mapped back to the
+  original edge order: ((e_out or None, agg) kernel, (...) reference)."""
+  n = a["rproj"].shape[0]
+  summer = pallas_mp.BlockedSegmentSum(
+      receivers, n, block_nodes=32, chunk_edges=64, interpret=True,
+      padded_input=True)
+  step = pallas_edge.FusedEdgeStep(
+      summer, interpret=True, include_edge_matmul=not encoder,
+      write_edges=not encoder)
+  e_pad = jnp.asarray(summer.pad_edges(a["e"]), dtype)
+  gs = jnp.asarray(summer.pad_edges(a["sproj"][senders]), dtype)
+  gr_pad = step.pad_nodes(jnp.asarray(a["rproj"], dtype))
+  w = {k: jnp.asarray(a[k]) for k in ("w1", "b1", "scale", "offset")}
+  we = None if encoder else jnp.asarray(a["we"])
+  b0 = None if encoder else jnp.asarray(a["b0"])
+  valid = summer.layout_index < summer.num_edges
+
+  def unpad(out):
+    if encoder:
+      return None, np.asarray(out, np.float32)
+    eout_pad, agg = out
+    eout = np.zeros(a["e"].shape, np.float32)
+    eout[summer.layout_index[valid]] = np.asarray(eout_pad, np.float32)[valid]
+    return eout, np.asarray(agg, np.float32)
+
+  kernel = step(e_pad, gs, gr_pad, we, b0, w["w1"], w["b1"], w["scale"],
+                w["offset"])
+  if encoder:
+    we, b0 = jnp.zeros((0,)), jnp.zeros((0,))
+  ref = step._reference_math(e_pad, gs, gr_pad, we, b0, w["w1"], w["b1"],
+                             w["scale"], w["offset"])
+  return unpad(kernel), unpad(ref)
+
+
+def _port(senders, receivers, a, encoder, dtype):
+  n = a["rproj"].shape[0]
+  edges = EdgeIndex(senders, receivers, a["sproj"].shape[0], n)
+  t = {k: torch.from_numpy(v) for k, v in a.items()}
+  for k in ("e", "sproj", "rproj"):
+    t[k] = t[k].to(dtype)
+  out = fused_edge(edges, t["e"], t["sproj"], t["rproj"], t.get("we"),
+                   t.get("b0"), t["w1"], t["b1"], t["scale"], t["offset"],
+                   write_edges=not encoder)
+  if encoder:
+    return None, out.numpy()
+  return out[0].float().numpy(), out[1].numpy()
+
+
+def _assert_close(got, want, dtype_name):
+  if dtype_name == "f32":
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    return
+  d = got - want
+  rel_rms = np.sqrt(np.mean(d * d)) / np.sqrt(np.mean(want * want))
+  assert rel_rms <= 1e-2, rel_rms
+  assert np.abs(d).max() <= 0.1, np.abs(d).max()
+
+
+@pytest.mark.parametrize("dtype_name", sorted(_DTYPES))
+@pytest.mark.parametrize("mode", ["processor", "encoder"])
+def test_twin_matches_jax_fused_edge_step(mode, dtype_name):
+  encoder = mode == "encoder"
+  jdtype, tdtype = _DTYPES[dtype_name]
+  senders, receivers, a = _case(seed=7 if encoder else 3, encoder=encoder)
+  (k_eout, k_agg), (r_eout, r_agg) = _jax_step(senders, receivers, a,
+                                               encoder, jdtype)
+  eout, agg = _port(senders, receivers, a, encoder, tdtype)
+  assert agg.dtype == np.float32 and agg.shape == k_agg.shape
+  for want in (k_agg, r_agg):
+    _assert_close(agg, want, dtype_name)
+  if not encoder:
+    for want in (k_eout, r_eout):
+      _assert_close(eout, want, dtype_name)
+
+
+def test_twin_sums_only_edges_of_each_receiver():
+  """A receiver with no incoming edges aggregates to exactly 0, and the
+  sum is over bf16-rounded rows (the TPU kernel's aggregation input)."""
+  senders = np.array([0, 1, 1, 0], np.int32)
+  receivers = np.array([0, 0, 2, 2], np.int32)
+  rng = np.random.RandomState(0)
+  c = 8
+  edges = EdgeIndex(senders, receivers, 2, 4)
+  t = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32))  # noqa
+  args = dict(e=t(4, c).bfloat16(), sproj=t(2, c).bfloat16(),
+              rproj=t(4, c).bfloat16(), we=t(c, c), b0=t(c), w1=t(c, c),
+              b1=t(c), scale=t(c), offset=t(c))
+  eout, agg = fused_edge(edges, write_edges=True, **args)
+  assert (agg[1] == 0).all() and (agg[3] == 0).all()
+  y = eout.float() - args["e"].float()  # ~ y up to bf16 rounding of e'
+  assert torch.allclose(agg[0], y[0] + y[1], atol=0.1)
+  want = fused_edge_reference(edges, write_edges=False, **args)
+  assert torch.equal(agg, want)
+
+
+def test_edge_index_rejects_unsorted_or_out_of_range():
+  with pytest.raises(ValueError, match="sorted"):
+    EdgeIndex(np.array([0, 1]), np.array([1, 0]), 2, 2)
+  with pytest.raises(ValueError, match="range"):
+    EdgeIndex(np.array([0, 2]), np.array([0, 1]), 2, 2)
+  with pytest.raises(ValueError, match="range"):
+    EdgeIndex(np.array([0, 1]), np.array([0, 2]), 2, 2)
+
+
+def test_non_cpu_non_cuda_tensors_are_refused():
+  """No silent fallback: only CPU tensors take the twin."""
+  edges = EdgeIndex(np.array([0]), np.array([0]), 1, 1)
+  m = lambda *s: torch.empty(*s, device="meta")  # noqa: E731
+  with pytest.raises(ValueError, match="unsupported device"):
+    fused_edge(edges, m(1, 128), m(1, 128), m(1, 128), m(128, 128), m(128),
+               m(128, 128), m(128), m(128), m(128))
