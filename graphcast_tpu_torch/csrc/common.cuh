@@ -1,6 +1,7 @@
-// Shared pieces of the port's Hopper kernels (fused_edge.cu, fused_decoder.cu).
+// Shared pieces of the port's Hopper kernels (fused_edge.cu, fused_decoder.cu
+// and their backward passes fused_edge_bwd.cu, fused_decoder_bwd.cu).
 //
-// Both kernels are chains of [rows, C] x [C, N] products on a tile of rows
+// The kernels are chains of [rows, C] x [C, N] products on a tile of rows
 // held in shared memory, with elementwise and LayerNorm epilogues between
 // them. block_mm is that product: nvcuda::wmma bf16 16x16x16 fragments with
 // f32 accumulation, the weight matrix streamed from global memory (where it
@@ -41,6 +42,13 @@ __device__ __forceinline__ float round_bf16(float x) {
 __device__ __forceinline__ float swish_of_bf16(float x) {
   const float xb = round_bf16(x);
   return xb / (1.0f + expf(-xb));
+}
+
+// swish'(xb) = s + xb * s * (1 - s), s = sigmoid(xb), at a bf16-rounded xb;
+// rounded to bf16, as the TPU backward kernels evaluate it in bf16.
+__device__ __forceinline__ float swish_grad_bf16(float xb) {
+  const float s = 1.0f / (1.0f + expf(-xb));
+  return round_bf16(s + xb * s * (1.0f - s));
 }
 
 __device__ __forceinline__ float2 load_bf16x2(const bf16* p) {
@@ -98,6 +106,76 @@ __device__ __forceinline__ void layer_norm_rows(float* X, int ldx, int rows,
     }
   }
   __syncthreads();
+}
+
+// The LayerNorm backward, in two warp-per-row passes for the first `rows`
+// rows. ln_rows_normalize: X[r] <- yh = (X[r] + bias - mean) * rstd, f32
+// statistics, rstd to rstd_out[r]. ln_bwd_moments: m1 = mean_c dyh(r, c) and
+// m2 = mean_c dyh(r, c) * Y[r, c] to m1_out[r], m2_out[r], so that
+// dy = rstd * (dyh - m1 - yh * m2). Both end with a barrier.
+__device__ __forceinline__ void ln_rows_normalize(float* X, int ldx, int rows,
+                                                  int C,
+                                                  const float* __restrict__ bias,
+                                                  float* rstd_out) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < rows; r += kWarps) {
+    float* xr = X + r * ldx;
+    float s = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float v = xr[c] + bias[c];
+      xr[c] = v;
+      s += v;
+    }
+    const float mean = warp_sum(s) / C;
+    float q = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float d = xr[c] - mean;
+      q += d * d;
+    }
+    const float rstd = rsqrtf(warp_sum(q) / C + kLnEps);
+    for (int c = lane; c < C; c += 32) xr[c] = (xr[c] - mean) * rstd;
+    if (lane == 0) rstd_out[r] = rstd;
+  }
+  __syncthreads();
+}
+
+template <typename DyhFn>
+__device__ __forceinline__ void ln_bwd_moments(const float* Y, int ldy,
+                                               int rows, int C, DyhFn dyh,
+                                               float* m1_out, float* m2_out) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < rows; r += kWarps) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float d = dyh(r, c);
+      s1 += d;
+      s2 += d * Y[r * ldy + c];
+    }
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    if (lane == 0) {
+      m1_out[r] = s1 / C;
+      m2_out[r] = s2 / C;
+    }
+  }
+  __syncthreads();
+}
+
+// Adds the block's column sums (shared, n floats) into `dst` (global f32).
+__device__ __forceinline__ void flush_sums(float* __restrict__ dst,
+                                           const float* S, int n) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += kThreads) atomicAdd(dst + i, S[i]);
+}
+
+// Number of blocks for a persistent grid-stride launch over `tiles` tiles,
+// one resident block per SM.
+inline int persistent_blocks(int tiles) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (sms < 1) sms = 1;
+  return tiles < sms ? tiles : sms;
 }
 
 // X[0:TM, 0:N] (+)= A[0:TM, 0:K] @ W[0:K, 0:N].

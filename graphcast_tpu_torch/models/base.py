@@ -7,6 +7,10 @@ A predictor is an ``nn.Module`` that maps FieldSets with (batch, time,
 - ``targets_template``: shapes/coords of what to predict (data unused);
 - ``forcings``: externally-specified values at the target times.
 
+Training: ``loss`` and ``loss_and_predictions`` take ``targets`` (data
+used) in place of the template and return ``(loss [batch], {var:
+[batch]})``, the JAX package's ``LossAndDiagnostics``.
+
 Parameters live in the modules (f32 masters); GraphCast is deterministic,
 so the JAX package's ``rng`` argument has no counterpart here.
 """
@@ -18,6 +22,7 @@ import abc
 from torch import nn
 
 from graphcast_tpu_torch.fields import FieldSet
+from graphcast_tpu_torch.losses import LossAndDiagnostics
 
 
 class Predictor(nn.Module, abc.ABC):
@@ -27,6 +32,19 @@ class Predictor(nn.Module, abc.ABC):
   def forward(self, inputs: FieldSet, targets_template: FieldSet,
               forcings: FieldSet, **kwargs) -> FieldSet:
     """Predicts targets matching targets_template."""
+
+  def loss(self, inputs: FieldSet, targets: FieldSet, forcings: FieldSet,
+           **kwargs) -> LossAndDiagnostics:
+    """Training loss: (loss [batch], {var: [batch]})."""
+    raise NotImplementedError(f"{type(self).__name__} does not implement loss")
+
+  def loss_and_predictions(
+      self, inputs: FieldSet, targets: FieldSet, forcings: FieldSet,
+      **kwargs) -> tuple[LossAndDiagnostics, FieldSet]:
+    """The loss and the predictions it was taken on; needed for AR training
+    (reference: predictor_base.py:133-170)."""
+    raise NotImplementedError(
+        f"{type(self).__name__} does not implement loss_and_predictions")
 
   def precompute_step_statics(self, inputs: FieldSet) -> dict:
     """kwargs holding values that are constant across autoregressive steps

@@ -21,6 +21,13 @@ call from the inputs' lat/lon coords and kept on the device of the call.
 The encoder/decoder edge features are structural, so their edge-embed MLP
 output times the first layer's edge block (+ bias) is constant across a
 rollout: ``precompute_step_statics`` computes it once.
+
+Training (``loss``, ``loss_and_predictions``): the weighted MSE of
+losses.py with ``configs.GRAPHCAST_LOSS_WEIGHTS``. Under grad those static
+edge parts are functions of the parameters, so they are computed inside
+each step, chunk by chunk under ``torch.utils.checkpoint``: the edge-embed
+MLP's intermediates over the 1.6M and 3.1M edges at 0.25° are recomputed in
+the backward instead of kept. CUDA tensors run the backward kernels K4/K5.
 """
 
 from __future__ import annotations
@@ -29,7 +36,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils import checkpoint
 
+from graphcast_tpu_torch import losses
 from graphcast_tpu_torch.fields import FieldSet, from_stacked, to_stacked
 from graphcast_tpu_torch.geometry import artifact as artifact_lib
 from graphcast_tpu_torch.models import configs
@@ -172,18 +181,26 @@ class GraphCast(Predictor):
   def _static_edge_const(self, gnn: DeepGraphNet, edge_name: str,
                          edge_features: torch.Tensor, dtype) -> torch.Tensor:
     """embed(edge_features) @ We + b0 → [E, latent], in row chunks to bound
-    the embed MLP's temporaries."""
+    the embed MLP's temporaries (under grad: each chunk checkpointed)."""
     latent = self._mc.latent_size
     embed = gnn[f"encoder_edges_{edge_name}"]
     we, _, _, b0 = gnn[f"processor_0_edges_{edge_name}"].factored_first_layer(
         latent, latent, dtype)
     b0 = b0.to(dtype)
+
+    def part(features):
+      return embed(features.to(dtype)) @ we + b0
+
     num_edges = edge_features.shape[0]
+    chunks = [edge_features[s:s + _CONST_CHUNK_ROWS]
+              for s in range(0, num_edges, _CONST_CHUNK_ROWS)]
+    if torch.is_grad_enabled():
+      return torch.cat([checkpoint.checkpoint(part, c, use_reentrant=False)
+                        for c in chunks])
     out = torch.empty(num_edges, latent, dtype=dtype,
                       device=edge_features.device)
-    for s in range(0, num_edges, _CONST_CHUNK_ROWS):
-      rows = slice(s, s + _CONST_CHUNK_ROWS)
-      out[rows] = embed(edge_features[rows].to(dtype)) @ we + b0
+    for i, c in enumerate(chunks):
+      out[i * _CONST_CHUNK_ROWS:i * _CONST_CHUNK_ROWS + c.shape[0]] = part(c)
     return out
 
   # ----- the three GNN stages -----
@@ -288,3 +305,17 @@ class GraphCast(Predictor):
                               sel["m2g_const"])
     return self._grid_node_outputs_to_prediction(out[:, None],
                                                  targets_template)
+
+  def loss_and_predictions(self, inputs, targets, forcings, **kwargs):
+    """(weighted MSE, {var: loss}) and the predictions (reference:
+    graphcast_tpu/models/graphcast.py:908-916)."""
+    predictions = self(inputs, targets, forcings, **kwargs)
+    weights = {k: v for k, v in configs.GRAPHCAST_LOSS_WEIGHTS.items()
+               if k in targets.var_names}
+    loss = losses.weighted_mse_per_level(predictions, targets,
+                                         per_variable_weights=weights)
+    return loss, predictions
+
+  def loss(self, inputs, targets, forcings, **kwargs):
+    loss, _ = self.loss_and_predictions(inputs, targets, forcings, **kwargs)
+    return loss

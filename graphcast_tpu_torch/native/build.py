@@ -2,9 +2,10 @@
 
 At first use, ``load_library()`` compiles every ``csrc/*.cu`` with
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+    nvcc -gencode arch=compute_90a,code=sm_90a -O3 -Xcompiler -fPIC -c
 
-into one shared library with a plain C interface, under
+one ``nvcc`` per source, all started together, and links the objects into
+one shared library with a plain C interface, under
 ``graphcast_tpu_torch/_build/`` (ignored by git; the file name carries a
 hash of the sources, so an edited source is rebuilt), and loads it with
 ctypes. Everything that stops it raises: no ``nvcc``, no CUDA device, a
@@ -26,7 +27,7 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -59,15 +60,30 @@ def _compile(nvcc: str) -> pathlib.Path:
   lib_path = BUILD_DIR / f"libgraphcast_kernels_{digest.hexdigest()[:16]}.so"
   if lib_path.exists():
     return lib_path
-  tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-  cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-         *(str(s) for s in sorted(CSRC.glob("*.cu")))]
-  proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-  _build_log = proc.stdout + proc.stderr
-  if proc.returncode != 0:
-    raise RuntimeError(
-        f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{_build_log}")
-  os.replace(tmp, lib_path)
+  tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+  cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(BUILD_DIR / f"{src.stem}.{tag}.o"),
+           str(src)] for src in sorted(CSRC.glob("*.cu"))]
+  procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True) for cmd in cmds]
+  logs = [proc.communicate()[0] for proc in procs]
+  _build_log = "".join(logs)
+  objs = [cmd[cmd.index("-o") + 1] for cmd in cmds]
+  try:
+    for cmd, proc, log in zip(cmds, procs, logs):
+      if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{log}")
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-o",
+           str(tmp), *objs]
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+      raise RuntimeError(f"nvcc link failed (exit {proc.returncode}): "
+                         f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib_path)
+  finally:
+    for obj in objs:
+      pathlib.Path(obj).unlink(missing_ok=True)
   return lib_path
 
 
@@ -77,6 +93,12 @@ def _declare(lib: ctypes.CDLL):
   lib.gc_fused_edge.argtypes = [p] * 13 + [i] * 4 + [p]
   lib.gc_fused_decoder.restype = i
   lib.gc_fused_decoder.argtypes = [p] * 21 + [i] * 4 + [p]
+  lib.gc_fused_edge_bwd.restype = i
+  lib.gc_fused_edge_bwd.argtypes = [p] * 20 + [i] * 3 + [p]
+  lib.gc_fused_decoder_bwd.restype = i
+  lib.gc_fused_decoder_bwd.argtypes = [p] * 30 + [i] * 4 + [p]
+  lib.gc_weight_grad.restype = i
+  lib.gc_weight_grad.argtypes = [p, i, p, i, p, i, i, i, p]
   lib.gc_error_string.restype = ctypes.c_char_p
   lib.gc_error_string.argtypes = [i]
 

@@ -1,4 +1,5 @@
-"""K2: the fused mesh2grid decoder, and its plain-PyTorch twin.
+"""K2: the fused mesh2grid decoder, its backward K5, and the plain-PyTorch
+twin.
 
 Replaces graphcast_tpu/ops/pallas_decoder.py::_decoder_kernel (ground truth:
 ``FusedMesh2GridDecoder._reference_math``, plain mode). Every grid node has
@@ -22,6 +23,12 @@ the TPU and are not ported).
 All weights are cast to the activation dtype at use (vectors too, then used
 in f32), as the TPU kernel receives them. ``fused_decode`` runs the CUDA
 kernel (csrc/fused_decoder.cu) for CUDA tensors and the twin for CPU tensors.
+
+Gradients: on CUDA tensors that require grad, K2 runs inside a
+``torch.autograd.Function`` whose backward is K5 (``fused_decode_backward``;
+csrc/fused_decoder_bwd.cu + csrc/weight_grad.cu), the port of
+pallas_decoder.py::_decoder_bwd_kernel, plain mode. On CPU tensors the twin
+runs under plain autograd.
 """
 
 from __future__ import annotations
@@ -30,11 +37,22 @@ import torch
 
 from graphcast_tpu_torch.native import build
 from graphcast_tpu_torch.ops.fused_edge import (
-    EdgeIndex, _check_cuda, _no_grad_inputs, layer_norm_f32, swish_of)
+    EdgeIndex, _check_cuda, layer_norm_f32, swish_of)
+from graphcast_tpu_torch.ops.weight_grad import weight_grad
 
 MATRICES = ("wr", "w1", "wng", "wna", "wn1", "wd0", "wd1")
 VECTORS = ("b1", "escale", "eoffset", "bn0", "bn1", "nscale", "noffset",
            "bd0", "bd1")
+KEYS = MATRICES + VECTORS
+# Grid nodes per K5 launch: bounds its scratch of 14 bf16 rows per node
+# (1.9 GB at C = 512).
+BWD_CHUNK_NODES = 1 << 17
+# K5's column sums, in the kernel's order (csrc/fused_decoder_bwd.cu).
+_BWD_SUMS = ("bd0", "noffset", "nscale", "bn1", "bn0", "eoffset", "escale",
+             "b1")
+# K5's scratch slabs (csrc/fused_decoder_bwd.cu): per node, then per edge.
+_SLABS = {"agg": 0, "hn": 1, "res": 2, "ho": 3, "dxo": 4, "dyn": 5,
+          "dxn": 6, "dgproj": 7, "hs": 8, "dys": 11}
 
 
 def fused_decode_reference(edges: EdgeIndex, grid, mesh_proj, const,
@@ -43,7 +61,9 @@ def fused_decode_reference(edges: EdgeIndex, grid, mesh_proj, const,
   G, C = grid.shape
   dtype = grid.dtype
   w = {k: v.to(dtype).float() for k, v in weights.items()}
-  gs = mesh_proj[edges.senders.long()].float().view(G, 3, C)
+  # Gathered from an f32 copy: the gather's backward sums in f32, as K5's
+  # sender scatter does.
+  gs = mesh_proj.float()[edges.senders.long()].view(G, 3, C)
   const = const.float().view(G, 3, C)
   g32 = grid.float()
   gproj = g32 @ w["wr"]
@@ -61,30 +81,12 @@ def fused_decode_reference(edges: EdgeIndex, grid, mesh_proj, const,
   return (h.float() @ w["wd1"] + w["bd1"]).to(dtype)
 
 
-def fused_decode(edges: EdgeIndex, grid: torch.Tensor,
-                 mesh_proj: torch.Tensor, const: torch.Tensor,
-                 weights: dict) -> torch.Tensor:
-  """The fused decoder (module doc). Returns [G, num_outputs] in the
-  activation dtype.
-
-  Args:
-    edges: the mesh2grid edge list, 3 rows per grid node.
-    grid: [G, C] grid latents; mesh_proj: [M, C] mesh latents @ Ws;
-      const: [3G, C] hoisted static edge part (activation dtype).
-    weights: wr, w1, wng, wna, wn1, wd0 [C, C], wd1 [C, num_outputs];
-      b1, escale, eoffset, bn0, bn1, nscale, noffset, bd0 [C],
-      bd1 [num_outputs].
-  """
-  if set(weights) != set(MATRICES + VECTORS):
-    raise ValueError(f"weights must have keys {MATRICES + VECTORS}")
-  if not edges.three_per_receiver:
-    raise ValueError("the decoder needs exactly 3 receiver-sorted edges per "
-                     "grid node")
-  if grid.device.type == "cpu":
-    return fused_decode_reference(edges, grid, mesh_proj, const, weights)
-  if grid.device.type != "cuda":
-    raise ValueError(f"unsupported device {grid.device}")
-  _no_grad_inputs(grid, mesh_proj, const, *weights.values())
+def _kernel_operands(edges: EdgeIndex, grid, mesh_proj, const,
+                     weights: dict):
+  """Checks K2/K5 operands on CUDA; returns (C, num_out, no_pad, bf16
+  matrices with wd1 padded, f32 vectors with bd1 padded)."""
+  if set(weights) != set(KEYS):
+    raise ValueError(f"weights must have keys {KEYS}")
   G, C = grid.shape
   num_out = weights["wd1"].shape[1]
   no_pad = -(-num_out // 128) * 128
@@ -116,9 +118,17 @@ def fused_decode(edges: EdgeIndex, grid: torch.Tensor,
   _check_cuda({"grid": grid, "mesh_proj": mesh_proj, "const": const, **mats},
               dev, bf16)
   _check_cuda(vecs, dev, torch.float32)
+  return C, num_out, no_pad, mats, vecs
 
+
+def _launch_fused_decode(edges: EdgeIndex, grid, mesh_proj, const,
+                         weights: dict) -> torch.Tensor:
+  """K2 on CUDA tensors (checks, then one launch)."""
+  C, num_out, no_pad, mats, vecs = _kernel_operands(edges, grid, mesh_proj,
+                                                    const, weights)
+  G = grid.shape[0]
   lib = build.load_library()
-  out = torch.empty(G, num_out, dtype=bf16, device=dev)
+  out = torch.empty(G, num_out, dtype=torch.bfloat16, device=grid.device)
   code = lib.gc_fused_decoder(
       grid.data_ptr(), mesh_proj.data_ptr(), const.data_ptr(),
       edges.senders.data_ptr(), mats["wr"].data_ptr(), mats["w1"].data_ptr(),
@@ -129,10 +139,135 @@ def fused_decode(edges: EdgeIndex, grid: torch.Tensor,
       vecs["noffset"].data_ptr(), mats["wd0"].data_ptr(),
       vecs["bd0"].data_ptr(), mats["wd1"].data_ptr(), vecs["bd1"].data_ptr(),
       out.data_ptr(), G, C, no_pad, num_out,
-      torch.cuda.current_stream(dev).cuda_stream)
+      torch.cuda.current_stream(grid.device).cuda_stream)
   build.check(lib, code, "fused_decoder kernel launch")
   fused_decode.launches += 1
   return out
+
+
+def fused_decode_backward(edges: EdgeIndex, grid, mesh_proj, const,
+                          weights: dict, dout):
+  """K5: the gradients of the fused decoder on CUDA tensors.
+
+  Returns (dgrid, dmesh_proj, dconst, {key: dweight}): dgrid and dconst in
+  the activation dtype, dmesh_proj in mesh_proj's dtype (an f32 scatter of
+  the per-edge sender gradients, as the JAX package does outside its
+  kernel), each weight gradient in f32, then cast to its weight's dtype.
+  Chunks of ``BWD_CHUNK_NODES`` grid nodes: each runs the per-node kernel
+  (one launch, counted in ``fused_decode_backward.launches``), the 7
+  matrix-gradient reductions (ops/weight_grad.py) and the scatter.
+  """
+  C, num_out, no_pad, mats, vecs = _kernel_operands(edges, grid, mesh_proj,
+                                                    const, weights)
+  G = grid.shape[0]
+  dev = grid.device
+  bf16, f32 = torch.bfloat16, torch.float32
+  if dout.shape != (G, num_out):
+    raise ValueError(f"dout must have shape ({G}, {num_out})")
+  dout = torch.nn.functional.pad(dout.to(bf16),
+                                 (0, no_pad - num_out)).contiguous()
+  tr = {k: mats[k].t().contiguous() for k in MATRICES}
+  lib = build.load_library()
+  dgrid = torch.empty(G, C, dtype=bf16, device=dev)
+  dgs = torch.empty(3 * G, C, dtype=bf16, device=dev)
+  dmesh = torch.zeros(edges.num_senders, C, dtype=f32, device=dev)
+  sums = torch.zeros(len(_BWD_SUMS) * C + no_pad, dtype=f32, device=dev)
+  dw = {k: torch.zeros(C, C, dtype=f32, device=dev) for k in MATRICES}
+  dw["wd1"] = torch.zeros(C, no_pad, dtype=f32, device=dev)
+  slab_rows = min(G, BWD_CHUNK_NODES)
+  scratch = torch.empty(14, slab_rows, C, dtype=bf16, device=dev)
+  flat = scratch.view(14 * slab_rows, C)
+  stream = torch.cuda.current_stream(dev).cuda_stream
+  for v0 in range(0, G, BWD_CHUNK_NODES):
+    n = min(BWD_CHUNK_NODES, G - v0)
+    nodes, rows = slice(v0, v0 + n), slice(3 * v0, 3 * (v0 + n))
+    code = lib.gc_fused_decoder_bwd(
+        grid[nodes].data_ptr(), mesh_proj.data_ptr(), const[rows].data_ptr(),
+        edges.senders[rows].data_ptr(), mats["wr"].data_ptr(),
+        tr["wr"].data_ptr(), mats["w1"].data_ptr(), tr["w1"].data_ptr(),
+        vecs["b1"].data_ptr(), vecs["escale"].data_ptr(),
+        vecs["eoffset"].data_ptr(), mats["wng"].data_ptr(),
+        tr["wng"].data_ptr(), mats["wna"].data_ptr(), tr["wna"].data_ptr(),
+        vecs["bn0"].data_ptr(), mats["wn1"].data_ptr(), tr["wn1"].data_ptr(),
+        vecs["bn1"].data_ptr(), vecs["nscale"].data_ptr(),
+        vecs["noffset"].data_ptr(), mats["wd0"].data_ptr(),
+        tr["wd0"].data_ptr(), vecs["bd0"].data_ptr(), tr["wd1"].data_ptr(),
+        dout[nodes].data_ptr(), dgrid[nodes].data_ptr(), dgs[rows].data_ptr(),
+        scratch.data_ptr(), sums.data_ptr(), slab_rows, n, C, no_pad, stream)
+    build.check(lib, code, "fused_decoder_bwd kernel launch")
+    fused_decode_backward.launches += 1
+
+    def slab(name, k=1):
+      s0 = _SLABS[name] * slab_rows
+      return flat[s0:s0 + k * n]
+
+    g = grid[nodes]
+    weight_grad(slab("ho"), dout[nodes], dw["wd1"])
+    weight_grad(slab("res"), slab("dxo"), dw["wd0"])
+    weight_grad(slab("hn"), slab("dyn"), dw["wn1"])
+    weight_grad(g, slab("dxn"), dw["wng"])
+    weight_grad(slab("agg"), slab("dxn"), dw["wna"])
+    weight_grad(slab("hs", 3), slab("dys", 3), dw["w1"])
+    weight_grad(g, slab("dgproj"), dw["wr"])
+    dmesh.index_add_(0, edges.senders[rows].long(), dgs[rows].float())
+  grads = {k: dw[k] for k in MATRICES}
+  grads["wd1"] = dw["wd1"][:, :num_out]
+  grads.update({k: sums[i * C:(i + 1) * C] for i, k in enumerate(_BWD_SUMS)})
+  grads["bd1"] = sums[len(_BWD_SUMS) * C:][:num_out]
+  grads = {k: v.to(weights[k].dtype) for k, v in grads.items()}
+  return dgrid, dmesh.to(mesh_proj.dtype), dgs, grads
+
+
+fused_decode_backward.launches = 0
+
+
+class _FusedDecodeFunction(torch.autograd.Function):
+  """K2 forward, K5 backward (module doc). Saves only the inputs."""
+
+  @staticmethod
+  def forward(ctx, edges, grid, mesh_proj, const, *weight_values):
+    ctx.edges = edges
+    ctx.save_for_backward(grid, mesh_proj, const, *weight_values)
+    return _launch_fused_decode(edges, grid, mesh_proj, const,
+                                dict(zip(KEYS, weight_values)))
+
+  @staticmethod
+  def backward(ctx, dout):
+    grid, mesh_proj, const, *weight_values = ctx.saved_tensors
+    weights = dict(zip(KEYS, weight_values))
+    dgrid, dmesh, dconst, dweights = fused_decode_backward(
+        ctx.edges, grid, mesh_proj, const, weights, dout.contiguous())
+    return (None, dgrid, dmesh, dconst, *(dweights[k] for k in KEYS))
+
+
+def fused_decode(edges: EdgeIndex, grid: torch.Tensor,
+                 mesh_proj: torch.Tensor, const: torch.Tensor,
+                 weights: dict) -> torch.Tensor:
+  """The fused decoder (module doc). Returns [G, num_outputs] in the
+  activation dtype.
+
+  Args:
+    edges: the mesh2grid edge list, 3 rows per grid node.
+    grid: [G, C] grid latents; mesh_proj: [M, C] mesh latents @ Ws;
+      const: [3G, C] hoisted static edge part (activation dtype).
+    weights: wr, w1, wng, wna, wn1, wd0 [C, C], wd1 [C, num_outputs];
+      b1, escale, eoffset, bn0, bn1, nscale, noffset, bd0 [C],
+      bd1 [num_outputs].
+  """
+  if set(weights) != set(KEYS):
+    raise ValueError(f"weights must have keys {KEYS}")
+  if not edges.three_per_receiver:
+    raise ValueError("the decoder needs exactly 3 receiver-sorted edges per "
+                     "grid node")
+  if grid.device.type == "cpu":
+    return fused_decode_reference(edges, grid, mesh_proj, const, weights)
+  if grid.device.type != "cuda":
+    raise ValueError(f"unsupported device {grid.device}")
+  values = [weights[k] for k in KEYS]
+  if torch.is_grad_enabled() and any(
+      t.requires_grad for t in (grid, mesh_proj, const, *values)):
+    return _FusedDecodeFunction.apply(edges, grid, mesh_proj, const, *values)
+  return _launch_fused_decode(edges, grid, mesh_proj, const, weights)
 
 
 fused_decode.launches = 0

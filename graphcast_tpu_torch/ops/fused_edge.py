@@ -1,4 +1,5 @@
-"""K1: the fused InteractionNetwork edge step, and its plain-PyTorch twin.
+"""K1: the fused InteractionNetwork edge step, its backward K4, and the
+plain-PyTorch twin.
 
 Replaces graphcast_tpu/ops/pallas_edge.py::_fused_edge_kernel (ground truth:
 ``FusedEdgeStep._reference_math``). One call computes, over a receiver-sorted
@@ -13,13 +14,20 @@ Processor mode passes We/b0 and writes e'. Encoder mode (``we=None``,
 ``write_edges=False``) takes ``e`` as the hoisted static first-layer part
 embed(features) @ We + b0 and returns only ``agg``.
 
+Gradients: on CUDA tensors that require grad, ``fused_edge`` runs K1 inside
+a ``torch.autograd.Function`` whose backward is K4
+(``fused_edge_backward``; csrc/fused_edge_bwd.cu + csrc/weight_grad.cu),
+the port of pallas_edge.py::_fused_edge_bwd_kernel. The forward keeps only
+its inputs; K4 recomputes the rest. On CPU tensors the twin runs under plain
+autograd.
+
 Edge layout: the artifact's receiver-sorted order, as is; ``EdgeIndex``
 holds the sender and receiver indices on the device. The TPU kernel's
 chunk-aligned padded layout and bitpacked one-hot masks (ops/pallas_mp.py)
 are Mosaic-specific and not ported.
 
-``fused_edge`` runs the CUDA kernel (csrc/fused_edge.cu) for CUDA tensors and
-the twin for CPU tensors; nothing else selects between them.
+``fused_edge`` runs the CUDA kernels for CUDA tensors and the twin for CPU
+tensors; nothing else selects between them.
 """
 
 from __future__ import annotations
@@ -30,8 +38,12 @@ import numpy as np
 import torch
 
 from graphcast_tpu_torch.native import build
+from graphcast_tpu_torch.ops.weight_grad import weight_grad
 
 LN_EPS = 1e-5
+# Edge rows per K4 launch: bounds its h / dy row buffers (2 x 268 MB at
+# C = 512).
+BWD_CHUNK_ROWS = 1 << 18
 
 
 class EdgeIndex:
@@ -90,8 +102,10 @@ def fused_edge_reference(edges: EdgeIndex, e, sproj, rproj, we, b0, w1, b1,
   dtype = sproj.dtype
   f32 = torch.float32
   x0 = (e.float() @ we.to(dtype).float() if we is not None else e.float())
-  x0 = x0 + sproj[edges.senders.long()].float()
-  x0 = x0 + rproj[edges.receivers.long()].float()
+  # Gathered from f32 copies, so that the gathers' backward (a scatter-add
+  # over up to thousands of edges per node) sums in f32, as K4 does.
+  x0 = x0 + sproj.float()[edges.senders.long()]
+  x0 = x0 + rproj.float()[edges.receivers.long()]
   if we is not None:
     x0 = x0 + b0.float()
   h = swish_of(x0, dtype)
@@ -117,12 +131,168 @@ def _check_cuda(tensors: dict, device, dtype):
       raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _no_grad_inputs(*tensors):
-  if torch.is_grad_enabled() and any(
-      t is not None and t.requires_grad for t in tensors):
+def _vectors_f32(**vecs):
+  return {k: v.float().contiguous() for k, v in vecs.items() if v is not None}
+
+
+def _check_vectors(vecs: dict, dev, C: int):
+  _check_cuda(vecs, dev, torch.float32)
+  for name, v in vecs.items():
+    if v.shape != (C,):
+      raise ValueError(f"{name} must have shape ({C},)")
+
+
+def _check_edge_operands(edges: EdgeIndex, e, sproj, rproj):
+  E, C = e.shape
+  if E != edges.num_edges:
+    raise ValueError(f"e has {E} rows, edge list has {edges.num_edges}")
+  if C % 128 or not 128 <= C <= 512:
+    raise ValueError(f"latent width {C} must be a multiple of 128 in "
+                     "[128, 512]")
+  if sproj.shape != (edges.num_senders, C) or rproj.shape != (
+      edges.num_receivers, C):
+    raise ValueError("sproj/rproj shapes do not match the edge list")
+  if edges.device != e.device:
+    raise ValueError(f"edge list is on {edges.device}, tensors on {e.device}")
+
+
+def _matrix_bf16(w, C: int, name: str):
+  w = w.to(torch.bfloat16).contiguous()
+  if w.shape != (C, C):
+    raise ValueError(f"{name} must have shape ({C}, {C})")
+  return w
+
+
+def _launch_fused_edge(edges: EdgeIndex, e, sproj, rproj, we, b0, w1, b1,
+                       scale, offset, write_edges: bool):
+  """K1 on CUDA tensors (checks, then one launch)."""
+  _check_edge_operands(edges, e, sproj, rproj)
+  C = e.shape[1]
+  dev = e.device
+  w1 = _matrix_bf16(w1, C, "w1")
+  if we is not None:
+    we = _matrix_bf16(we, C, "we")
+  vecs = _vectors_f32(b0=b0, b1=b1, scale=scale, offset=offset)
+  _check_cuda({"e": e, "sproj": sproj, "rproj": rproj, "w1": w1,
+               **({"we": we} if we is not None else {})}, dev, torch.bfloat16)
+  _check_vectors(vecs, dev, C)
+
+  lib = build.load_library()
+  agg = torch.zeros(edges.num_receivers, C, dtype=torch.float32, device=dev)
+  eout = torch.empty_like(e) if write_edges else None
+  ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+  code = lib.gc_fused_edge(
+      e.data_ptr(), sproj.data_ptr(), edges.senders.data_ptr(),
+      rproj.data_ptr(), edges.receivers.data_ptr(), ptr(we),
+      ptr(vecs.get("b0")), w1.data_ptr(), vecs["b1"].data_ptr(),
+      vecs["scale"].data_ptr(), vecs["offset"].data_ptr(), ptr(eout),
+      agg.data_ptr(), edges.num_edges, C, int(we is not None),
+      int(write_edges), torch.cuda.current_stream(dev).cuda_stream)
+  build.check(lib, code, "fused_edge kernel launch")
+  fused_edge.launches += 1
+  return (eout, agg) if write_edges else agg
+
+
+def fused_edge_backward(edges: EdgeIndex, e, sproj, rproj, we, b0, w1, b1,
+                        scale, d_eout, d_agg):
+  """K4: the gradients of one fused edge step on CUDA tensors.
+
+  Args: K1's inputs (``offset`` is not needed: it only shifts y), and the
+  cotangents d_eout ([E, C], processor mode; None in encoder mode) and
+  d_agg ([N, C]). Returns (de, dsproj, drproj, dwe, db0, dw1, db1, dscale,
+  doff), each in its input's dtype, as the JAX package returns them; dwe
+  and db0 are None in encoder mode, where de = dsproj's per-edge rows.
+  Row chunks of ``BWD_CHUNK_ROWS`` edges: each runs the per-row kernel (one
+  launch, counted in ``fused_edge_backward.launches``), the weight-gradient
+  reductions (ops/weight_grad.py) and the f32 scatter of the per-edge
+  sender gradients to the sender nodes.
+  """
+  processor = we is not None
+  if processor != (d_eout is not None):
     raise NotImplementedError(
-        "the CUDA kernels are forward-only: run under torch.no_grad() or "
-        "torch.inference_mode() (the backward kernels are not ported yet)")
+        "K4 covers processor mode (we, e' written) and encoder mode "
+        "(no we, aggregation only)")
+  _check_edge_operands(edges, e, sproj, rproj)
+  E, C = e.shape
+  dev = e.device
+  bf16, f32 = torch.bfloat16, torch.float32
+  w1b = _matrix_bf16(w1, C, "w1")
+  mats = {"e": e, "sproj": sproj, "rproj": rproj, "w1": w1b,
+          "w1t": w1b.t().contiguous()}
+  if processor:
+    web = _matrix_bf16(we, C, "we")
+    mats.update(we=web, wet=web.t().contiguous(),
+                deout=d_eout.to(bf16).contiguous())
+  vecs = _vectors_f32(b0=b0, b1=b1, scale=scale)
+  _check_cuda(mats, dev, bf16)
+  _check_vectors(vecs, dev, C)
+  d_agg = d_agg.to(f32).contiguous()
+  if d_agg.shape != (edges.num_receivers, C):
+    raise ValueError(f"d_agg must have shape ({edges.num_receivers}, {C})")
+
+  lib = build.load_library()
+  dgs = torch.empty(E, C, dtype=bf16, device=dev)
+  de = torch.empty(E, C, dtype=bf16, device=dev) if processor else dgs
+  dgr = torch.zeros(edges.num_receivers, C, dtype=f32, device=dev)
+  dsproj = torch.zeros(edges.num_senders, C, dtype=f32, device=dev)
+  sums = torch.zeros(4, C, dtype=f32, device=dev)
+  dw1 = torch.zeros(C, C, dtype=f32, device=dev)
+  dwe = torch.zeros(C, C, dtype=f32, device=dev) if processor else None
+  rows = min(E, BWD_CHUNK_ROWS)
+  hbuf = torch.empty(rows, C, dtype=bf16, device=dev)
+  dybuf = torch.empty(rows, C, dtype=bf16, device=dev)
+  ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+  stream = torch.cuda.current_stream(dev).cuda_stream
+  for r0 in range(0, E, BWD_CHUNK_ROWS):
+    n = min(BWD_CHUNK_ROWS, E - r0)
+    part = slice(r0, r0 + n)
+    code = lib.gc_fused_edge_bwd(
+        e[part].data_ptr(), sproj.data_ptr(), edges.senders[part].data_ptr(),
+        rproj.data_ptr(), edges.receivers[part].data_ptr(),
+        ptr(mats.get("we")), ptr(mats.get("wet")), ptr(vecs.get("b0")),
+        w1b.data_ptr(), mats["w1t"].data_ptr(), vecs["b1"].data_ptr(),
+        vecs["scale"].data_ptr(),
+        mats["deout"][part].data_ptr() if processor else None,
+        d_agg.data_ptr(), hbuf.data_ptr(), dybuf.data_ptr(),
+        dgs[part].data_ptr(), de[part].data_ptr(), dgr.data_ptr(),
+        sums.data_ptr(), n, C, int(processor), stream)
+    build.check(lib, code, "fused_edge_bwd kernel launch")
+    fused_edge_backward.launches += 1
+    weight_grad(hbuf[:n], dybuf[:n], dw1)
+    if processor:
+      weight_grad(e[part], dgs[part], dwe)
+    dsproj.index_add_(0, edges.senders[part].long(), dgs[part].float())
+  return (de, dsproj.to(sproj.dtype), dgr.to(rproj.dtype),
+          dwe.to(we.dtype) if processor else None,
+          sums[3].to(b0.dtype) if processor else None, dw1.to(w1.dtype),
+          sums[2].to(b1.dtype), sums[0].to(scale.dtype), sums[1])
+
+
+fused_edge_backward.launches = 0
+
+
+class _FusedEdgeFunction(torch.autograd.Function):
+  """K1 forward, K4 backward (module doc). Saves only the inputs."""
+
+  @staticmethod
+  def forward(ctx, edges, write_edges, e, sproj, rproj, we, b0, w1, b1,
+              scale, offset):
+    ctx.edges = edges
+    ctx.write_edges = write_edges
+    ctx.offset_dtype = offset.dtype
+    ctx.save_for_backward(e, sproj, rproj, we, b0, w1, b1, scale)
+    return _launch_fused_edge(edges, e, sproj, rproj, we, b0, w1, b1, scale,
+                              offset, write_edges)
+
+  @staticmethod
+  def backward(ctx, *grads):
+    e, sproj, rproj, we, b0, w1, b1, scale = ctx.saved_tensors
+    d_eout, d_agg = grads if ctx.write_edges else (None, grads[0])
+    de, dsproj, drproj, dwe, db0, dw1, db1, dscale, doff = (
+        fused_edge_backward(ctx.edges, e, sproj, rproj, we, b0, w1, b1,
+                            scale, d_eout, d_agg))
+    return (None, None, de, dsproj, drproj, dwe, db0, dw1, db1, dscale,
+            doff.to(ctx.offset_dtype))
 
 
 def fused_edge(edges: EdgeIndex, e: torch.Tensor, sproj: torch.Tensor,
@@ -148,53 +318,17 @@ def fused_edge(edges: EdgeIndex, e: torch.Tensor, sproj: torch.Tensor,
                                 scale, offset, write_edges)
   if e.device.type != "cuda":
     raise ValueError(f"unsupported device {e.device}")
-  _no_grad_inputs(e, sproj, rproj, we, b0, w1, b1, scale, offset)
   if (we is None) != (b0 is None):
     raise ValueError("pass we and b0 together")
-  E, C = e.shape
-  bf16 = torch.bfloat16
-  if E != edges.num_edges:
-    raise ValueError(f"e has {E} rows, edge list has {edges.num_edges}")
-  if C % 128 or not 128 <= C <= 512:
-    raise ValueError(f"latent width {C} must be a multiple of 128 in "
-                     "[128, 512]")
-  if sproj.shape != (edges.num_senders, C) or rproj.shape != (
-      edges.num_receivers, C):
-    raise ValueError("sproj/rproj shapes do not match the edge list")
-  if edges.device != e.device:
-    raise ValueError(f"edge list is on {edges.device}, tensors on {e.device}")
-  dev = e.device
-  w1 = w1.to(bf16).contiguous()
-  vecs = {"b1": b1, "scale": scale, "offset": offset}
-  if we is not None:
-    we = we.to(bf16).contiguous()
-    vecs["b0"] = b0
-  vecs = {k: v.float().contiguous() for k, v in vecs.items()}
-  mats = {"e": e, "sproj": sproj, "rproj": rproj, "w1": w1}
-  if we is not None:
-    mats["we"] = we
-  _check_cuda(mats, dev, bf16)
-  _check_cuda(vecs, dev, torch.float32)
-  for name, v in vecs.items():
-    if v.shape != (C,):
-      raise ValueError(f"{name} must have shape ({C},)")
-  if w1.shape != (C, C) or (we is not None and we.shape != (C, C)):
-    raise ValueError(f"we/w1 must have shape ({C}, {C})")
-
-  lib = build.load_library()
-  agg = torch.zeros(edges.num_receivers, C, dtype=torch.float32, device=dev)
-  eout = torch.empty_like(e) if write_edges else None
-  ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-  code = lib.gc_fused_edge(
-      e.data_ptr(), sproj.data_ptr(), edges.senders.data_ptr(),
-      rproj.data_ptr(), edges.receivers.data_ptr(), ptr(we),
-      ptr(vecs.get("b0")), w1.data_ptr(), vecs["b1"].data_ptr(),
-      vecs["scale"].data_ptr(), vecs["offset"].data_ptr(), ptr(eout),
-      agg.data_ptr(), E, C, int(we is not None), int(write_edges),
-      torch.cuda.current_stream(dev).cuda_stream)
-  build.check(lib, code, "fused_edge kernel launch")
-  fused_edge.launches += 1
-  return (eout, agg) if write_edges else agg
+  inputs = (e, sproj, rproj, we, b0, w1, b1, scale, offset)
+  if torch.is_grad_enabled() and any(
+      t is not None and t.requires_grad for t in inputs):
+    if (we is None) == write_edges:
+      raise NotImplementedError(
+          "the backward kernel covers processor mode (we, e' written) and "
+          "encoder mode (no we, aggregation only)")
+    return _FusedEdgeFunction.apply(edges, write_edges, *inputs)
+  return _launch_fused_edge(edges, *inputs, write_edges)
 
 
 fused_edge.launches = 0

@@ -47,3 +47,21 @@ class Bfloat16Cast(WrapperPredictor):
     if pred_dtype != torch.bfloat16:
       raise ValueError(f"inner predictor must output bf16, got {pred_dtype}")
     return predictions.astype(target_dtype)
+
+  def loss(self, inputs, targets, forcings, **kwargs):
+    if not self._enabled:
+      return self._predictor.loss(inputs, targets, forcings, **kwargs)
+    # The loss is reduced in f32 regardless (losses.py casts to f32).
+    return self._predictor.loss(
+        inputs.astype(torch.bfloat16), targets.astype(torch.bfloat16),
+        forcings.astype(torch.bfloat16), **kwargs)
+
+  def loss_and_predictions(self, inputs, targets, forcings, **kwargs):
+    if not self._enabled:
+      return self._predictor.loss_and_predictions(inputs, targets, forcings,
+                                                  **kwargs)
+    target_dtype = infer_floating_dtype(targets)
+    loss, predictions = self._predictor.loss_and_predictions(
+        inputs.astype(torch.bfloat16), targets.astype(torch.bfloat16),
+        forcings.astype(torch.bfloat16), **kwargs)
+    return loss, predictions.astype(target_dtype)

@@ -4,8 +4,8 @@ wrappers/normalization.py; reference: normalization.py:73-196).
 The inner predictor sees inputs/forcings normalized to ~zero mean and unit
 variance; for target variables also present in the inputs it predicts
 normalized residuals relative to the last input frame, and the inverse
-transforms are applied to its predictions. Inference only: the loss half
-waits for the training port.
+transforms are applied to its predictions. The loss is taken on the
+normalized residual targets (reference: normalization.py:160-196).
 """
 
 from __future__ import annotations
@@ -96,9 +96,41 @@ class InputsAndResiduals(WrapperPredictor):
                                 self._locations)[name]
     return FieldSet(out, coords=norm_predictions.coords)
 
+  def _subtract_input_and_normalize_target(self, inputs: FieldSet,
+                                           targets: FieldSet) -> FieldSet:
+    out = {}
+    for name in targets.var_names:
+      f = targets[name]
+      if "time" in f.dims and f.sizes["time"] != 1:
+        raise ValueError("InputsAndResiduals only supports single-timestep "
+                         "targets")
+      if name in inputs:
+        last_input = inputs[name].isel("time", -1)
+        data = f.data - align_for_broadcast(last_input.astype(f.dtype), f)
+        out[name] = normalize(FieldSet({name: Field(data, f.dims)}),
+                              self._residual_scales, None)[name]
+      else:
+        out[name] = normalize(FieldSet({name: f}), self._scales,
+                              self._locations)[name]
+    return FieldSet(out, coords=targets.coords)
+
   def forward(self, inputs, targets_template, forcings, **kwargs):
     norm_inputs = normalize(inputs, self._scales, self._locations)
     norm_forcings = normalize(forcings, self._scales, self._locations)
     norm_predictions = self._predictor(
         norm_inputs, targets_template, norm_forcings, **kwargs)
     return self._unnorm_prediction_and_add_input(inputs, norm_predictions)
+
+  def loss(self, inputs, targets, forcings, **kwargs):
+    return self._predictor.loss(
+        normalize(inputs, self._scales, self._locations),
+        self._subtract_input_and_normalize_target(inputs, targets),
+        normalize(forcings, self._scales, self._locations), **kwargs)
+
+  def loss_and_predictions(self, inputs, targets, forcings, **kwargs):
+    loss, norm_predictions = self._predictor.loss_and_predictions(
+        normalize(inputs, self._scales, self._locations),
+        self._subtract_input_and_normalize_target(inputs, targets),
+        normalize(forcings, self._scales, self._locations), **kwargs)
+    return loss, self._unnorm_prediction_and_add_input(inputs,
+                                                       norm_predictions)

@@ -5,9 +5,14 @@ torch sees no CUDA device. On a GPU machine:
   python -m pytest tests/test_torch_cuda.py -q
 
 Shapes are small but at the main path's latent width (512) and realistic
-in-degree; bf16 activations. Tolerance, as in chip_smoke.py: relative RMS
-<= 1e-2 and max-abs <= 0.125 (the kernel and twin round at the same points
-and differ only in f32 summation order).
+in-degree; bf16 activations. Forward tolerance, as in chip_smoke.py:
+relative RMS <= 1e-2 and max-abs <= 0.125 (the kernel and twin round at the
+same points and differ only in f32 summation order). Backward (K4, K5
+against ``torch.autograd.grad`` of the twins): relative RMS <= 1e-2 per
+gradient; the kernels round the cotangents to bf16 where the TPU backward
+does, autograd of the twin where its casts are, so single elements differ
+by a few bf16 ulps. Weight-gradient reduction: relative RMS <= 1e-4 (the
+same exact bf16 products, summed in f32 in another order).
 """
 
 import numpy as np
@@ -15,9 +20,12 @@ import pytest
 import torch
 
 from graphcast_tpu_torch.ops.fused_decoder import (
-    MATRICES, VECTORS, fused_decode, fused_decode_reference)
+    KEYS, MATRICES, VECTORS, fused_decode, fused_decode_backward,
+    fused_decode_reference)
 from graphcast_tpu_torch.ops.fused_edge import (
-    EdgeIndex, fused_edge, fused_edge_reference)
+    EdgeIndex, fused_edge, fused_edge_backward, fused_edge_reference)
+from graphcast_tpu_torch.ops.weight_grad import (
+    weight_grad, weight_grad_reference)
 
 C = 512
 
@@ -103,16 +111,122 @@ def test_fused_decoder_kernel_matches_twin(cuda_device):
   _assert_close(got, want)
 
 
+def _assert_grads_close(got, want):
+  for name in want:
+    d = got[name].float() - want[name].float()
+    rel = d.square().mean().sqrt() / want[name].float().square().mean().sqrt()
+    assert rel.item() <= 1e-2, (name, rel.item())
+
+
+def _grads(fn, leaves: dict, cotangents):
+  outs = fn(**leaves)
+  outs = outs if isinstance(outs, tuple) else (outs,)
+  names = [k for k, v in leaves.items()
+           if isinstance(v, torch.Tensor) and v.requires_grad]
+  grads = torch.autograd.grad(outs, [leaves[k] for k in names], cotangents)
+  return dict(zip(names, grads))
+
+
 @pytest.mark.cuda
-def test_kernels_refuse_grad_and_f32(cuda_device):
+@pytest.mark.parametrize("mode", ["processor", "encoder"])
+def test_fused_edge_backward_matches_twin_autograd(mode, cuda_device):
+  encoder = mode == "encoder"
+  rng = np.random.RandomState(2)
+  n, ns, e = 700, 2000 if encoder else 700, 5000
+  receivers = np.sort(rng.randint(0, n, e))
+  senders = rng.randint(0, ns, e)
+  gen = torch.Generator().manual_seed(2)
+  bf16 = torch.bfloat16
+  leaves = dict(
+      e=_rand(gen, e, C, dtype=bf16), sproj=_rand(gen, ns, C, dtype=bf16),
+      rproj=_rand(gen, n, C, dtype=bf16),
+      we=None if encoder else _rand(gen, C, C, scale=C ** -0.5, dtype=bf16),
+      b0=None if encoder else _rand(gen, C, scale=0.1),
+      w1=_rand(gen, C, C, scale=C ** -0.5), b1=_rand(gen, C, scale=0.1),
+      scale=_rand(gen, C, scale=0.1, offset=1.0),
+      offset=_rand(gen, C, scale=0.1))
+  leaves = {k: None if v is None else v.to(cuda_device).requires_grad_()
+            for k, v in leaves.items()}
+  d_agg = _rand(gen, n, C).to(cuda_device)
+  cot = (d_agg,) if encoder else (
+      _rand(gen, e, C, dtype=bf16).to(cuda_device), d_agg)
+  edges = EdgeIndex(senders, receivers, ns, n, device=cuda_device)
+  before = fused_edge_backward.launches, weight_grad.launches
+  got = _grads(lambda **kw: fused_edge(edges, write_edges=not encoder, **kw),
+               leaves, cot)
+  want = _grads(lambda **kw: fused_edge_reference(
+      edges, write_edges=not encoder, **kw), leaves, cot)
+  torch.cuda.synchronize()
+  # One row chunk: one K4 launch, then dW1 (and dWe in processor mode).
+  assert (fused_edge_backward.launches - before[0],
+          weight_grad.launches - before[1]) == (1, 1 if encoder else 2)
+  for name, g in got.items():
+    assert g.dtype == leaves[name].dtype and g.shape == leaves[name].shape
+  _assert_grads_close(got, want)
+
+
+@pytest.mark.cuda
+def test_fused_decoder_backward_matches_twin_autograd(cuda_device):
+  rng = np.random.RandomState(3)
+  G, M, num_out = 1000, 300, 227
+  senders = rng.randint(0, M, 3 * G)
+  edges = EdgeIndex(senders, np.repeat(np.arange(G), 3), M, G,
+                    device=cuda_device)
+  gen = torch.Generator().manual_seed(3)
+  bf16 = torch.bfloat16
+  w = {k: _rand(gen, C, C, scale=C ** -0.5) for k in MATRICES}
+  w["wd1"] = _rand(gen, C, num_out, scale=C ** -0.5)
+  w.update({k: _rand(gen, C, scale=0.1) for k in VECTORS})
+  w["bd1"] = _rand(gen, num_out, scale=0.1)
+  for k in ("escale", "nscale"):
+    w[k] = w[k] + 1.0
+  leaves = dict(grid=_rand(gen, G, C, dtype=bf16),
+                mesh_proj=_rand(gen, M, C, dtype=bf16),
+                const=_rand(gen, 3 * G, C, dtype=bf16), **w)
+  leaves = {k: v.to(cuda_device).requires_grad_() for k, v in leaves.items()}
+  dout = _rand(gen, G, num_out, dtype=bf16).to(cuda_device)
+
+  def run(fn):
+    return lambda grid, mesh_proj, const, **weights: fn(
+        edges, grid, mesh_proj, const, weights)
+
+  before = fused_decode_backward.launches, weight_grad.launches
+  got = _grads(run(fused_decode), leaves, (dout,))
+  want = _grads(run(fused_decode_reference), leaves, (dout,))
+  torch.cuda.synchronize()
+  # One node chunk: one K5 launch, then its 7 matrix gradients.
+  assert (fused_decode_backward.launches - before[0],
+          weight_grad.launches - before[1]) == (1, 7)
+  assert set(got) == {"grid", "mesh_proj", "const", *KEYS}
+  _assert_grads_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n", [(5000, 512), (1111, 256)])
+def test_weight_grad_kernel_matches_plain(rows, n, cuda_device):
+  gen = torch.Generator().manual_seed(4)
+  bf16 = torch.bfloat16
+  # ``a`` is a row slice of a wider buffer, as K5 passes its scratch slabs.
+  a = _rand(gen, rows, 2 * C, dtype=bf16).to(cuda_device)[:, :C]
+  b = _rand(gen, rows, n, dtype=bf16).to(cuda_device)
+  init = _rand(gen, C, n).to(cuda_device)
+  got, want = init.clone(), init.clone()
+  before = weight_grad.launches
+  weight_grad(a, b, got)
+  weight_grad_reference(a, b, want)
+  torch.cuda.synchronize()
+  assert weight_grad.launches == before + 1
+  rel = (got - want).square().mean().sqrt() / want.square().mean().sqrt()
+  assert rel.item() <= 1e-4, rel.item()
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_f32(cuda_device):
   edges = EdgeIndex(np.zeros(4, np.int32), np.arange(4), 1, 4,
                     device=cuda_device)
   x = torch.randn(4, C, device=cuda_device)
-  w = torch.randn(C, C, device=cuda_device, requires_grad=True)
+  w = torch.randn(C, C, device=cuda_device)
   v = torch.zeros(C, device=cuda_device)
-  with pytest.raises(NotImplementedError):
-    fused_edge(edges, x.bfloat16(), x[:1].bfloat16(), x.bfloat16(), w, v, w,
-               v, v, v)
   with pytest.raises(TypeError):
     with torch.no_grad():
       fused_edge(edges, x, x[:1], x, w, v, w, v, v, v)

@@ -8,8 +8,17 @@ takes both in the edge list's own order, unpadded.
 Tolerances: f32 1e-4; bf16 relative RMS <= 1e-2 and max-abs <= 0.1 (the
 twin's swish runs in f32 of the bf16-rounded input, the TPU kernel's in
 chained bf16 operations: about one bf16 ulp on an output).
+
+Gradients: the twin under torch autograd against ``jax.vjp`` of the decoder
+with ``fused_backward=True`` (the Pallas backward kernel, interpret mode),
+same seeded cotangent; the JAX side differentiates through the slot-major
+re-layout of ``const`` and the output padding. f32: rtol 1e-4 plus atol
+1e-4 of the gradient's largest element. bf16: relative RMS <= 2e-2 per
+gradient (the TPU kernel rounds each cotangent before its product and
+evaluates swish' in bf16; autograd of the twin rounds at the twin's casts).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,7 +26,7 @@ import torch
 
 from graphcast_tpu.ops.pallas_decoder import FusedMesh2GridDecoder
 from graphcast_tpu_torch.ops.fused_decoder import (
-    MATRICES, VECTORS, fused_decode)
+    KEYS, MATRICES, VECTORS, fused_decode)
 from graphcast_tpu_torch.ops.fused_edge import EdgeIndex
 
 _DTYPES = {"f32": (jnp.float32, torch.float32),
@@ -85,3 +94,50 @@ def test_decoder_refuses_edge_lists_without_three_edges_per_node():
   with pytest.raises(ValueError, match="3 receiver-sorted edges"):
     fused_decode(edges, t["grid"], t["mesh_proj"], t["const"][:-1],
                  {k: torch.from_numpy(v) for k, v in w.items()})
+
+
+@pytest.mark.parametrize("dtype_name", sorted(_DTYPES))
+def test_twin_grads_match_jax_fused_backward(dtype_name):
+  jdtype, tdtype = _DTYPES[dtype_name]
+  senders, a, w = _case(seed=9, G=48)
+  G, C = a["grid"].shape
+  num_outputs = w["wd1"].shape[1]
+  dout = np.random.RandomState(19).randn(G, num_outputs).astype(np.float32)
+  dec = FusedMesh2GridDecoder(senders, G, num_outputs, block_nodes=16,
+                              interpret=True, compact_gather=False,
+                              fused_backward=True)
+  pad = dec.out_pad - num_outputs
+
+  def fn(grid, mesh_proj, const, weights):
+    weights = dict(weights)
+    weights["wd1"] = jnp.pad(weights["wd1"], ((0, 0), (0, pad)))
+    weights["bd1"] = jnp.pad(weights["bd1"], (0, pad))
+    return dec(grid, mesh_proj, dec.rearrange_edge_array(const), weights)
+
+  _, vjp = jax.vjp(fn, *(jnp.asarray(a[k], jdtype)
+                         for k in ("grid", "mesh_proj", "const")),
+                   {k: jnp.asarray(v) for k, v in w.items()})
+  dgrid, dmesh, dconst, dw = vjp(jnp.asarray(dout, jdtype))
+  want = {"grid": dgrid, "mesh_proj": dmesh, "const": dconst, **dw}
+  want = {k: np.asarray(v, np.float32) for k, v in want.items()}
+
+  t = {k: torch.tensor(a[k], dtype=tdtype, requires_grad=True)
+       for k in ("grid", "mesh_proj", "const")}
+  t.update({k: torch.tensor(v, requires_grad=True) for k, v in w.items()})
+  edges = EdgeIndex(senders, np.repeat(np.arange(G), 3),
+                    a["mesh_proj"].shape[0], G)
+  out = fused_decode(edges, t["grid"], t["mesh_proj"], t["const"],
+                     {k: t[k] for k in KEYS})
+  names = ["grid", "mesh_proj", "const", *KEYS]
+  grads = torch.autograd.grad(out, [t[k] for k in names],
+                              torch.from_numpy(dout).to(tdtype))
+  assert set(want) == set(names)
+  for name, g in zip(names, grads):
+    assert g.dtype == t[name].dtype and g.shape == t[name].shape, name
+    g, wv = g.float().numpy(), want[name]
+    if dtype_name == "f32":
+      np.testing.assert_allclose(g, wv, rtol=1e-4,
+                                 atol=1e-4 * np.abs(wv).max(), err_msg=name)
+    else:
+      rel = np.sqrt(np.mean((g - wv) ** 2) / np.mean(wv * wv))
+      assert rel <= 2e-2, (name, rel)

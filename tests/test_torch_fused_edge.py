@@ -10,8 +10,19 @@ Tolerances: f32 1e-4 (only the f32 summation order differs); bf16: relative
 RMS <= 1e-2 and max-abs <= 0.1, since the twin evaluates swish in f32 of the
 bf16-rounded input where the TPU kernel chains bf16 operations, which moves
 an output by about one bf16 ulp.
+
+Gradients: the twin under torch autograd against ``jax.vjp`` of the step
+with ``fused_backward=True`` (the Pallas backward kernel, interpret mode),
+with the same seeded cotangents; the JAX side differentiates through
+``pad_edges(sproj[senders])`` and the node padding, so every input's
+gradient is compared in the original layout. f32: rtol 1e-4 plus atol 1e-4
+of the gradient's largest element (summation order only). bf16: relative
+RMS <= 2e-2 per gradient: the TPU kernel rounds dy and dx0 to bf16 and
+evaluates swish' in bf16, autograd of the twin rounds the cotangents at the
+twin's casts instead, so elements differ by a few bf16 ulps.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -157,3 +168,89 @@ def test_non_cpu_non_cuda_tensors_are_refused():
   with pytest.raises(ValueError, match="unsupported device"):
     fused_edge(edges, m(1, 128), m(1, 128), m(1, 128), m(128, 128), m(128),
                m(128, 128), m(128), m(128), m(128))
+
+
+_GRAD_NAMES = ("e", "sproj", "rproj", "we", "b0", "w1", "b1", "scale",
+               "offset")
+
+
+def _jax_grads(senders, receivers, a, cot, encoder, dtype):
+  """jax.vjp of FusedEdgeStep (fused backward kernel, interpret mode) in
+  the original edge order."""
+  n = a["rproj"].shape[0]
+  E = a["e"].shape[0]
+  summer = pallas_mp.BlockedSegmentSum(
+      receivers, n, block_nodes=32, chunk_edges=64, interpret=True,
+      padded_input=True)
+  step = pallas_edge.FusedEdgeStep(
+      summer, interpret=True, include_edge_matmul=not encoder,
+      write_edges=not encoder, fused_backward=True)
+  valid = summer.layout_index < summer.num_edges
+  slot = np.where(valid, summer.layout_index, E)   # pad slots → zero row
+  pos = np.zeros(E, np.int64)
+  pos[summer.layout_index[valid]] = np.nonzero(valid)[0]
+
+  def pad(x):
+    return jnp.concatenate([x, jnp.zeros((1, x.shape[1]), x.dtype)])[slot]
+
+  names = [k for k in _GRAD_NAMES if k in a]
+
+  def fn(*args):
+    t = dict(zip(names, args))
+    out = step(pad(t["e"]), pad(t["sproj"][senders]),
+               step.pad_nodes(t["rproj"]), t.get("we"), t.get("b0"),
+               t["w1"], t["b1"], t["scale"], t["offset"])
+    if encoder:
+      return out
+    return out[0][pos], out[1]
+
+  act = ("e", "sproj", "rproj") + (("we",) if not encoder else ())
+  args = [jnp.asarray(a[k], dtype if k in act else jnp.float32)
+          for k in names]
+  _, vjp = jax.vjp(fn, *args)
+  cot_j = (jnp.asarray(cot[0], jnp.float32) if encoder else
+           (jnp.asarray(cot[0], dtype), jnp.asarray(cot[1], jnp.float32)))
+  return {k: np.asarray(g, np.float32) for k, g in zip(names, vjp(cot_j))}
+
+
+def _port_grads(senders, receivers, a, cot, encoder, dtype):
+  n = a["rproj"].shape[0]
+  edges = EdgeIndex(senders, receivers, a["sproj"].shape[0], n)
+  act = ("e", "sproj", "rproj") + (("we",) if not encoder else ())
+  t = {k: torch.tensor(v, dtype=dtype if k in act else torch.float32,
+                       requires_grad=True) for k, v in a.items()}
+  out = fused_edge(edges, t["e"], t["sproj"], t["rproj"], t.get("we"),
+                   t.get("b0"), t["w1"], t["b1"], t["scale"], t["offset"],
+                   write_edges=not encoder)
+  outs = (out,) if encoder else out
+  cots = ((torch.from_numpy(cot[0]),) if encoder else
+          (torch.from_numpy(cot[0]).to(dtype), torch.from_numpy(cot[1])))
+  names = [k for k in _GRAD_NAMES if k in t]
+  grads = torch.autograd.grad(outs, [t[k] for k in names], cots)
+  for k, g in zip(names, grads):
+    assert g.dtype == t[k].dtype and g.shape == t[k].shape, k
+  return {k: g.float().numpy() for k, g in zip(names, grads)}
+
+
+@pytest.mark.parametrize("dtype_name", sorted(_DTYPES))
+@pytest.mark.parametrize("mode", ["processor", "encoder"])
+def test_twin_grads_match_jax_fused_backward(mode, dtype_name):
+  encoder = mode == "encoder"
+  jdtype, tdtype = _DTYPES[dtype_name]
+  senders, receivers, a = _case(seed=11 if encoder else 13, encoder=encoder)
+  rng = np.random.RandomState(17)
+  d_agg = rng.randn(a["rproj"].shape[0], a["e"].shape[1]).astype(np.float32)
+  cot = (d_agg,) if encoder else (
+      rng.randn(*a["e"].shape).astype(np.float32), d_agg)
+  want = _jax_grads(senders, receivers, a, cot, encoder, jdtype)
+  got = _port_grads(senders, receivers, a, cot, encoder, tdtype)
+  assert set(got) == set(want) == (
+      set(_GRAD_NAMES) - ({"we", "b0"} if encoder else set()))
+  for name in want:
+    g, w = got[name], want[name]
+    if dtype_name == "f32":
+      np.testing.assert_allclose(g, w, rtol=1e-4,
+                                 atol=1e-4 * np.abs(w).max(), err_msg=name)
+    else:
+      rel = np.sqrt(np.mean((g - w) ** 2) / np.mean(w * w))
+      assert rel <= 2e-2, (name, rel)

@@ -1,7 +1,8 @@
 """Guards against hidden fallbacks in graphcast_tpu_torch.
 
-- Every module of the port imports, and a tiny model runs one step, in a
-  process where ``jax`` and ``graphcast_tpu`` cannot be imported.
+- Every module of the port imports, and a tiny model runs one step and one
+  training step, in a process where ``jax`` and ``graphcast_tpu`` cannot
+  be imported.
 - Building the CUDA kernels raises (and does not return) when nvcc is
   missing; the kernel wrappers raise instead of falling back to a twin.
 """
@@ -61,6 +62,51 @@ def test_port_imports_and_runs_without_jax():
                         text=True, env=env, cwd=REPO, timeout=300)
   assert proc.returncode == 0, proc.stderr
   assert int(proc.stdout.split()[-1]) >= 20, proc.stdout
+
+
+def test_train_step_runs_without_jax():
+  code = textwrap.dedent("""
+      import sys
+      sys.modules["jax"] = None           # any `import jax` now raises
+      sys.modules["graphcast_tpu"] = None
+      import torch
+      from graphcast_tpu_torch import train
+      from graphcast_tpu_torch.data import synthetic
+      from graphcast_tpu_torch.models import configs
+      from graphcast_tpu_torch.models.graphcast import GraphCast
+      from graphcast_tpu_torch.wrappers import (
+          Autoregressive, Bfloat16Cast, InputsAndResiduals)
+      task = configs.TaskConfig(
+          input_variables=("2m_temperature", "toa_incident_solar_radiation",
+                           "land_sea_mask"),
+          target_variables=("2m_temperature",),
+          forcing_variables=("toa_incident_solar_radiation",),
+          pressure_levels=(500,), input_duration="12h")
+      model = GraphCast(
+          configs.ModelConfig(resolution=30.0, mesh_size=1, latent_size=8,
+                              gnn_msg_steps=1),
+          task, generator=torch.Generator().manual_seed(0))
+      stack = Autoregressive(InputsAndResiduals(
+          Bfloat16Cast(model), *synthetic.make_norm_stats(task)),
+          gradient_checkpointing=True)
+      before = [p.detach().clone() for p in model.parameters()]
+      step = train.make_train_step(
+          stack, train.graphcast_optimizer(model.parameters(), peak_lr=1e-3,
+                                           warmup_steps=1))
+      data = synthetic.make_example_batch(task, 30.0, num_target_times=2)
+      losses = [float(step(*data)[0]) for _ in range(2)]
+      assert all(torch.isfinite(torch.tensor(losses)))
+      assert any(not torch.equal(a, p) for a, p in zip(before,
+                                                      model.parameters()))
+      assert not any(m == "jax" or m.startswith(("jax.", "graphcast_tpu."))
+                     for m in sys.modules if sys.modules[m] is not None)
+      print("losses", *losses)
+      """)
+  env = {**os.environ, "PYTHONPATH": str(REPO)}
+  proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                        text=True, env=env, cwd=REPO, timeout=300)
+  assert proc.returncode == 0, proc.stderr
+  assert proc.stdout.startswith("losses"), proc.stdout
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
