@@ -77,7 +77,8 @@ __device__ __forceinline__ void load_tile(bf16* dst, int ldd,
 
 // LayerNorm of the first `rows` rows of X (+bias) over C columns, one warp
 // per row, statistics in f32; hands each normalised value to
-// fn(r, c, value), which may overwrite X[r, c]. Ends with a barrier.
+// fn(r, c, value), which may overwrite X[r, c]. scale and offset may be
+// null (the parameter-free LayerNorm). Ends with a barrier.
 template <typename Fn>
 __device__ __forceinline__ void layer_norm_rows(float* X, int ldx, int rows,
                                                 int C,
@@ -102,7 +103,9 @@ __device__ __forceinline__ void layer_norm_rows(float* X, int ldx, int rows,
     }
     const float rstd = rsqrtf(warp_sum(q) / C + kLnEps);
     for (int c = lane; c < C; c += 32) {
-      fn(r, c, (xr[c] - mean) * rstd * scale[c] + offset[c]);
+      float y = (xr[c] - mean) * rstd;
+      if (scale != nullptr) y = y * scale[c] + offset[c];
+      fn(r, c, y);
     }
   }
   __syncthreads();
@@ -236,6 +239,47 @@ __device__ void block_mm(const bf16* A, int lda, const bf16* __restrict__ W,
     }
   }
   __syncthreads();
+}
+
+// The embed mode's edge embedding (GenCast; pallas_edge.py:124-157 and
+// pallas_decoder.py:116-124) for a tile of TM rows whose raw features are
+// rows feat_row(r) of feat [*, F]:
+//   A[r] <- en = bf16(LN0(bf16(swish(bf16(f @ ew0 + eb0))) @ ew1 + eb1)),
+// LN0 parameter-free with f32 statistics. The F-deep first product runs on
+// the CUDA cores (F is 4 in GenCast), the C x C second one through
+// block_mm into X. Rows >= `rows` of A are left zero. Every thread of the
+// block calls it; it ends with a barrier.
+template <int TM, typename RowFn>
+__device__ void embed_rows(bf16* A, int lda, float* X, int ldx, bf16* Wt,
+                           const bf16* __restrict__ feat, int F,
+                           RowFn feat_row, int rows, int C,
+                           const bf16* __restrict__ ew0,
+                           const float* __restrict__ eb0,
+                           const bf16* __restrict__ ew1,
+                           const float* __restrict__ eb1) {
+  const int c2n = C / 2;
+  for (int i = threadIdx.x; i < TM * c2n; i += kThreads) {
+    const int r = i / c2n, c = (i % c2n) * 2;
+    float hx = 0.f, hy = 0.f;
+    if (r < rows) {
+      const bf16* f = feat + (size_t)feat_row(r) * F;
+      float x0 = 0.f, x1 = 0.f;
+      for (int k = 0; k < F; ++k) {
+        const float fk = __bfloat162float(f[k]);
+        const float2 w = load_bf16x2(ew0 + (size_t)k * C + c);
+        x0 = fmaf(fk, w.x, x0);
+        x1 = fmaf(fk, w.y, x1);
+      }
+      hx = swish_of_bf16(x0 + eb0[c]);
+      hy = swish_of_bf16(x1 + eb0[c + 1]);
+    }
+    store_bf16x2(A + r * lda + c, hx, hy);
+  }
+  block_mm<TM>(A, lda, ew1, C, C, X, ldx, Wt, false);
+  layer_norm_rows(X, ldx, rows, C, eb1, nullptr, nullptr,
+                  [&](int r, int c, float yn) {
+                    A[r * lda + c] = __float2bfloat16(yn);
+                  });
 }
 
 }  // namespace gc

@@ -14,6 +14,12 @@
 //   res  = bf16(g + upd)
 //   out  = bf16(bf16(swish(bf16(res @ Wd0 + bd0))) @ Wd1 + bd1)
 //
+// Embed mode (GenCast's mesh2grid): const holds the raw [3G, F] edge
+// features; each slot first embeds its row (embed_rows in common.cuh) and
+// takes const_j = en_j @ We' + b0', the norm conditioning folded into We',
+// b0' and the LN affines by the caller. Two more 512x512 products per edge
+// slot (ew1, We'); the [3G, C] embedded edges never reach device memory.
+//
 // What bounds it on an H100: ~10 512x512 products per grid node (FLOPs);
 // the useful output is only [G, num_outputs]. Design:
 //   * one block of 256 threads per tile of 32 grid nodes; the node's latent,
@@ -49,7 +55,20 @@ __device__ __forceinline__ void swish_rows(const float* X, int ldx, bf16* H,
   }
 }
 
+// The embed mode's extra operands (null pointers and F = 0 otherwise).
+struct DecoderEmbed {
+  const bf16* ew0;   // [F, C]
+  const float* eb0;  // [C]
+  const bf16* ew1;   // [C, C]
+  const float* eb1;  // [C]
+  const bf16* we;    // [C, C]
+  const float* b0;   // [C]
+  int F;
+};
+
+template <bool kEmbed>
 __global__ void __launch_bounds__(kThreads, 1) fused_decoder_kernel(
+    DecoderEmbed emb,
     const bf16* __restrict__ grid, const bf16* __restrict__ mesh_proj,
     const bf16* __restrict__ cnst, const int* __restrict__ senders,
     const bf16* __restrict__ wr, const bf16* __restrict__ w1,
@@ -84,12 +103,22 @@ __global__ void __launch_bounds__(kThreads, 1) fused_decoder_kernel(
   // Edge MLP + LayerNorm for each of the 3 edge slots, summed in f32.
   const int c2n = C / 2;
   for (int j = 0; j < 3; ++j) {
-    block_mm<kDecTM>(Gs, ldh, wr, C, C, X, ldx, Wt, false);
+    if (kEmbed) {
+      // X <- en_j @ We' + g @ Wr; b0' is added below.
+      embed_rows<kDecTM>(H, ldh, X, ldx, Wt, cnst, emb.F,
+                         [&](int r) { return 3 * (v0 + r) + j; }, rows, C,
+                         emb.ew0, emb.eb0, emb.ew1, emb.eb1);
+      block_mm<kDecTM>(H, ldh, emb.we, C, C, X, ldx, Wt, false);
+      block_mm<kDecTM>(Gs, ldh, wr, C, C, X, ldx, Wt, true);
+    } else {
+      block_mm<kDecTM>(Gs, ldh, wr, C, C, X, ldx, Wt, false);
+    }
     for (int i = threadIdx.x; i < kDecTM * c2n; i += kThreads) {
       const int r = i / c2n, c = (i % c2n) * 2;
       float hx = 0.f, hy = 0.f;
       if (r < rows) {
-        float2 x = load_bf16x2(cnst + ((size_t)3 * (v0 + r) + j) * C + c);
+        float2 x = kEmbed ? make_float2(emb.b0[c], emb.b0[c + 1])
+                          : load_bf16x2(cnst + ((size_t)3 * (v0 + r) + j) * C + c);
         const float2 s = load_bf16x2(mesh_proj + (size_t)snd[j * kDecTM + r] * C + c);
         const float2 g = *reinterpret_cast<const float2*>(X + r * ldx + c);
         x.x += s.x;
@@ -133,14 +162,17 @@ __global__ void __launch_bounds__(kThreads, 1) fused_decoder_kernel(
 
 }  // namespace gc
 
-extern "C" int gc_fused_decoder(
-    const void* grid, const void* mesh_proj, const void* cnst,
-    const int* senders, const void* wr, const void* w1, const float* b1,
-    const float* es, const float* eo, const void* wng, const void* wna,
-    const float* bn0, const void* wn1, const float* bn1, const float* ns,
-    const float* no, const void* wd0, const float* bd0, const void* wd1,
-    const float* bd1, void* out, int num_grid, int C, int NO, int num_out,
-    void* stream) {
+namespace {
+
+template <bool kEmbed>
+int launch_fused_decoder(
+    gc::DecoderEmbed emb, const void* grid, const void* mesh_proj,
+    const void* cnst, const int* senders, const void* wr, const void* w1,
+    const float* b1, const float* es, const float* eo, const void* wng,
+    const void* wna, const float* bn0, const void* wn1, const float* bn1,
+    const float* ns, const float* no, const void* wd0, const float* bd0,
+    const void* wd1, const float* bd1, void* out, int num_grid, int C, int NO,
+    int num_out, void* stream) {
   using gc::bf16;
   if (num_grid <= 0) return 0;
   const int ldx = (C > NO ? C : NO) + 4;
@@ -149,14 +181,13 @@ extern "C" int gc_fused_decoder(
                       sizeof(float) * gc::kDecTM * ldx +
                       sizeof(bf16) * gc::kKT * gc::kLdW +
                       sizeof(int) * 3 * gc::kDecTM;
+  auto kernel = gc::fused_decoder_kernel<kEmbed>;
   cudaError_t err = cudaFuncSetAttribute(
-      gc::fused_decoder_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int blocks = (num_grid + gc::kDecTM - 1) / gc::kDecTM;
-  gc::fused_decoder_kernel<<<blocks, gc::kThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(grid), static_cast<const bf16*>(mesh_proj),
+  kernel<<<blocks, gc::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      emb, static_cast<const bf16*>(grid), static_cast<const bf16*>(mesh_proj),
       static_cast<const bf16*>(cnst), senders, static_cast<const bf16*>(wr),
       static_cast<const bf16*>(w1), b1, es, eo, static_cast<const bf16*>(wng),
       static_cast<const bf16*>(wna), bn0, static_cast<const bf16*>(wn1), bn1,
@@ -164,4 +195,40 @@ extern "C" int gc_fused_decoder(
       static_cast<const bf16*>(wd1), bd1, static_cast<bf16*>(out), num_grid, C,
       NO, num_out);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int gc_fused_decoder(
+    const void* grid, const void* mesh_proj, const void* cnst,
+    const int* senders, const void* wr, const void* w1, const float* b1,
+    const float* es, const float* eo, const void* wng, const void* wna,
+    const float* bn0, const void* wn1, const float* bn1, const float* ns,
+    const float* no, const void* wd0, const float* bd0, const void* wd1,
+    const float* bd1, void* out, int num_grid, int C, int NO, int num_out,
+    void* stream) {
+  return launch_fused_decoder<false>(
+      gc::DecoderEmbed{}, grid, mesh_proj, cnst, senders, wr, w1, b1, es, eo,
+      wng, wna, bn0, wn1, bn1, ns, no, wd0, bd0, wd1, bd1, out, num_grid, C,
+      NO, num_out, stream);
+}
+
+// Embed mode: features [3G, F] raw edge features in edge order.
+extern "C" int gc_fused_decoder_embed(
+    const void* grid, const void* mesh_proj, const void* features,
+    const int* senders, const void* ew0, const float* eb0, const void* ew1,
+    const float* eb1, const void* we, const float* b0, const void* wr,
+    const void* w1, const float* b1, const float* es, const float* eo,
+    const void* wng, const void* wna, const float* bn0, const void* wn1,
+    const float* bn1, const float* ns, const float* no, const void* wd0,
+    const float* bd0, const void* wd1, const float* bd1, void* out,
+    int num_grid, int C, int NO, int num_out, int F, void* stream) {
+  using gc::bf16;
+  const gc::DecoderEmbed emb{static_cast<const bf16*>(ew0), eb0,
+                             static_cast<const bf16*>(ew1), eb1,
+                             static_cast<const bf16*>(we), b0, F};
+  return launch_fused_decoder<true>(
+      emb, grid, mesh_proj, features, senders, wr, w1, b1, es, eo, wng, wna,
+      bn0, wn1, bn1, ns, no, wd0, bd0, wd1, bd1, out, num_grid, C, NO,
+      num_out, stream);
 }

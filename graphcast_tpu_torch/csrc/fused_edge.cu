@@ -4,6 +4,10 @@
 // FusedEdgeStep._forward). Over receiver-sorted edges, per edge row:
 //
 //   x0  = e @ We + Gs[snd] + Gr[rcv] + b0     (encoder mode: x0 = e + Gs + Gr)
+//         (embed mode, GenCast's grid2mesh: e is the embedding en of the
+//          raw [E, F] edge features, computed in the tile: embed_rows in
+//          common.cuh; We, b0 and the LN affine carry the folded norm
+//          conditioning; aggregation only)
 //   h   = bf16(swish(bf16(x0)))
 //   y   = LN(h @ W1 + b1) * scale + offset     (LN statistics in f32)
 //   e'  = bf16(e + y)                          (processor mode only)
@@ -24,6 +28,9 @@
 //     starts zeroed. Only those boundary runs are order-dependent in f32.
 //   * products use wmma bf16 fragments with f32 accumulation (block_mm);
 //     wgmma/TMA are a later step.
+//   * embed mode adds a third 512x512 product per row (ew1) and reads 8
+//     bytes of raw features per row instead of a 1 KB edge latent: the
+//     [E, C] embedded edges never exist in device memory.
 
 #include "common.cuh"
 
@@ -31,7 +38,16 @@ namespace gc {
 
 constexpr int kEdgeTM = 64;
 
-template <bool kHasWe, bool kWriteE>
+// The embed mode's extra operands (null pointers and F = 0 otherwise).
+struct EdgeEmbed {
+  const bf16* ew0;   // [F, C]
+  const float* eb0;  // [C]
+  const bf16* ew1;   // [C, C]
+  const float* eb1;  // [C]
+  int F;
+};
+
+template <bool kHasWe, bool kWriteE, bool kEmbed>
 __global__ void __launch_bounds__(kThreads, 1) fused_edge_kernel(
     const bf16* __restrict__ e, const bf16* __restrict__ sproj,
     const int* __restrict__ senders, const bf16* __restrict__ rproj,
@@ -39,7 +55,9 @@ __global__ void __launch_bounds__(kThreads, 1) fused_edge_kernel(
     const float* __restrict__ b0, const bf16* __restrict__ w1,
     const float* __restrict__ b1, const float* __restrict__ scale,
     const float* __restrict__ offset, bf16* __restrict__ eout,
-    float* __restrict__ agg, int num_edges, int C) {
+    float* __restrict__ agg, int num_edges, int C, EdgeEmbed emb) {
+  static_assert(!kEmbed || (kHasWe && !kWriteE),
+                "embed mode runs the edge matmul, aggregation only");
   extern __shared__ __align__(128) unsigned char smem[];
   const int lda = C + 8, ldx = C + 4;
   bf16* A = reinterpret_cast<bf16*>(smem);                 // [TM, lda]
@@ -54,7 +72,12 @@ __global__ void __launch_bounds__(kThreads, 1) fused_edge_kernel(
     snd[r] = r < rows ? senders[row0 + r] : 0;
     rcv[r] = r < rows ? receivers[row0 + r] : -1;
   }
-  if (kHasWe) {
+  if (kEmbed) {
+    embed_rows<kEdgeTM>(A, lda, X, ldx, Wt, e, emb.F,
+                        [&](int r) { return row0 + r; }, rows, C, emb.ew0,
+                        emb.eb0, emb.ew1, emb.eb1);
+    block_mm<kEdgeTM>(A, lda, we, C, C, X, ldx, Wt, false);
+  } else if (kHasWe) {
     load_tile<kEdgeTM>(A, lda, e, row0, rows, C);
     block_mm<kEdgeTM>(A, lda, we, C, C, X, ldx, Wt, false);
   } else {
@@ -119,18 +142,19 @@ __global__ void __launch_bounds__(kThreads, 1) fused_edge_kernel(
   }
 }
 
-template <bool kHasWe, bool kWriteE>
+template <bool kHasWe, bool kWriteE, bool kEmbed = false>
 cudaError_t launch_fused_edge(const void* e, const void* sproj,
                               const int* senders, const void* rproj,
                               const int* receivers, const void* we,
                               const float* b0, const void* w1, const float* b1,
                               const float* scale, const float* offset,
                               void* eout, float* agg, int num_edges, int C,
-                              cudaStream_t stream) {
+                              cudaStream_t stream,
+                              EdgeEmbed emb = EdgeEmbed{}) {
   const size_t smem = sizeof(bf16) * kEdgeTM * (C + 8) +
                       sizeof(float) * kEdgeTM * (C + 4) +
                       sizeof(bf16) * kKT * kLdW + sizeof(int) * 2 * kEdgeTM;
-  auto kernel = fused_edge_kernel<kHasWe, kWriteE>;
+  auto kernel = fused_edge_kernel<kHasWe, kWriteE, kEmbed>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -139,7 +163,7 @@ cudaError_t launch_fused_edge(const void* e, const void* sproj,
       static_cast<const bf16*>(e), static_cast<const bf16*>(sproj), senders,
       static_cast<const bf16*>(rproj), receivers,
       static_cast<const bf16*>(we), b0, static_cast<const bf16*>(w1), b1,
-      scale, offset, static_cast<bf16*>(eout), agg, num_edges, C);
+      scale, offset, static_cast<bf16*>(eout), agg, num_edges, C, emb);
   return cudaGetLastError();
 }
 
@@ -174,6 +198,22 @@ extern "C" int gc_fused_edge(const void* e, const void* sproj,
   return gc::launch_fused_edge<false, false>(e, sproj, senders, rproj,
                                              receivers, we, b0, w1, b1, scale,
                                              offset, eout, agg, num_edges, C, s);
+}
+
+// Embed mode: features [E, F] raw edge features; aggregation only.
+extern "C" int gc_fused_edge_embed(
+    const void* features, const void* ew0, const float* eb0, const void* ew1,
+    const float* eb1, const void* sproj, const int* senders,
+    const void* rproj, const int* receivers, const void* we, const float* b0,
+    const void* w1, const float* b1, const float* scale, const float* offset,
+    float* agg, int num_edges, int F, int C, void* stream) {
+  if (num_edges <= 0) return 0;
+  const gc::EdgeEmbed emb{static_cast<const gc::bf16*>(ew0), eb0,
+                          static_cast<const gc::bf16*>(ew1), eb1, F};
+  return gc::launch_fused_edge<true, false, true>(
+      features, sproj, senders, rproj, receivers, we, b0, w1, b1, scale,
+      offset, nullptr, agg, num_edges, C, static_cast<cudaStream_t>(stream),
+      emb);
 }
 
 extern "C" const char* gc_error_string(int code) {

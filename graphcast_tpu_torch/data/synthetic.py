@@ -2,13 +2,16 @@
 
 Port of graphcast_tpu/data/synthetic.py: the same numpy draws from the same
 seed (tests/test_torch_rollout.py holds the arrays equal), handed back as
-FieldSets of CPU tensors; move them with ``FieldSet.to(device)``.
+FieldSets of tensors on ``device``: the card unless the caller asks for
+"cpu".
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from graphcast_tpu_torch import devices
 from graphcast_tpu_torch.fields import FieldSet, from_numpy
 from graphcast_tpu_torch.models import configs
 
@@ -36,12 +39,14 @@ def make_example_batch(
     time_step_hours: int = 6,
     seed: int = 0,
     dtype=np.float32,
+    device: torch.device | str = devices.DEFAULT_DEVICE,
 ) -> tuple[FieldSet, FieldSet, FieldSet]:
   """Returns (inputs, targets, forcings) for the task, random data.
 
   Lead time 0h = last input frame; inputs at [-(n-1)Δ, ..., 0],
   targets/forcings at [Δ, ..., TΔ] (reference: data_utils.py:212-290).
   """
+  device = devices.resolve(device)
   rng = np.random.RandomState(seed)
   lat, lon = grid_coords(resolution)
   nlat, nlon = lat.shape[0], lon.shape[0]
@@ -70,7 +75,7 @@ def make_example_batch(
                         ("batch", "time", "lat", "lon"))
     return from_numpy(fields, coords={
         "lat": lat, "lon": lon, "level": levels,
-        "time": times.astype("timedelta64[ns]")})
+        "time": times.astype("timedelta64[ns]")}).to(device)
 
   inputs = build(task_config.input_variables, input_times,
                  include_statics=True)
@@ -81,9 +86,11 @@ def make_example_batch(
   return inputs, targets, forcings
 
 
-def make_norm_stats(task_config: configs.TaskConfig, seed: int = 1):
+def make_norm_stats(task_config: configs.TaskConfig, seed: int = 1,
+                    device: torch.device | str = devices.DEFAULT_DEVICE):
   """Random-but-positive per-variable normalization stats FieldSets:
   (stddev_by_level, mean_by_level, diffs_stddev_by_level)."""
+  device = devices.resolve(device)
   rng = np.random.RandomState(seed)
   levels = np.asarray(task_config.pressure_levels, np.float32)
   var_names = set(task_config.input_variables) | set(
@@ -98,6 +105,6 @@ def make_norm_stats(task_config: configs.TaskConfig, seed: int = 1):
             ("level",))
       else:
         fields[name] = (np.float32(rng.rand() + offset).reshape(()), ())
-    return from_numpy(fields, coords={"level": levels})
+    return from_numpy(fields, coords={"level": levels}).to(device)
 
   return build(0.5), build(0.0), build(0.5)

@@ -153,6 +153,10 @@ class FieldSet(collections.abc.Mapping):
       raise KeyError(f"variables not present: {missing}")
     return FieldSet({n: self._fields[n] for n in names}, coords=self._coords)
 
+  def replace(self, **fields: Field) -> "FieldSet":
+    """A copy with the given variables replaced or added."""
+    return FieldSet({**self._fields, **fields}, coords=self._coords)
+
   def drop(self, names: Sequence[str]) -> "FieldSet":
     names = set(names)
     return FieldSet({n: f for n, f in self._fields.items() if n not in names},

@@ -1,9 +1,12 @@
 """The geometry compiler: static graph artifacts built once on the host.
 
 Pinned numpy copy of graphcast_tpu/geometry/artifact.py, cut to what
-GraphCast needs: the multi-mesh (or finest-level) processor graph, with no
-disk cache, no banded / spatial permutations and no C++ backend.
-``sort_edges_by_receiver`` comes along from graphcast_tpu/nn/typed_graph.py.
+GraphCast and GenCast need: the multi-mesh (GraphCast) or finest-level
+(GenCast) processor graph, the latter in the banded node order that keeps
+the transformer's k-hop attention mask block-compact (RCM bands, or BFS
+patches with ``banded_patch_size``); no disk cache, no multi-mesh spatial
+permutation and no C++ backend. ``sort_edges_by_receiver`` comes along
+from graphcast_tpu/nn/typed_graph.py.
 tests/test_torch_geometry.py asserts that every array of this artifact
 equals the JAX package's (numpy backend).
 
@@ -14,10 +17,13 @@ receiver-sorted rows (ops/fused_edge.py) or as exactly 3 rows per grid node
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Optional
 
 import numpy as np
+from scipy.sparse import csr_matrix
+from scipy.sparse.csgraph import reverse_cuthill_mckee
 
 from graphcast_tpu_torch.geometry import connectivity, features, icosahedron
 
@@ -79,6 +85,8 @@ def build_artifact(
     radius_query_fraction_edge_length: float = 0.6,
     mesh2grid_edge_normalization_factor: Optional[float] = None,
     multimesh: bool = True,
+    permute_banded: bool = False,
+    banded_patch_size: Optional[int] = None,
 ) -> GridMeshArtifact:
   """Builds the full graph artifact.
 
@@ -90,15 +98,24 @@ def build_artifact(
     mesh2grid_edge_normalization_factor: optional fixed edge-feature
       normalization for checkpoint compatibility (graphcast.py:190-193).
     multimesh: if True the processor edge set is the union over all
-      refinement levels (GraphCast); if False only the finest level.
+      refinement levels (GraphCast); if False only the finest level
+      (GenCast's denoiser).
+    permute_banded: reorder the finest mesh's vertices so the k-hop
+      attention mask is block-compact (GenCast; only with multimesh=False).
+    banded_patch_size: with permute_banded, contiguous BFS patches of this
+      many nodes instead of RCM bands (see ``patch_permutation``).
   """
   grid_lat = np.asarray(grid_lat, dtype=np.float32)
   grid_lon = np.asarray(grid_lon, dtype=np.float32)
+  if permute_banded and multimesh:
+    raise ValueError("permute_banded requires multimesh=False")
 
   meshes = icosahedron.get_mesh_hierarchy(mesh_size)
   finest = meshes[-1]
   processor_faces = (icosahedron.merge_meshes(meshes).faces if multimesh
                      else None)
+  if permute_banded:
+    finest = permute_mesh_to_banded(finest, patch_size=banded_patch_size)
   mesh_phi, mesh_theta = features.cartesian_to_spherical(
       finest.vertices[:, 0], finest.vertices[:, 1], finest.vertices[:, 2])
   mesh_lat, mesh_lon = features.spherical_to_lat_lon(mesh_phi, mesh_theta)
@@ -154,3 +171,78 @@ def build_artifact(
       grid2mesh=grid2mesh,
       mesh=mesh_edges,
       mesh2grid=mesh2grid)
+
+
+def permute_mesh_to_banded(
+    mesh: icosahedron.TriangularMesh,
+    patch_size: Optional[int] = None) -> icosahedron.TriangularMesh:
+  """Reorders a mesh's vertices so the attention mask is block-compact:
+  RCM bands or, with ``patch_size``, contiguous BFS patches."""
+  senders, receivers = icosahedron.faces_to_edges(mesh.faces)
+  num_nodes = mesh.vertices.shape[0]
+  if patch_size is not None:
+    perm = patch_permutation(senders, receivers, num_nodes,
+                             mesh.vertices, patch_size)
+  else:
+    perm = rcm_permutation(senders, receivers, num_nodes)
+  inverse = np.empty(num_nodes, dtype=np.int32)
+  inverse[perm] = np.arange(num_nodes, dtype=np.int32)
+  return icosahedron.TriangularMesh(
+      vertices=mesh.vertices[perm],
+      faces=inverse[mesh.faces].astype(np.int32))
+
+
+def rcm_permutation(senders: np.ndarray, receivers: np.ndarray,
+                    num_nodes: int) -> np.ndarray:
+  """Reverse-Cuthill-McKee node ordering, which makes the adjacency
+  banded."""
+  data = np.ones_like(senders, dtype=np.int8)
+  adj = csr_matrix((data, (senders, receivers)),
+                   shape=(num_nodes, num_nodes))
+  perm = reverse_cuthill_mckee(adj, symmetric_mode=True)
+  return np.asarray(perm, dtype=np.int32)
+
+
+def patch_permutation(senders: np.ndarray, receivers: np.ndarray,
+                      num_nodes: int, vertices: np.ndarray,
+                      patch_size: int) -> np.ndarray:
+  """Orders nodes into contiguous BFS patches of ``patch_size`` nodes.
+
+  Patches grow by BFS on the mesh adjacency from seeds taken in
+  z-then-longitude sweep order, so consecutive patches are spatially
+  adjacent too; the unplaced BFS frontier is released for later patches,
+  so every patch but the last has exactly ``patch_size`` nodes. A k-hop
+  ball around a node then touches few (q-tile, kv-tile) pairs of the
+  attention."""
+  data = np.ones_like(senders, dtype=np.int8)
+  adj = csr_matrix((data, (senders, receivers)),
+                   shape=(num_nodes, num_nodes)).tocsr()
+  indptr, indices = adj.indptr, adj.indices
+  visited = np.zeros(num_nodes, dtype=bool)
+  order = np.empty(num_nodes, dtype=np.int32)
+  pos = 0
+  z = vertices[:, 2]
+  lon = np.arctan2(vertices[:, 1], vertices[:, 0])
+  seeds_sorted = np.argsort(z * 1000.0 + lon, kind="stable")
+  si = 0
+  queue = collections.deque()
+  while pos < num_nodes:
+    while si < num_nodes and visited[seeds_sorted[si]]:
+      si += 1
+    seed = seeds_sorted[si]
+    queue.clear()
+    queue.append(seed)
+    visited[seed] = True
+    count = 0
+    while queue and count < patch_size:
+      u = queue.popleft()
+      order[pos] = u
+      pos += 1
+      count += 1
+      for v in indices[indptr[u]:indptr[u + 1]]:
+        if not visited[v]:
+          visited[v] = True
+          queue.append(v)
+    while queue:
+      visited[queue.pop()] = False
+  return order

@@ -1,1 +1,2 @@
-"""Predictors: the GraphCast model, its configs and presets."""
+"""Predictors: GraphCast, GenCast (denoiser, sparse transformer), their
+configs and presets."""

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 from torch.utils import checkpoint
 
-from graphcast_tpu_torch import losses
+from graphcast_tpu_torch import devices, losses
 from graphcast_tpu_torch.fields import FieldSet, from_stacked, to_stacked
 from graphcast_tpu_torch.geometry import artifact as artifact_lib
 from graphcast_tpu_torch.models import configs
@@ -53,14 +53,16 @@ EDGE_STRUCT_FEATURES = 4   # |d|, dx, dy, dz in the receiver's frame
 _CONST_CHUNK_ROWS = 1 << 18
 
 
-def num_grid_input_channels(task_config: configs.TaskConfig) -> int:
-  """Stacked input + forcing channels per grid node, for 6-hour steps:
-  time-dependent inputs carry input_duration / 6h frames, statics one,
-  forcings one target frame."""
+def num_grid_input_channels(task_config: configs.TaskConfig,
+                            step_hours: int = 6) -> int:
+  """Stacked input + forcing channels per grid node, for steps of
+  ``step_hours``: time-dependent inputs carry input_duration / step frames,
+  statics one, forcings one target frame."""
   duration = task_config.input_duration
-  if not duration.endswith("h") or int(duration[:-1]) % 6:
-    raise ValueError(f"input_duration {duration!r} is not a multiple of 6h")
-  frames = int(duration[:-1]) // 6
+  if not duration.endswith("h") or int(duration[:-1]) % step_hours:
+    raise ValueError(f"input_duration {duration!r} is not a multiple of "
+                     f"{step_hours}h")
+  frames = int(duration[:-1]) // step_hours
   nlev = len(task_config.pressure_levels)
 
   def width(name):
@@ -76,9 +78,12 @@ class GraphCast(Predictor):
 
   def __init__(self, model_config: configs.ModelConfig,
                task_config: configs.TaskConfig, *,
-               generator: torch.Generator):
-    """Parameters are drawn from ``generator`` (a CPU generator; move the
-    module afterwards) or loaded later with params.load_params."""
+               generator: torch.Generator,
+               device: torch.device | str = devices.DEFAULT_DEVICE):
+    """Parameters are drawn on the CPU from ``generator`` (a CPU generator),
+    then moved to ``device`` (the card unless the caller asks for "cpu");
+    or loaded later with params.load_params."""
+    device = devices.resolve(device)
     super().__init__()
     if model_config.hidden_layers != 1:
       raise NotImplementedError("only hidden_layers=1 is ported")
@@ -119,6 +124,7 @@ class GraphCast(Predictor):
         edge_sets={"mesh2grid": ("mesh_nodes", "grid_nodes")},
         num_message_passing_steps=1, **common)
     core.reset_parameters(self, generator)
+    self.to(device)
 
   # ----- static graph -----
 

@@ -1,7 +1,6 @@
-"""Released GraphCast presets, as constructors.
+"""Released-model presets, as constructors.
 
-Copy of the three GraphCast presets of graphcast_tpu/models/zoo.py (the
-GenCast presets wait for the GenCast port). Checkpoint-name ↔ preset:
+Copy of graphcast_tpu/models/zoo.py. Checkpoint-name ↔ preset:
 
 - "GraphCast - ERA5 1979-2017 - resolution 0.25 - pressure levels 37 -
   mesh 2to6 - precipitation input and output" → :func:`graphcast`
@@ -10,12 +9,19 @@ GenCast presets wait for the GenCast port). Checkpoint-name ↔ preset:
 - "GraphCast_operational - ERA5-HRES 1979-2021 - resolution 0.25 -
   pressure levels 13 - mesh 2to6 - precipitation output only"
   → :func:`graphcast_operational`
+- "GenCast 0p25deg <2019" / "GenCast 0p25deg Operational <2022" (mesh-6)
+  → :func:`gencast_0p25deg`
+- "GenCast 1p0deg <2019" (mesh-5) → :func:`gencast_1p0deg`
+- "GenCast 1p0deg Mini <2019" (mesh-4) → :func:`gencast_mini`
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import torch
+
+from graphcast_tpu_torch import devices
 from graphcast_tpu_torch.models import configs
 
 
@@ -55,4 +61,77 @@ GRAPHCAST_PRESETS = {
     "GraphCast": graphcast,
     "GraphCast_small": graphcast_small,
     "GraphCast_operational": graphcast_operational,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class GenCastPreset:
+  name: str
+  resolution: float
+  task_config: configs.TaskConfig
+  denoiser_architecture_config: "object"
+  sampler_config: "object"
+  noise_config: "object"
+  noise_encoder_config: "object"
+
+  def build(self, *, generator: torch.Generator,
+            device: torch.device | str = devices.DEFAULT_DEVICE):
+    """The GenCast predictor of this preset, parameters drawn from
+    ``generator`` (CPU) and moved to ``device``."""
+    from graphcast_tpu_torch.models import gencast
+    return gencast.GenCast(
+        task_config=self.task_config,
+        denoiser_architecture_config=self.denoiser_architecture_config,
+        sampler_config=self.sampler_config,
+        noise_config=self.noise_config,
+        noise_encoder_config=self.noise_encoder_config,
+        generator=generator, device=device)
+
+
+def gencast_custom(resolution: float, mesh_size: int, d_model: int = 512,
+                   num_layers: int = 16, num_heads: int = 4,
+                   latent_size: int = 512,
+                   name: str = "GenCast (custom)") -> GenCastPreset:
+  """The released GenCast architecture (arXiv 2312.15796 §A) at any
+  resolution and mesh size: 512-latent GNN encoder/decoder, 16-layer,
+  4-head, k-hop-16 sparse transformer on the mesh."""
+  from graphcast_tpu_torch.models import gencast
+  from graphcast_tpu_torch.models.denoiser import (
+      DenoiserArchitectureConfig, NoiseEncoderConfig)
+  from graphcast_tpu_torch.models.sparse_transformer import (
+      SparseTransformerConfig)
+  st_cfg = SparseTransformerConfig(
+      attention_k_hop=16, d_model=d_model, num_layers=num_layers,
+      num_heads=num_heads, attention_type="splash_mha")
+  arch = DenoiserArchitectureConfig(
+      sparse_transformer_config=st_cfg, mesh_size=mesh_size,
+      latent_size=latent_size, hidden_layers=1)
+  return GenCastPreset(
+      name=name, resolution=resolution, task_config=gencast.TASK,
+      denoiser_architecture_config=arch,
+      sampler_config=gencast.SamplerConfig(),
+      noise_config=gencast.NoiseConfig(),
+      noise_encoder_config=NoiseEncoderConfig())
+
+
+def gencast_0p25deg() -> GenCastPreset:
+  """GenCast 0p25deg (and the Operational <2022 fine-tune): 13 levels,
+  mesh-6."""
+  return gencast_custom(0.25, 6, name="GenCast 0p25deg")
+
+
+def gencast_1p0deg() -> GenCastPreset:
+  """GenCast 1p0deg <2019: 13 levels, mesh-5."""
+  return gencast_custom(1.0, 5, name="GenCast 1p0deg")
+
+
+def gencast_mini() -> GenCastPreset:
+  """GenCast 1p0deg Mini <2019: 13 levels, mesh-4."""
+  return gencast_custom(1.0, 4, name="GenCast 1p0deg Mini")
+
+
+GENCAST_PRESETS = {
+    "GenCast 0p25deg": gencast_0p25deg,
+    "GenCast 1p0deg": gencast_1p0deg,
+    "GenCast 1p0deg Mini": gencast_mini,
 }

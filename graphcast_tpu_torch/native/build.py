@@ -99,6 +99,12 @@ def _declare(lib: ctypes.CDLL):
   lib.gc_fused_decoder_bwd.argtypes = [p] * 30 + [i] * 4 + [p]
   lib.gc_weight_grad.restype = i
   lib.gc_weight_grad.argtypes = [p, i, p, i, p, i, i, i, p]
+  lib.gc_fused_edge_embed.restype = i
+  lib.gc_fused_edge_embed.argtypes = [p] * 16 + [i] * 3 + [p]
+  lib.gc_fused_decoder_embed.restype = i
+  lib.gc_fused_decoder_embed.argtypes = [p] * 27 + [i] * 5 + [p]
+  lib.gc_splash_fwd.restype = i
+  lib.gc_splash_fwd.argtypes = [p] * 9 + [ctypes.c_float] + [i] * 3 + [p]
   lib.gc_error_string.restype = ctypes.c_char_p
   lib.gc_error_string.argtypes = [i]
 

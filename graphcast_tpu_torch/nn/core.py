@@ -7,13 +7,19 @@ JAX package's flat param keys (tests/goldens/zoo_param_shapes.json) and
 weights cross between the packages without transposes.
 
 Parameters always live in float32; ``forward`` casts them to the activation
-dtype at use (the precision policy of docs/ARCHITECTURE.md §4). Every MLP
-of GraphCast uses swish, so that is the only activation here.
+dtype at use (the precision policy of docs/ARCHITECTURE.md §4). The graph
+nets use swish; GenCast's transformer and noise encoder use GELU in its
+tanh form (``gelu``), which is jax.nn.gelu's default.
 
 Random init draws what the JAX package draws (nn/core.py:43): a normal
-truncated to [-2, 2], scaled by 1/sqrt(fan_in) with no variance
-correction; biases and offsets 0, scales 1. It takes an explicit CPU
-``torch.Generator``: initialise on the CPU, then move the module.
+truncated to [-2, 2], scaled by 1/sqrt(fan_in) (or a given stddev) with no
+variance correction; biases and offsets 0, scales 1. It takes an explicit
+CPU ``torch.Generator``: initialise on the CPU, then move the module.
+
+Under GenCast's norm conditioning (``MLPWithNorm(use_norm_conditioning=
+True)``) the LayerNorm has no parameters and a ``NormConditioning`` maps the
+conditioning vector to a per-channel (scale - 1, offset) instead
+(graphcast_tpu/nn/core.py:149-263).
 """
 
 from __future__ import annotations
@@ -25,25 +31,41 @@ from torch import nn
 from torch.nn import functional as F
 
 
-class Linear(nn.Module):
-  """y = x @ w + b, weights [in, out]."""
+def gelu(x):
+  """GELU, tanh approximation (jax.nn.gelu's default; F.gelu's default is
+  the exact erf form)."""
+  return F.gelu(x, approximate="tanh")
 
-  def __init__(self, in_size: int, out_size: int):
+
+ACTIVATIONS = {"swish": F.silu, "gelu": gelu}
+
+
+class Linear(nn.Module):
+  """y = x @ w (+ b), weights [in, out]; init stddev 1/sqrt(in) unless
+  ``init_stddev`` is given."""
+
+  def __init__(self, in_size: int, out_size: int, with_bias: bool = True,
+               init_stddev: float | None = None):
     super().__init__()
     self.in_size = in_size
     self.out_size = out_size
+    self.init_stddev = init_stddev
     self.w = nn.Parameter(torch.empty(in_size, out_size))
-    self.b = nn.Parameter(torch.zeros(out_size))
+    self.b = nn.Parameter(torch.zeros(out_size)) if with_bias else None
 
   @torch.no_grad()
   def reset_parameters(self, generator: torch.Generator):
-    stddev = 1.0 / math.sqrt(max(self.in_size, 1))
+    stddev = self.init_stddev
+    if stddev is None:
+      stddev = 1.0 / math.sqrt(max(self.in_size, 1))
     nn.init.trunc_normal_(self.w, 0.0, 1.0, -2.0, 2.0, generator=generator)
     self.w.mul_(stddev)
-    self.b.zero_()
+    if self.b is not None:
+      self.b.zero_()
 
   def forward(self, x):
-    return x @ self.w.to(x.dtype) + self.b.to(x.dtype)
+    y = x @ self.w.to(x.dtype)
+    return y if self.b is None else y + self.b.to(x.dtype)
 
 
 class MLP(nn.ModuleDict):
@@ -64,6 +86,15 @@ class MLP(nn.ModuleDict):
     return x
 
 
+def layer_norm_no_params(x):
+  """The parameter-free LayerNorm: statistics in float32, eps 1e-5, the
+  normalised value rounded to x's dtype."""
+  x32 = x.float()
+  mean = x32.mean(-1, keepdim=True)
+  var = (x32 - mean).square().mean(-1, keepdim=True)
+  return ((x32 - mean) * torch.rsqrt(var + LayerNorm.eps)).to(x.dtype)
+
+
 class LayerNorm(nn.Module):
   """LayerNorm over the last axis; statistics in float32, eps 1e-5."""
 
@@ -82,28 +113,61 @@ class LayerNorm(nn.Module):
 
   def forward(self, x):
     dtype = x.dtype
-    x32 = x.float()
-    mean = x32.mean(-1, keepdim=True)
-    var = (x32 - mean).square().mean(-1, keepdim=True)
-    y = ((x32 - mean) * torch.rsqrt(var + self.eps)).to(dtype)
-    return y * self.scale.to(dtype) + self.offset.to(dtype)
+    return (layer_norm_no_params(x) * self.scale.to(dtype)
+            + self.offset.to(dtype))
+
+
+class NormConditioning(Linear):
+  """Conditioning vector → per-channel (scale - 1, offset), applied after a
+  parameter-free LayerNorm; init stddev 1e-8, so training starts at the
+  identity (graphcast_tpu/nn/core.py:149-168)."""
+
+  def __init__(self, cond_size: int, feature_size: int):
+    super().__init__(cond_size, 2 * feature_size, init_stddev=1e-8)
+
+  def scale_offset(self, cond, dtype):
+    """(scale, offset) vectors for one conditioning row cond [1, K], in
+    ``dtype``: what the fused kernels take in place of LayerNorm params."""
+    co = super().forward(cond.to(dtype))
+    c = co.shape[-1] // 2
+    return co[0, :c] + 1.0, co[0, c:]
+
+  def forward(self, x, cond):
+    """x: [..., feature]; cond: broadcastable [..., cond_size]."""
+    scale_minus_one, offset = super().forward(cond.to(x.dtype)).chunk(2, -1)
+    return x * (scale_minus_one + 1.0) + offset
 
 
 class MLPWithNorm(nn.Module):
-  """MLP → optional LayerNorm (reference: deep_typed_graph_net.py:212-248).
+  """MLP → optional LayerNorm → optional norm conditioning (reference:
+  deep_typed_graph_net.py:212-248).
 
   Inputs passed as several tensors are concatenated on the last axis.
+  With ``norm_conditioning_size`` the LayerNorm is parameter-free and a
+  ``NormConditioning`` on the conditioning vector ``cond`` follows it.
   """
 
   def __init__(self, in_size: int, hidden_size: int, num_hidden_layers: int,
-               out_size: int, use_layer_norm: bool = True):
+               out_size: int, use_layer_norm: bool = True,
+               norm_conditioning_size: int | None = None):
     super().__init__()
+    if norm_conditioning_size and not use_layer_norm:
+      raise ValueError("norm conditioning requires layer norm")
     self.mlp = MLP(in_size, hidden_size, num_hidden_layers, out_size)
-    self.layer_norm = LayerNorm(out_size) if use_layer_norm else None
+    self.layer_norm = (LayerNorm(out_size)
+                       if use_layer_norm and not norm_conditioning_size
+                       else None)
+    self.norm_conditioning = (NormConditioning(norm_conditioning_size,
+                                               out_size)
+                              if norm_conditioning_size else None)
 
-  def forward(self, *inputs):
+  def forward(self, *inputs, cond=None):
+    if (cond is None) != (self.norm_conditioning is None):
+      raise ValueError("pass cond exactly when norm conditioning is on")
     x = inputs[0] if len(inputs) == 1 else torch.cat(inputs, dim=-1)
     x = self.mlp(x)
+    if self.norm_conditioning is not None:
+      return self.norm_conditioning(layer_norm_no_params(x), cond)
     if self.layer_norm is not None:
       x = self.layer_norm(x)
     return x

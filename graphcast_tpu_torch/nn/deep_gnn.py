@@ -8,9 +8,11 @@ MLPs and runs the fused processor step (``processor_step``): the edge MLP,
 LayerNorm, edge residual and aggregation go through ops.fused_edge (K1); the
 node update and residual run here.
 
-Only what GraphCast's batch-1 inference path needs is ported: swish MLPs
-with exactly one hidden layer, layer norm on, no norm conditioning, no sent
-messages in the node update. The general message-passing path of the JAX
+Only what the batch-1 fused paths need is ported: swish MLPs with exactly
+one hidden layer, layer norm on, no sent messages in the node update. With
+``norm_conditioning_size`` (GenCast's denoiser) every MLP but the decoder's
+is norm-conditioned: a parameter-free LayerNorm, then a ``NormConditioning``
+of the noise-level encoding (graphcast_tpu nn/deep_gnn.py:75-96). The general message-passing path of the JAX
 package (nn/message_passing.py, batch > 1) is not ported; anything outside
 the slice raises NotImplementedError.
 """
@@ -44,7 +46,8 @@ class DeepGraphNet(nn.ModuleDict):
                mlp_num_hidden_layers: int,
                num_message_passing_steps: int,
                embed_nodes: bool = True,
-               node_output_size: Optional[Mapping[str, int]] = None):
+               node_output_size: Optional[Mapping[str, int]] = None,
+               norm_conditioning_size: Optional[int] = None):
     if mlp_num_hidden_layers != 1:
       raise NotImplementedError(
           "the fused edge step takes exactly one hidden layer; the general "
@@ -53,8 +56,11 @@ class DeepGraphNet(nn.ModuleDict):
     self.num_message_passing_steps = num_message_passing_steps
 
     def mlp(in_size, out_size, use_layer_norm=True):
-      return MLPWithNorm(in_size, mlp_hidden_size, mlp_num_hidden_layers,
-                         out_size, use_layer_norm=use_layer_norm)
+      return MLPWithNorm(
+          in_size, mlp_hidden_size, mlp_num_hidden_layers, out_size,
+          use_layer_norm=use_layer_norm,
+          norm_conditioning_size=(norm_conditioning_size if use_layer_norm
+                                  else None))
 
     def node_latent(name):
       return node_latent_size.get(name, node_input_size[name])

@@ -20,6 +20,17 @@ edge list's own order ([3G, C]); the sender rows are gathered by index (the
 TPU version's compact per-block sender tables are a gather workaround for
 the TPU and are not ported).
 
+Embed mode (GenCast's mesh2grid, pallas_decoder.py:116-124): with the extra
+weights ``EMBED_KEYS`` (ew0, eb0, ew1, eb1, we, b0), ``const`` holds the raw
+[3G, F] edge features, and each slot starts from
+
+    en_j = bf16(LN0(bf16(swish(bf16(f_j @ ew0 + eb0))) @ ew1 + eb1))
+    x0_j = en_j @ We' + b0' + mesh_proj[snd_j] + gproj
+
+with LN0 parameter-free; the caller folds the norm conditioning into We',
+b0', escale/eoffset and nscale/noffset. Forward only on the card (its
+backward, K5's embed mode, waits for GenCast training).
+
 All weights are cast to the activation dtype at use (vectors too, then used
 in f32), as the TPU kernel receives them. ``fused_decode`` runs the CUDA
 kernel (csrc/fused_decoder.cu) for CUDA tensors and the twin for CPU tensors.
@@ -37,13 +48,15 @@ import torch
 
 from graphcast_tpu_torch.native import build
 from graphcast_tpu_torch.ops.fused_edge import (
-    EdgeIndex, _check_cuda, layer_norm_f32, swish_of)
+    MAX_EMBED_FEATURES, EdgeIndex, _check_cuda, embed_edges_reference,
+    layer_norm_f32, swish_of)
 from graphcast_tpu_torch.ops.weight_grad import weight_grad
 
 MATRICES = ("wr", "w1", "wng", "wna", "wn1", "wd0", "wd1")
 VECTORS = ("b1", "escale", "eoffset", "bn0", "bn1", "nscale", "noffset",
            "bd0", "bd1")
 KEYS = MATRICES + VECTORS
+EMBED_KEYS = ("ew0", "eb0", "ew1", "eb1", "we", "b0")
 # Grid nodes per K5 launch: bounds its scratch of 14 bf16 rows per node
 # (1.9 GB at C = 512).
 BWD_CHUNK_NODES = 1 << 17
@@ -64,12 +77,19 @@ def fused_decode_reference(edges: EdgeIndex, grid, mesh_proj, const,
   # Gathered from an f32 copy: the gather's backward sums in f32, as K5's
   # sender scatter does.
   gs = mesh_proj.float()[edges.senders.long()].view(G, 3, C)
-  const = const.float().view(G, 3, C)
+  embed = "ew0" in w
+  const = const.view(G, 3, -1)
   g32 = grid.float()
   gproj = g32 @ w["wr"]
   agg = torch.zeros_like(gproj)
   for j in range(3):
-    h = swish_of(const[:, j] + gs[:, j] + gproj, dtype)
+    if embed:
+      en = embed_edges_reference(const[:, j],
+                                 [w[k] for k in EMBED_KEYS[:4]], dtype)
+      cj = en.float() @ w["we"] + w["b0"]
+    else:
+      cj = const[:, j].float()
+    h = swish_of(cj + gs[:, j] + gproj, dtype)
     y = h.float() @ w["w1"] + w["b1"]
     agg = agg + layer_norm_f32(y, w["escale"], w["eoffset"])
   x = g32 @ w["wng"] + agg.to(dtype).float() @ w["wna"] + w["bn0"]
@@ -84,9 +104,12 @@ def fused_decode_reference(edges: EdgeIndex, grid, mesh_proj, const,
 def _kernel_operands(edges: EdgeIndex, grid, mesh_proj, const,
                      weights: dict):
   """Checks K2/K5 operands on CUDA; returns (C, num_out, no_pad, bf16
-  matrices with wd1 padded, f32 vectors with bd1 padded)."""
-  if set(weights) != set(KEYS):
-    raise ValueError(f"weights must have keys {KEYS}")
+  matrices with wd1 padded, f32 vectors with bd1 padded; in embed mode
+  also ew0, ew1, we and eb0, eb1, b0)."""
+  embed = "ew0" in weights
+  if set(weights) != set(KEYS + EMBED_KEYS if embed else KEYS):
+    raise ValueError(f"weights must have keys {KEYS}, plus {EMBED_KEYS} "
+                     "in embed mode")
   G, C = grid.shape
   num_out = weights["wd1"].shape[1]
   no_pad = -(-num_out // 128) * 128
@@ -97,17 +120,25 @@ def _kernel_operands(edges: EdgeIndex, grid, mesh_proj, const,
                      f"[128, 512], outputs ({num_out}) at most 512")
   if G != edges.num_receivers or mesh_proj.shape != (edges.num_senders, C):
     raise ValueError("grid/mesh_proj shapes do not match the edge list")
-  if const.shape != (edges.num_edges, C):
+  F = const.shape[1]
+  if const.shape[0] != edges.num_edges or (F != C and not embed):
     raise ValueError(f"const must have shape ({edges.num_edges}, {C})")
+  if embed and not 1 <= F <= MAX_EMBED_FEATURES:
+    raise ValueError(f"embed mode takes 1 to {MAX_EMBED_FEATURES} raw "
+                     f"features, got {F}")
   if edges.device != dev:
     raise ValueError(f"edge list is on {edges.device}, tensors on {dev}")
-  mats = {k: weights[k].to(bf16).contiguous() for k in MATRICES}
-  vecs = {k: weights[k].to(bf16).float().contiguous() for k in VECTORS}
-  for k in MATRICES[:-1]:
-    if mats[k].shape != (C, C):
+  mat_keys = MATRICES + (("ew0", "ew1", "we") if embed else ())
+  vec_keys = VECTORS + (("eb0", "eb1", "b0") if embed else ())
+  mats = {k: weights[k].to(bf16).contiguous() for k in mat_keys}
+  vecs = {k: weights[k].to(bf16).float().contiguous() for k in vec_keys}
+  if embed and mats["ew0"].shape != (F, C):
+    raise ValueError(f"ew0 must have shape ({F}, {C})")
+  for k in mat_keys:
+    if k not in ("wd1", "ew0") and mats[k].shape != (C, C):
       raise ValueError(f"{k} must have shape ({C}, {C})")
-  for k in VECTORS[:-1]:
-    if vecs[k].shape != (C,):
+  for k in vec_keys:
+    if k != "bd1" and vecs[k].shape != (C,):
       raise ValueError(f"{k} must have shape ({C},)")
   if mats["wd1"].shape != (C, num_out) or vecs["bd1"].shape != (num_out,):
     raise ValueError("wd1/bd1 shapes disagree")
@@ -124,11 +155,34 @@ def _kernel_operands(edges: EdgeIndex, grid, mesh_proj, const,
 def _launch_fused_decode(edges: EdgeIndex, grid, mesh_proj, const,
                          weights: dict) -> torch.Tensor:
   """K2 on CUDA tensors (checks, then one launch)."""
+  embed = "ew0" in weights
+  if embed:
+    const = const.to(torch.bfloat16).contiguous()
   C, num_out, no_pad, mats, vecs = _kernel_operands(edges, grid, mesh_proj,
                                                     const, weights)
   G = grid.shape[0]
   lib = build.load_library()
   out = torch.empty(G, num_out, dtype=torch.bfloat16, device=grid.device)
+  stream = torch.cuda.current_stream(grid.device).cuda_stream
+  if embed:
+    code = lib.gc_fused_decoder_embed(
+        grid.data_ptr(), mesh_proj.data_ptr(), const.data_ptr(),
+        edges.senders.data_ptr(), mats["ew0"].data_ptr(),
+        vecs["eb0"].data_ptr(), mats["ew1"].data_ptr(),
+        vecs["eb1"].data_ptr(), mats["we"].data_ptr(), vecs["b0"].data_ptr(),
+        mats["wr"].data_ptr(), mats["w1"].data_ptr(),
+        vecs["b1"].data_ptr(), vecs["escale"].data_ptr(),
+        vecs["eoffset"].data_ptr(), mats["wng"].data_ptr(),
+        mats["wna"].data_ptr(), vecs["bn0"].data_ptr(),
+        mats["wn1"].data_ptr(), vecs["bn1"].data_ptr(),
+        vecs["nscale"].data_ptr(), vecs["noffset"].data_ptr(),
+        mats["wd0"].data_ptr(), vecs["bd0"].data_ptr(),
+        mats["wd1"].data_ptr(), vecs["bd1"].data_ptr(), out.data_ptr(), G,
+        C, no_pad, num_out, const.shape[1], stream)
+    build.check(lib, code, "fused_decoder embed kernel launch")
+    fused_decode.launches += 1
+    fused_decode.embed_launches += 1
+    return out
   code = lib.gc_fused_decoder(
       grid.data_ptr(), mesh_proj.data_ptr(), const.data_ptr(),
       edges.senders.data_ptr(), mats["wr"].data_ptr(), mats["w1"].data_ptr(),
@@ -138,8 +192,7 @@ def _launch_fused_decode(edges: EdgeIndex, grid, mesh_proj, const,
       vecs["bn1"].data_ptr(), vecs["nscale"].data_ptr(),
       vecs["noffset"].data_ptr(), mats["wd0"].data_ptr(),
       vecs["bd0"].data_ptr(), mats["wd1"].data_ptr(), vecs["bd1"].data_ptr(),
-      out.data_ptr(), G, C, no_pad, num_out,
-      torch.cuda.current_stream(grid.device).cuda_stream)
+      out.data_ptr(), G, C, no_pad, num_out, stream)
   build.check(lib, code, "fused_decoder kernel launch")
   fused_decode.launches += 1
   return out
@@ -249,13 +302,17 @@ def fused_decode(edges: EdgeIndex, grid: torch.Tensor,
   Args:
     edges: the mesh2grid edge list, 3 rows per grid node.
     grid: [G, C] grid latents; mesh_proj: [M, C] mesh latents @ Ws;
-      const: [3G, C] hoisted static edge part (activation dtype).
+      const: [3G, C] hoisted static edge part (activation dtype), or in
+      embed mode the raw [3G, F] edge features.
     weights: wr, w1, wng, wna, wn1, wd0 [C, C], wd1 [C, num_outputs];
       b1, escale, eoffset, bn0, bn1, nscale, noffset, bd0 [C],
-      bd1 [num_outputs].
+      bd1 [num_outputs]; embed mode adds ew0 [F, C], eb0, ew1 [C, C], eb1,
+      we [C, C], b0.
   """
-  if set(weights) != set(KEYS):
-    raise ValueError(f"weights must have keys {KEYS}")
+  embed = "ew0" in weights
+  if set(weights) != set(KEYS + EMBED_KEYS if embed else KEYS):
+    raise ValueError(f"weights must have keys {KEYS}, plus {EMBED_KEYS} "
+                     "in embed mode")
   if not edges.three_per_receiver:
     raise ValueError("the decoder needs exactly 3 receiver-sorted edges per "
                      "grid node")
@@ -263,11 +320,17 @@ def fused_decode(edges: EdgeIndex, grid: torch.Tensor,
     return fused_decode_reference(edges, grid, mesh_proj, const, weights)
   if grid.device.type != "cuda":
     raise ValueError(f"unsupported device {grid.device}")
-  values = [weights[k] for k in KEYS]
-  if torch.is_grad_enabled() and any(
-      t.requires_grad for t in (grid, mesh_proj, const, *values)):
-    return _FusedDecodeFunction.apply(edges, grid, mesh_proj, const, *values)
+  values = [weights[k] for k in weights]
+  grad = torch.is_grad_enabled() and any(
+      t.requires_grad for t in (grid, mesh_proj, const, *values))
+  if grad and embed:
+    raise NotImplementedError(
+        "the embed mode backward (K5) is not ported: run under no_grad")
+  if grad:
+    return _FusedDecodeFunction.apply(edges, grid, mesh_proj, const,
+                                      *(weights[k] for k in KEYS))
   return _launch_fused_decode(edges, grid, mesh_proj, const, weights)
 
 
-fused_decode.launches = 0
+fused_decode.launches = 0        # every K2 launch
+fused_decode.embed_launches = 0  # the embed-mode ones among them

@@ -12,7 +12,19 @@ edge list,
 
 Processor mode passes We/b0 and writes e'. Encoder mode (``we=None``,
 ``write_edges=False``) takes ``e`` as the hoisted static first-layer part
-embed(features) @ We + b0 and returns only ``agg``.
+embed(features) @ We + b0 and returns only ``agg``. Embed mode (GenCast's
+grid2mesh, ``embed_weights=(ew0, eb0, ew1, eb1)``) takes ``e`` as the raw
+[E, F] edge features and embeds them in the step first
+(pallas_edge.py:124-157):
+
+    en  = bf16(LN0(bf16(swish(bf16(f @ ew0 + eb0))) @ ew1 + eb1))
+    x0  = en @ We' + sproj[senders] + rproj[receivers] + b0'
+
+with LN0 parameter-free (f32 statistics); the norm conditioning is folded
+into We', b0' and the step's LayerNorm scale/offset by the caller. On the
+card it runs aggregation-only (``write_edges=False``), as the denoiser
+calls it, and without gradients (its backward, K4's embed mode, waits for
+GenCast training).
 
 Gradients: on CUDA tensors that require grad, ``fused_edge`` runs K1 inside
 a ``torch.autograd.Function`` whose backward is K4
@@ -44,6 +56,8 @@ LN_EPS = 1e-5
 # Edge rows per K4 launch: bounds its h / dy row buffers (2 x 268 MB at
 # C = 512).
 BWD_CHUNK_ROWS = 1 << 18
+# Raw edge features the embed-mode kernel takes (GenCast: 4).
+MAX_EMBED_FEATURES = 16
 
 
 class EdgeIndex:
@@ -96,11 +110,23 @@ def layer_norm_f32(y: torch.Tensor, scale, offset) -> torch.Tensor:
   return (y - mean) * torch.rsqrt(var + LN_EPS) * scale + offset
 
 
+def embed_edges_reference(features, embed_weights, dtype):
+  """The embed mode's edge embedding: raw [E, F] features → bf16 ``en``
+  (parameter-free LayerNorm), as K1 computes it (vectors in f32)."""
+  ew0, eb0, ew1, eb1 = embed_weights
+  x = features.to(dtype).float() @ ew0.to(dtype).float() + eb0.float()
+  y0 = swish_of(x, dtype).float() @ ew1.to(dtype).float() + eb1.float()
+  return layer_norm_f32(y0, 1.0, 0.0).to(dtype)
+
+
 def fused_edge_reference(edges: EdgeIndex, e, sproj, rproj, we, b0, w1, b1,
-                         scale, offset, write_edges: bool):
+                         scale, offset, write_edges: bool,
+                         embed_weights=None):
   """Plain-PyTorch twin of the K1 kernel (same rounding points)."""
   dtype = sproj.dtype
   f32 = torch.float32
+  if embed_weights is not None:
+    e = embed_edges_reference(e, embed_weights, dtype)
   x0 = (e.float() @ we.to(dtype).float() if we is not None else e.float())
   # Gathered from f32 copies, so that the gathers' backward (a scatter-add
   # over up to thousands of edges per node) sums in f32, as K4 does.
@@ -142,8 +168,8 @@ def _check_vectors(vecs: dict, dev, C: int):
       raise ValueError(f"{name} must have shape ({C},)")
 
 
-def _check_edge_operands(edges: EdgeIndex, e, sproj, rproj):
-  E, C = e.shape
+def _check_edge_shapes(edges: EdgeIndex, E: int, C: int, sproj, rproj,
+                       device):
   if E != edges.num_edges:
     raise ValueError(f"e has {E} rows, edge list has {edges.num_edges}")
   if C % 128 or not 128 <= C <= 512:
@@ -152,8 +178,8 @@ def _check_edge_operands(edges: EdgeIndex, e, sproj, rproj):
   if sproj.shape != (edges.num_senders, C) or rproj.shape != (
       edges.num_receivers, C):
     raise ValueError("sproj/rproj shapes do not match the edge list")
-  if edges.device != e.device:
-    raise ValueError(f"edge list is on {edges.device}, tensors on {e.device}")
+  if edges.device != device:
+    raise ValueError(f"edge list is on {edges.device}, tensors on {device}")
 
 
 def _matrix_bf16(w, C: int, name: str):
@@ -166,7 +192,7 @@ def _matrix_bf16(w, C: int, name: str):
 def _launch_fused_edge(edges: EdgeIndex, e, sproj, rproj, we, b0, w1, b1,
                        scale, offset, write_edges: bool):
   """K1 on CUDA tensors (checks, then one launch)."""
-  _check_edge_operands(edges, e, sproj, rproj)
+  _check_edge_shapes(edges, *e.shape, sproj, rproj, e.device)
   C = e.shape[1]
   dev = e.device
   w1 = _matrix_bf16(w1, C, "w1")
@@ -190,6 +216,8 @@ def _launch_fused_edge(edges: EdgeIndex, e, sproj, rproj, we, b0, w1, b1,
       int(write_edges), torch.cuda.current_stream(dev).cuda_stream)
   build.check(lib, code, "fused_edge kernel launch")
   fused_edge.launches += 1
+  if we is None:
+    fused_edge.encoder_launches += 1
   return (eout, agg) if write_edges else agg
 
 
@@ -212,7 +240,7 @@ def fused_edge_backward(edges: EdgeIndex, e, sproj, rproj, we, b0, w1, b1,
     raise NotImplementedError(
         "K4 covers processor mode (we, e' written) and encoder mode "
         "(no we, aggregation only)")
-  _check_edge_operands(edges, e, sproj, rproj)
+  _check_edge_shapes(edges, *e.shape, sproj, rproj, e.device)
   E, C = e.shape
   dev = e.device
   bf16, f32 = torch.bfloat16, torch.float32
@@ -295,11 +323,50 @@ class _FusedEdgeFunction(torch.autograd.Function):
             doff.to(ctx.offset_dtype))
 
 
+def _launch_fused_edge_embed(edges: EdgeIndex, features, sproj, rproj, we,
+                             b0, w1, b1, scale, offset, embed_weights):
+  """K1 in embed mode on CUDA tensors, aggregation only (checks, then one
+  launch)."""
+  E, F = features.shape
+  C = sproj.shape[1]
+  if not 1 <= F <= MAX_EMBED_FEATURES:
+    raise ValueError(f"embed mode takes 1 to {MAX_EMBED_FEATURES} raw "
+                     f"features, got {F}")
+  dev = sproj.device
+  _check_edge_shapes(edges, E, C, sproj, rproj, features.device)
+  ew0, eb0, ew1, eb1 = embed_weights
+  ew0 = ew0.to(torch.bfloat16).contiguous()
+  if ew0.shape != (F, C):
+    raise ValueError(f"ew0 must have shape ({F}, {C})")
+  mats = {"features": features.to(torch.bfloat16).contiguous(),
+          "sproj": sproj, "rproj": rproj, "ew0": ew0,
+          "ew1": _matrix_bf16(ew1, C, "ew1"), "we": _matrix_bf16(we, C, "we"),
+          "w1": _matrix_bf16(w1, C, "w1")}
+  vecs = _vectors_f32(eb0=eb0, eb1=eb1, b0=b0, b1=b1, scale=scale,
+                      offset=offset)
+  _check_cuda(mats, dev, torch.bfloat16)
+  _check_vectors(vecs, dev, C)
+  lib = build.load_library()
+  agg = torch.zeros(edges.num_receivers, C, dtype=torch.float32, device=dev)
+  code = lib.gc_fused_edge_embed(
+      mats["features"].data_ptr(), mats["ew0"].data_ptr(),
+      vecs["eb0"].data_ptr(), mats["ew1"].data_ptr(), vecs["eb1"].data_ptr(),
+      sproj.data_ptr(), edges.senders.data_ptr(), rproj.data_ptr(),
+      edges.receivers.data_ptr(), mats["we"].data_ptr(),
+      vecs["b0"].data_ptr(), mats["w1"].data_ptr(), vecs["b1"].data_ptr(),
+      vecs["scale"].data_ptr(), vecs["offset"].data_ptr(), agg.data_ptr(),
+      E, F, C, torch.cuda.current_stream(dev).cuda_stream)
+  build.check(lib, code, "fused_edge embed kernel launch")
+  fused_edge.launches += 1
+  fused_edge.embed_launches += 1
+  return agg
+
+
 def fused_edge(edges: EdgeIndex, e: torch.Tensor, sproj: torch.Tensor,
                rproj: torch.Tensor, we: Optional[torch.Tensor],
                b0: Optional[torch.Tensor], w1: torch.Tensor,
                b1: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor,
-               write_edges: bool = True):
+               write_edges: bool = True, embed_weights=None):
   """One fused edge step (module doc). Returns (e_out [E, C], agg [N, C]
   f32), or agg alone with ``write_edges=False``.
 
@@ -312,14 +379,29 @@ def fused_edge(edges: EdgeIndex, e: torch.Tensor, sproj: torch.Tensor,
     we, b0: [C, C], [C] edge part and bias of the first layer, or None.
     w1, b1: second layer [C, C], [C]; scale, offset: LayerNorm [C].
       Matrices are cast to the activation dtype; vectors are used in f32.
+    embed_weights: (ew0 [F, C], eb0, ew1 [C, C], eb1) for embed mode, where
+      ``e`` holds the raw [E, F] edge features; needs ``we``.
   """
-  if e.device.type == "cpu":
-    return fused_edge_reference(edges, e, sproj, rproj, we, b0, w1, b1,
-                                scale, offset, write_edges)
-  if e.device.type != "cuda":
-    raise ValueError(f"unsupported device {e.device}")
   if (we is None) != (b0 is None):
     raise ValueError("pass we and b0 together")
+  if embed_weights is not None and we is None:
+    raise ValueError("embed mode requires the edge matmul (we, b0)")
+  if e.device.type == "cpu":
+    return fused_edge_reference(edges, e, sproj, rproj, we, b0, w1, b1,
+                                scale, offset, write_edges, embed_weights)
+  if e.device.type != "cuda":
+    raise ValueError(f"unsupported device {e.device}")
+  if embed_weights is not None:
+    if write_edges:
+      raise NotImplementedError(
+          "the embed mode kernel runs aggregation-only (write_edges=False)")
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (e, sproj, rproj, we, b0, w1, b1, scale,
+                                  offset, *embed_weights)):
+      raise NotImplementedError(
+          "the embed mode backward (K4) is not ported: run under no_grad")
+    return _launch_fused_edge_embed(edges, e, sproj, rproj, we, b0, w1, b1,
+                                    scale, offset, embed_weights)
   inputs = (e, sproj, rproj, we, b0, w1, b1, scale, offset)
   if torch.is_grad_enabled() and any(
       t is not None and t.requires_grad for t in inputs):
@@ -331,4 +413,6 @@ def fused_edge(edges: EdgeIndex, e: torch.Tensor, sproj: torch.Tensor,
   return _launch_fused_edge(edges, *inputs, write_edges)
 
 
-fused_edge.launches = 0
+fused_edge.launches = 0          # every K1 launch
+fused_edge.encoder_launches = 0  # the encoder-mode ones among them
+fused_edge.embed_launches = 0    # the embed-mode ones among them

@@ -1,6 +1,6 @@
 """Parameters by flat key, shared with the JAX package.
 
-A GraphCast module's parameter names, with "/" in place of ".", are
+A GraphCast or GenCast module's parameter names, with "/" in place of ".", are
 graphcast_tpu's flat param keys (e.g.
 ``mesh_gnn/processor_3_edges_mesh/mlp/linear_1/w``), pinned by
 tests/goldens/zoo_param_shapes.json; weights are stored [in, out] in both
@@ -15,9 +15,10 @@ import numpy as np
 import torch
 from torch import nn
 
-# Non-trainable graph data the JAX package threads inside its params tree
-# (graphcast_tpu/train.py partition_params); the port keeps it on the model.
-STATICS_KEY = "graph_statics"
+# Non-trainable data the JAX package threads inside its params tree: graph
+# statics (graphcast_tpu/train.py partition_params) and GenCast's SHT noise
+# basis (gencast.py:174); the port keeps both on the model.
+STATICS_KEYS = ("graph_statics", "noise_statics")
 
 
 def flat_params(module: nn.Module) -> dict[str, torch.Tensor]:
@@ -32,7 +33,7 @@ def params_from_jax(tree: Mapping) -> dict[str, np.ndarray]:
 
   def walk(node, prefix):
     for k, v in node.items():
-      if k == STATICS_KEY:
+      if k in STATICS_KEYS:
         continue
       key = f"{prefix}/{k}" if prefix else str(k)
       if isinstance(v, Mapping):

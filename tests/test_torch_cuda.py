@@ -12,7 +12,9 @@ against ``torch.autograd.grad`` of the twins): relative RMS <= 1e-2 per
 gradient; the kernels round the cotangents to bf16 where the TPU backward
 does, autograd of the twin where its casts are, so single elements differ
 by a few bf16 ulps. Weight-gradient reduction: relative RMS <= 1e-4 (the
-same exact bf16 products, summed in f32 in another order).
+same exact bf16 products, summed in f32 in another order). K6 (block-sparse
+attention) against its plain version: o at the forward tolerance, lse
+max-abs <= 1e-3 (f32 online softmax against f32 softmax).
 """
 
 import numpy as np
@@ -24,6 +26,7 @@ from graphcast_tpu_torch.ops.fused_decoder import (
     fused_decode_reference)
 from graphcast_tpu_torch.ops.fused_edge import (
     EdgeIndex, fused_edge, fused_edge_backward, fused_edge_reference)
+from graphcast_tpu_torch.ops import splash
 from graphcast_tpu_torch.ops.weight_grad import (
     weight_grad, weight_grad_reference)
 
@@ -230,3 +233,110 @@ def test_kernels_refuse_f32(cuda_device):
   with pytest.raises(TypeError):
     with torch.no_grad():
       fused_edge(edges, x, x[:1], x, w, v, w, v, v, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 1024])
+def test_block_sparse_attention_kernel_matches_plain(n, cuda_device):
+  """K6 on a banded mask with self loops (n not a multiple of the tile,
+  and one with a full tile), 4 heads of 128."""
+  import scipy.sparse as sp
+  rng = np.random.RandomState(n)
+  i, j = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+  dense = ((np.abs(i - j) <= 150) & (rng.rand(n, n) < 0.3)) | (i == j)
+  dense[:64, :64] = True
+  bm = splash.build_block_map(sp.csr_matrix(dense))
+  assert bm.full.any()
+  gen = torch.Generator().manual_seed(n)
+  q, k, v = (_rand(gen, 1, n, 4, 128, dtype=torch.bfloat16).to(cuda_device)
+             for _ in range(3))
+  before = splash.block_sparse_attention.launches
+  with torch.inference_mode():
+    got, lse = splash.block_sparse_attention(q, k, v, bm, 128 ** -0.5)
+    want, want_lse = splash.block_sparse_attention_reference(
+        q, k, v, bm, 128 ** -0.5)
+  torch.cuda.synchronize()
+  assert splash.block_sparse_attention.launches == before + 1
+  assert got.shape == q.shape and got.dtype == torch.bfloat16
+  _assert_close(got, want)
+  assert (lse - want_lse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_fused_edge_embed_kernel_matches_twin(cuda_device):
+  rng = np.random.RandomState(5)
+  n, ns, e, F = 700, 2000, 5000, 4
+  receivers = np.sort(rng.randint(0, n, e))
+  senders = rng.randint(0, ns, e)
+  gen = torch.Generator().manual_seed(5)
+  bf16 = torch.bfloat16
+  args = dict(
+      e=_rand(gen, e, F), sproj=_rand(gen, ns, C, dtype=bf16),
+      rproj=_rand(gen, n, C, dtype=bf16),
+      we=_rand(gen, C, C, scale=C ** -0.5, dtype=bf16),
+      b0=_rand(gen, C, scale=0.1, dtype=bf16),
+      w1=_rand(gen, C, C, scale=C ** -0.5), b1=_rand(gen, C, scale=0.1),
+      scale=_rand(gen, C, scale=0.1, offset=1.0, dtype=bf16),
+      offset=_rand(gen, C, scale=0.1, dtype=bf16))
+  embed = (_rand(gen, F, C), _rand(gen, C, scale=0.1),
+           _rand(gen, C, C, scale=C ** -0.5), _rand(gen, C, scale=0.1))
+  args = {k: v.to(cuda_device) for k, v in args.items()}
+  embed = tuple(t.to(cuda_device) for t in embed)
+  edges = EdgeIndex(senders, receivers, ns, n, device=cuda_device)
+  before = fused_edge.embed_launches
+  with torch.inference_mode():
+    got = fused_edge(edges, write_edges=False, embed_weights=embed, **args)
+    want = fused_edge_reference(edges, write_edges=False,
+                                embed_weights=embed, **args)
+  torch.cuda.synchronize()
+  assert fused_edge.embed_launches == before + 1
+  _assert_close(got, want)
+
+
+@pytest.mark.cuda
+def test_fused_decoder_embed_kernel_matches_twin(cuda_device):
+  rng = np.random.RandomState(6)
+  G, M, num_out, F = 1000, 300, 84, 4
+  senders = rng.randint(0, M, 3 * G)
+  edges = EdgeIndex(senders, np.repeat(np.arange(G), 3), M, G,
+                    device=cuda_device)
+  gen = torch.Generator().manual_seed(6)
+  bf16 = torch.bfloat16
+  w = {k: _rand(gen, C, C, scale=C ** -0.5) for k in MATRICES}
+  w["wd1"] = _rand(gen, C, num_out, scale=C ** -0.5)
+  w.update({k: _rand(gen, C, scale=0.1) for k in VECTORS})
+  w["bd1"] = _rand(gen, num_out, scale=0.1)
+  w.update(ew0=_rand(gen, F, C), eb0=_rand(gen, C, scale=0.1),
+           ew1=_rand(gen, C, C, scale=C ** -0.5),
+           eb1=_rand(gen, C, scale=0.1),
+           we=_rand(gen, C, C, scale=C ** -0.5), b0=_rand(gen, C, scale=0.1))
+  w = {k: v.to(cuda_device) for k, v in w.items()}
+  grid = _rand(gen, G, C, dtype=bf16).to(cuda_device)
+  mesh_proj = _rand(gen, M, C, dtype=bf16).to(cuda_device)
+  feats = _rand(gen, 3 * G, F).to(cuda_device)
+  before = fused_decode.embed_launches
+  with torch.inference_mode():
+    got = fused_decode(edges, grid, mesh_proj, feats, w)
+    want = fused_decode_reference(edges, grid, mesh_proj, feats, w)
+  torch.cuda.synchronize()
+  assert fused_decode.embed_launches == before + 1
+  assert got.shape == (G, num_out) and got.dtype == bf16
+  _assert_close(got, want)
+
+
+@pytest.mark.cuda
+def test_new_kernels_refuse_what_they_do_not_take(cuda_device):
+  """K6 takes bf16 with head dim 128 and no grad; the embed modes run
+  without grad: each raises on CUDA rather than falling back."""
+  import scipy.sparse as sp
+  bm = splash.build_block_map(sp.identity(64, format="csr"))
+  q32 = torch.zeros(1, 64, 2, 128, device=cuda_device)
+  with pytest.raises(TypeError):
+    splash.block_sparse_attention(q32, q32, q32, bm, 1.0)
+  q64 = torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16, device=cuda_device)
+  with pytest.raises(ValueError, match="head dim"):
+    splash.block_sparse_attention(q64, q64, q64, bm, 1.0)
+  qg = torch.zeros(1, 64, 2, 128, dtype=torch.bfloat16, device=cuda_device,
+                   requires_grad=True)
+  with pytest.raises(NotImplementedError):
+    splash.block_sparse_attention(qg, qg, qg, bm, 1.0)

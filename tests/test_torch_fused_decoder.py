@@ -141,3 +141,49 @@ def test_twin_grads_match_jax_fused_backward(dtype_name):
     else:
       rel = np.sqrt(np.mean((g - wv) ** 2) / np.mean(wv * wv))
       assert rel <= 2e-2, (name, rel)
+
+
+@pytest.mark.parametrize("dtype_name", sorted(_DTYPES))
+def test_embed_mode_twin_matches_jax_fused_decoder(dtype_name):
+  """Embed mode (GenCast's mesh2grid): raw [3G, F] slot features through
+  the embed MLP and We'/b0' inside the decoder, against
+  FusedMesh2GridDecoder in interpret mode and its _reference_math."""
+  jdtype, tdtype = _DTYPES[dtype_name]
+  senders, a, w = _case(seed=31, G=40)
+  G, C = a["grid"].shape
+  rs = np.random.RandomState(32)
+  F = 4
+  a["const"] = rs.randn(3 * G, F).astype(np.float32)
+  w.update(ew0=rs.randn(F, C), eb0=0.1 * rs.randn(C),
+           ew1=rs.randn(C, C) / np.sqrt(C), eb1=0.1 * rs.randn(C),
+           we=rs.randn(C, C) / np.sqrt(C), b0=0.1 * rs.randn(C))
+  w = {k: v.astype(np.float32) for k, v in w.items()}
+  num_outputs = w["wd1"].shape[1]
+  dec = FusedMesh2GridDecoder(senders, G, num_outputs, block_nodes=8,
+                              interpret=True, compact_gather=False)
+  jw = {k: jnp.asarray(v) for k, v in w.items()}
+  jw["wd1"] = jnp.pad(jw["wd1"], ((0, 0), (0, dec.out_pad - num_outputs)))
+  jw["bd1"] = jnp.pad(jw["bd1"], (0, dec.out_pad - num_outputs))
+  grid = jnp.asarray(a["grid"], jdtype)
+  mesh_proj = jnp.asarray(a["mesh_proj"], jdtype)
+  slot = dec.rearrange_edge_array(jnp.asarray(a["const"], jdtype))
+  want = {"kernel": dec(grid, mesh_proj, slot, jw),
+          "reference": dec._reference_math(grid, mesh_proj, slot, jw)}
+
+  edges = EdgeIndex(senders, np.repeat(np.arange(G), 3), a["mesh_proj"].shape[0],
+                    G)
+  out = fused_decode(
+      edges, torch.from_numpy(a["grid"]).to(tdtype),
+      torch.from_numpy(a["mesh_proj"]).to(tdtype),
+      torch.from_numpy(a["const"]).to(tdtype),
+      {k: torch.from_numpy(v) for k, v in w.items()})
+  assert out.dtype == tdtype and out.shape == (G, num_outputs)
+  got = out.float().numpy()
+  for name, wv in want.items():
+    wv = np.asarray(wv, np.float32)
+    if dtype_name == "f32":
+      np.testing.assert_allclose(got, wv, rtol=1e-4, atol=1e-4, err_msg=name)
+    else:
+      d = got - wv
+      assert np.sqrt(np.mean(d * d) / np.mean(wv * wv)) <= 1e-2, name
+      assert np.abs(d).max() <= 0.1, name

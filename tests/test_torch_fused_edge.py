@@ -254,3 +254,70 @@ def test_twin_grads_match_jax_fused_backward(mode, dtype_name):
     else:
       rel = np.sqrt(np.mean((g - w) ** 2) / np.mean(w * w))
       assert rel <= 2e-2, (name, rel)
+
+
+def _embed_case(seed, n=96, e=600, c=128, num_senders=150, f=4):
+  """Embed mode's operands (GenCast's grid2mesh): raw [E, F] features, the
+  embed MLP, and the edge matmul whose We/b0 fold the conditioning."""
+  senders, receivers, a = _case(seed, encoder=True, n=n, e=e, c=c,
+                                num_senders=num_senders)
+  rng = np.random.RandomState(seed + 100)
+  a["e"] = rng.randn(e, f).astype(np.float32)
+  a["we"] = (rng.randn(c, c) * 0.05).astype(np.float32)
+  a["b0"] = (rng.randn(c) * 0.1).astype(np.float32)
+  a["ew0"] = rng.randn(f, c).astype(np.float32)
+  a["eb0"] = (rng.randn(c) * 0.1).astype(np.float32)
+  a["ew1"] = (rng.randn(c, c) / np.sqrt(c)).astype(np.float32)
+  a["eb1"] = (rng.randn(c) * 0.1).astype(np.float32)
+  return senders, receivers, a
+
+
+_EMBED = ("ew0", "eb0", "ew1", "eb1")
+
+
+@pytest.mark.parametrize("dtype_name", sorted(_DTYPES))
+def test_embed_mode_twin_matches_jax_fused_edge_step(dtype_name):
+  """Embed mode, aggregation only: FusedEdgeStep(embed_weights=...) in
+  interpret mode and its _reference_math."""
+  jdtype, tdtype = _DTYPES[dtype_name]
+  senders, receivers, a = _embed_case(seed=21)
+  n = a["rproj"].shape[0]
+  summer = pallas_mp.BlockedSegmentSum(
+      receivers, n, block_nodes=32, chunk_edges=64, interpret=True,
+      padded_input=True)
+  step = pallas_edge.FusedEdgeStep(summer, interpret=True,
+                                   include_edge_matmul=True,
+                                   write_edges=False)
+  e_pad = jnp.asarray(summer.pad_edges(a["e"]), jdtype)
+  gs = jnp.asarray(summer.pad_edges(a["sproj"][senders]), jdtype)
+  gr_pad = step.pad_nodes(jnp.asarray(a["rproj"], jdtype))
+  w = {k: jnp.asarray(a[k]) for k in ("we", "b0", "w1", "b1", "scale",
+                                      "offset")}
+  embed = tuple(jnp.asarray(a[k]) for k in _EMBED)
+  args = (e_pad, gs, gr_pad, w["we"], w["b0"], w["w1"], w["b1"], w["scale"],
+          w["offset"])
+  want = {"kernel": step(*args, embed_weights=embed),
+          "reference": step._reference_math(*args, embed_weights=embed)}
+
+  edges = EdgeIndex(senders, receivers, a["sproj"].shape[0], n)
+  t = {k: torch.from_numpy(v) for k, v in a.items()}
+  agg = fused_edge(edges, t["e"].to(tdtype), t["sproj"].to(tdtype),
+                   t["rproj"].to(tdtype), t["we"].to(tdtype), t["b0"],
+                   t["w1"], t["b1"], t["scale"], t["offset"],
+                   write_edges=False,
+                   embed_weights=tuple(t[k] for k in _EMBED))
+  assert agg.dtype == torch.float32 and agg.shape == (n, a["w1"].shape[1])
+  for name, want_agg in want.items():
+    _assert_close(agg.numpy(), np.asarray(want_agg, np.float32), dtype_name)
+
+
+def test_embed_mode_needs_the_edge_matmul():
+  """As in the JAX package (pallas_edge.py:625): embed requires We/b0."""
+  senders, receivers, a = _embed_case(seed=23, n=8, e=20, c=8,
+                                      num_senders=10)
+  edges = EdgeIndex(senders, receivers, 10, 8)
+  t = {k: torch.from_numpy(v) for k, v in a.items()}
+  with pytest.raises(ValueError, match="requires the edge matmul"):
+    fused_edge(edges, t["e"], t["sproj"], t["rproj"], None, None, t["w1"],
+               t["b1"], t["scale"], t["offset"], write_edges=False,
+               embed_weights=tuple(t[k] for k in _EMBED))

@@ -1,0 +1,426 @@
+"""The port's GenCast (models/gencast.py, models/denoiser.py, diffusion/,
+ops/sht.py, wrappers/nan_cleaning.py) against the JAX package's, at tiny
+sizes: mesh 1, latent 16, d_model 16, 2 layers, 2 heads, k-hop 2, 4 noise
+levels, a 30° grid.
+
+Weights are the JAX package's init carried into the port by
+``params_from_jax``, after the near-zero-initialised ones (every norm
+conditioning, ``mha_final``, ``ffw_down``) are overwritten with seeded draws
+of stddev 1/sqrt(fan_in) in both packages: otherwise attention and the
+noise conditioning would vanish from the outputs and the comparisons would
+check neither. The JAX denoiser runs its batch-1 kernel path
+(``fused_aggregation=True``, Pallas interpret mode), as tests/test_gencast.py
+runs it.
+
+The whole-sample test feeds both samplers the same numpy noise: it replaces
+``spherical_white_noise_like`` in both packages by draws keyed by (noise
+level, initial or churn) and runs the JAX sampler under
+``jax.disable_jit()`` so that its ``fori_loop`` is a Python loop.
+
+Both packages build the geometry with the numpy connectivity backend (the
+port has no other; the JAX package's native one breaks ties at grid points
+on mesh edges differently), so the JAX side's ``build_artifact`` is pinned
+to it here.
+
+Tolerance: f32 5e-4 relative to each output's largest element, the port's
+standing f32 bound (summation order only); the sample, after 7 denoiser
+evaluations on the same noise, too.
+"""
+
+import dataclasses
+import functools
+import json
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from graphcast_tpu import fields as jax_fields
+from graphcast_tpu.data import synthetic as jax_synthetic
+from graphcast_tpu.diffusion import noise as jax_noise
+from graphcast_tpu.geometry import artifact as jax_artifact
+from graphcast_tpu.models import configs as jax_configs
+from graphcast_tpu.models import denoiser as jax_denoiser
+from graphcast_tpu.models import gencast as jax_gencast
+from graphcast_tpu.models import sparse_transformer as jax_st
+from graphcast_tpu.nn import core as jax_core
+from graphcast_tpu.ops import sht as jax_sht
+from graphcast_tpu.wrappers import InputsAndResiduals as JaxInputsAndResiduals
+from graphcast_tpu.wrappers import NaNCleaner as JaxNaNCleaner
+from graphcast_tpu_torch import params
+from graphcast_tpu_torch.data import synthetic
+from graphcast_tpu_torch.diffusion import noise
+from graphcast_tpu_torch.models import configs, denoiser, gencast, zoo
+from graphcast_tpu_torch.models import sparse_transformer
+from graphcast_tpu_torch.nn import core
+from graphcast_tpu_torch.ops import sht
+from graphcast_tpu_torch.wrappers import InputsAndResiduals, NaNCleaner
+
+TINY_TASK = dict(
+    input_variables=("2m_temperature", "temperature",
+                     "sea_surface_temperature", "day_progress_sin",
+                     "land_sea_mask"),
+    target_variables=("2m_temperature", "temperature",
+                      "sea_surface_temperature"),
+    forcing_variables=("day_progress_sin",),
+    pressure_levels=(500, 850),
+    input_duration="24h")
+NOISE_LEVELS = 4
+GOLDENS = pathlib.Path(__file__).parent / "goldens" / "zoo_param_shapes.json"
+_DEGENERATE = ("norm_conditioning", "mha_final", "ffw_down")
+
+
+@pytest.fixture(autouse=True)
+def numpy_geometry(monkeypatch):
+  monkeypatch.setattr(jax_artifact, "build_artifact", functools.partial(
+      jax_artifact.build_artifact, backend="numpy"))
+
+
+def _st(mod, attention_type, **tiling):
+  return mod.SparseTransformerConfig(
+      attention_k_hop=2, d_model=16, num_layers=2, num_heads=2,
+      attention_type=attention_type, ffw_hidden=32, block_q=64, **tiling)
+
+
+def _jax_model(attention_type, fused=True):
+  return jax_gencast.GenCast(
+      task_config=jax_configs.TaskConfig(**TINY_TASK),
+      denoiser_architecture_config=jax_denoiser.DenoiserArchitectureConfig(
+          sparse_transformer_config=_st(jax_st, attention_type, block_kv=64),
+          mesh_size=1, latent_size=16, hidden_layers=1),
+      sampler_config=jax_gencast.SamplerConfig(
+          num_noise_levels=NOISE_LEVELS),
+      noise_config=jax_gencast.NoiseConfig(),
+      noise_encoder_config=jax_denoiser.NoiseEncoderConfig(
+          num_frequencies=8, output_sizes=(16, 8)),
+      cache_dir="", interpret_attention=True, fused_aggregation=fused)
+
+
+def _port_model(attention_type, seed=0):
+  return gencast.GenCast(
+      configs.TaskConfig(**TINY_TASK),
+      denoiser.DenoiserArchitectureConfig(
+          sparse_transformer_config=_st(sparse_transformer, attention_type),
+          mesh_size=1, latent_size=16, hidden_layers=1),
+      gencast.SamplerConfig(num_noise_levels=NOISE_LEVELS),
+      gencast.NoiseConfig(),
+      denoiser.NoiseEncoderConfig(num_frequencies=8, output_sizes=(16, 8)),
+      generator=torch.Generator().manual_seed(seed), device="cpu")
+
+
+def _nondegenerate(flat: dict, seed: int) -> dict:
+  rng = np.random.RandomState(seed)
+  out = dict(flat)
+  for key in sorted(flat):
+    if any(part in key for part in _DEGENERATE):
+      w = flat[key.rsplit("/", 1)[0] + "/w"]
+      out[key] = (rng.randn(*flat[key].shape)
+                  / np.sqrt(w.shape[0])).astype(np.float32)
+  return out
+
+
+def _nest(flat: dict) -> dict:
+  tree: dict = {}
+  for key, v in flat.items():
+    node = tree
+    *path, leaf = key.split("/")
+    for part in path:
+      node = node.setdefault(part, {})
+    node[leaf] = jnp.asarray(v)
+  return tree
+
+
+def _batch(batch=1):
+  task = jax_configs.TaskConfig(**TINY_TASK)
+  j = jax_synthetic.make_example_batch(task, resolution=30.0, batch=batch,
+                                       num_target_times=1,
+                                       time_step_hours=12)
+  t = synthetic.make_example_batch(configs.TaskConfig(**TINY_TASK), 30.0,
+                                   batch=batch, num_target_times=1,
+                                   time_step_hours=12, device="cpu")
+  return j, t
+
+
+def _shared_weights(attention_type, seed=1):
+  """(JAX model, its params with the shared weights, port model loaded with
+  the same weights)."""
+  jmodel = _jax_model(attention_type)
+  (j_in, j_tg, j_fc), _ = _batch()
+  jparams = jmodel.init(jax.random.PRNGKey(0), j_in, j_tg, j_fc)
+  flat = _nondegenerate(params.params_from_jax(
+      jax.tree_util.tree_map(np.asarray, jparams)), seed)
+  tree = _nest(flat)
+  tree["architecture"]["graph_statics"] = jparams["architecture"][
+      "graph_statics"]
+  tree["noise_statics"] = jparams["noise_statics"]
+  port = _port_model(attention_type)
+  params.load_params(port, flat)
+  return jmodel, tree, port
+
+
+def _assert_close(got, want):
+  got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+  assert got.shape == want.shape
+  np.testing.assert_allclose(got, want, rtol=5e-4,
+                             atol=5e-4 * np.nanmax(np.abs(want)))
+
+
+def test_fourier_features_mlp_matches_jax():
+  cfg = dict(num_frequencies=8, output_sizes=(16, 8))
+  jenc = jax_denoiser.FourierFeaturesMLP(
+      jax_denoiser.NoiseEncoderConfig(**cfg))
+  jp = jenc.init(jax.random.PRNGKey(0))
+  enc = denoiser.FourierFeaturesMLP(denoiser.NoiseEncoderConfig(**cfg))
+  params.load_params(enc, params.params_from_jax(
+      jax.tree_util.tree_map(np.asarray, jp)))
+  sigma = np.array([0.03, 0.5, 1.0, 80.0], np.float32)
+  want = jenc.apply(jp, jnp.asarray(sigma))
+  with torch.inference_mode():
+    got = enc(torch.from_numpy(sigma))
+  _assert_close(got.numpy(), want)
+
+
+def test_conditioned_mlp_with_norm_matches_jax():
+  spec = jax_core.MLPWithNorm(in_size=12, hidden_size=32,
+                              num_hidden_layers=1, out_size=24,
+                              use_norm_conditioning=True,
+                              norm_conditioning_size=6)
+  flat = _nondegenerate(params.params_from_jax(jax.tree_util.tree_map(
+      np.asarray, spec.init(jax.random.PRNGKey(1)))), seed=2)
+  rng = np.random.RandomState(3)
+  x = rng.randn(10, 1, 12).astype(np.float32)
+  cond = rng.randn(1, 1, 6).astype(np.float32)
+  want = spec.apply(_nest(flat), jnp.asarray(x),
+                    global_norm_conditioning=jnp.asarray(cond))
+  mlp = core.MLPWithNorm(12, 32, 1, 24, norm_conditioning_size=6)
+  params.load_params(mlp, flat)
+  with torch.inference_mode():
+    got = mlp(torch.from_numpy(x), cond=torch.from_numpy(cond))
+  assert sorted(params.flat_params(mlp)) == sorted(flat)
+  _assert_close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("attention_type", ["mha", "splash_mha"])
+def test_denoiser_matches_jax(attention_type):
+  """One denoiser evaluation at batch 1, at three noise levels."""
+  jmodel, tree, port = _shared_weights(attention_type)
+  (j_in, j_tg, j_fc), (t_in, t_tg, t_fc) = _batch()
+  jden = jmodel._denoiser
+  for sigma in (80.0, 1.0, 0.03):
+    want = jden.apply(tree, j_in, j_tg, jnp.asarray([sigma], jnp.float32),
+                      j_fc)
+    with torch.inference_mode():
+      got = port.denoise(t_in, t_tg, torch.tensor([sigma]), t_fc)
+    assert got.var_names == want.var_names
+    for name in want.var_names:
+      _assert_close(got.data(name).numpy(), want.data(name))
+
+
+def test_preconditioning_identities():
+  sigma = torch.tensor([1e-4], dtype=torch.float64)
+  assert abs(float(gencast.GenCast._c_skip(sigma)[0]) - 1.0) < 1e-6
+  assert abs(float(gencast.GenCast._c_out(sigma)[0]) - 1e-4) < 1e-7
+  assert abs(float(gencast.GenCast._c_in(sigma)[0]) - 1.0) < 1e-6
+  sigma = torch.tensor([80.0], dtype=torch.float64)
+  assert abs(float(gencast.GenCast._c_in(sigma)[0]) * 80.0 - 1.0) < 1e-3
+  for s in (0.03, 1.0, 80.0):
+    s = torch.tensor(s, dtype=torch.float64)
+    # c_skip + c_out·σ = 1: D(x) = x for F = x / σ ... the EDM identity.
+    want = jax_gencast.GenCast
+    for fn in ("_c_in", "_c_out", "_c_skip"):
+      assert abs(float(getattr(gencast.GenCast, fn)(s))
+                 - float(getattr(want, fn)(float(s)))) < 1e-12
+    assert abs(float(gencast.GenCast._c_skip(s)
+                     + gencast.GenCast._c_out(s) ** 2) - 1.0) < 1e-12
+
+
+def test_schedules_match_jax():
+  for args in ((80.0, 0.03, 20, 7.0), (80.0, 0.002, 30, 7.0)):
+    np.testing.assert_allclose(noise.noise_schedule(*args),
+                               jax_noise.noise_schedule(*args), rtol=1e-12)
+  levels = jax_noise.noise_schedule(80.0, 0.03, 20, 7.0)
+  np.testing.assert_array_equal(
+      noise.stochastic_churn_rate_schedule(levels, 2.5, 0.75, np.inf),
+      jax_noise.stochastic_churn_rate_schedule(levels, 2.5, 0.75, np.inf))
+
+
+def test_synthesis_matches_jax():
+  lat, lon = synthetic.grid_coords(10.0)
+  max_l = lon.shape[0] // 2
+  rng = np.random.RandomState(4)
+  cos_c = rng.randn(3, max_l, max_l).astype(np.float32)
+  sin_c = rng.randn(3, max_l, max_l).astype(np.float32)
+  want = jax_sht.synthesize_with(
+      jax_sht.get_basis(lat, lon, max_l).arrays(), jnp.asarray(cos_c),
+      jnp.asarray(sin_c))
+  basis = sht.SphericalHarmonicBasis(lat, lon, max_l)
+  np.testing.assert_allclose(
+      basis.legendre, jax_sht.get_basis(lat, lon, max_l).legendre)
+  got = sht.synthesize_with(basis.tensors("cpu"), torch.from_numpy(cos_c),
+                            torch.from_numpy(sin_c))
+  _assert_close(got.numpy(), want)
+
+
+def test_white_noise_has_unit_marginal_variance():
+  lat, lon = synthetic.grid_coords(30.0)
+  template = synthetic.make_example_batch(
+      configs.TaskConfig(**TINY_TASK), 30.0, batch=1, device="cpu")[1]
+  template = template.select(["2m_temperature"]).map_data(
+      lambda x: x.expand(4000, *x.shape[1:]))
+  basis = noise.white_noise_basis(lat, lon).tensors("cpu")
+  out = noise.spherical_white_noise_like(torch.Generator().manual_seed(0),
+                                         template, basis)
+  x = out.data("2m_temperature").double()
+  assert x.shape == (4000, 1, lat.shape[0], lon.shape[0])
+  var = x.var(dim=0)
+  assert abs(float(var.mean()) - 1.0) < 0.03
+  assert float((var - 1.0).abs().max()) < 0.15
+
+
+class _NumpyNoise:
+  """Seeded numpy noise for both samplers, keyed by (level, kind)."""
+
+  def __init__(self, shapes: dict):
+    self.shapes = shapes
+
+  def draw(self, level, kind):
+    rng = np.random.RandomState(100 * level + (kind == "churn"))
+    return {n: rng.randn(*s).astype(np.float32)
+            for n, s in sorted(self.shapes.items())}
+
+
+def _sample_both(monkeypatch, inputs_nan=False):
+  jmodel, tree, port = _shared_weights("mha")
+  jtask = jax_configs.TaskConfig(**TINY_TASK)
+  task = configs.TaskConfig(**TINY_TASK)
+  (j_in, j_tg, j_fc), (t_in, t_tg, t_fc) = _batch()
+  if inputs_nan:
+    sst = np.asarray(j_in.data("sea_surface_temperature")).copy()
+    sst[..., :2] = np.nan
+    j_in = j_in.replace_data("sea_surface_temperature", sst)
+    t_in.data("sea_surface_temperature")[..., :2] = float("nan")
+  shapes = {n: tuple(j_tg[n].shape) for n in j_tg.var_names}
+  table = _NumpyNoise(shapes)
+  jax_calls = []
+
+  def jax_fake(key, template, basis_arrays=None):
+    del key, basis_arrays
+    k = len(jax_calls)
+    jax_calls.append(k)
+    draws = table.draw(k // 2, "init" if k % 2 == 0 else "churn")
+    return jax_fields.FieldSet(
+        {n: jax_fields.Field(jnp.asarray(draws[n], template[n].dtype),
+                             template[n].dims) for n in template.var_names},
+        coords=template.coords)
+
+  levels = noise.noise_schedule(80.0, 0.03, NOISE_LEVELS, 7.0)
+  rates = noise.stochastic_churn_rate_schedule(levels, 2.5, 0.75, np.inf)
+  port_keys = [(0, "init")] + [(i, "churn") for i in range(NOISE_LEVELS)
+                               if rates[i] > 0]
+  port_calls = []
+
+  def port_fake(generator, template, basis):
+    del generator, basis
+    draws = table.draw(*port_keys[len(port_calls)])
+    port_calls.append(1)
+    return jax_fields_to_port(draws, template)
+
+  def jax_fields_to_port(draws, template):
+    from graphcast_tpu_torch.fields import Field, FieldSet
+    return FieldSet({n: Field(torch.from_numpy(draws[n]).to(
+        template[n].dtype), template[n].dims) for n in template.var_names},
+        coords=template.coords)
+
+  monkeypatch.setattr(jax_noise, "spherical_white_noise_like", jax_fake)
+  monkeypatch.setattr(noise, "spherical_white_noise_like", port_fake)
+  j_stats = jax_synthetic.make_norm_stats(jtask)
+  t_stats = synthetic.make_norm_stats(task, device="cpu")
+  jstack = JaxNaNCleaner(JaxInputsAndResiduals(jmodel, *j_stats),
+                         var_to_clean="sea_surface_temperature",
+                         fill_value=0.0)
+  stack = NaNCleaner(InputsAndResiduals(port, *t_stats),
+                     var_to_clean="sea_surface_temperature", fill_value=0.0)
+  with jax.disable_jit():
+    want = jstack(tree, jax.random.PRNGKey(0), j_in, j_tg, j_fc)
+  with torch.inference_mode():
+    got = stack(t_in, t_tg, t_fc, generator=torch.Generator())
+  assert len(jax_calls) == 2 * NOISE_LEVELS
+  assert len(port_calls) == len(port_keys)
+  return got, want
+
+
+def test_sample_matches_jax(monkeypatch):
+  got, want = _sample_both(monkeypatch)
+  assert got.var_names == want.var_names
+  for name in want.var_names:
+    assert np.isfinite(np.asarray(want.data(name))).all()
+    _assert_close(got.data(name).numpy(), want.data(name))
+
+
+def test_nans_in_sst_come_back(monkeypatch):
+  got, want = _sample_both(monkeypatch, inputs_nan=True)
+  sst = got.data("sea_surface_temperature").numpy()
+  assert np.isnan(sst[..., :2]).all() and np.isfinite(sst[..., 2:]).all()
+  for name in want.var_names:
+    _assert_close(got.data(name).numpy(), want.data(name))
+
+
+def test_two_generators_give_different_samples():
+  port = _port_model("mha")
+  _, (t_in, t_tg, t_fc) = _batch()
+  with torch.inference_mode():
+    a = port(t_in, t_tg, t_fc, generator=torch.Generator().manual_seed(1))
+    b = port(t_in, t_tg, t_fc, generator=torch.Generator().manual_seed(2))
+    c = port(t_in, t_tg, t_fc, generator=torch.Generator().manual_seed(1))
+  assert not torch.allclose(a.data("temperature"), b.data("temperature"))
+  assert torch.equal(a.data("temperature"), c.data("temperature"))
+
+
+@pytest.mark.parametrize("name", sorted(zoo.GENCAST_PRESETS))
+def test_param_keys_and_shapes_match_golden(name):
+  with open(GOLDENS) as f:
+    golden = json.load(f)[name]
+  model = zoo.GENCAST_PRESETS[name]().build(
+      generator=torch.Generator().manual_seed(0), device="cpu")
+  shapes = {k: list(p.shape) for k, p in params.flat_params(model).items()}
+  assert shapes == golden
+
+
+def test_params_from_jax_carries_a_gencast_tree():
+  jmodel = _jax_model("mha")
+  (j_in, j_tg, j_fc), _ = _batch()
+  jparams = jmodel.init(jax.random.PRNGKey(0), j_in, j_tg, j_fc)
+  flat = params.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
+  assert not any("statics" in k for k in flat)
+  port = _port_model("mha", seed=5)
+  params.load_params(port, flat)
+  back = params.params_to_jax(port)
+  assert back.keys() == {"noise_encoder", "architecture"}
+  for key, p in params.flat_params(port).items():
+    np.testing.assert_array_equal(p.detach().numpy(), flat[key])
+
+
+def test_unported_forms_raise():
+  port = _port_model("mha")
+  _, (t_in, t_tg, t_fc) = _batch()
+  two = synthetic.make_example_batch(configs.TaskConfig(**TINY_TASK), 30.0,
+                                     batch=1, num_target_times=2,
+                                     time_step_hours=12, device="cpu")
+  with pytest.raises(ValueError, match="one target step"):
+    port(two[0], two[1], two[2], generator=torch.Generator())
+  with pytest.raises(ValueError, match="generator"):
+    port(t_in, t_tg, t_fc)
+  _, (b_in, b_tg, b_fc) = _batch(batch=2)
+  with pytest.raises(NotImplementedError, match="batch"):
+    with torch.inference_mode():
+      port(b_in, b_tg, b_fc, generator=torch.Generator())
+  bad = dataclasses.replace(_st(sparse_transformer, "mha"),
+                            node_ordering="spiral")
+  with pytest.raises(ValueError, match="node_ordering"):
+    denoiser.DenoiserArchitecture(
+        denoiser.DenoiserArchitectureConfig(
+            sparse_transformer_config=bad, mesh_size=1, latent_size=16,
+            node_output_size=5), configs.TaskConfig(**TINY_TASK), 8)

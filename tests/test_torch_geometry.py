@@ -1,5 +1,7 @@
 """The port's pinned numpy geometry copy must build the JAX package's
-artifact exactly (graphcast_tpu numpy backend): every array, bit for bit."""
+artifact exactly (graphcast_tpu numpy backend): every array, bit for bit,
+for GraphCast's multi-mesh and for GenCast's finest-only mesh in banded
+(RCM) and patch-permuted node order."""
 
 import numpy as np
 import pytest
@@ -15,15 +17,26 @@ _ARRAYS = ("grid_lat", "grid_lon", "mesh_vertices", "mesh_faces",
 _EDGES = ("grid2mesh", "mesh", "mesh2grid")
 
 
-@pytest.mark.parametrize("resolution,mesh_size", [(30.0, 1), (10.0, 3)])
-def test_artifact_arrays_equal_jax_package(resolution, mesh_size):
+_GENCAST = dict(multimesh=False, permute_banded=True)
+
+
+@pytest.mark.parametrize("resolution,mesh_size,kwargs", [
+    pytest.param(30.0, 1, {}, id="30.0-1"),
+    pytest.param(10.0, 3, {}, id="10.0-3"),
+    pytest.param(15.0, 2, _GENCAST, id="15.0-2-rcm"),
+    pytest.param(15.0, 2, dict(_GENCAST, banded_patch_size=64),
+                 id="15.0-2-patch64"),
+    pytest.param(10.0, 3, dict(_GENCAST, banded_patch_size=128),
+                 id="10.0-3-patch128"),
+])
+def test_artifact_arrays_equal_jax_package(resolution, mesh_size, kwargs):
   lat, lon = synthetic.grid_coords(resolution)
   jlat, jlon = jax_synthetic.grid_coords(resolution)
   np.testing.assert_array_equal(lat, jlat)
   np.testing.assert_array_equal(lon, jlon)
-  ours = artifact.build_artifact(lat, lon, mesh_size)
+  ours = artifact.build_artifact(lat, lon, mesh_size, **kwargs)
   ref = jax_artifact.build_artifact(jlat, jlon, mesh_size, cache_dir="",
-                                    backend="numpy")
+                                    backend="numpy", **kwargs)
   assert ours.num_grid_nodes == ref.num_grid_nodes
   assert ours.num_mesh_nodes == ref.num_mesh_nodes
   for name in _ARRAYS:

@@ -46,7 +46,7 @@ def numpy_geometry(monkeypatch):
 def _port_model(jax_params):
   model = GraphCast(configs.ModelConfig(**TINY_MODEL),
                     configs.TaskConfig(**TINY_TASK),
-                    generator=torch.Generator().manual_seed(0))
+                    generator=torch.Generator().manual_seed(0), device="cpu")
   learned, _ = train.partition_params(jax_params)
   params.load_params(model, params.params_from_jax(
       jax.tree_util.tree_map(np.asarray, learned)))
@@ -66,7 +66,7 @@ def test_one_step_matches_jax_graphcast(fused, numpy_geometry):
 
   model = _port_model(jax_params)
   t_in, t_tg, t_fc = synthetic.make_example_batch(
-      configs.TaskConfig(**TINY_TASK), resolution=30.0, batch=1)
+      configs.TaskConfig(**TINY_TASK), resolution=30.0, batch=1, device="cpu")
   with torch.inference_mode():
     got = model(t_in, t_tg, t_fc)
   assert got.var_names == want.var_names
@@ -80,9 +80,9 @@ def test_one_step_matches_jax_graphcast(fused, numpy_geometry):
 def test_hoisted_statics_give_the_same_prediction():
   model = GraphCast(configs.ModelConfig(**TINY_MODEL),
                     configs.TaskConfig(**TINY_TASK),
-                    generator=torch.Generator().manual_seed(1))
+                    generator=torch.Generator().manual_seed(1), device="cpu")
   inputs, targets, forcings = synthetic.make_example_batch(
-      configs.TaskConfig(**TINY_TASK), resolution=30.0)
+      configs.TaskConfig(**TINY_TASK), resolution=30.0, device="cpu")
   with torch.inference_mode():
     hoisted = model.precompute_step_statics(inputs)
     a = model(inputs, targets, forcings, **hoisted)
@@ -95,9 +95,9 @@ def test_hoisted_statics_give_the_same_prediction():
 def test_batch_above_one_is_not_ported():
   model = GraphCast(configs.ModelConfig(**TINY_MODEL),
                     configs.TaskConfig(**TINY_TASK),
-                    generator=torch.Generator().manual_seed(0))
+                    generator=torch.Generator().manual_seed(0), device="cpu")
   inputs, targets, forcings = synthetic.make_example_batch(
-      configs.TaskConfig(**TINY_TASK), resolution=30.0, batch=2)
+      configs.TaskConfig(**TINY_TASK), resolution=30.0, batch=2, device="cpu")
   with pytest.raises(NotImplementedError, match="batch"):
     with torch.inference_mode():
       model(inputs, targets, forcings)

@@ -45,12 +45,12 @@ def test_port_imports_and_runs_without_jax():
       model = GraphCast(
           configs.ModelConfig(resolution=30.0, mesh_size=1, latent_size=8,
                               gnn_msg_steps=1),
-          task, generator=torch.Generator().manual_seed(0))
-      stats = synthetic.make_norm_stats(task)
+          task, generator=torch.Generator().manual_seed(0), device="cpu")
+      stats = synthetic.make_norm_stats(task, device="cpu")
       stack = Autoregressive(InputsAndResiduals(
           Bfloat16Cast(model), *stats))
       inputs, targets, forcings = synthetic.make_example_batch(
-          task, 30.0, num_target_times=2)
+          task, 30.0, num_target_times=2, device="cpu")
       final = stack.rollout_final(inputs, targets, forcings)
       assert torch.isfinite(final.data("2m_temperature")).all()
       assert not any(m == "jax" or m.startswith(("jax.", "graphcast_tpu."))
@@ -85,15 +85,17 @@ def test_train_step_runs_without_jax():
       model = GraphCast(
           configs.ModelConfig(resolution=30.0, mesh_size=1, latent_size=8,
                               gnn_msg_steps=1),
-          task, generator=torch.Generator().manual_seed(0))
+          task, generator=torch.Generator().manual_seed(0), device="cpu")
       stack = Autoregressive(InputsAndResiduals(
-          Bfloat16Cast(model), *synthetic.make_norm_stats(task)),
+          Bfloat16Cast(model),
+          *synthetic.make_norm_stats(task, device="cpu")),
           gradient_checkpointing=True)
       before = [p.detach().clone() for p in model.parameters()]
       step = train.make_train_step(
           stack, train.graphcast_optimizer(model.parameters(), peak_lr=1e-3,
                                            warmup_steps=1))
-      data = synthetic.make_example_batch(task, 30.0, num_target_times=2)
+      data = synthetic.make_example_batch(task, 30.0, num_target_times=2,
+                                          device="cpu")
       losses = [float(step(*data)[0]) for _ in range(2)]
       assert all(torch.isfinite(torch.tensor(losses)))
       assert any(not torch.equal(a, p) for a, p in zip(before,
@@ -142,3 +144,144 @@ def test_failed_compile_raises_with_compiler_message(monkeypatch, tmp_path):
   with pytest.raises(RuntimeError, match="fake compiler says no"):
     build._compile(str(fake))
   assert not list((tmp_path / "build").glob("*.so"))
+
+
+def test_gencast_samples_without_jax():
+  code = textwrap.dedent("""
+      import sys
+      sys.modules["jax"] = None
+      sys.modules["graphcast_tpu"] = None
+      import torch
+      from graphcast_tpu_torch.data import synthetic
+      from graphcast_tpu_torch.models import configs, denoiser, gencast
+      from graphcast_tpu_torch.models import sparse_transformer
+      from graphcast_tpu_torch.wrappers import InputsAndResiduals, NaNCleaner
+      task = configs.TaskConfig(
+          input_variables=("2m_temperature", "sea_surface_temperature",
+                           "day_progress_sin", "land_sea_mask"),
+          target_variables=("2m_temperature", "sea_surface_temperature"),
+          forcing_variables=("day_progress_sin",),
+          pressure_levels=(500,), input_duration="24h")
+      model = gencast.GenCast(
+          task, denoiser.DenoiserArchitectureConfig(
+              sparse_transformer_config=(
+                  sparse_transformer.SparseTransformerConfig(
+                      attention_k_hop=2, d_model=8, num_layers=1,
+                      num_heads=2, ffw_hidden=16)),
+              mesh_size=1, latent_size=8),
+          gencast.SamplerConfig(num_noise_levels=3),
+          noise_encoder_config=denoiser.NoiseEncoderConfig(
+              num_frequencies=4, output_sizes=(8, 4)),
+          generator=torch.Generator().manual_seed(0), device="cpu")
+      stack = NaNCleaner(InputsAndResiduals(
+          model, *synthetic.make_norm_stats(task, device="cpu")),
+          var_to_clean="sea_surface_temperature", fill_value=0.0)
+      data = synthetic.make_example_batch(task, 30.0, time_step_hours=12,
+                                          device="cpu")
+      with torch.inference_mode():
+        out = stack(*data, generator=torch.Generator().manual_seed(1))
+      assert torch.isfinite(out.data("2m_temperature")).all()
+      assert not any(m == "jax" or m.startswith(("jax.", "graphcast_tpu."))
+                     for m in sys.modules if sys.modules[m] is not None)
+      print("sampled", tuple(out.data("2m_temperature").shape))
+      """)
+  env = {**os.environ, "PYTHONPATH": str(REPO)}
+  proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                        text=True, env=env, cwd=REPO, timeout=300)
+  assert proc.returncode == 0, proc.stderr
+  assert proc.stdout.startswith("sampled"), proc.stdout
+
+
+def test_port_sources_name_no_jax_package():
+  """No module of the port, nor chip_smoke.py, imports jax or
+  graphcast_tpu (the subprocess tests above prove the imports; this finds
+  a lazy import inside a function too)."""
+  import re
+  pattern = re.compile(
+      r"^\s*(import\s+(jax|graphcast_tpu)([.\s,]|$)"
+      r"|from\s+(jax|graphcast_tpu)(\.\w+)*\s+import\b)", re.MULTILINE)
+  files = sorted((REPO / "graphcast_tpu_torch").rglob("*.py"))
+  files.append(REPO / "chip_smoke.py")
+  offenders = [str(f) for f in files if pattern.search(f.read_text())]
+  assert not offenders, offenders
+
+
+@pytest.mark.parametrize("case", ["splash_head_dim", "splash_dtype",
+                                  "edge_embed_features", "edge_embed_ew0",
+                                  "decoder_embed_features"])
+def test_new_kernel_wrappers_refuse_inputs_before_launching(case,
+                                                            monkeypatch):
+  """K6 and the embed modes check their operands and raise before any
+  launch (the library load is made to fail loudly); no path falls back to
+  a plain version."""
+  import numpy as np
+  import torch
+  from graphcast_tpu_torch.ops import fused_decoder, fused_edge, splash
+
+  def no_launch():
+    raise AssertionError("a kernel was launched")
+
+  monkeypatch.setattr(build, "load_library", no_launch)
+  bf16 = torch.bfloat16
+  if case.startswith("splash"):
+    mask = __import__("scipy.sparse").sparse.identity(64, format="csr")
+    bm = splash.build_block_map(mask)
+    d, dtype, err = ((64, bf16, ValueError) if case == "splash_head_dim"
+                     else (128, torch.float32, TypeError))
+    q = torch.zeros(1, 64, 2, d, dtype=dtype)
+    with pytest.raises(err):
+      splash._launch_splash(q, q, q, bm, 1.0)
+    return
+  C = 128
+  m = lambda *s: torch.zeros(*s, dtype=bf16)  # noqa: E731
+  v = lambda: torch.zeros(C)  # noqa: E731
+  if case.startswith("edge"):
+    edges = fused_edge.EdgeIndex(np.zeros(4, np.int32),
+                                 np.arange(4, dtype=np.int32), 2, 4)
+    F = fused_edge.MAX_EMBED_FEATURES + 1 if case == "edge_embed_features" \
+        else 4
+    ew0 = m(F + 1 if case == "edge_embed_ew0" else F, C)
+    with pytest.raises(ValueError):
+      fused_edge._launch_fused_edge_embed(
+          edges, m(4, F), m(2, C), m(4, C), m(C, C), v(), m(C, C), v(), v(),
+          v(), (ew0, v(), m(C, C), v()))
+    return
+  G, F = 4, fused_edge.MAX_EMBED_FEATURES + 1
+  edges = fused_edge.EdgeIndex(np.zeros(3 * G, np.int32),
+                               np.repeat(np.arange(G, dtype=np.int32), 3),
+                               2, G)
+  weights = {k: m(C, C) for k in fused_decoder.MATRICES}
+  weights.update({k: v() for k in fused_decoder.VECTORS})
+  weights.update(ew0=m(F, C), eb0=v(), ew1=m(C, C), eb1=v(), we=m(C, C),
+                 b0=v())
+  with pytest.raises(ValueError, match="raw"):
+    fused_decoder._launch_fused_decode(edges, m(G, C), m(2, C),
+                                       m(3 * G, F), weights)
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+  """Model constructors and the synthetic data name no device by default:
+  they run on the card, and where torch sees none they raise instead of
+  running quietly on the CPU."""
+  import torch
+  from graphcast_tpu_torch import devices
+  from graphcast_tpu_torch.data import synthetic
+  from graphcast_tpu_torch.models import configs, zoo
+  from graphcast_tpu_torch.models.graphcast import GraphCast
+  monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+  assert devices.DEFAULT_DEVICE == "cuda"
+  task = configs.TaskConfig(
+      input_variables=("2m_temperature",), target_variables=("2m_temperature",),
+      forcing_variables=(), pressure_levels=(500,), input_duration="12h")
+  calls = [
+      lambda: GraphCast(configs.ModelConfig(resolution=30.0, mesh_size=1,
+                                            latent_size=8, gnn_msg_steps=1),
+                        task, generator=torch.Generator()),
+      lambda: zoo.gencast_mini().build(generator=torch.Generator()),
+      lambda: synthetic.make_example_batch(task, 30.0),
+      lambda: synthetic.make_norm_stats(task),
+  ]
+  for call in calls:
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+      call()
+  assert devices.resolve("cpu") == torch.device("cpu")

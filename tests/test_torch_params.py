@@ -43,7 +43,7 @@ def test_param_keys_and_shapes_match_golden(name):
     golden = json.load(f)[name]
   preset = zoo.GRAPHCAST_PRESETS[name]()
   model = GraphCast(preset.model_config, preset.task_config,
-                    generator=torch.Generator().manual_seed(0))
+                    generator=torch.Generator().manual_seed(0), device="cpu")
   shapes = {k: list(p.shape) for k, p in params.flat_params(model).items()}
   assert shapes == golden
 
@@ -85,7 +85,7 @@ def test_params_from_jax_round_trips():
   assert not any("graph_statics" in k for k in flat)
   model = GraphCast(configs.ModelConfig(**TINY_MODEL),
                     configs.TaskConfig(**TINY_TASK),
-                    generator=torch.Generator().manual_seed(0))
+                    generator=torch.Generator().manual_seed(0), device="cpu")
   params.load_params(model, flat)
   back = params.params_to_jax(model)
   want = jax.tree_util.tree_map(np.asarray, learned)
@@ -99,7 +99,7 @@ def test_params_from_jax_round_trips():
 def test_load_params_rejects_missing_keys_and_bad_shapes():
   model = GraphCast(configs.ModelConfig(**TINY_MODEL),
                     configs.TaskConfig(**TINY_TASK),
-                    generator=torch.Generator().manual_seed(0))
+                    generator=torch.Generator().manual_seed(0), device="cpu")
   flat = {k: p.detach().numpy() for k, p in params.flat_params(model).items()}
   key = next(iter(flat))
   with pytest.raises(KeyError):
@@ -143,4 +143,4 @@ def test_hidden_layers_other_than_one_raise():
                            hidden_layers=2)
   with pytest.raises(NotImplementedError):
     GraphCast(mc, configs.TaskConfig(**TINY_TASK),
-              generator=torch.Generator().manual_seed(0))
+              generator=torch.Generator().manual_seed(0), device="cpu")

@@ -61,16 +61,16 @@ def case():
     j_in, j_tg, j_fc = jax_synthetic.make_example_batch(
         jtask, resolution=30.0, batch=1, num_target_times=STEPS)
     t_in, t_tg, t_fc = synthetic.make_example_batch(
-        task, resolution=30.0, batch=1, num_target_times=STEPS)
+        task, resolution=30.0, batch=1, num_target_times=STEPS, device="cpu")
     jax_model = JaxGraphCast(jax_configs.ModelConfig(**TINY_MODEL), jtask,
                              cache_dir="", fused_aggregation=False)
     jax_params = jax_model.init(
         jax.random.PRNGKey(0), j_in, j_tg.isel(time=slice(0, 1)),
         j_fc.isel(time=slice(0, 1)))
     j_stats = jax_synthetic.make_norm_stats(jtask)
-    t_stats = synthetic.make_norm_stats(task)
+    t_stats = synthetic.make_norm_stats(task, device="cpu")
     model = GraphCast(configs.ModelConfig(**TINY_MODEL), task,
-                      generator=torch.Generator().manual_seed(0))
+                      generator=torch.Generator().manual_seed(0), device="cpu")
     learned, _ = train.partition_params(jax_params)
     params.load_params(model, params.params_from_jax(
         jax.tree_util.tree_map(np.asarray, learned)))
@@ -145,10 +145,11 @@ def test_synthetic_data_equals_jax_package(which):
   task = configs.TaskConfig(**TINY_TASK)
   jtask = jax_configs.TaskConfig(**TINY_TASK)
   if which == "batch":
-    ours = synthetic.make_example_batch(task, 30.0, num_target_times=2)
+    ours = synthetic.make_example_batch(task, 30.0, num_target_times=2,
+                                        device="cpu")
     ref = jax_synthetic.make_example_batch(jtask, 30.0, num_target_times=2)
   else:
-    ours = synthetic.make_norm_stats(task)
+    ours = synthetic.make_norm_stats(task, device="cpu")
     ref = jax_synthetic.make_norm_stats(jtask)
   for a, b in zip(ours, ref):
     assert a.var_names == b.var_names
@@ -162,7 +163,7 @@ def test_synthetic_data_equals_jax_package(which):
 
 def test_extend_targets_template_matches_jax():
   _, targets, _ = synthetic.make_example_batch(
-      configs.TaskConfig(**TINY_TASK), 30.0, num_target_times=1)
+      configs.TaskConfig(**TINY_TASK), 30.0, num_target_times=1, device="cpu")
   _, j_targets, _ = jax_synthetic.make_example_batch(
       jax_configs.TaskConfig(**TINY_TASK), 30.0, num_target_times=1)
   ours = extend_targets_template(targets, 4)

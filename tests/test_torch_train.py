@@ -90,7 +90,7 @@ def build_case():
     j_data = jax_synthetic.make_example_batch(
         jtask, resolution=30.0, batch=1, num_target_times=2)
     t_data = synthetic.make_example_batch(
-        task, resolution=30.0, batch=1, num_target_times=2)
+        task, resolution=30.0, batch=1, num_target_times=2, device="cpu")
     models = {fused: JaxGraphCast(jax_configs.ModelConfig(**TINY_MODEL),
                                   jtask, cache_dir="",
                                   fused_aggregation=fused)
@@ -106,7 +106,7 @@ def build_case():
 
   def port_model():
     model = GraphCast(configs.ModelConfig(**TINY_MODEL), task,
-                      generator=torch.Generator().manual_seed(0))
+                      generator=torch.Generator().manual_seed(0), device="cpu")
     params.load_params(model, flat)
     return model
 
@@ -114,7 +114,7 @@ def build_case():
               statics={False: statics, True: fused_statics},
               j_data=j_data, t_data=t_data, port_model=port_model,
               j_stats=jax_synthetic.make_norm_stats(jtask),
-              t_stats=synthetic.make_norm_stats(task))
+              t_stats=synthetic.make_norm_stats(task, device="cpu"))
 
 
 def _steps(data, n):
@@ -233,7 +233,7 @@ def test_ar2_loss_and_predictions_stack_over_time(case):
 def test_unported_loss_forms_raise():
   model = GraphCast(configs.ModelConfig(**TINY_MODEL),
                     configs.TaskConfig(**TINY_TASK),
-                    generator=torch.Generator().manual_seed(0))
+                    generator=torch.Generator().manual_seed(0), device="cpu")
   for kw in (dict(loss_scan_unroll=2), dict(loss_scan_block=2),
              dict(loss_carry_offload=True),
              dict(loss_offload_processor_carries=True)):
