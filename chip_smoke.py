@@ -48,9 +48,18 @@ Phases, each printing one line with its seconds and results:
          the host build time of each mask and block map, and
          torch.nn.functional.scaled_dot_product_attention with the dense
          boolean mask as the library yardstick where that mask fits.
+  k7k8   the attention's backward kernels, K7 (dq) and K8 (dk, dv), against
+         the plain backward on random bf16 q, k, v and cotangent over the
+         same masks (the kernels' own o and lse from K6), with the backward
+         of scaled_dot_product_attention with the dense boolean mask at
+         mesh-5 as the library yardstick.
   embed  K1 and K2 in embed mode (GenCast's grid2mesh and mesh2grid, raw
          edge features embedded in the kernel) against their plain versions
          on the real 1.0° GenCast and 0.25° edge sets.
+  embed_bwd  K4 and K5 in embed mode against torch.autograd.grad of the K1
+         and K2 embed twins on the real 1.0° GenCast edge sets, each kernel
+         alone on the 0.25° sets, and the feature-gradient pass they share
+         against its plain version.
   gencast  GenCast's sampling path: zoo.gencast_1p0deg() (1.0°, 13 levels,
          mesh-5, latent 512, 16-layer 4-head k-hop-16 transformer, 20 noise
          levels) at full width, random weights from a fixed generator with
@@ -64,6 +73,18 @@ Phases, each printing one line with its seconds and results:
   gencast_small  zoo.gencast_mini() (mesh-4): one preconditioned denoiser
          evaluation at three noise levels on the card against the port on
          the CPU, with the small phase's noise-floor rule per variable.
+  gencast_train  GenCast's training path: train.make_train_step over
+         NaNCleaner(InputsAndResiduals(GenCast)) at zoo.gencast_1p0deg(),
+         graphcast_optimizer(peak_lr=1e-3), batch 1, bf16 data with NaN SST
+         on SST_NAN_ROWS latitude rows, f32 masters, σ and noise from a
+         torch.Generator; one warm-up and TRAIN_STEPS timed steps: s/step,
+         peak memory, the losses; checks finite losses, changed parameters
+         and the launches per step (K6, K7 and K8 once per layer; K1, K2,
+         K4 and K5 once each, all in embed mode).
+  gencast_train_small  zoo.gencast_mini(): the stack's loss, per-variable
+         losses and every parameter gradient on the card against the port
+         on the CPU, on the same σ and numpy noise, with the small phase's
+         noise-floor rule.
   train_small  zoo.graphcast_small() (message-passing steps cut to
          TRAIN_SMALL_MP_STEPS, for the CPU side's sake) AR-1 loss and every
          parameter gradient on the card against the CPU port, with the
@@ -116,11 +137,14 @@ K5_NODES = 131_072
 TRAIN_SMALL_MP_STEPS = 4
 LSE_ATOL = 1e-3         # max-abs error of the attention's logsumexp
 GENCAST_STEPS = 2
+SST_NAN_ROWS = 10       # latitude rows of NaN SST in the GenCast train data
+GENCAST_TRAIN_SMALL_SIGMA = 1.0
 PEAK_FLOPS = 989e12     # H100 SXM, dense bf16 tensor cores
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3, bytes/s
 DEVICE = "cuda"
-PHASES = ("build", "k1", "k2", "k4", "k5", "wgrad", "k6", "embed", "main",
-          "small", "train", "train_small", "gencast", "gencast_small")
+PHASES = ("build", "k1", "k2", "k4", "k5", "wgrad", "k6", "k7k8", "embed",
+          "embed_bwd", "main", "small", "train", "train_small", "gencast",
+          "gencast_small", "gencast_train", "gencast_train_small")
 
 
 def _log(phase, t0, **fields):
@@ -760,22 +784,35 @@ def _counters():
       fused_decode, fused_decode_backward)
   from graphcast_tpu_torch.ops.fused_edge import (
       fused_edge, fused_edge_backward)
-  from graphcast_tpu_torch.ops.splash import block_sparse_attention
-  from graphcast_tpu_torch.ops.weight_grad import weight_grad
+  from graphcast_tpu_torch.ops.splash import (
+      block_sparse_attention, splash_dkv, splash_dq)
+  from graphcast_tpu_torch.ops.weight_grad import feature_grad, weight_grad
   return {"fused_edge": fused_edge, "fused_decoder": fused_decode,
           "fused_edge_bwd": fused_edge_backward,
           "fused_decoder_bwd": fused_decode_backward,
-          "weight_grad": weight_grad, "splash_fwd": block_sparse_attention}
+          "weight_grad": weight_grad, "feature_grad": feature_grad,
+          "splash_fwd": block_sparse_attention, "splash_dq": splash_dq,
+          "splash_dkv": splash_dkv}
+
+
+def _mode_counts():
+  """The per-mode launch counts: {kernel entry name: count}."""
+  c = _counters()
+  return {"fused_edge_encoder": c["fused_edge"].encoder_launches,
+          "fused_edge_embed": c["fused_edge"].embed_launches,
+          "fused_decoder_embed": c["fused_decoder"].embed_launches,
+          "fused_edge_bwd_embed": c["fused_edge_bwd"].embed_launches,
+          "fused_decoder_bwd_embed": c["fused_decoder_bwd"].embed_launches}
 
 
 def _reset_counters():
   """Sets every kernel's launch count to 0 (the per-mode ones too)."""
   for fn in _counters().values():
     fn.launches = 0
-  from graphcast_tpu_torch.ops.fused_decoder import fused_decode
-  from graphcast_tpu_torch.ops.fused_edge import fused_edge
-  fused_edge.encoder_launches = fused_edge.embed_launches = 0
-  fused_decode.embed_launches = 0
+  c = _counters()
+  c["fused_edge"].encoder_launches = c["fused_edge"].embed_launches = 0
+  for name in ("fused_decoder", "fused_edge_bwd", "fused_decoder_bwd"):
+    c[name].embed_launches = 0
 
 
 def _train_launches_per_step(art, mp_steps):
@@ -817,7 +854,8 @@ def phase_train(torch, results, profile_dir=None):
   torch.cuda.synchronize()
   warm_s = time.perf_counter() - t1
 
-  counters = {k: v for k, v in _counters().items() if k != "splash_fwd"}
+  expected = _train_launches_per_step(model._artifact, mc.gnn_msg_steps)
+  counters = {k: v for k, v in _counters().items() if k in expected}
   torch.cuda.reset_peak_memory_stats()
   _reset_counters()
   t2 = time.perf_counter()
@@ -828,7 +866,6 @@ def phase_train(torch, results, profile_dir=None):
   counts = {k: fn.launches for k, fn in counters.items()}
   peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-  expected = _train_launches_per_step(model._artifact, mc.gnn_msg_steps)
   for name, per_step in expected.items():
     if counts[name] != per_step * TRAIN_STEPS:
       raise AssertionError(f"train launches {counts}, expected "
@@ -857,12 +894,13 @@ def phase_train(torch, results, profile_dir=None):
   torch.cuda.empty_cache()
 
 
-def _loss_and_grads(torch, stack, model, data, device):
-  """AR loss, per-variable losses and every parameter gradient (f32, CPU;
-  zeros for a parameter the loss does not reach)."""
+def _loss_and_grads(torch, stack, model, data, device, **kwargs):
+  """Loss, per-variable losses and every parameter gradient (f32, CPU;
+  zeros for a parameter the loss does not reach); ``kwargs`` go to the
+  loss."""
   from graphcast_tpu_torch.params import flat_params
   model.zero_grad(set_to_none=True)
-  loss, diagnostics = stack.loss(*(fs.to(device) for fs in data))
+  loss, diagnostics = stack.loss(*(fs.to(device) for fs in data), **kwargs)
   loss = loss.mean()
   loss.backward()
   grads = {k: torch.zeros(p.shape) if p.grad is None
@@ -874,6 +912,29 @@ def _loss_and_grads(torch, stack, model, data, device):
 
 def _rms(torch, x):
   return x.double().square().mean().sqrt().item()
+
+
+def _noise_floor_checks(torch, phase, card_diag, card_grads, cpu):
+  """The small phases' rule for each per-variable loss and each parameter
+  gradient: rms(card - cpu f32) <= 2 rms(cpu bf16 - cpu f32) + SMALL_EPS
+  rms(cpu f32); ``cpu`` maps bf16 (False, True) to _loss_and_grads'
+  result. Raises on the first miss; returns {"var"/"param": worst
+  err/bound}."""
+  worst = {}
+  checks = [("var " + k, card_diag[k], cpu[False][1][k], cpu[True][1][k])
+            for k in card_diag]
+  checks += [("param " + k, card_grads[k], cpu[False][2][k], cpu[True][2][k])
+             for k in card_grads]
+  for name, got, f32, b16 in checks:
+    floor = _rms(torch, b16 - f32)
+    bound = 2 * floor + SMALL_EPS * _rms(torch, f32)
+    err = _rms(torch, got - f32)
+    if not (np.isfinite(err) and err <= bound):
+      raise AssertionError(f"{phase} {name}: rms(card-f32)={err:.4g} > "
+                           f"2*floor+eps={bound:.4g}")
+    kind = name.split()[0]
+    worst[kind] = max(worst.get(kind, 0.0), err / bound if bound else 0.0)
+  return worst
 
 
 def phase_train_small(torch):
@@ -905,20 +966,8 @@ def phase_train_small(torch):
                               device="cpu")
     cpu[bf16] = _loss_and_grads(torch, stack, cpu_model, steps(1), "cpu")
   cpu_s = time.perf_counter() - t1
-  worst = {}
-  checks = [("var " + k, card_diag[k], cpu[False][1][k], cpu[True][1][k])
-            for k in card_diag]
-  checks += [("param " + k, card_grads[k], cpu[False][2][k], cpu[True][2][k])
-             for k in card_grads]
-  for name, got, f32, b16 in checks:
-    floor = _rms(torch, b16 - f32)
-    bound = 2 * floor + SMALL_EPS * _rms(torch, f32)
-    err = _rms(torch, got - f32)
-    if not (np.isfinite(err) and err <= bound):
-      raise AssertionError(f"train_small {name}: rms(card-f32)={err:.4g} > "
-                           f"2*floor+eps={bound:.4g}")
-    kind = name.split()[0]
-    worst[kind] = max(worst.get(kind, 0.0), err / bound if bound else 0.0)
+  worst = _noise_floor_checks(torch, "train_small", card_diag, card_grads,
+                              cpu)
 
   # AR-2 on the card: per-step checkpointing on against off. The kernels'
   # atomics make two runs of the same code differ in the last bits, so
@@ -963,6 +1012,22 @@ def _k_hop_mask(mesh_size):
   return sparse_transformer.k_hop_adjacency_from_matrix(adj, 16)
 
 
+_BLOCK_MAPS = {}
+
+
+def _k_hop_block_map(mesh_size):
+  """(mask, block map, mask build s, mask + map build s) of GenCast's
+  k-hop-16 mask at ``mesh_size``, built once per run (k6 and k7k8)."""
+  from graphcast_tpu_torch.ops import splash
+  if mesh_size not in _BLOCK_MAPS:
+    t1 = time.perf_counter()
+    mask = _k_hop_mask(mesh_size)
+    mask_s = time.perf_counter() - t1
+    bm = splash.build_block_map(mask)
+    _BLOCK_MAPS[mesh_size] = (mask, bm, mask_s, time.perf_counter() - t1)
+  return _BLOCK_MAPS[mesh_size]
+
+
 def phase_k6(torch, results):
   from graphcast_tpu_torch.ops import splash
   t0 = time.perf_counter()
@@ -973,11 +1038,7 @@ def phase_k6(torch, results):
                  "graphcast_tpu/ops/splash.py:217", launches=None)
   worst = 0.0
   for mesh_size in (5, 6):
-    t1 = time.perf_counter()
-    mask = _k_hop_mask(mesh_size)
-    mask_s = time.perf_counter() - t1
-    bm = splash.build_block_map(mask)
-    host_s = time.perf_counter() - t1
+    mask, bm, mask_s, host_s = _k_hop_block_map(mesh_size)
     n = bm.n
     q, k, v = (_randn(torch, gen, (1, n, heads, d), 1.0, torch.bfloat16)
                for _ in range(3))
@@ -1029,6 +1090,109 @@ def phase_k6(torch, results):
     torch.cuda.empty_cache()
   entry["max_abs_err"] = worst
   results["splash_fwd"] = entry
+
+
+def phase_k7k8(torch, results):
+  """K7 (dq) and K8 (dk, dv) against the plain backward on the kernel's own
+  o and lse, over the real k-hop-16 masks; SDPA's backward with the dense
+  boolean mask at mesh-5 as the library yardstick."""
+  from graphcast_tpu_torch.ops import splash
+  t0 = time.perf_counter()
+  gen = torch.Generator(device=DEVICE).manual_seed(13)
+  heads, d = 4, 128
+  scale = d ** -0.5
+  entries = {
+      "splash_dq": _entry("splash_dq", "splash_bwd.cu",
+                          "graphcast_tpu/ops/splash.py:382", launches=None),
+      "splash_dkv": _entry("splash_dkv", "splash_bwd.cu",
+                           "graphcast_tpu/ops/splash.py:437", launches=None)}
+  worst = {k: 0.0 for k in entries}
+  worst_abs = {k: 0.0 for k in entries}
+  for mesh_size in (5, 6):
+    mask, bm, _, _ = _k_hop_block_map(mesh_size)
+    n = bm.n
+    q, k, v, do = (_randn(torch, gen, (1, n, heads, d), 1.0, torch.bfloat16)
+                   for _ in range(4))
+    with torch.inference_mode():
+      (qh, kh, vh), oh, lseh = splash._launch_splash(q, k, v, bm, scale)
+      doh = splash._to_heads(do, bm.n_pad)
+      delta = splash.attention_delta(oh, doh)
+      args = (qh, kh, vh, doh, lseh, delta, bm, scale)
+      dq = splash.splash_dq(*args)
+      dk, dv = splash.splash_dkv(*args)
+      torch.cuda.synchronize()
+      o, lse = splash._outputs(oh, lseh, 1, n)
+      ref = (q, k, v, o, lse, do, bm, scale)
+      want_dq = splash._dq_reference(*ref)
+      want_dk, want_dv = splash._dkv_reference(*ref)
+      phase = f"k7k8 mesh{mesh_size}"
+      errs = {"splash_dq": _check_grads(
+                  phase, {"dq": splash._from_heads(dq, 1, n)},
+                  {"dq": want_dq}),
+              "splash_dkv": _check_grads(
+                  phase, {"dk": splash._from_heads(dk, 1, n),
+                          "dv": splash._from_heads(dv, 1, n)},
+                  {"dk": want_dk, "dv": want_dv})}
+      rels = {**errs["splash_dq"][1], **errs["splash_dkv"][1]}
+      del want_dq, want_dk, want_dv, dq, dk, dv
+      ms = {"splash_dq": _time_ms(torch, lambda: splash.splash_dq(*args),
+                                  reps=20),
+            "splash_dkv": _time_ms(torch, lambda: splash.splash_dkv(*args),
+                                   reps=20)}
+      plain = {"splash_dq": _time_ms(torch, lambda: splash._dq_reference(
+                   *ref), reps=1),
+               "splash_dkv": _time_ms(torch, lambda: splash._dkv_reference(
+                   *ref), reps=1)}
+    library_ms = None
+    if mesh_size == 5:
+      # The library yardstick: the backward of SDPA with the dense boolean
+      # mask (dq, dk and dv together: K7 and K8's work).
+      dense = torch.as_tensor(mask.toarray(), device=DEVICE)
+      qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                    for x in (q, k, v))
+      out = torch.nn.functional.scaled_dot_product_attention(
+          qt, kt, vt, attn_mask=dense, scale=scale)
+      dot = do.transpose(1, 2)
+      library_ms = _time_ms(torch, lambda: torch.autograd.grad(
+          out, (qt, kt, vt), dot, retain_graph=True), reps=3)
+      del dense, qt, kt, vt, out, dot
+    torch.cuda.empty_cache()
+    suffix = "" if mesh_size == 5 else "_mesh6"
+    # K7: S, dP and dQ per mask entry; reads q, k, v, do, lse and delta,
+    # writes dq. K8: S^T, dP^T, dV and dK; writes dk and dv.
+    rows = n * heads
+    bounds = {"splash_dq": _bound(6 * heads * bm.nnz * d,
+                                  5 * rows * d * 2 + 2 * rows * 4),
+              "splash_dkv": _bound(8 * heads * bm.nnz * d,
+                                   6 * rows * d * 2 + 2 * rows * 4)}
+    for name, entry in entries.items():
+      worst_abs[name] = max(worst_abs[name], errs[name][0])
+      worst[name] = max(worst[name], *errs[name][1].values())
+      entry.update({"ms" + suffix: ms[name], "plain_ms" + suffix: plain[name],
+                    **{key + suffix: val for key, val in
+                       bounds[name].items()}})
+      if mesh_size == 5:
+        entry["library_ms"] = library_ms
+        entry["library_covers"] = "SDPA backward: dq, dk and dv"
+    _log("k7k8", t0, mesh=mesh_size, nodes=n, mask_entries=bm.nnz,
+         active_tiles=bm.n_active,
+         transposed_full_tiles=int(bm.transposed.full.sum()),
+         dq_rel_rms=f"{rels['dq']:.3g}", dk_rel_rms=f"{rels['dk']:.3g}",
+         dv_rel_rms=f"{rels['dv']:.3g}",
+         k7_max_abs=f"{errs['splash_dq'][0]:.4g}",
+         k8_max_abs=f"{errs['splash_dkv'][0]:.4g}",
+         k7_ms=f"{ms['splash_dq']:.3f}", k8_ms=f"{ms['splash_dkv']:.3f}",
+         k7_plain_ms=f"{plain['splash_dq']:.3f}",
+         k8_plain_ms=f"{plain['splash_dkv']:.3f}",
+         library_ms="none" if library_ms is None else f"{library_ms:.3f}",
+         k7_bound_ms=f"{bounds['splash_dq']['bound_ms']:.4f}",
+         k8_bound_ms=f"{bounds['splash_dkv']['bound_ms']:.4f}")
+    del q, k, v, do, qh, kh, vh, oh, lseh, doh, delta, args, ref, o, lse
+    torch.cuda.empty_cache()
+  for name, entry in entries.items():
+    entry["max_abs_err"] = worst_abs[name]
+    entry["worst_rel_rms"] = worst[name]
+    results[name] = entry
 
 
 def _gencast_artifact(resolution, mesh_size):
@@ -1133,6 +1297,188 @@ def phase_embed(torch, art025, results):
   dec["max_abs_err"] = worst["dec"]
   results["fused_edge_embed"] = edge
   results["fused_decoder_embed"] = dec
+
+
+def _embed_bwd_bounds(edges_or_nodes, kind, C, F=4, M=None, N=None,
+                      NO=None):
+  """{bound_ms, bound_by} of K4's (kind "edge": E edges, M senders, N
+  receivers) or K5's (kind "decoder": G grid nodes, M mesh nodes) embed
+  backward: the recomputed forward plus two products per forward product;
+  inputs read once, gradients written once."""
+  if kind == "edge":
+    E = edges_or_nodes
+    flops, nbytes = _edge_cost(E, M, N, C, "embed", F)
+    nbytes += N * C * 4 + (M + N) * C * 4 + 3 * C * C * 4 + E * F * 4
+  else:
+    G = edges_or_nodes
+    flops, nbytes = _decoder_cost(G, M, C, NO, embed=True, F=F)
+    nbytes += (G * NO * 2 + G * C * 2 + M * C * 4 + 3 * G * F * 4
+               + (9 * C * C + C * NO + F * C) * 4)
+  return _bound(3 * flops, nbytes)
+
+
+def _decoder_weights(torch, gen, C, num_out, embed):
+  from graphcast_tpu_torch.ops.fused_decoder import MATRICES, VECTORS
+  w = 1.0 / np.sqrt(C)
+  weights = {k: _randn(torch, gen, (C, C), w) for k in MATRICES}
+  weights["wd1"] = _randn(torch, gen, (C, num_out), w)
+  weights.update({k: _randn(torch, gen, (C,), 0.1) for k in VECTORS})
+  weights["bd1"] = _randn(torch, gen, (num_out,), 0.1)
+  for k in ("escale", "nscale"):
+    weights[k] = weights[k] + 1.0
+  if embed:
+    weights.update(zip(("ew0", "eb0", "ew1", "eb1"),
+                       _embed_weights(torch, gen, C)))
+    weights.update(we=_randn(torch, gen, (C, C), w, torch.bfloat16),
+                   b0=_randn(torch, gen, (C,), 0.1))
+  return weights
+
+
+def phase_embed_bwd(torch, art025, results):
+  """K4 and K5 in embed mode against autograd of their twins on the real
+  1.0° GenCast edge sets; each kernel alone on the 0.25° sets; the
+  feature-gradient pass they share against its plain version."""
+  from graphcast_tpu_torch.ops.fused_decoder import (
+      EMBED_KEYS, KEYS, fused_decode, fused_decode_backward,
+      fused_decode_reference)
+  from graphcast_tpu_torch.ops.fused_edge import (
+      EdgeIndex, fused_edge, fused_edge_embed_backward, fused_edge_reference)
+  from graphcast_tpu_torch.ops.weight_grad import (
+      feature_grad, feature_grad_reference)
+  t0 = time.perf_counter()
+  gen = torch.Generator(device=DEVICE).manual_seed(14)
+  C, num_out, F, bf16 = 512, 84, 4, torch.bfloat16
+  edge = _entry("fused_edge_bwd_embed", "fused_edge_bwd.cu",
+                "graphcast_tpu/ops/pallas_edge.py:299", mode="embed",
+                launches=None)
+  dec = _entry("fused_decoder_bwd_embed", "fused_decoder_bwd.cu",
+               "graphcast_tpu/ops/pallas_decoder.py:160", mode="embed",
+               launches=None)
+  fg = _entry("feature_grad", "weight_grad.cu",
+              "graphcast_tpu/ops/pallas_edge.py:299", launches=None,
+              also_replaces="graphcast_tpu/ops/pallas_decoder.py:160")
+  worst = {"edge": 0.0, "dec": 0.0, "fg": 0.0}
+  for res, art in (("1p0", _gencast_artifact(1.0, 5)), ("0p25", art025)):
+    suffix = "" if res == "1p0" else "_0p25"
+    g, m = art.num_grid_nodes, art.num_mesh_nodes
+    # K4 embed: the grid2mesh step's backward.
+    edges = EdgeIndex(art.grid2mesh.senders, art.grid2mesh.receivers, g, m,
+                      DEVICE)
+    args = _edge_case(torch, gen, edges, C, encoder=False)
+    args["e"] = torch.as_tensor(art.grid2mesh.features, device=DEVICE)
+    args["we"] = args["we"].to(bf16)
+    embed = dict(zip(("ew0", "eb0", "ew1", "eb1"),
+                     _embed_weights(torch, gen, C)))
+    d_agg = _randn(torch, gen, (m, C))
+    if res == "1p0":
+      leaves = {k: v.requires_grad_() for k, v in {**args, **embed}.items()}
+
+      def run(fn):
+        return lambda ew0, eb0, ew1, eb1, **kw: fn(
+            edges, write_edges=False, embed_weights=(ew0, eb0, ew1, eb1),
+            **kw)
+
+      got, _ = _autograd(torch, run(fused_edge), leaves, (d_agg,),
+                         list(leaves))
+      want, e_plain = _autograd(torch, run(fused_edge_reference), leaves,
+                                (d_agg,), list(leaves))
+      torch.cuda.synchronize()
+      e_abs, e_rels = _check_grads("embed_bwd k4 1p0", got, want)
+      worst["edge"] = e_abs
+      edge["plain_ms"] = e_plain
+      del leaves, got, want
+      torch.cuda.empty_cache()
+    det = {k: v.detach() for k, v in args.items()}
+    e_ms = _time_ms(torch, lambda: fused_edge_embed_backward(
+        edges, det["e"], det["sproj"], det["rproj"], det["we"], det["b0"],
+        det["w1"], det["b1"], det["scale"],
+        tuple(v.detach() for v in embed.values()), d_agg))
+    edge.update({"ms" + suffix: e_ms, **{k + suffix: v for k, v in
+                 _embed_bwd_bounds(edges.num_edges, "edge", C, F, M=g,
+                                   N=m).items()}})
+    n_g2m = edges.num_edges
+    del args, det, embed, d_agg, edges
+    torch.cuda.empty_cache()
+    # K5 embed: the mesh2grid decoder's backward.
+    edges = EdgeIndex(art.mesh2grid.senders, art.mesh2grid.receivers, m, g,
+                      DEVICE)
+    weights = _decoder_weights(torch, gen, C, num_out, embed=True)
+    acts = dict(grid=_randn(torch, gen, (g, C), 1.0, bf16),
+                mesh_proj=_randn(torch, gen, (m, C), 1.0, bf16),
+                const=torch.as_tensor(art.mesh2grid.features, device=DEVICE))
+    dout = _randn(torch, gen, (g, num_out), 1.0, bf16)
+    if res == "1p0":
+      leaves = {k: v.requires_grad_() for k, v in {**acts, **weights}.items()}
+
+      def run_dec(fn):
+        return lambda grid, mesh_proj, const, **w: fn(edges, grid, mesh_proj,
+                                                      const, w)
+
+      names = ["grid", "mesh_proj", "const", *KEYS, *EMBED_KEYS]
+      got, _ = _autograd(torch, run_dec(fused_decode), leaves, (dout,),
+                         names)
+      want, d_plain = _autograd(torch, run_dec(fused_decode_reference),
+                                leaves, (dout,), names)
+      torch.cuda.synchronize()
+      d_abs, d_rels = _check_grads("embed_bwd k5 1p0", got, want)
+      worst["dec"] = d_abs
+      dec["plain_ms"] = d_plain
+      del leaves, got, want
+      torch.cuda.empty_cache()
+    det = {k: v.detach() for k, v in weights.items()}
+    acts = {k: v.detach() for k, v in acts.items()}
+    d_ms = _time_ms(torch, lambda: fused_decode_backward(
+        edges, acts["grid"], acts["mesh_proj"], acts["const"], det, dout))
+    dec.update({"ms" + suffix: d_ms, **{k + suffix: v for k, v in
+                _embed_bwd_bounds(g, "decoder", C, F, M=m,
+                                  NO=num_out).items()}})
+    _log("embed_bwd", t0, grid=res, g2m_edges=n_g2m, grid_nodes=g,
+         **({"k4_worst_rel_rms": f"{max(e_rels.values()):.3g}",
+             "k4_plain_ms": f"{e_plain:.3f}",
+             "k5_worst_rel_rms": f"{max(d_rels.values()):.3g}",
+             "k5_plain_ms": f"{d_plain:.3f}"} if res == "1p0" else {}),
+         k4_ms=f"{e_ms:.3f}", k5_ms=f"{d_ms:.3f}",
+         k4_bound_ms=f"{edge['bound_ms' + suffix]:.4f}",
+         k5_bound_ms=f"{dec['bound_ms' + suffix]:.4f}")
+    del weights, det, acts, dout, edges
+    torch.cuda.empty_cache()
+  # The feature-gradient pass at the 1.0° step's shapes: K4's rows (the
+  # grid2mesh edges) and K5's (3 per grid node).
+  art = _gencast_artifact(1.0, 5)
+  for name, rows in (("k4", art.grid2mesh.senders.size),
+                     ("k5", 3 * art.num_grid_nodes)):
+    x = _randn(torch, gen, (rows, F), 1.0, bf16)
+    dxe = _randn(torch, gen, (rows, C), 1.0, bf16)
+    w0 = _randn(torch, gen, (F, C), 0.5, bf16)
+    got_w, want_w = (torch.zeros(F, C, device=DEVICE) for _ in range(2))
+    got_x = feature_grad(x, dxe, w0, got_w)
+    want_x = feature_grad_reference(x, dxe, w0, want_w)
+    torch.cuda.synchronize()
+    f_abs, f_rels = _check_grads(f"embed_bwd feature_grad {name}",
+                                 {"dw0": got_w, "dx": got_x},
+                                 {"dw0": want_w, "dx": want_x}, WGRAD_RTOL)
+    worst["fg"] = max(worst["fg"], f_abs)
+    suffix = "" if name == "k4" else "_k5"
+    fg.update({"ms" + suffix: _time_ms(torch, lambda: feature_grad(
+                   x, dxe, w0, got_w)),
+               "plain_ms" + suffix: _time_ms(torch, lambda: (
+                   feature_grad_reference(x, dxe, w0, want_w))),
+               **{k + suffix: v for k, v in _bound(
+                   4 * rows * F * C,
+                   rows * (C + F) * 2 + F * C * 2 + 2 * F * C * 4
+                   + rows * F * 4).items()}})
+    _log("embed_bwd", t0, feature_grad=name, rows=rows,
+         worst_rel_rms=f"{max(f_rels.values()):.3g}",
+         ms=f"{fg['ms' + suffix]:.3f}",
+         plain_ms=f"{fg['plain_ms' + suffix]:.3f}",
+         bound_ms=f"{fg['bound_ms' + suffix]:.4f}")
+    del x, dxe, w0, got_w, want_w, got_x, want_x
+  edge["max_abs_err"] = worst["edge"]
+  dec["max_abs_err"] = worst["dec"]
+  fg["max_abs_err"] = worst["fg"]
+  results.update(fused_edge_bwd_embed=edge, fused_decoder_bwd_embed=dec,
+                 feature_grad=fg)
+  torch.cuda.empty_cache()
 
 
 _DEGENERATE = ("norm_conditioning", "mha_final", "ffw_down")
@@ -1297,14 +1643,177 @@ def phase_gencast_small(torch):
   torch.cuda.empty_cache()
 
 
+def _gencast_train_data(torch, preset, device, dtype):
+  """Synthetic batch-1 (inputs, targets, forcings) in ``dtype`` on
+  ``device``, with sea-surface temperature NaN on the first
+  SST_NAN_ROWS latitude rows of the inputs and targets, for the NaN
+  cleaner to fill."""
+  from graphcast_tpu_torch.data import synthetic
+  data = synthetic.make_example_batch(
+      preset.task_config, resolution=preset.resolution, batch=1,
+      num_target_times=1, time_step_hours=12, device=device)
+  data = [fs.astype(dtype) for fs in data]
+  for fs in data[:2]:
+    fs.data("sea_surface_temperature")[..., :SST_NAN_ROWS, :] = float("nan")
+  return data
+
+
+def _gencast_train_launches_per_step(preset, art):
+  """Kernel launches per GenCast train step that the graph implies: one
+  denoiser evaluation (K6 once per transformer layer, K1 and K2 in embed
+  mode once) and its backward (K7 and K8 once per layer; K4 in embed mode
+  once per BWD_CHUNK_ROWS grid2mesh edges, K5 once per BWD_CHUNK_NODES
+  grid nodes; per chunk the weight-gradient reduction 3 times for K4
+  (dW1, dWe', dEw1) and 9 for K5 (its 7, dWe', dEw1), and the feature
+  pass once). Every launch of K1, K2, K4 and K5 is an embed-mode one."""
+  from graphcast_tpu_torch.ops import fused_decoder, fused_edge
+  layers = preset.denoiser_architecture_config.sparse_transformer_config
+  enc = -(-art.grid2mesh.senders.size // fused_edge.BWD_CHUNK_ROWS)
+  dec = -(-art.num_grid_nodes // fused_decoder.BWD_CHUNK_NODES)
+  return {"fused_edge": 1, "fused_edge_encoder": 0, "fused_edge_embed": 1,
+          "fused_decoder": 1, "fused_decoder_embed": 1,
+          "fused_edge_bwd": enc, "fused_edge_bwd_embed": enc,
+          "fused_decoder_bwd": dec, "fused_decoder_bwd_embed": dec,
+          "weight_grad": 3 * enc + 9 * dec, "feature_grad": enc + dec,
+          "splash_fwd": layers.num_layers, "splash_dq": layers.num_layers,
+          "splash_dkv": layers.num_layers}
+
+
+def phase_gencast_train(torch, results, profile_dir=None):
+  from graphcast_tpu_torch import train
+  from graphcast_tpu_torch.models import zoo
+  t0 = time.perf_counter()
+  preset = zoo.gencast_1p0deg()
+  model, stack = _gencast_stack(torch, preset, seed=0)
+  data = _gencast_train_data(torch, preset, DEVICE, torch.bfloat16)
+  step = train.make_train_step(
+      stack, train.graphcast_optimizer(model.parameters(), peak_lr=1e-3))
+  gen = torch.Generator(device=DEVICE).manual_seed(5)
+  before = [p.detach().clone() for p in model.parameters()]
+  setup_s = time.perf_counter() - t0
+  t1 = time.perf_counter()
+  # Warm-up: builds the graph, the attention mask, the SHT basis.
+  losses = [step(*data, generator=gen)[0]]
+  torch.cuda.synchronize()
+  warm_s = time.perf_counter() - t1
+
+  expected = _gencast_train_launches_per_step(
+      preset, model.architecture._artifact)
+  torch.cuda.reset_peak_memory_stats()
+  _reset_counters()
+  t2 = time.perf_counter()
+  for _ in range(TRAIN_STEPS):
+    losses.append(step(*data, generator=gen)[0])
+  torch.cuda.synchronize()
+  train_s = time.perf_counter() - t2
+  counts = {**{k: fn.launches for k, fn in _counters().items()},
+            **_mode_counts()}
+  peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+  if counts != {k: n * TRAIN_STEPS for k, n in expected.items()}:
+    raise AssertionError(f"gencast_train launches {counts}, expected "
+                         f"{expected} per step")
+  losses = [float(v) for v in losses]
+  if not all(np.isfinite(losses)):
+    raise AssertionError(f"non-finite GenCast training losses {losses}")
+  if all(torch.equal(a, p) for a, p in zip(before, model.parameters())):
+    raise AssertionError("the GenCast train steps changed no parameter")
+  del before
+  if profile_dir:
+    _profile_step(torch, lambda: step(*data, generator=gen), profile_dir,
+                  "gencast_train_step")
+  for name in ("splash_dq", "splash_dkv", "fused_edge_bwd_embed",
+               "fused_decoder_bwd_embed", "feature_grad"):
+    results[name].update(launches=counts[name],
+                         launches_per_step=counts[name] / TRAIN_STEPS)
+  for name in ("splash_fwd", "fused_edge_embed", "fused_decoder_embed",
+               "weight_grad"):
+    results[name]["gencast_train_launches"] = counts[name]
+  _log("gencast_train", t0, config=_gencast_label(preset),
+       steps=TRAIN_STEPS, sst_nan_rows=SST_NAN_ROWS,
+       setup_s=f"{setup_s:.1f}", warmup_step_s=f"{warm_s:.2f}",
+       s_per_step=f"{train_s / TRAIN_STEPS:.4f}",
+       peak_mem_gb=f"{peak_gb:.2f}",
+       losses="[" + ",".join(f"{v:.6g}" for v in losses) + "]",
+       **{f"{k}_per_step": n for k, n in expected.items() if n},
+       finite=True, params_changed=True)
+  del model, stack, step, data
+  torch.cuda.empty_cache()
+
+
+def _fix_noise_draw(torch, model, sigma, seed):
+  """Makes ``model``'s training draw return σ = ``sigma`` and numpy noise
+  from ``seed``, the same on every device and in every dtype: the card's
+  and the CPU's generators draw different numbers."""
+  from graphcast_tpu_torch.fields import Field, FieldSet
+
+  def draw(targets, generator):
+    del generator
+    rng = np.random.RandomState(seed)
+    fields = {}
+    for n in targets.var_names:
+      f = targets[n]
+      x = torch.from_numpy(rng.randn(*f.shape).astype(np.float32))
+      fields[n] = Field(x.to(f.data.device, f.dtype), f.dims)
+    noise = FieldSet(fields, coords=targets.coords)
+    f = targets[targets.var_names[0]]
+    return (torch.full((targets.sizes["batch"],), sigma, dtype=f.dtype,
+                       device=f.data.device), noise)
+
+  model._draw_noise = draw
+
+
+def phase_gencast_train_small(torch):
+  from graphcast_tpu_torch import params
+  from graphcast_tpu_torch.models import zoo
+  t0 = time.perf_counter()
+  preset = zoo.gencast_mini()
+  card_model, card = _gencast_stack(torch, preset, seed=16)
+  _fix_noise_draw(torch, card_model, GENCAST_TRAIN_SMALL_SIGMA, seed=17)
+  data = _gencast_train_data(torch, preset, "cpu", torch.bfloat16)
+  card_loss, card_diag, card_grads = _loss_and_grads(
+      torch, card, card_model, data, DEVICE,
+      generator=torch.Generator(device=DEVICE))
+  torch.cuda.synchronize()
+  card_s = time.perf_counter() - t0
+  t1 = time.perf_counter()
+  cpu = {}
+  for bf16 in (False, True):
+    cpu_model, stack = _gencast_stack(torch, preset, seed=16, device="cpu")
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(
+        params.flat_params(card_model).values(),
+        params.flat_params(cpu_model).values())):
+      raise AssertionError("CPU and card models differ in their weights")
+    _fix_noise_draw(torch, cpu_model, GENCAST_TRAIN_SMALL_SIGMA, seed=17)
+    data = _gencast_train_data(
+        torch, preset, "cpu", torch.bfloat16 if bf16 else torch.float32)
+    cpu[bf16] = _loss_and_grads(torch, stack, cpu_model, data, "cpu",
+                                generator=torch.Generator())
+  cpu_s = time.perf_counter() - t1
+  worst = _noise_floor_checks(
+      torch, "gencast_train_small", {"loss": card_loss, **card_diag},
+      card_grads, {k: (None, {"loss": v[0], **v[1]}, v[2])
+                   for k, v in cpu.items()})
+  _log("gencast_train_small", t0, config=_gencast_label(preset),
+       sigma=GENCAST_TRAIN_SMALL_SIGMA, sst_nan_rows=SST_NAN_ROWS,
+       card_loss=f"{float(card_loss):.6g}",
+       cpu_f32_loss=f"{float(cpu[False][0]):.6g}",
+       card_s=f"{card_s:.1f}", cpu_s=f"{cpu_s:.1f}",
+       worst_var_err_over_bound=f"{worst['var']:.3f}",
+       worst_param_err_over_bound=f"{worst['param']:.3f}")
+  del card_model, card, cpu
+  torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--phases", default=",".join(PHASES),
                       help="comma-separated subset of " + ",".join(PHASES))
   parser.add_argument("--profile", metavar="DIR",
-                      help="also profile one main-path step, one train step "
-                           "and one GenCast step (torch.profiler) and write "
-                           "their kernel tables and traces to DIR")
+                      help="also profile one main-path step, one train step, "
+                           "one GenCast step and one GenCast train step "
+                           "(torch.profiler) and write their kernel tables "
+                           "and traces to DIR")
   args = parser.parse_args(argv)
   phases = args.phases.split(",")
   unknown = set(phases) - set(PHASES)
@@ -1321,7 +1830,7 @@ def main(argv=None) -> int:
   t_start = time.perf_counter()
   card = phase_build(torch)
   results = {}
-  if {"k1", "k2", "k4", "k5", "embed", "main"} & set(phases):
+  if {"k1", "k2", "k4", "k5", "embed", "embed_bwd", "main"} & set(phases):
     t0 = time.perf_counter()
     art = _geometry(0.25, 6)
     _log("geometry", t0, grid_nodes=art.num_grid_nodes,
@@ -1341,8 +1850,12 @@ def main(argv=None) -> int:
     phase_wgrad(torch, results)
   if "k6" in phases:
     phase_k6(torch, results)
+  if "k7k8" in phases:
+    phase_k7k8(torch, results)
   if "embed" in phases:
     phase_embed(torch, art, results)
+  if "embed_bwd" in phases:
+    phase_embed_bwd(torch, art, results)
   if "main" in phases:
     for name in ("fused_edge", "fused_edge_encoder", "fused_decoder"):
       results.setdefault(name, {"name": name})
@@ -1359,6 +1872,14 @@ def main(argv=None) -> int:
     phase_gencast(torch, results, args.profile)
   if "gencast_small" in phases:
     phase_gencast_small(torch)
+  if "gencast_train" in phases:
+    for name in ("splash_fwd", "splash_dq", "splash_dkv", "fused_edge_embed",
+                 "fused_decoder_embed", "fused_edge_bwd_embed",
+                 "fused_decoder_bwd_embed", "weight_grad", "feature_grad"):
+      results.setdefault(name, {"name": name})
+    phase_gencast_train(torch, results, args.profile)
+  if "gencast_train_small" in phases:
+    phase_gencast_train_small(torch)
   print(f"[total] {time.perf_counter() - t_start:.1f}s", flush=True)
   print(card)
   print(json.dumps({"kernels": list(results.values())}))

@@ -1,5 +1,6 @@
-// Shared pieces of the port's Hopper kernels (fused_edge.cu, fused_decoder.cu
-// and their backward passes fused_edge_bwd.cu, fused_decoder_bwd.cu).
+// Shared pieces of the port's Hopper kernels (fused_edge.cu, fused_decoder.cu,
+// their backward passes fused_edge_bwd.cu, fused_decoder_bwd.cu, and the
+// attention kernels splash_fwd.cu, splash_bwd.cu).
 //
 // The kernels are chains of [rows, C] x [C, N] products on a tile of rows
 // held in shared memory, with elementwise and LayerNorm epilogues between
@@ -181,6 +182,46 @@ inline int persistent_blocks(int tiles) {
   return tiles < sms ? tiles : sms;
 }
 
+// The attention kernels (splash_fwd.cu, splash_bwd.cu): tiles of 64 q rows
+// by 64 kv columns at head dim 128, and their register-level bf16 products:
+// one warp-wide mma.sync m16n8k16 with f32 accumulation, fragment packing
+// and loads, and sums over the 4 threads of a quad (the threads that share
+// a fragment row).
+constexpr int kSpT = 64;            // q rows and kv columns per tile
+constexpr int kSpD = 128;           // head dim
+constexpr int kSpThreads = 128;     // 4 warps x 16 q rows
+constexpr int kLdK = kSpD + 8;      // Q/K row stride (bf16): 272 B
+constexpr int kLdVt = kSpT + 8;     // transposed-V row stride (bf16): 144 B
+constexpr float kSpNegInf = -1e30f;
+
+__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
+                                          const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t lds32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
 // X[0:TM, 0:N] (+)= A[0:TM, 0:K] @ W[0:K, 0:N].
 //   A: shared bf16, leading dim lda (a multiple of 8, rows 32-byte aligned).
 //   W: global bf16, row-major [K, N], 16-byte aligned.
@@ -280,6 +321,66 @@ __device__ void embed_rows(bf16* A, int lda, float* X, int ldx, bf16* Wt,
                   [&](int r, int c, float yn) {
                     A[r * lda + c] = __float2bfloat16(yn);
                   });
+}
+
+// bf16(f @ ew0 + eb0)[c] for one raw feature row f: the embed's first-layer
+// output before its swish, with embed_rows' arithmetic (the backward
+// kernels' swish' point).
+__device__ __forceinline__ float embed_pre_bf16(const bf16* __restrict__ f,
+                                                int F,
+                                                const bf16* __restrict__ ew0,
+                                                const float* __restrict__ eb0,
+                                                int C, int c) {
+  float x = 0.f;
+  for (int k = 0; k < F; ++k) {
+    x = fmaf(__bfloat162float(f[k]), __bfloat162float(ew0[(size_t)k * C + c]),
+             x);
+  }
+  return round_bf16(x + eb0[c]);
+}
+
+// embed_rows for the backward kernels, which also keep what the embed's
+// backward needs: hh = bf16(swish(...)) goes to hh_out(r, c, hx, hy) (pairs
+// of columns), the f32 LN0 output yh0 to keep(r, c, yh0) and each row's
+// rstd to rstd_out[r]; A ends holding en = bf16(yh0), as in embed_rows (the
+// same arithmetic). Rows >= `rows` of A are left zero. Ends with a barrier.
+template <int TM, typename RowFn, typename HhFn, typename KeepFn>
+__device__ void embed_rows_keep(bf16* A, int lda, float* X, int ldx, bf16* Wt,
+                                const bf16* __restrict__ feat, int F,
+                                RowFn feat_row, int rows, int C,
+                                const bf16* __restrict__ ew0,
+                                const float* __restrict__ eb0,
+                                const bf16* __restrict__ ew1,
+                                const float* __restrict__ eb1,
+                                float* rstd_out, HhFn hh_out, KeepFn keep) {
+  const int c2n = C / 2;
+  for (int i = threadIdx.x; i < TM * c2n; i += kThreads) {
+    const int r = i / c2n, c = (i % c2n) * 2;
+    float hx = 0.f, hy = 0.f;
+    if (r < rows) {
+      const bf16* f = feat + (size_t)feat_row(r) * F;
+      float x0 = 0.f, x1 = 0.f;
+      for (int k = 0; k < F; ++k) {
+        const float fk = __bfloat162float(f[k]);
+        const float2 w = load_bf16x2(ew0 + (size_t)k * C + c);
+        x0 = fmaf(fk, w.x, x0);
+        x1 = fmaf(fk, w.y, x1);
+      }
+      hx = swish_of_bf16(x0 + eb0[c]);
+      hy = swish_of_bf16(x1 + eb0[c + 1]);
+      hh_out(r, c, hx, hy);
+    }
+    store_bf16x2(A + r * lda + c, hx, hy);
+  }
+  block_mm<TM>(A, lda, ew1, C, C, X, ldx, Wt, false);
+  ln_rows_normalize(X, ldx, rows, C, eb1, rstd_out);
+  for (int i = threadIdx.x; i < rows * C; i += kThreads) {
+    const int r = i / C, c = i % C;
+    const float y = X[r * ldx + c];
+    A[r * lda + c] = __float2bfloat16(y);
+    keep(r, c, y);
+  }
+  __syncthreads();
 }
 
 }  // namespace gc

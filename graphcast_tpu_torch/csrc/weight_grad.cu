@@ -17,6 +17,15 @@
 // its tile into dW with atomicAdd through a shared staging tile. The row
 // slices are sized to give ~1000 blocks; only the order of those few dozen
 // f32 partial sums per element varies between runs.
+//
+// feature_grad_kernel is the same reduction for the embed modes' first
+// layer, whose depth is the F raw edge features (4 in GenCast, too narrow
+// for a 128-wide tile): dEw0[F, C] += X[R, F]^T D[R, C], and the raw-feature
+// gradient dX[R, F] = D Ew0^T (pallas_edge.py:463-470, pallas_decoder.py:
+// 394-400). A block owns a slice of rows: one thread per column sums its F
+// products over the slice in registers and adds them into dEw0 (atomicAdd),
+// then one warp per row reduces the row's F dot products. Bytes bound it
+// (2 R C bytes of D read once against 4 R F C FLOPs).
 
 #include "common.cuh"
 
@@ -93,7 +102,63 @@ __global__ void __launch_bounds__(kThreads) weight_grad_kernel(
   }
 }
 
+constexpr int kFgRows = 256;  // rows per block
+constexpr int kFgMaxF = 16;   // raw features the kernel takes
+
+__global__ void __launch_bounds__(kThreads) feature_grad_kernel(
+    const bf16* __restrict__ X, int F, const bf16* __restrict__ D, int ldd,
+    const bf16* __restrict__ W0, float* __restrict__ dW0,
+    float* __restrict__ dX, int R, int C) {
+  const int r_begin = blockIdx.x * kFgRows;
+  const int r_end = min(R, r_begin + kFgRows);
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    float acc[kFgMaxF];
+#pragma unroll
+    for (int k = 0; k < kFgMaxF; ++k) acc[k] = 0.f;
+    for (int r = r_begin; r < r_end; ++r) {
+      const float d = __bfloat162float(D[(size_t)r * ldd + c]);
+      const bf16* x = X + (size_t)r * F;
+#pragma unroll
+      for (int k = 0; k < kFgMaxF; ++k) {
+        if (k < F) acc[k] = fmaf(__bfloat162float(x[k]), d, acc[k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kFgMaxF; ++k) {
+      if (k < F) atomicAdd(dW0 + (size_t)k * C + c, acc[k]);
+    }
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = r_begin + warp; r < r_end; r += kWarps) {
+    for (int k = 0; k < F; ++k) {
+      float s = 0.f;
+      for (int c = lane; c < C; c += 32) {
+        s = fmaf(__bfloat162float(D[(size_t)r * ldd + c]),
+                 __bfloat162float(W0[(size_t)k * C + c]), s);
+      }
+      s = warp_sum(s);
+      if (lane == 0) dX[(size_t)r * F + k] = s;
+    }
+  }
+}
+
 }  // namespace gc
+
+// dEw0[F, C] (f32) += X[R, F]^T D[R, C] and dX[R, F] (f32) = D Ew0^T; X, Ew0
+// bf16 row-major, D bf16 with leading dim ldd; F <= 16.
+extern "C" int gc_feature_grad(const void* X, int F, const void* D, int ldd,
+                               const void* W0, float* dW0, float* dX, int R,
+                               int C, void* stream) {
+  using gc::bf16;
+  if (R <= 0) return 0;
+  if (F < 1 || F > gc::kFgMaxF) return cudaErrorInvalidValue;
+  const int blocks = (R + gc::kFgRows - 1) / gc::kFgRows;
+  gc::feature_grad_kernel<<<blocks, gc::kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(X), F, static_cast<const bf16*>(D), ldd,
+      static_cast<const bf16*>(W0), dW0, dX, R, C);
+  return cudaGetLastError();
+}
 
 // dW[K, N] (f32, row-major) += A[R, K]^T B[R, N] (bf16, leading dims lda,
 // ldb, 16-byte aligned rows). K and N multiples of 128.

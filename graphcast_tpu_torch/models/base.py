@@ -11,8 +11,10 @@ Training: ``loss`` and ``loss_and_predictions`` take ``targets`` (data
 used) in place of the template and return ``(loss [batch], {var:
 [batch]})``, the JAX package's ``LossAndDiagnostics``.
 
-Parameters live in the modules (f32 masters); GraphCast is deterministic,
-so the JAX package's ``rng`` argument has no counterpart here.
+Parameters live in the modules (f32 masters). The JAX package's ``rng``
+argument becomes a keyword argument where a predictor draws random numbers:
+GenCast's sampler and loss take ``generator=torch.Generator``; GraphCast is
+deterministic and takes none.
 """
 
 from __future__ import annotations

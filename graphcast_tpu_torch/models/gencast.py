@@ -1,15 +1,17 @@
-"""GenCast: the diffusion-based probabilistic weather predictor, sampling.
+"""GenCast: the diffusion-based probabilistic weather predictor.
 
 Port of graphcast_tpu/models/gencast.py (reference: graphcast/gencast.py):
 the norm-conditioned denoiser (models/denoiser.py), preconditioned with the
 EDM c_in / c_out / c_skip scalings, sampled with DPM-Solver++ 2S and
-stochastic churn on spherical noise (diffusion/). One call predicts one 12 h
-step at batch 1; the sampler's randomness comes from the ``generator``
-keyword argument, a ``torch.Generator`` on the data's device.
+stochastic churn on spherical noise (diffusion/), and trained with the
+λ(σ)-weighted denoising loss (``loss``). One call predicts one 12 h step at
+batch 1; the randomness of sampling and of the loss's σ and noise comes
+from the ``generator`` keyword argument, a ``torch.Generator`` on the
+data's device.
 
 The spherical-harmonic synthesis basis of the targets' grid lives on the
 module as non-trainable float32 buffers (``noise_basis_*``), built at the
-first call. ``loss`` (training) is not ported yet.
+first call.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from graphcast_tpu_torch import devices
+from graphcast_tpu_torch import devices, losses
 from graphcast_tpu_torch.diffusion import noise as noise_lib
 from graphcast_tpu_torch.diffusion.samplers import DPMSolverPlusPlus2S
 from graphcast_tpu_torch.fields import Field, FieldSet, align_for_broadcast
@@ -56,6 +58,15 @@ TASK = configs.TaskConfig(
     input_duration="24h",
 )
 
+GENCAST_LOSS_WEIGHTS = {
+    "2m_temperature": 1.0,
+    "10m_u_component_of_wind": 0.1,
+    "10m_v_component_of_wind": 0.1,
+    "mean_sea_level_pressure": 0.1,
+    "sea_surface_temperature": 0.1,
+    "total_precipitation_12hr": 0.1,
+}
+
 _BASIS_KEYS = ("legendre", "cos_mat", "sin_mat", "m_scale", "sin_mask")
 
 
@@ -74,7 +85,8 @@ class SamplerConfig:
 
 @dataclasses.dataclass(frozen=True, eq=True)
 class NoiseConfig:
-  """Reference: gencast.py:111-115 (training noise; kept for the schema)."""
+  """Reference: gencast.py:111-115: the rho distribution of the training
+  noise levels σ."""
   training_noise_level_rho: float = 7.0
   training_max_noise_level: float = 88.0
   training_min_noise_level: float = 0.02
@@ -136,6 +148,10 @@ class GenCast(Denoiser, Predictor):
   def _c_skip(sigma):
     return 1 / (sigma ** 2 + 1)
 
+  def _loss_weighting(self, sigma):
+    """λ(σ) = c_out(σ)⁻² (EDM eq. 8)."""
+    return self._c_out(sigma) ** -2
+
   def _preconditioned_denoiser(self, inputs, noisy_targets, noise_levels,
                                forcings):
     """D(x; σ) = c_skip·x + c_out·F(c_in·x; σ) (EDM eq. 7)."""
@@ -180,3 +196,52 @@ class GenCast(Denoiser, Predictor):
                                   **dataclasses.asdict(self._sampler_config))
     return sampler(generator, inputs, targets_template, forcings,
                    self.noise_basis(targets_template))
+
+  # --- training (reference: gencast.py:207-239) ---
+
+  def _draw_noise(self, targets: FieldSet, generator: torch.Generator):
+    """σ [batch] from the rho distribution (a uniform draw in the targets'
+    dtype) and unit spherical white noise shaped like ``targets``."""
+    if self._noise_config is None:
+      raise ValueError("noise config required for training")
+    nc = self._noise_config
+    dtypes = {f.dtype for f in targets.values()}
+    dtype = dtypes.pop() if len(dtypes) == 1 else torch.float32
+    device = targets[targets.var_names[0]].data.device
+    uniform = torch.rand(targets.sizes["batch"], generator=generator,
+                         device=generator.device, dtype=dtype).to(device)
+    sigma = noise_lib.rho_inverse_cdf(
+        min_value=nc.training_min_noise_level,
+        max_value=nc.training_max_noise_level,
+        rho=nc.training_noise_level_rho, cdf=uniform)
+    noise = noise_lib.spherical_white_noise_like(
+        generator, targets, self.noise_basis(targets))
+    return sigma, noise
+
+  def _loss_at(self, inputs: FieldSet, targets: FieldSet, forcings: FieldSet,
+               sigma: torch.Tensor, noise: FieldSet):
+    """The λ(σ)-weighted MSE of the denoised targets + σ·noise."""
+    noisy = _add(targets, _scale_by(noise, sigma))
+    denoised = self._preconditioned_denoiser(inputs, noisy, sigma, forcings)
+    weights = {k: v for k, v in GENCAST_LOSS_WEIGHTS.items()
+               if k in targets.var_names}
+    loss, diagnostics = losses.weighted_mse_per_level(
+        denoised, targets, per_variable_weights=weights)
+    return loss * self._loss_weighting(sigma).to(loss.dtype), diagnostics
+
+  def loss(self, inputs: FieldSet, targets: FieldSet, forcings: FieldSet, *,
+           generator: torch.Generator) -> losses.LossAndDiagnostics:
+    """Denoising score-matching loss: σ and spherical noise drawn from
+    ``generator``, one preconditioned denoiser evaluation on targets +
+    σ·noise, the GenCast-weighted MSE scaled by λ(σ). Returns (loss
+    [batch], {var: [batch]})."""
+    return self._loss_at(inputs, targets, forcings,
+                         *self._draw_noise(targets, generator))
+
+  def loss_and_predictions(self, inputs: FieldSet, targets: FieldSet,
+                           forcings: FieldSet, *,
+                           generator: torch.Generator):
+    """The loss and a sample for the targets' times, both from
+    ``generator`` (reference: gencast.py:207-211)."""
+    loss = self.loss(inputs, targets, forcings, generator=generator)
+    return loss, self(inputs, targets, forcings, generator=generator)

@@ -105,6 +105,16 @@ def _declare(lib: ctypes.CDLL):
   lib.gc_fused_decoder_embed.argtypes = [p] * 27 + [i] * 5 + [p]
   lib.gc_splash_fwd.restype = i
   lib.gc_splash_fwd.argtypes = [p] * 9 + [ctypes.c_float] + [i] * 3 + [p]
+  lib.gc_fused_decoder_bwd_embed.restype = i
+  lib.gc_fused_decoder_bwd_embed.argtypes = [p] * 39 + [i] * 5 + [p]
+  lib.gc_fused_edge_bwd_embed.restype = i
+  lib.gc_fused_edge_bwd_embed.argtypes = [p] * 28 + [i] * 3 + [p]
+  lib.gc_feature_grad.restype = i
+  lib.gc_feature_grad.argtypes = [p, i, p, i, p, p, p, i, i, p]
+  lib.gc_splash_dq.restype = i
+  lib.gc_splash_dq.argtypes = [p] * 11 + [ctypes.c_float] + [i] * 3 + [p]
+  lib.gc_splash_dkv.restype = i
+  lib.gc_splash_dkv.argtypes = [p] * 12 + [ctypes.c_float] + [i] * 3 + [p]
   lib.gc_error_string.restype = ctypes.c_char_p
   lib.gc_error_string.argtypes = [i]
 

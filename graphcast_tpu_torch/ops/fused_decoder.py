@@ -28,8 +28,7 @@ weights ``EMBED_KEYS`` (ew0, eb0, ew1, eb1, we, b0), ``const`` holds the raw
     x0_j = en_j @ We' + b0' + mesh_proj[snd_j] + gproj
 
 with LN0 parameter-free; the caller folds the norm conditioning into We',
-b0', escale/eoffset and nscale/noffset. Forward only on the card (its
-backward, K5's embed mode, waits for GenCast training).
+b0', escale/eoffset and nscale/noffset.
 
 All weights are cast to the activation dtype at use (vectors too, then used
 in f32), as the TPU kernel receives them. ``fused_decode`` runs the CUDA
@@ -38,8 +37,10 @@ kernel (csrc/fused_decoder.cu) for CUDA tensors and the twin for CPU tensors.
 Gradients: on CUDA tensors that require grad, K2 runs inside a
 ``torch.autograd.Function`` whose backward is K5 (``fused_decode_backward``;
 csrc/fused_decoder_bwd.cu + csrc/weight_grad.cu), the port of
-pallas_decoder.py::_decoder_bwd_kernel, plain mode. On CPU tensors the twin
-runs under plain autograd.
+pallas_decoder.py::_decoder_bwd_kernel, in plain and embed mode (the embed
+mode recomputes each slot's embed and adds the gradients of ew0, eb0, ew1,
+eb1, we and b0, and of the raw features). On CPU tensors the twin runs
+under plain autograd.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ from graphcast_tpu_torch.native import build
 from graphcast_tpu_torch.ops.fused_edge import (
     MAX_EMBED_FEATURES, EdgeIndex, _check_cuda, embed_edges_reference,
     layer_norm_f32, swish_of)
-from graphcast_tpu_torch.ops.weight_grad import weight_grad
+from graphcast_tpu_torch.ops.weight_grad import feature_grad, weight_grad
 
 MATRICES = ("wr", "w1", "wng", "wna", "wn1", "wd0", "wd1")
 VECTORS = ("b1", "escale", "eoffset", "bn0", "bn1", "nscale", "noffset",
@@ -58,14 +59,18 @@ VECTORS = ("b1", "escale", "eoffset", "bn0", "bn1", "nscale", "noffset",
 KEYS = MATRICES + VECTORS
 EMBED_KEYS = ("ew0", "eb0", "ew1", "eb1", "we", "b0")
 # Grid nodes per K5 launch: bounds its scratch of 14 bf16 rows per node
-# (1.9 GB at C = 512).
+# (1.9 GB at C = 512; embed mode 26 bf16 rows and 3 f32 rows, 4.3 GB).
 BWD_CHUNK_NODES = 1 << 17
-# K5's column sums, in the kernel's order (csrc/fused_decoder_bwd.cu).
+# K5's column sums, in the kernel's order (csrc/fused_decoder_bwd.cu); embed
+# mode appends _BWD_SUMS_EMBED.
 _BWD_SUMS = ("bd0", "noffset", "nscale", "bn1", "bn0", "eoffset", "escale",
              "b1")
-# K5's scratch slabs (csrc/fused_decoder_bwd.cu): per node, then per edge.
+_BWD_SUMS_EMBED = ("b0", "eb1", "eb0")
+# K5's scratch slabs (csrc/fused_decoder_bwd.cu): per node, then per edge
+# (3 slabs each); embed mode adds hh, en, dy0 and dxe per edge.
 _SLABS = {"agg": 0, "hn": 1, "res": 2, "ho": 3, "dxo": 4, "dyn": 5,
-          "dxn": 6, "dgproj": 7, "hs": 8, "dys": 11}
+          "dxn": 6, "dgproj": 7, "hs": 8, "dys": 11, "hh": 14, "en": 17,
+          "dy0": 20, "dxe": 23}
 
 
 def fused_decode_reference(edges: EdgeIndex, grid, mesh_proj, const,
@@ -202,14 +207,20 @@ def fused_decode_backward(edges: EdgeIndex, grid, mesh_proj, const,
                           weights: dict, dout):
   """K5: the gradients of the fused decoder on CUDA tensors.
 
-  Returns (dgrid, dmesh_proj, dconst, {key: dweight}): dgrid and dconst in
-  the activation dtype, dmesh_proj in mesh_proj's dtype (an f32 scatter of
-  the per-edge sender gradients, as the JAX package does outside its
-  kernel), each weight gradient in f32, then cast to its weight's dtype.
-  Chunks of ``BWD_CHUNK_NODES`` grid nodes: each runs the per-node kernel
-  (one launch, counted in ``fused_decode_backward.launches``), the 7
-  matrix-gradient reductions (ops/weight_grad.py) and the scatter.
+  Returns (dgrid, dmesh_proj, dconst, {key: dweight}): dgrid in the
+  activation dtype, dmesh_proj in mesh_proj's dtype (an f32 scatter of the
+  per-edge sender gradients, as the JAX package does outside its kernel),
+  dconst in the activation dtype (embed mode: the raw features' gradient in
+  their dtype), each weight gradient in f32, then cast to its weight's
+  dtype. Chunks of ``BWD_CHUNK_NODES`` grid nodes: each runs the per-node
+  kernel (one launch, counted in ``fused_decode_backward.launches``, and
+  ``.embed_launches`` in embed mode), the 7 matrix-gradient reductions
+  (ops/weight_grad.py; embed mode adds We', Ew1 and ``feature_grad`` for Ew0
+  and the raw features) and the scatter.
   """
+  embed = "ew0" in weights
+  if embed:
+    const = const.to(torch.bfloat16).contiguous()
   C, num_out, no_pad, mats, vecs = _kernel_operands(edges, grid, mesh_proj,
                                                     const, weights)
   G = grid.shape[0]
@@ -219,26 +230,36 @@ def fused_decode_backward(edges: EdgeIndex, grid, mesh_proj, const,
     raise ValueError(f"dout must have shape ({G}, {num_out})")
   dout = torch.nn.functional.pad(dout.to(bf16),
                                  (0, no_pad - num_out)).contiguous()
-  tr = {k: mats[k].t().contiguous() for k in MATRICES}
+  tr = {k: mats[k].t().contiguous()
+        for k in MATRICES + (("ew1", "we") if embed else ())}
   lib = build.load_library()
   dgrid = torch.empty(G, C, dtype=bf16, device=dev)
   dgs = torch.empty(3 * G, C, dtype=bf16, device=dev)
   dmesh = torch.zeros(edges.num_senders, C, dtype=f32, device=dev)
-  sums = torch.zeros(len(_BWD_SUMS) * C + no_pad, dtype=f32, device=dev)
+  sum_keys = _BWD_SUMS + (_BWD_SUMS_EMBED if embed else ())
+  sums = torch.zeros(len(sum_keys) * C + no_pad, dtype=f32, device=dev)
   dw = {k: torch.zeros(C, C, dtype=f32, device=dev) for k in MATRICES}
   dw["wd1"] = torch.zeros(C, no_pad, dtype=f32, device=dev)
   slab_rows = min(G, BWD_CHUNK_NODES)
-  scratch = torch.empty(14, slab_rows, C, dtype=bf16, device=dev)
-  flat = scratch.view(14 * slab_rows, C)
+  slabs = 26 if embed else 14
+  scratch = torch.empty(slabs, slab_rows, C, dtype=bf16, device=dev)
+  flat = scratch.view(slabs * slab_rows, C)
+  if embed:
+    F = const.shape[1]
+    dw.update(we=torch.zeros(C, C, dtype=f32, device=dev),
+              ew1=torch.zeros(C, C, dtype=f32, device=dev),
+              ew0=torch.zeros(F, C, dtype=f32, device=dev))
+    en32 = torch.empty(3 * slab_rows, C, dtype=f32, device=dev)
+    dconst = torch.empty(3 * G, F, dtype=f32, device=dev)
+  else:
+    dconst = dgs
   stream = torch.cuda.current_stream(dev).cuda_stream
   for v0 in range(0, G, BWD_CHUNK_NODES):
     n = min(BWD_CHUNK_NODES, G - v0)
     nodes, rows = slice(v0, v0 + n), slice(3 * v0, 3 * (v0 + n))
-    code = lib.gc_fused_decoder_bwd(
-        grid[nodes].data_ptr(), mesh_proj.data_ptr(), const[rows].data_ptr(),
-        edges.senders[rows].data_ptr(), mats["wr"].data_ptr(),
-        tr["wr"].data_ptr(), mats["w1"].data_ptr(), tr["w1"].data_ptr(),
-        vecs["b1"].data_ptr(), vecs["escale"].data_ptr(),
+    common = (
+        mats["wr"].data_ptr(), tr["wr"].data_ptr(), mats["w1"].data_ptr(),
+        tr["w1"].data_ptr(), vecs["b1"].data_ptr(), vecs["escale"].data_ptr(),
         vecs["eoffset"].data_ptr(), mats["wng"].data_ptr(),
         tr["wng"].data_ptr(), mats["wna"].data_ptr(), tr["wna"].data_ptr(),
         vecs["bn0"].data_ptr(), mats["wn1"].data_ptr(), tr["wn1"].data_ptr(),
@@ -246,9 +267,24 @@ def fused_decode_backward(edges: EdgeIndex, grid, mesh_proj, const,
         vecs["noffset"].data_ptr(), mats["wd0"].data_ptr(),
         tr["wd0"].data_ptr(), vecs["bd0"].data_ptr(), tr["wd1"].data_ptr(),
         dout[nodes].data_ptr(), dgrid[nodes].data_ptr(), dgs[rows].data_ptr(),
-        scratch.data_ptr(), sums.data_ptr(), slab_rows, n, C, no_pad, stream)
+        scratch.data_ptr())
+    if embed:
+      code = lib.gc_fused_decoder_bwd_embed(
+          grid[nodes].data_ptr(), mesh_proj.data_ptr(),
+          const[rows].data_ptr(), edges.senders[rows].data_ptr(),
+          mats["ew0"].data_ptr(), vecs["eb0"].data_ptr(),
+          mats["ew1"].data_ptr(), tr["ew1"].data_ptr(),
+          vecs["eb1"].data_ptr(), mats["we"].data_ptr(), tr["we"].data_ptr(),
+          vecs["b0"].data_ptr(), *common, en32.data_ptr(), sums.data_ptr(),
+          slab_rows, n, C, no_pad, F, stream)
+    else:
+      code = lib.gc_fused_decoder_bwd(
+          grid[nodes].data_ptr(), mesh_proj.data_ptr(),
+          const[rows].data_ptr(), edges.senders[rows].data_ptr(), *common,
+          sums.data_ptr(), slab_rows, n, C, no_pad, stream)
     build.check(lib, code, "fused_decoder_bwd kernel launch")
     fused_decode_backward.launches += 1
+    fused_decode_backward.embed_launches += int(embed)
 
     def slab(name, k=1):
       s0 = _SLABS[name] * slab_rows
@@ -262,35 +298,44 @@ def fused_decode_backward(edges: EdgeIndex, grid, mesh_proj, const,
     weight_grad(slab("agg"), slab("dxn"), dw["wna"])
     weight_grad(slab("hs", 3), slab("dys", 3), dw["w1"])
     weight_grad(g, slab("dgproj"), dw["wr"])
+    if embed:
+      weight_grad(slab("en", 3), dgs[rows], dw["we"])
+      weight_grad(slab("hh", 3), slab("dy0", 3), dw["ew1"])
+      dconst[rows] = feature_grad(const[rows], slab("dxe", 3), mats["ew0"],
+                                  dw["ew0"])
     dmesh.index_add_(0, edges.senders[rows].long(), dgs[rows].float())
-  grads = {k: dw[k] for k in MATRICES}
+  grads = dict(dw)
   grads["wd1"] = dw["wd1"][:, :num_out]
-  grads.update({k: sums[i * C:(i + 1) * C] for i, k in enumerate(_BWD_SUMS)})
-  grads["bd1"] = sums[len(_BWD_SUMS) * C:][:num_out]
+  grads.update({k: sums[i * C:(i + 1) * C] for i, k in enumerate(sum_keys)})
+  grads["bd1"] = sums[len(sum_keys) * C:][:num_out]
   grads = {k: v.to(weights[k].dtype) for k, v in grads.items()}
-  return dgrid, dmesh.to(mesh_proj.dtype), dgs, grads
+  return dgrid, dmesh.to(mesh_proj.dtype), dconst, grads
 
 
-fused_decode_backward.launches = 0
+fused_decode_backward.launches = 0        # every K5 launch
+fused_decode_backward.embed_launches = 0  # the embed-mode ones among them
 
 
 class _FusedDecodeFunction(torch.autograd.Function):
-  """K2 forward, K5 backward (module doc). Saves only the inputs."""
+  """K2 forward, K5 backward (module doc), plain or embed mode by ``keys``.
+  Saves only the inputs."""
 
   @staticmethod
-  def forward(ctx, edges, grid, mesh_proj, const, *weight_values):
-    ctx.edges = edges
+  def forward(ctx, edges, keys, grid, mesh_proj, const, *weight_values):
+    ctx.edges, ctx.keys = edges, keys
+    ctx.const_dtype = const.dtype
     ctx.save_for_backward(grid, mesh_proj, const, *weight_values)
     return _launch_fused_decode(edges, grid, mesh_proj, const,
-                                dict(zip(KEYS, weight_values)))
+                                dict(zip(keys, weight_values)))
 
   @staticmethod
   def backward(ctx, dout):
     grid, mesh_proj, const, *weight_values = ctx.saved_tensors
-    weights = dict(zip(KEYS, weight_values))
+    weights = dict(zip(ctx.keys, weight_values))
     dgrid, dmesh, dconst, dweights = fused_decode_backward(
         ctx.edges, grid, mesh_proj, const, weights, dout.contiguous())
-    return (None, dgrid, dmesh, dconst, *(dweights[k] for k in KEYS))
+    return (None, None, dgrid, dmesh, dconst.to(ctx.const_dtype),
+            *(dweights[k] for k in ctx.keys))
 
 
 def fused_decode(edges: EdgeIndex, grid: torch.Tensor,
@@ -320,15 +365,12 @@ def fused_decode(edges: EdgeIndex, grid: torch.Tensor,
     return fused_decode_reference(edges, grid, mesh_proj, const, weights)
   if grid.device.type != "cuda":
     raise ValueError(f"unsupported device {grid.device}")
-  values = [weights[k] for k in weights]
-  grad = torch.is_grad_enabled() and any(
-      t.requires_grad for t in (grid, mesh_proj, const, *values))
-  if grad and embed:
-    raise NotImplementedError(
-        "the embed mode backward (K5) is not ported: run under no_grad")
-  if grad:
-    return _FusedDecodeFunction.apply(edges, grid, mesh_proj, const,
-                                      *(weights[k] for k in KEYS))
+  keys = KEYS + EMBED_KEYS if embed else KEYS
+  if torch.is_grad_enabled() and any(
+      t.requires_grad for t in (grid, mesh_proj, const,
+                                *(weights[k] for k in keys))):
+    return _FusedDecodeFunction.apply(edges, keys, grid, mesh_proj, const,
+                                      *(weights[k] for k in keys))
   return _launch_fused_decode(edges, grid, mesh_proj, const, weights)
 
 

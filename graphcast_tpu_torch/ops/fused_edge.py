@@ -23,15 +23,16 @@ grid2mesh, ``embed_weights=(ew0, eb0, ew1, eb1)``) takes ``e`` as the raw
 with LN0 parameter-free (f32 statistics); the norm conditioning is folded
 into We', b0' and the step's LayerNorm scale/offset by the caller. On the
 card it runs aggregation-only (``write_edges=False``), as the denoiser
-calls it, and without gradients (its backward, K4's embed mode, waits for
-GenCast training).
+calls it.
 
 Gradients: on CUDA tensors that require grad, ``fused_edge`` runs K1 inside
 a ``torch.autograd.Function`` whose backward is K4
 (``fused_edge_backward``; csrc/fused_edge_bwd.cu + csrc/weight_grad.cu),
-the port of pallas_edge.py::_fused_edge_bwd_kernel. The forward keeps only
-its inputs; K4 recomputes the rest. On CPU tensors the twin runs under plain
-autograd.
+the port of pallas_edge.py::_fused_edge_bwd_kernel; in embed mode the
+backward is K4's embed mode (``fused_edge_embed_backward``), which also
+recomputes the in-tile embed and emits the embed MLP's gradients and the
+raw-feature gradient. The forward keeps only its inputs; K4 recomputes the
+rest. On CPU tensors the twin runs under plain autograd.
 
 Edge layout: the artifact's receiver-sorted order, as is; ``EdgeIndex``
 holds the sender and receiver indices on the device. The TPU kernel's
@@ -50,7 +51,7 @@ import numpy as np
 import torch
 
 from graphcast_tpu_torch.native import build
-from graphcast_tpu_torch.ops.weight_grad import weight_grad
+from graphcast_tpu_torch.ops.weight_grad import feature_grad, weight_grad
 
 LN_EPS = 1e-5
 # Edge rows per K4 launch: bounds its h / dy row buffers (2 x 268 MB at
@@ -327,6 +328,31 @@ def _launch_fused_edge_embed(edges: EdgeIndex, features, sproj, rproj, we,
                              b0, w1, b1, scale, offset, embed_weights):
   """K1 in embed mode on CUDA tensors, aggregation only (checks, then one
   launch)."""
+  mats, vecs = _embed_operands(edges, features, sproj, rproj, we, b0, w1, b1,
+                               scale, offset, embed_weights)
+  E, F = features.shape
+  C = sproj.shape[1]
+  dev = sproj.device
+  lib = build.load_library()
+  agg = torch.zeros(edges.num_receivers, C, dtype=torch.float32, device=dev)
+  code = lib.gc_fused_edge_embed(
+      mats["features"].data_ptr(), mats["ew0"].data_ptr(),
+      vecs["eb0"].data_ptr(), mats["ew1"].data_ptr(), vecs["eb1"].data_ptr(),
+      sproj.data_ptr(), edges.senders.data_ptr(), rproj.data_ptr(),
+      edges.receivers.data_ptr(), mats["we"].data_ptr(),
+      vecs["b0"].data_ptr(), mats["w1"].data_ptr(), vecs["b1"].data_ptr(),
+      vecs["scale"].data_ptr(), vecs["offset"].data_ptr(), agg.data_ptr(),
+      E, F, C, torch.cuda.current_stream(dev).cuda_stream)
+  build.check(lib, code, "fused_edge embed kernel launch")
+  fused_edge.launches += 1
+  fused_edge.embed_launches += 1
+  return agg
+
+
+def _embed_operands(edges: EdgeIndex, features, sproj, rproj, we, b0, w1,
+                    b1, scale, offset, embed_weights):
+  """Checks embed-mode operands on CUDA; returns (bf16 matrices with the
+  features, f32 vectors)."""
   E, F = features.shape
   C = sproj.shape[1]
   if not 1 <= F <= MAX_EMBED_FEATURES:
@@ -346,20 +372,108 @@ def _launch_fused_edge_embed(edges: EdgeIndex, features, sproj, rproj, we,
                       offset=offset)
   _check_cuda(mats, dev, torch.bfloat16)
   _check_vectors(vecs, dev, C)
+  return mats, vecs
+
+
+def fused_edge_embed_backward(edges: EdgeIndex, features, sproj, rproj, we,
+                              b0, w1, b1, scale, embed_weights, d_agg):
+  """K4 in embed mode: the gradients of one aggregation-only embed-mode
+  step on CUDA tensors, for the cotangent d_agg ([N, C]).
+
+  Returns (dfeatures, dsproj, drproj, dwe, db0, dw1, db1, dscale, doff,
+  (dew0, deb0, dew1, deb1)), each in its input's dtype (doff f32). Row
+  chunks of ``BWD_CHUNK_ROWS`` edges: each runs the per-row kernel (one
+  launch, counted in ``fused_edge_backward.launches`` and
+  ``.embed_launches``), the reductions dW1 = hᵀ·dy, dWe' = enᵀ·dx0 and dEw1
+  = hhᵀ·dy0 (ops/weight_grad.py), dEw0 and the raw-feature gradient
+  (``feature_grad``), and the f32 scatter of the sender gradients.
+  """
+  mats, vecs = _embed_operands(edges, features, sproj, rproj, we, b0, w1, b1,
+                               scale, None, embed_weights)
+  E, F = features.shape
+  C = sproj.shape[1]
+  dev = sproj.device
+  bf16, f32 = torch.bfloat16, torch.float32
+  tr = {k: mats[k].t().contiguous() for k in ("ew1", "we", "w1")}
+  d_agg = d_agg.to(f32).contiguous()
+  if d_agg.shape != (edges.num_receivers, C):
+    raise ValueError(f"d_agg must have shape ({edges.num_receivers}, {C})")
+
   lib = build.load_library()
-  agg = torch.zeros(edges.num_receivers, C, dtype=torch.float32, device=dev)
-  code = lib.gc_fused_edge_embed(
-      mats["features"].data_ptr(), mats["ew0"].data_ptr(),
-      vecs["eb0"].data_ptr(), mats["ew1"].data_ptr(), vecs["eb1"].data_ptr(),
-      sproj.data_ptr(), edges.senders.data_ptr(), rproj.data_ptr(),
-      edges.receivers.data_ptr(), mats["we"].data_ptr(),
-      vecs["b0"].data_ptr(), mats["w1"].data_ptr(), vecs["b1"].data_ptr(),
-      vecs["scale"].data_ptr(), vecs["offset"].data_ptr(), agg.data_ptr(),
-      E, F, C, torch.cuda.current_stream(dev).cuda_stream)
-  build.check(lib, code, "fused_edge embed kernel launch")
-  fused_edge.launches += 1
-  fused_edge.embed_launches += 1
-  return agg
+  dgs = torch.empty(E, C, dtype=bf16, device=dev)
+  dgr = torch.zeros(edges.num_receivers, C, dtype=f32, device=dev)
+  dsproj = torch.zeros(edges.num_senders, C, dtype=f32, device=dev)
+  sums = torch.zeros(6, C, dtype=f32, device=dev)
+  dw = {k: torch.zeros(C, C, dtype=f32, device=dev)
+        for k in ("w1", "we", "ew1")}
+  dew0 = torch.zeros(F, C, dtype=f32, device=dev)
+  dfeat = torch.empty(E, F, dtype=f32, device=dev)
+  rows = min(E, BWD_CHUNK_ROWS)
+  buf = {k: torch.empty(rows, C, dtype=bf16, device=dev)
+         for k in ("h", "dy", "en", "hh", "dy0", "dxe")}
+  en32 = torch.empty(rows, C, dtype=f32, device=dev)
+  stream = torch.cuda.current_stream(dev).cuda_stream
+  feats = mats["features"]
+  for r0 in range(0, E, BWD_CHUNK_ROWS):
+    n = min(BWD_CHUNK_ROWS, E - r0)
+    part = slice(r0, r0 + n)
+    code = lib.gc_fused_edge_bwd_embed(
+        feats[part].data_ptr(), mats["ew0"].data_ptr(),
+        vecs["eb0"].data_ptr(), mats["ew1"].data_ptr(),
+        tr["ew1"].data_ptr(), vecs["eb1"].data_ptr(), sproj.data_ptr(),
+        edges.senders[part].data_ptr(), rproj.data_ptr(),
+        edges.receivers[part].data_ptr(), mats["we"].data_ptr(),
+        tr["we"].data_ptr(), vecs["b0"].data_ptr(), mats["w1"].data_ptr(),
+        tr["w1"].data_ptr(), vecs["b1"].data_ptr(),
+        vecs["scale"].data_ptr(), d_agg.data_ptr(), buf["h"].data_ptr(),
+        buf["dy"].data_ptr(), dgs[part].data_ptr(), dgr.data_ptr(),
+        sums.data_ptr(), buf["en"].data_ptr(), en32.data_ptr(),
+        buf["hh"].data_ptr(), buf["dy0"].data_ptr(), buf["dxe"].data_ptr(),
+        n, F, C, stream)
+    build.check(lib, code, "fused_edge_bwd embed kernel launch")
+    fused_edge_backward.launches += 1
+    fused_edge_backward.embed_launches += 1
+    weight_grad(buf["h"][:n], buf["dy"][:n], dw["w1"])
+    weight_grad(buf["en"][:n], dgs[part], dw["we"])
+    weight_grad(buf["hh"][:n], buf["dy0"][:n], dw["ew1"])
+    dfeat[part] = feature_grad(feats[part], buf["dxe"][:n], mats["ew0"],
+                               dew0)
+    dsproj.index_add_(0, edges.senders[part].long(), dgs[part].float())
+  ew0, eb0, ew1, eb1 = embed_weights
+  dembed = (dew0.to(ew0.dtype), sums[5].to(eb0.dtype),
+            dw["ew1"].to(ew1.dtype), sums[4].to(eb1.dtype))
+  return (dfeat.to(features.dtype), dsproj.to(sproj.dtype),
+          dgr.to(rproj.dtype), dw["we"].to(we.dtype), sums[3].to(b0.dtype),
+          dw["w1"].to(w1.dtype), sums[2].to(b1.dtype),
+          sums[0].to(scale.dtype), sums[1], dembed)
+
+
+fused_edge_backward.embed_launches = 0
+
+
+class _FusedEdgeEmbedFunction(torch.autograd.Function):
+  """K1 in embed mode forward, K4's embed mode backward (module doc).
+  Saves only the inputs."""
+
+  @staticmethod
+  def forward(ctx, edges, features, sproj, rproj, we, b0, w1, b1, scale,
+              offset, ew0, eb0, ew1, eb1):
+    ctx.edges = edges
+    ctx.offset_dtype = offset.dtype
+    ctx.save_for_backward(features, sproj, rproj, we, b0, w1, b1, scale, ew0,
+                          eb0, ew1, eb1)
+    return _launch_fused_edge_embed(edges, features, sproj, rproj, we, b0,
+                                    w1, b1, scale, offset,
+                                    (ew0, eb0, ew1, eb1))
+
+  @staticmethod
+  def backward(ctx, d_agg):
+    (features, sproj, rproj, we, b0, w1, b1, scale, *embed) = (
+        ctx.saved_tensors)
+    *grads, doff, dembed = fused_edge_embed_backward(
+        ctx.edges, features, sproj, rproj, we, b0, w1, b1, scale, embed,
+        d_agg)
+    return (None, *grads, doff.to(ctx.offset_dtype), *dembed)
 
 
 def fused_edge(edges: EdgeIndex, e: torch.Tensor, sproj: torch.Tensor,
@@ -395,11 +509,9 @@ def fused_edge(edges: EdgeIndex, e: torch.Tensor, sproj: torch.Tensor,
     if write_edges:
       raise NotImplementedError(
           "the embed mode kernel runs aggregation-only (write_edges=False)")
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (e, sproj, rproj, we, b0, w1, b1, scale,
-                                  offset, *embed_weights)):
-      raise NotImplementedError(
-          "the embed mode backward (K4) is not ported: run under no_grad")
+    inputs = (e, sproj, rproj, we, b0, w1, b1, scale, offset, *embed_weights)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+      return _FusedEdgeEmbedFunction.apply(edges, *inputs)
     return _launch_fused_edge_embed(edges, e, sproj, rproj, we, b0, w1, b1,
                                     scale, offset, embed_weights)
   inputs = (e, sproj, rproj, we, b0, w1, b1, scale, offset)

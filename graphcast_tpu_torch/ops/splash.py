@@ -1,33 +1,50 @@
-"""K6: block-sparse flash attention forward over a static mask, and its
-plain-PyTorch version.
+"""K6, K7, K8: block-sparse flash attention over a static mask, forward and
+backward, and their plain-PyTorch versions.
 
-Replaces graphcast_tpu/ops/splash.py::_fwd_kernel (ground truth:
-``splash.reference_masked_attention``). For every head and query row,
+Replaces graphcast_tpu/ops/splash.py::_fwd_kernel (K6), ::_dq_kernel (K7)
+and ::_dkv_kernel (K8) (ground truth: ``splash.reference_masked_attention``
+and its autodiff). For every head and query row i, over the entries j of a
+static boolean mask, GenCast's k-hop mesh mask:
 
     s    = q · kᵀ · scale                 (f32; masked entries at -1e30)
     o    = softmax(s) · v                 (weights rounded to v's dtype)
     lse  = logsumexp(s)                   (f32, kept for the backward)
 
-over the entries of a static boolean mask, GenCast's k-hop mesh mask.
+and the backward from the output cotangent do (splash.py:382-641):
+
+    δ    = Σ_d o·do                       (f32, per row)
+    p    = exp(s − lse)        dp = do · vᵀ             (f32)
+    ds   = p · (dp − δ) · scale
+    dq   = bf16(ds) · k        (K7)
+    dv   = bf16(p)ᵀ · do       dk = bf16(ds)ᵀ · q       (K8)
+
+with f32 sums and outputs in the inputs' dtype (the casts are those of the
+TPU kernels: p to do's dtype, ds to q's and k's).
 
 The host compiles the mask into a ``BlockMap`` at the port's own tile size
 (``TILE`` = 64, a tile of q rows by a tile of kv columns): for every q tile
 the list of kv tiles that hold any mask entry, and one 64-bit word per q
 row of each such (q tile, kv tile) pair, bit c set where column c of the kv
 tile is in the mask. Tiles whose 64 words are all ones are flagged full and
-skip the mask test. The TPU version's 512×512 tiles and its sublane-strided
+skip the mask test. The map also holds the same structure for the
+transposed mask (``transposed``): for every kv tile the q tiles that attend
+it, one word per kv row with bit r set where q row r of the q tile attends
+it; K8 walks it. The TPU version's 512×512 tiles and its sublane-strided
 bit packing (splash.py:72-107) are Mosaic layouts and are not ported; at
 64×64 the k-hop-16 mask of the 1.0° mesh-5 covers 35 % fewer entries.
 
-``block_sparse_attention`` runs the CUDA kernel (csrc/splash_fwd.cu) for
-CUDA tensors and the plain version for CPU tensors; it raises on CUDA inputs
-the kernel does not take (head dim other than 128, dtypes other than bf16).
-No backward here: K7/K8 (dq, dk/dv) wait for GenCast training.
+``block_sparse_attention`` runs the CUDA kernels (csrc/splash_fwd.cu,
+csrc/splash_bwd.cu) for CUDA tensors and the plain versions for CPU
+tensors, both inside one ``torch.autograd.Function`` (forward K6, backward
+K7 then K8); it raises on CUDA inputs the kernels do not take (head dim
+other than 128, dtypes other than bf16). The logsumexp output carries no
+gradient, as the JAX ``_attend`` returns o alone.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import scipy.sparse as sp
@@ -37,7 +54,7 @@ from graphcast_tpu_torch.native import build
 
 NEG_INF = -1e30
 TILE = 64
-HEAD_DIM = 128  # the kernel's head dim (GenCast: d_model 512 / 4 heads)
+HEAD_DIM = 128  # the kernels' head dim (GenCast: d_model 512 / 4 heads)
 
 
 @dataclasses.dataclass(eq=False)
@@ -52,6 +69,9 @@ class BlockMap:
       r, kv tile column c] of pair a. Rows and columns past n are 0.
     full: [n_active] bool, pairs whose TILE × TILE entries are all set.
     nnz: number of mask entries.
+    transposed: the map of the transposed mask (its q tiles are the kv
+      tiles here, its words one per kv row), or None in a map that is
+      itself a transpose.
   """
   n: int
   kv_offsets: np.ndarray
@@ -59,10 +79,11 @@ class BlockMap:
   words: np.ndarray
   full: np.ndarray
   nnz: int
+  transposed: Optional["BlockMap"] = None
   _on_device: dict = dataclasses.field(default_factory=dict, repr=False)
 
   def on_device(self, device) -> "_DeviceMap":
-    """The map's arrays on ``device``, as the kernel reads them (copied
+    """The map's arrays on ``device``, as the kernels read them (copied
     once per device)."""
     key = str(device)
     if key not in self._on_device:
@@ -82,16 +103,9 @@ class BlockMap:
     return int(self.kv_index.shape[0])
 
 
-def build_block_map(mask: sp.spmatrix) -> BlockMap:
-  """Compiles a square boolean sparse mask into a ``BlockMap``, from its
-  nonzero coordinates (never densified)."""
-  n = mask.shape[0]
-  if mask.shape != (n, n):
-    raise ValueError(f"mask must be square, got {mask.shape}")
-  coo = mask.tocoo()
-  keep = coo.data.astype(bool)
-  rows = coo.row[keep].astype(np.int64)
-  cols = coo.col[keep].astype(np.int64)
+def _compile(rows: np.ndarray, cols: np.ndarray, n: int,
+             transposed: Optional[BlockMap]) -> BlockMap:
+  """The BlockMap of the mask entries (rows[i], cols[i])."""
   nq = -(-n // TILE)
   pair = (rows // TILE) * nq + cols // TILE
   uniq, inv = np.unique(pair, return_inverse=True)
@@ -110,7 +124,40 @@ def build_block_map(mask: sp.spmatrix) -> BlockMap:
   return BlockMap(
       n=n, kv_offsets=kv_offsets, kv_index=(uniq % nq).astype(np.int32),
       words=words, full=(words == np.uint64(2**64 - 1)).all(axis=1),
-      nnz=int(rows.size))
+      nnz=int(rows.size), transposed=transposed)
+
+
+def build_block_map(mask: sp.spmatrix) -> BlockMap:
+  """Compiles a square boolean sparse mask into a ``BlockMap`` and its
+  transpose, from its nonzero coordinates (never densified; the mask need
+  not be symmetric)."""
+  n = mask.shape[0]
+  if mask.shape != (n, n):
+    raise ValueError(f"mask must be square, got {mask.shape}")
+  coo = mask.tocoo()
+  keep = coo.data.astype(bool)
+  rows = coo.row[keep].astype(np.int64)
+  cols = coo.col[keep].astype(np.int64)
+  return _compile(rows, cols, n, _compile(cols, rows, n, None))
+
+
+def _allowed(words: torch.Tensor) -> torch.Tensor:
+  """[slots, TILE] 64-bit words → [TILE rows, slots * TILE cols] bool."""
+  shifts = torch.arange(TILE, device=words.device)
+  allowed = ((words[:, :, None] >> shifts) & 1).bool()
+  return allowed.permute(1, 0, 2).reshape(TILE, -1)
+
+
+def _tile_columns(index: np.ndarray, device) -> torch.Tensor:
+  """Node indices of the tiles ``index``, tile after tile."""
+  return (torch.from_numpy(index).to(device)[:, None] * TILE
+          + torch.arange(TILE, device=device)).reshape(-1)
+
+
+def _padded(x, n_pad, dtype=torch.float32):
+  """x [batch, n, ...] in ``dtype``, zero rows past n up to n_pad."""
+  pad = [0, 0] * (x.ndim - 2) + [0, n_pad - x.shape[1]]
+  return torch.nn.functional.pad(x.to(dtype), pad)
 
 
 def block_sparse_attention_reference(q, k, v, block_map: BlockMap,
@@ -126,22 +173,16 @@ def block_sparse_attention_reference(q, k, v, block_map: BlockMap,
   bm = block_map
   if n != bm.n:
     raise ValueError(f"block map built for {bm.n} nodes, got {n}")
-  pad = bm.n_pad - n
-  qf, kf, vf = (torch.nn.functional.pad(t.float(), (0, 0, 0, 0, 0, pad))
-                for t in (q, k, v))
+  qf, kf, vf = (_padded(t, bm.n_pad) for t in (q, k, v))
   words = torch.from_numpy(bm.words.view(np.int64)).to(q.device)
-  shifts = torch.arange(TILE, device=q.device)
   o = torch.zeros(batch, bm.n_pad, heads, d, dtype=v.dtype, device=q.device)
   lse = torch.zeros(batch, heads, bm.n_pad, device=q.device)
   for i in range(bm.nq):
     a0, a1 = int(bm.kv_offsets[i]), int(bm.kv_offsets[i + 1])
     if a0 == a1:
       continue
-    cols = (torch.from_numpy(bm.kv_index[a0:a1]).to(q.device)[:, None] * TILE
-            + shifts).reshape(-1)
-    # [TILE rows, slots * TILE cols] bool from the rows' 64-bit words.
-    allowed = ((words[a0:a1, :, None] >> shifts) & 1).bool()
-    allowed = allowed.permute(1, 0, 2).reshape(TILE, -1)
+    cols = _tile_columns(bm.kv_index[a0:a1], q.device)
+    allowed = _allowed(words[a0:a1])
     rows = slice(i * TILE, (i + 1) * TILE)
     s = torch.einsum("bqhd,bkhd->bhqk", qf[:, rows], kf[:, cols]) * scale
     s = torch.where(allowed, s, torch.full_like(s, NEG_INF))
@@ -154,8 +195,81 @@ def block_sparse_attention_reference(q, k, v, block_map: BlockMap,
   return o[:, :n], lse[:, :, :n]
 
 
+def _backward_operands(q, k, v, o, lse, do, bm: BlockMap):
+  """f32 copies padded to n_pad, δ = Σ o·do [batch, heads, n_pad], and
+  lse padded with 0 (the padded rows' mask words are 0, so their p is 0)."""
+  if q.shape[1] != bm.n:
+    raise ValueError(f"block map built for {bm.n} nodes, got {q.shape[1]}")
+  qf, kf, vf, dof = (_padded(t, bm.n_pad) for t in (q, k, v, do))
+  delta = (_padded(o, bm.n_pad) * dof).sum(-1).permute(0, 2, 1)
+  lse = torch.nn.functional.pad(lse.float(), (0, bm.n_pad - bm.n))
+  return qf, kf, vf, dof, delta, lse
+
+
+def _dq_reference(q, k, v, o, lse, do, bm: BlockMap, scale: float):
+  """Plain version of K7: dq over the forward map."""
+  qf, kf, vf, dof, delta, lse = _backward_operands(q, k, v, o, lse, do, bm)
+  words = torch.from_numpy(bm.words.view(np.int64)).to(q.device)
+  dq = torch.zeros_like(qf)
+  for i in range(bm.nq):
+    a0, a1 = int(bm.kv_offsets[i]), int(bm.kv_offsets[i + 1])
+    if a0 == a1:
+      continue
+    cols = _tile_columns(bm.kv_index[a0:a1], q.device)
+    rows = slice(i * TILE, (i + 1) * TILE)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf[:, rows], kf[:, cols]) * scale
+    p = torch.where(_allowed(words[a0:a1]),
+                    torch.exp(s - lse[:, :, rows, None]),
+                    torch.zeros_like(s))
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof[:, rows], vf[:, cols])
+    ds = p * (dp - delta[:, :, rows, None]) * scale
+    dq[:, rows] = torch.einsum("bhqk,bkhd->bqhd",
+                               ds.to(k.dtype).float(), kf[:, cols])
+  return dq[:, :bm.n].to(q.dtype)
+
+
+def _dkv_reference(q, k, v, o, lse, do, bm: BlockMap, scale: float):
+  """Plain version of K8: dk and dv over the transposed map."""
+  qf, kf, vf, dof, delta, lse = _backward_operands(q, k, v, o, lse, do, bm)
+  bt = bm.transposed
+  words = torch.from_numpy(bt.words.view(np.int64)).to(q.device)
+  dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+  for j in range(bt.nq):
+    a0, a1 = int(bt.kv_offsets[j]), int(bt.kv_offsets[j + 1])
+    if a0 == a1:
+      continue
+    rows = _tile_columns(bt.kv_index[a0:a1], q.device)  # attending q rows
+    kv = slice(j * TILE, (j + 1) * TILE)
+    # Transposed tiles: [batch, heads, kv row, q row].
+    st = torch.einsum("bkhd,bqhd->bhkq", kf[:, kv], qf[:, rows]) * scale
+    pt = torch.where(_allowed(words[a0:a1]),
+                     torch.exp(st - lse[:, :, None, rows]),
+                     torch.zeros_like(st))
+    dpt = torch.einsum("bkhd,bqhd->bhkq", vf[:, kv], dof[:, rows])
+    dst = pt * (dpt - delta[:, :, None, rows]) * scale
+    dv[:, kv] = torch.einsum("bhkq,bqhd->bkhd", pt.to(do.dtype).float(),
+                             dof[:, rows])
+    dk[:, kv] = torch.einsum("bhkq,bqhd->bkhd", dst.to(q.dtype).float(),
+                             qf[:, rows])
+  return dk[:, :bm.n].to(k.dtype), dv[:, :bm.n].to(v.dtype)
+
+
+def block_sparse_attention_backward_reference(q, k, v, o, lse, do,
+                                              block_map: BlockMap,
+                                              scale: float):
+  """Plain-PyTorch version of K7 and K8 (module doc): the gradients of
+  ``block_sparse_attention``'s o for the cotangent ``do``.
+
+  q, k, v, o, do: [batch, n, heads, d]; lse [batch, heads, n] f32, both
+  from the forward. Returns (dq, dk, dv) in q's, k's and v's dtypes.
+  """
+  args = (q, k, v, o, lse, do, block_map, scale)
+  return (_dq_reference(*args), *_dkv_reference(*args))
+
+
 class _DeviceMap:
-  """A BlockMap's arrays on one device, as the kernel reads them."""
+  """A BlockMap's arrays (and its transpose's) on one device, as the
+  kernels read them."""
 
   def __init__(self, bm: BlockMap, device):
     def tensor(a):
@@ -174,8 +288,16 @@ def _to_heads(x, n_pad):
   return torch.nn.functional.pad(x, (0, 0, 0, n_pad - n)).contiguous()
 
 
+def _from_heads(x, batch, n):
+  """[batch·heads, n_pad, d] → [batch, n, heads, d] (a view)."""
+  bh, _, d = x.shape
+  return x[:, :n].reshape(batch, bh // batch, n, d).permute(0, 2, 1, 3)
+
+
 def _launch_splash(q, k, v, bm: BlockMap, scale: float):
-  """K6 on CUDA tensors (checks, then one launch)."""
+  """K6 on CUDA tensors (checks, then one launch). Returns ((qh, kh, vh),
+  o, lse) in the padded head-major layout: [batch·heads, n_pad, d] bf16
+  and [batch·heads, n_pad] f32, lse 0 past n."""
   batch, n, heads, d = q.shape
   if n != bm.n:
     raise ValueError(f"block map built for {bm.n} nodes, got {n}")
@@ -201,8 +323,117 @@ def _launch_splash(q, k, v, bm: BlockMap, scale: float):
       bm.n_pad, torch.cuda.current_stream(q.device).cuda_stream)
   build.check(lib, code, "splash_fwd kernel launch")
   block_sparse_attention.launches += 1
-  o = o[:, :n].reshape(batch, heads, n, d).permute(0, 2, 1, 3)
-  return o, lse[:, :n].reshape(batch, heads, n)
+  # The padded rows attend nothing; the backward reads their lse as 0.
+  lse[:, n:] = 0.0
+  return (qh, kh, vh), o, lse
+
+
+def _outputs(o, lse, batch, n):
+  """Head-major (o, lse) → (o [batch, n, heads, d], lse [batch, heads, n])."""
+  return _from_heads(o, batch, n), lse[:, :n].reshape(batch, -1, n)
+
+
+def attention_delta(o, do):
+  """δ = Σ_d o·do in f32 over the last dim, computed outside the backward
+  kernels as in the JAX package (splash.py:530)."""
+  return (o.float() * do.float()).sum(-1)
+
+
+def _check_heads(bm: BlockMap, qh, kh, vh, do, lse, delta):
+  """Checks the backward kernels' head-major operands before a launch."""
+  if qh.device.type != "cuda":
+    raise ValueError(f"K7/K8 take CUDA tensors, got {qh.device} (on the "
+                     "CPU, block_sparse_attention runs the plain backward)")
+  for name, t in (("q", qh), ("k", kh), ("v", vh), ("do", do)):
+    if t.shape != qh.shape or t.dtype != torch.bfloat16 or not (
+        t.is_contiguous()) or t.device != qh.device:
+      raise ValueError(f"{name} must be contiguous bf16 of shape "
+                       f"{tuple(qh.shape)} on {qh.device}")
+  if qh.shape[1:] != (bm.n_pad, HEAD_DIM):
+    raise ValueError(f"head-major operands must be [bh, {bm.n_pad}, "
+                     f"{HEAD_DIM}], got {tuple(qh.shape)}")
+  for name, t in (("lse", lse), ("delta", delta)):
+    if t.shape != qh.shape[:2] or t.dtype != torch.float32 or not (
+        t.is_contiguous()) or t.device != qh.device:
+      raise ValueError(f"{name} must be contiguous f32 of shape "
+                       f"{tuple(qh.shape[:2])} on {qh.device}")
+
+
+def splash_dq(qh, kh, vh, do, lse, delta, bm: BlockMap, scale: float):
+  """K7 on CUDA tensors in the padded head-major layout: q, k, v, do
+  [batch·heads, n_pad, 128] bf16; lse (0 past n) and delta
+  (``attention_delta``) [batch·heads, n_pad] f32. Returns dq in that
+  layout (bf16)."""
+  _check_heads(bm, qh, kh, vh, do, lse, delta)
+  dm = bm.on_device(qh.device)
+  dq = torch.empty_like(qh)
+  lib = build.load_library()
+  code = lib.gc_splash_dq(
+      qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), do.data_ptr(),
+      lse.data_ptr(), delta.data_ptr(), dm.kv_offsets.data_ptr(),
+      dm.kv_index.data_ptr(), dm.words.data_ptr(), dm.full.data_ptr(),
+      dq.data_ptr(), float(scale), qh.shape[0], bm.nq, bm.n_pad,
+      torch.cuda.current_stream(qh.device).cuda_stream)
+  build.check(lib, code, "splash_dq kernel launch")
+  splash_dq.launches += 1
+  return dq
+
+
+def splash_dkv(qh, kh, vh, do, lse, delta, bm: BlockMap, scale: float):
+  """K8 on CUDA tensors, operands as ``splash_dq``. Returns (dk, dv)."""
+  _check_heads(bm, qh, kh, vh, do, lse, delta)
+  dt = bm.transposed.on_device(qh.device)
+  dk, dv = torch.empty_like(kh), torch.empty_like(vh)
+  lib = build.load_library()
+  code = lib.gc_splash_dkv(
+      qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), do.data_ptr(),
+      lse.data_ptr(), delta.data_ptr(), dt.kv_offsets.data_ptr(),
+      dt.kv_index.data_ptr(), dt.words.data_ptr(), dt.full.data_ptr(),
+      dk.data_ptr(), dv.data_ptr(), float(scale), qh.shape[0],
+      bm.transposed.nq, bm.n_pad,
+      torch.cuda.current_stream(qh.device).cuda_stream)
+  build.check(lib, code, "splash_dkv kernel launch")
+  splash_dkv.launches += 1
+  return dk, dv
+
+
+splash_dq.launches = 0
+splash_dkv.launches = 0
+
+
+class _BlockSparseAttentionFunction(torch.autograd.Function):
+  """Forward K6, backward K7 then K8 on CUDA tensors; the plain versions of
+  both on CPU tensors. Saves q, k, v, o and lse (on the card in the padded
+  head-major layout the kernels read)."""
+
+  @staticmethod
+  def forward(ctx, q, k, v, block_map, scale):
+    ctx.block_map, ctx.scale, ctx.batch = block_map, scale, q.shape[0]
+    if q.device.type == "cpu":
+      o, lse = block_sparse_attention_reference(q, k, v, block_map, scale)
+      ctx.save_for_backward(q, k, v, o, lse)
+    else:
+      (qh, kh, vh), oh, lseh = _launch_splash(q, k, v, block_map, scale)
+      ctx.save_for_backward(qh, kh, vh, oh, lseh)
+      o, lse = _outputs(oh, lseh, q.shape[0], block_map.n)
+    ctx.mark_non_differentiable(lse)
+    return o, lse
+
+  @staticmethod
+  def backward(ctx, do, _):
+    bm, scale = ctx.block_map, ctx.scale
+    saved = ctx.saved_tensors
+    if do.device.type == "cpu":
+      grads = block_sparse_attention_backward_reference(*saved, do, bm,
+                                                        scale)
+      return (*grads, None, None)
+    qh, kh, vh, oh, lseh = saved
+    doh = _to_heads(do.to(torch.bfloat16), bm.n_pad)
+    delta = attention_delta(oh, doh)
+    dq = splash_dq(qh, kh, vh, doh, lseh, delta, bm, scale)
+    dk, dv = splash_dkv(qh, kh, vh, doh, lseh, delta, bm, scale)
+    return (*(_from_heads(g, ctx.batch, bm.n) for g in (dq, dk, dv)), None,
+            None)
 
 
 def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -211,16 +442,17 @@ def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
   q, k, v: [batch, n, heads, d] (the JAX package's layout). Returns (o
   [batch, n, heads, d], lse [batch, heads, n] f32). CPU tensors run the
-  plain version; CUDA tensors launch K6 (bf16, d = 128) or raise.
+  plain versions; CUDA tensors launch K6 (bf16, d = 128), and K7 and K8 in
+  the backward, or raise. Differentiable in q, k and v.
   """
-  if q.device.type == "cpu":
-    return block_sparse_attention_reference(q, k, v, block_map, scale)
-  if q.device.type != "cuda":
+  if q.device.type not in ("cpu", "cuda"):
     raise ValueError(f"unsupported device {q.device}")
   if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-    raise NotImplementedError(
-        "the attention backward (K7, K8) is not ported: run under no_grad")
-  return _launch_splash(q, k, v, block_map, scale)
+    return _BlockSparseAttentionFunction.apply(q, k, v, block_map, scale)
+  if q.device.type == "cpu":
+    return block_sparse_attention_reference(q, k, v, block_map, scale)
+  _, o, lse = _launch_splash(q, k, v, block_map, scale)
+  return _outputs(o, lse, q.shape[0], block_map.n)
 
 
 block_sparse_attention.launches = 0

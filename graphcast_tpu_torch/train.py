@@ -27,10 +27,13 @@ from graphcast_tpu_torch.models.base import Predictor
 
 
 def make_loss_fn(predictor: Predictor):
-  """(inputs, targets, forcings) → (scalar loss, diagnostics): the batch
-  mean of the predictor's per-sample loss."""
-  def loss_fn(inputs: FieldSet, targets: FieldSet, forcings: FieldSet):
-    loss, diagnostics = predictor.loss(inputs, targets, forcings)
+  """(inputs, targets, forcings, **kwargs) → (scalar loss, diagnostics): the
+  batch mean of the predictor's per-sample loss. ``kwargs`` go to
+  ``predictor.loss``: GenCast's ``generator``, the port's form of the JAX
+  step's ``rng`` (train.py:110)."""
+  def loss_fn(inputs: FieldSet, targets: FieldSet, forcings: FieldSet,
+              **kwargs):
+    loss, diagnostics = predictor.loss(inputs, targets, forcings, **kwargs)
     return loss.mean(0), {k: v.mean(0) for k, v in diagnostics.items()}
   return loss_fn
 
@@ -100,13 +103,15 @@ def graphcast_optimizer(params: Iterable[torch.nn.Parameter],
 
 
 def make_train_step(predictor: Predictor, optimizer: ClippedAdamW):
-  """Returns train_step(inputs, targets, forcings) → (loss, diagnostics),
-  detached; the step updates the predictor's parameters in place."""
+  """Returns train_step(inputs, targets, forcings, **kwargs) → (loss,
+  diagnostics), detached; the step updates the predictor's parameters in
+  place. ``kwargs`` go to the loss (``make_loss_fn``)."""
   loss_fn = make_loss_fn(predictor)
 
-  def train_step(inputs: FieldSet, targets: FieldSet, forcings: FieldSet):
+  def train_step(inputs: FieldSet, targets: FieldSet, forcings: FieldSet,
+                 **kwargs):
     optimizer.zero_grad()
-    loss, diagnostics = loss_fn(inputs, targets, forcings)
+    loss, diagnostics = loss_fn(inputs, targets, forcings, **kwargs)
     loss.backward()
     optimizer.step()
     return loss.detach(), {k: v.detach() for k, v in diagnostics.items()}

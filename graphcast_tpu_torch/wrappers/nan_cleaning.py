@@ -3,7 +3,9 @@ reference: nan_cleaning.py:27-125).
 
 Fills one variable's NaNs (sea_surface_temperature over land, in practice)
 with a fill value before the inner predictor runs, and puts the NaN mask of
-the last input frame back on that variable's prediction.
+the last input frame back on that variable's prediction. The loss is taken
+on the cleaned inputs, targets and forcings (graphcast_tpu/wrappers/
+nan_cleaning.py:60-70).
 """
 
 from __future__ import annotations
@@ -47,6 +49,16 @@ class NaNCleaner(WrapperPredictor):
     predictions = self._predictor(self._clean(inputs), targets_template,
                                   self._clean(forcings), **kwargs)
     return self._maybe_reintroduce_nans(inputs, predictions)
+
+  def loss(self, inputs, targets, forcings, **kwargs):
+    return self._predictor.loss(self._clean(inputs), self._clean(targets),
+                                self._clean(forcings), **kwargs)
+
+  def loss_and_predictions(self, inputs, targets, forcings, **kwargs):
+    loss, predictions = self._predictor.loss_and_predictions(
+        self._clean(inputs), self._clean(targets), self._clean(forcings),
+        **kwargs)
+    return loss, self._maybe_reintroduce_nans(inputs, predictions)
 
   def precompute_step_statics(self, inputs: FieldSet) -> dict:
     return self._predictor.precompute_step_statics(self._clean(inputs))

@@ -14,7 +14,12 @@ does, autograd of the twin where its casts are, so single elements differ
 by a few bf16 ulps. Weight-gradient reduction: relative RMS <= 1e-4 (the
 same exact bf16 products, summed in f32 in another order). K6 (block-sparse
 attention) against its plain version: o at the forward tolerance, lse
-max-abs <= 1e-3 (f32 online softmax against f32 softmax).
+max-abs <= 1e-3 (f32 online softmax against f32 softmax). K7/K8 (its
+backward) against the plain backward on the kernel's own o and lse:
+relative RMS <= 1e-2 per gradient (both round p and ds to bf16 at the same
+points; __expf and the summation order flip an occasional rounding). The
+embed modes' backwards (K4, K5) against autograd of their twins: the
+backward tolerance.
 """
 
 import numpy as np
@@ -28,7 +33,7 @@ from graphcast_tpu_torch.ops.fused_edge import (
     EdgeIndex, fused_edge, fused_edge_backward, fused_edge_reference)
 from graphcast_tpu_torch.ops import splash
 from graphcast_tpu_torch.ops.weight_grad import (
-    weight_grad, weight_grad_reference)
+    feature_grad, feature_grad_reference, weight_grad, weight_grad_reference)
 
 C = 512
 
@@ -326,8 +331,8 @@ def test_fused_decoder_embed_kernel_matches_twin(cuda_device):
 
 @pytest.mark.cuda
 def test_new_kernels_refuse_what_they_do_not_take(cuda_device):
-  """K6 takes bf16 with head dim 128 and no grad; the embed modes run
-  without grad: each raises on CUDA rather than falling back."""
+  """K6 takes bf16 with head dim 128 and raises on CUDA rather than falling
+  back; with grad it runs K6 forward and K7/K8 backward."""
   import scipy.sparse as sp
   bm = splash.build_block_map(sp.identity(64, format="csr"))
   q32 = torch.zeros(1, 64, 2, 128, device=cuda_device)
@@ -338,5 +343,153 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda_device):
     splash.block_sparse_attention(q64, q64, q64, bm, 1.0)
   qg = torch.zeros(1, 64, 2, 128, dtype=torch.bfloat16, device=cuda_device,
                    requires_grad=True)
-  with pytest.raises(NotImplementedError):
-    splash.block_sparse_attention(qg, qg, qg, bm, 1.0)
+  before = (splash.block_sparse_attention.launches, splash.splash_dq.launches,
+            splash.splash_dkv.launches)
+  o, _ = splash.block_sparse_attention(qg, qg, qg, bm, 1.0)
+  (grad,) = torch.autograd.grad(o.float().sum(), qg)
+  torch.cuda.synchronize()
+  assert (splash.block_sparse_attention.launches, splash.splash_dq.launches,
+          splash.splash_dkv.launches) == tuple(b + 1 for b in before)
+  assert grad.shape == qg.shape and torch.isfinite(grad.float()).all()
+
+
+def _attention_case(n, seed, asymmetric):
+  import scipy.sparse as sp
+  rng = np.random.RandomState(seed)
+  i, j = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+  if asymmetric:
+    dense = (rng.rand(n, n) < 0.05) | (i == j)
+  else:
+    dense = ((np.abs(i - j) <= 150) & (rng.rand(n, n) < 0.3)) | (i == j)
+    dense |= dense.T
+  dense[64:128, :64] = True
+  return splash.build_block_map(sp.csr_matrix(dense))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,asymmetric", [(1000, False), (1024, True)])
+def test_block_sparse_attention_backward_kernels_match_plain(n, asymmetric,
+                                                             cuda_device):
+  """K7 and K8 (through autograd of block_sparse_attention) against the
+  plain backward on the same q, k, v, do and the kernel's own o and lse:
+  a symmetric banded mask with n not a multiple of the tile, and an
+  asymmetric random one; 4 heads of 128, bf16."""
+  bm = _attention_case(n, n, asymmetric)
+  assert bm.full.any() and bm.transposed.full.any()
+  gen = torch.Generator().manual_seed(n + 1)
+  q, k, v = (_rand(gen, 1, n, 4, 128, dtype=torch.bfloat16).to(
+      cuda_device).requires_grad_() for _ in range(3))
+  do = _rand(gen, 1, n, 4, 128, dtype=torch.bfloat16).to(cuda_device)
+  before = splash.splash_dq.launches, splash.splash_dkv.launches
+  o, lse = splash.block_sparse_attention(q, k, v, bm, 128 ** -0.5)
+  got = torch.autograd.grad(o, (q, k, v), do)
+  torch.cuda.synchronize()
+  assert (splash.splash_dq.launches, splash.splash_dkv.launches) == (
+      before[0] + 1, before[1] + 1)
+  with torch.no_grad():
+    want = splash.block_sparse_attention_backward_reference(
+        q, k, v, o, lse, do, bm, 128 ** -0.5)
+  for name, g, w in zip(("dq", "dk", "dv"), got, want):
+    assert g.shape == q.shape and g.dtype == torch.bfloat16, name
+    _assert_grads_close({name: g}, {name: w})
+
+
+@pytest.mark.cuda
+def test_fused_edge_embed_backward_matches_twin_autograd(cuda_device):
+  rng = np.random.RandomState(7)
+  n, ns, e, F = 700, 2000, 5000, 4
+  receivers = np.sort(rng.randint(0, n, e))
+  senders = rng.randint(0, ns, e)
+  gen = torch.Generator().manual_seed(7)
+  bf16 = torch.bfloat16
+  leaves = dict(
+      e=_rand(gen, e, F), sproj=_rand(gen, ns, C, dtype=bf16),
+      rproj=_rand(gen, n, C, dtype=bf16),
+      we=_rand(gen, C, C, scale=C ** -0.5, dtype=bf16),
+      b0=_rand(gen, C, scale=0.1, dtype=bf16),
+      w1=_rand(gen, C, C, scale=C ** -0.5), b1=_rand(gen, C, scale=0.1),
+      scale=_rand(gen, C, scale=0.1, offset=1.0, dtype=bf16),
+      offset=_rand(gen, C, scale=0.1, dtype=bf16),
+      ew0=_rand(gen, F, C, scale=0.5), eb0=_rand(gen, C, scale=0.1),
+      ew1=_rand(gen, C, C, scale=C ** -0.5), eb1=_rand(gen, C, scale=0.1))
+  leaves = {k: v.to(cuda_device).requires_grad_() for k, v in leaves.items()}
+  d_agg = _rand(gen, n, C).to(cuda_device)
+  edges = EdgeIndex(senders, receivers, ns, n, device=cuda_device)
+
+  def run(fn):
+    return lambda ew0, eb0, ew1, eb1, **kw: fn(
+        edges, write_edges=False, embed_weights=(ew0, eb0, ew1, eb1), **kw)
+
+  before = (fused_edge_backward.embed_launches, weight_grad.launches,
+            feature_grad.launches)
+  got = _grads(run(fused_edge), leaves, (d_agg,))
+  want = _grads(run(fused_edge_reference), leaves, (d_agg,))
+  torch.cuda.synchronize()
+  # One row chunk: one K4 launch, dW1, dWe' and dEw1, one feature pass.
+  assert (fused_edge_backward.embed_launches - before[0],
+          weight_grad.launches - before[1],
+          feature_grad.launches - before[2]) == (1, 3, 1)
+  for name, g in got.items():
+    assert g.dtype == leaves[name].dtype and g.shape == leaves[name].shape
+  _assert_grads_close(got, want)
+
+
+@pytest.mark.cuda
+def test_fused_decoder_embed_backward_matches_twin_autograd(cuda_device):
+  rng = np.random.RandomState(8)
+  G, M, num_out, F = 1000, 300, 84, 4
+  senders = rng.randint(0, M, 3 * G)
+  edges = EdgeIndex(senders, np.repeat(np.arange(G), 3), M, G,
+                    device=cuda_device)
+  gen = torch.Generator().manual_seed(8)
+  bf16 = torch.bfloat16
+  w = {k: _rand(gen, C, C, scale=C ** -0.5) for k in MATRICES}
+  w["wd1"] = _rand(gen, C, num_out, scale=C ** -0.5)
+  w.update({k: _rand(gen, C, scale=0.1) for k in VECTORS})
+  w["bd1"] = _rand(gen, num_out, scale=0.1)
+  for k in ("escale", "nscale"):
+    w[k] = w[k] + 1.0
+  w.update(ew0=_rand(gen, F, C, scale=0.5), eb0=_rand(gen, C, scale=0.1),
+           ew1=_rand(gen, C, C, scale=C ** -0.5),
+           eb1=_rand(gen, C, scale=0.1),
+           we=_rand(gen, C, C, scale=C ** -0.5, dtype=bf16),
+           b0=_rand(gen, C, scale=0.1, dtype=bf16))
+  leaves = dict(grid=_rand(gen, G, C, dtype=bf16),
+                mesh_proj=_rand(gen, M, C, dtype=bf16),
+                const=_rand(gen, 3 * G, F), **w)
+  leaves = {k: v.to(cuda_device).requires_grad_() for k, v in leaves.items()}
+  dout = _rand(gen, G, num_out, dtype=bf16).to(cuda_device)
+
+  def run(fn):
+    return lambda grid, mesh_proj, const, **weights: fn(
+        edges, grid, mesh_proj, const, weights)
+
+  before = (fused_decode_backward.embed_launches, weight_grad.launches,
+            feature_grad.launches)
+  got = _grads(run(fused_decode), leaves, (dout,))
+  want = _grads(run(fused_decode_reference), leaves, (dout,))
+  torch.cuda.synchronize()
+  # One node chunk: one K5 launch, its 7 matrix gradients, We' and Ew1,
+  # one feature pass.
+  assert (fused_decode_backward.embed_launches - before[0],
+          weight_grad.launches - before[1],
+          feature_grad.launches - before[2]) == (1, 9, 1)
+  for name, g in got.items():
+    assert g.dtype == leaves[name].dtype and g.shape == leaves[name].shape
+  _assert_grads_close(got, want)
+
+
+@pytest.mark.cuda
+def test_feature_grad_kernel_matches_plain(cuda_device):
+  gen = torch.Generator().manual_seed(9)
+  bf16 = torch.bfloat16
+  R, F = 3001, 4
+  x = _rand(gen, R, F, dtype=bf16).to(cuda_device)
+  d = _rand(gen, R, 2 * C, dtype=bf16).to(cuda_device)[:, :C]
+  w0 = _rand(gen, F, C, dtype=bf16).to(cuda_device)
+  init = _rand(gen, F, C).to(cuda_device)
+  got, want = init.clone(), init.clone()
+  dx = feature_grad(x, d, w0, got)
+  dx_want = feature_grad_reference(x, d, w0, want)
+  torch.cuda.synchronize()
+  _assert_grads_close({"dw0": got, "dx": dx}, {"dw0": want, "dx": dx_want})

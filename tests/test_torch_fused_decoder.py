@@ -187,3 +187,64 @@ def test_embed_mode_twin_matches_jax_fused_decoder(dtype_name):
       d = got - wv
       assert np.sqrt(np.mean(d * d) / np.mean(wv * wv)) <= 1e-2, name
       assert np.abs(d).max() <= 0.1, name
+
+
+@pytest.mark.parametrize("dtype_name", sorted(_DTYPES))
+def test_embed_mode_twin_grads_match_jax_fused_backward(dtype_name):
+  """Embed mode's gradients (K5's embed mode in the JAX package): the twin
+  under autograd against jax.vjp of FusedMesh2GridDecoder with
+  ``fused_backward=True`` on raw slot features, for the grid, the mesh
+  projection, the raw features and all 27 weights."""
+  from graphcast_tpu_torch.ops.fused_decoder import EMBED_KEYS
+  jdtype, tdtype = _DTYPES[dtype_name]
+  senders, a, w = _case(seed=33, G=48)
+  G, C = a["grid"].shape
+  rs = np.random.RandomState(34)
+  F = 4
+  a["const"] = rs.randn(3 * G, F).astype(np.float32)
+  w.update(ew0=rs.randn(F, C), eb0=0.1 * rs.randn(C),
+           ew1=rs.randn(C, C) / np.sqrt(C), eb1=0.1 * rs.randn(C),
+           we=rs.randn(C, C) / np.sqrt(C), b0=0.1 * rs.randn(C))
+  w = {k: v.astype(np.float32) for k, v in w.items()}
+  num_outputs = w["wd1"].shape[1]
+  dout = np.random.RandomState(35).randn(G, num_outputs).astype(np.float32)
+  dec = FusedMesh2GridDecoder(senders, G, num_outputs, block_nodes=16,
+                              interpret=True, compact_gather=False,
+                              fused_backward=True)
+  pad = dec.out_pad - num_outputs
+
+  def fn(grid, mesh_proj, const, weights):
+    weights = dict(weights)
+    weights["wd1"] = jnp.pad(weights["wd1"], ((0, 0), (0, pad)))
+    weights["bd1"] = jnp.pad(weights["bd1"], (0, pad))
+    return dec(grid, mesh_proj, dec.rearrange_edge_array(const), weights)
+
+  act = ("grid", "mesh_proj", "const")
+  jw = {k: jnp.asarray(v, jdtype if k == "we" else jnp.float32)
+        for k, v in w.items()}
+  _, vjp = jax.vjp(fn, *(jnp.asarray(a[k], jdtype) for k in act), jw)
+  dgrid, dmesh, dconst, dw = vjp(jnp.asarray(dout, jdtype))
+  want = {"grid": dgrid, "mesh_proj": dmesh, "const": dconst, **dw}
+  want = {k: np.asarray(v, np.float32) for k, v in want.items()}
+
+  t = {k: torch.tensor(a[k], dtype=tdtype, requires_grad=True) for k in act}
+  t.update({k: torch.tensor(v, dtype=tdtype if k == "we" else torch.float32,
+                            requires_grad=True) for k, v in w.items()})
+  edges = EdgeIndex(senders, np.repeat(np.arange(G), 3),
+                    a["mesh_proj"].shape[0], G)
+  keys = KEYS + EMBED_KEYS
+  out = fused_decode(edges, t["grid"], t["mesh_proj"], t["const"],
+                     {k: t[k] for k in keys})
+  names = [*act, *keys]
+  grads = torch.autograd.grad(out, [t[k] for k in names],
+                              torch.from_numpy(dout).to(tdtype))
+  assert set(want) == set(names)
+  for name, g in zip(names, grads):
+    assert g.dtype == t[name].dtype and g.shape == t[name].shape, name
+    g, wv = g.float().numpy(), want[name]
+    if dtype_name == "f32":
+      np.testing.assert_allclose(g, wv, rtol=1e-4,
+                                 atol=1e-4 * np.abs(wv).max(), err_msg=name)
+    else:
+      rel = np.sqrt(np.mean((g - wv) ** 2) / np.mean(wv * wv))
+      assert rel <= 2e-2, (name, rel)

@@ -321,3 +321,64 @@ def test_embed_mode_needs_the_edge_matmul():
     fused_edge(edges, t["e"], t["sproj"], t["rproj"], None, None, t["w1"],
                t["b1"], t["scale"], t["offset"], write_edges=False,
                embed_weights=tuple(t[k] for k in _EMBED))
+
+
+_EMBED_GRAD_NAMES = _GRAD_NAMES + _EMBED
+
+
+@pytest.mark.parametrize("dtype_name", sorted(_DTYPES))
+def test_embed_mode_twin_grads_match_jax_fused_backward(dtype_name):
+  """Embed mode's gradients (K4's embed mode in the JAX package): the twin
+  under autograd against jax.vjp of FusedEdgeStep(embed_weights=...) with
+  ``fused_backward=True``, for every input: the raw features, the node
+  projections, We', b0', the step's weights and the embed MLP's."""
+  jdtype, tdtype = _DTYPES[dtype_name]
+  senders, receivers, a = _embed_case(seed=25)
+  n = a["rproj"].shape[0]
+  E = a["e"].shape[0]
+  d_agg = np.random.RandomState(26).randn(
+      n, a["w1"].shape[1]).astype(np.float32)
+  summer = pallas_mp.BlockedSegmentSum(
+      receivers, n, block_nodes=32, chunk_edges=64, interpret=True,
+      padded_input=True)
+  step = pallas_edge.FusedEdgeStep(
+      summer, interpret=True, include_edge_matmul=True, write_edges=False,
+      fused_backward=True)
+  valid = summer.layout_index < summer.num_edges
+  slot = np.where(valid, summer.layout_index, E)
+
+  def pad(x):
+    return jnp.concatenate([x, jnp.zeros((1, x.shape[1]), x.dtype)])[slot]
+
+  def fn(*args):
+    t = dict(zip(_EMBED_GRAD_NAMES, args))
+    return step(pad(t["e"]), pad(t["sproj"][senders]),
+                step.pad_nodes(t["rproj"]), t["we"], t["b0"], t["w1"],
+                t["b1"], t["scale"], t["offset"],
+                embed_weights=tuple(t[k] for k in _EMBED))
+
+  act = ("e", "sproj", "rproj", "we")
+  args = [jnp.asarray(a[k], jdtype if k in act else jnp.float32)
+          for k in _EMBED_GRAD_NAMES]
+  _, vjp = jax.vjp(fn, *args)
+  want = {k: np.asarray(g, np.float32) for k, g in zip(
+      _EMBED_GRAD_NAMES, vjp(jnp.asarray(d_agg, jnp.float32)))}
+
+  edges = EdgeIndex(senders, receivers, a["sproj"].shape[0], n)
+  t = {k: torch.tensor(a[k], dtype=tdtype if k in act else torch.float32,
+                       requires_grad=True) for k in _EMBED_GRAD_NAMES}
+  agg = fused_edge(edges, t["e"], t["sproj"], t["rproj"], t["we"], t["b0"],
+                   t["w1"], t["b1"], t["scale"], t["offset"],
+                   write_edges=False,
+                   embed_weights=tuple(t[k] for k in _EMBED))
+  grads = torch.autograd.grad(agg, [t[k] for k in _EMBED_GRAD_NAMES],
+                              torch.from_numpy(d_agg))
+  for name, g in zip(_EMBED_GRAD_NAMES, grads):
+    assert g.dtype == t[name].dtype and g.shape == t[name].shape, name
+    g, w = g.float().numpy(), want[name]
+    if dtype_name == "f32":
+      np.testing.assert_allclose(g, w, rtol=1e-4,
+                                 atol=1e-4 * np.abs(w).max(), err_msg=name)
+    else:
+      rel = np.sqrt(np.mean((g - w) ** 2) / np.mean(w * w))
+      assert rel <= 2e-2, (name, rel)

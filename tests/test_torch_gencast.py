@@ -25,18 +25,41 @@ to it here.
 Tolerance: f32 5e-4 relative to each output's largest element, the port's
 standing f32 bound (summation order only); the sample, after 7 denoiser
 evaluations on the same noise, too.
+
+Training: ``NaNCleaner(InputsAndResiduals(GenCast)).loss`` with NaNs in SST,
+on the same σ and noise in both packages (``rho_inverse_cdf`` and
+``spherical_white_noise_like`` replaced by fixed numpy draws), against the
+JAX loss with its batch-1 fused backward (the custom VJPs of K4 and K5 in
+embed mode and of K7/K8, Pallas interpret mode): loss and diagnostics f32
+5e-4, every parameter gradient 2e-3 plus 2e-3 of its largest element, as
+tests/test_gencast.py:236-238 holds the JAX fused backward to its plain
+path.
 """
 
 import dataclasses
 import functools
 import json
 import pathlib
+import sys
+
+import torch
+
+# torch.optim imports torch._dynamo at first use, which calls
+# importlib.util.find_spec on optional packages and raises on a module
+# without __spec__, such as the fake ``xarray`` that tests/fake_xarray.py
+# installs for other test files. Import it now, with any such module set
+# aside.
+_xarray = sys.modules.pop("xarray", None)
+try:
+  import torch._dynamo  # noqa: F401
+finally:
+  if _xarray is not None:
+    sys.modules["xarray"] = _xarray
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from graphcast_tpu import fields as jax_fields
 from graphcast_tpu.data import synthetic as jax_synthetic
@@ -50,7 +73,7 @@ from graphcast_tpu.nn import core as jax_core
 from graphcast_tpu.ops import sht as jax_sht
 from graphcast_tpu.wrappers import InputsAndResiduals as JaxInputsAndResiduals
 from graphcast_tpu.wrappers import NaNCleaner as JaxNaNCleaner
-from graphcast_tpu_torch import params
+from graphcast_tpu_torch import params, train
 from graphcast_tpu_torch.data import synthetic
 from graphcast_tpu_torch.diffusion import noise
 from graphcast_tpu_torch.models import configs, denoiser, gencast, zoo
@@ -424,3 +447,112 @@ def test_unported_forms_raise():
         denoiser.DenoiserArchitectureConfig(
             sparse_transformer_config=bad, mesh_size=1, latent_size=16,
             node_output_size=5), configs.TaskConfig(**TINY_TASK), 8)
+
+
+def _stacks(jmodel, port):
+  """NaNCleaner(InputsAndResiduals(·)) around both models."""
+  jtask = jax_configs.TaskConfig(**TINY_TASK)
+  jstack = JaxNaNCleaner(
+      JaxInputsAndResiduals(jmodel, *jax_synthetic.make_norm_stats(jtask)),
+      var_to_clean="sea_surface_temperature", fill_value=0.0)
+  stack = NaNCleaner(
+      InputsAndResiduals(port, *synthetic.make_norm_stats(
+          configs.TaskConfig(**TINY_TASK), device="cpu")),
+      var_to_clean="sea_surface_temperature", fill_value=0.0)
+  return jstack, stack
+
+
+def _with_sst_nans(j_fs, t_fs):
+  sst = np.asarray(j_fs.data("sea_surface_temperature")).copy()
+  sst[..., :2] = np.nan
+  t_fs.data("sea_surface_temperature")[..., :2] = float("nan")
+  return j_fs.replace_data("sea_surface_temperature", sst), t_fs
+
+
+@pytest.mark.parametrize("attention_type", ["mha", "splash_mha"])
+def test_loss_and_grads_match_jax(attention_type, monkeypatch):
+  """The wrapper stack's loss, diagnostics and every parameter gradient at
+  batch 1, with NaNs in SST, on the same σ and noise."""
+  jmodel, tree, port = _shared_weights(attention_type)
+  (j_in, j_tg, j_fc), (t_in, t_tg, t_fc) = _batch()
+  j_in, t_in = _with_sst_nans(j_in, t_in)
+  j_tg, t_tg = _with_sst_nans(j_tg, t_tg)
+  sigma = np.array([1.7], np.float32)
+  rng = np.random.RandomState(21)
+  draws = {n: rng.randn(*j_tg[n].shape).astype(np.float32)
+           for n in j_tg.var_names}
+
+  def jax_noise_like(key, template, basis_arrays=None):
+    del key, basis_arrays
+    return jax_fields.FieldSet(
+        {n: jax_fields.Field(jnp.asarray(draws[n], template[n].dtype),
+                             template[n].dims) for n in template.var_names},
+        coords=template.coords)
+
+  def port_noise_like(generator, template, basis):
+    del generator, basis
+    from graphcast_tpu_torch.fields import Field, FieldSet
+    return FieldSet({n: Field(torch.from_numpy(draws[n]).to(
+        template[n].dtype), template[n].dims) for n in template.var_names},
+        coords=template.coords)
+
+  monkeypatch.setattr(jax_noise, "rho_inverse_cdf",
+                      lambda **kw: jnp.asarray(sigma, kw["cdf"].dtype))
+  monkeypatch.setattr(jax_noise, "spherical_white_noise_like",
+                      jax_noise_like)
+  monkeypatch.setattr(noise, "rho_inverse_cdf",
+                      lambda **kw: torch.from_numpy(sigma).to(kw["cdf"]))
+  monkeypatch.setattr(noise, "spherical_white_noise_like", port_noise_like)
+  jstack, stack = _stacks(jmodel, port)
+  flat = {k: jnp.asarray(p.detach().numpy())
+          for k, p in params.flat_params(port).items()}
+
+  def jax_loss(flat):
+    t = _nest(flat)
+    t["architecture"]["graph_statics"] = tree["architecture"]["graph_statics"]
+    t["noise_statics"] = tree["noise_statics"]
+    loss, diag = jstack.loss(t, jax.random.PRNGKey(0), j_in, j_tg, j_fc)
+    return jnp.mean(loss), diag
+
+  (want_loss, want_diag), want_grads = jax.value_and_grad(
+      jax_loss, has_aux=True)(flat)
+  loss, diag = stack.loss(t_in, t_tg, t_fc, generator=torch.Generator())
+  loss.mean().backward()
+  assert np.isfinite(float(want_loss))
+  np.testing.assert_allclose(float(loss.mean().detach()), float(want_loss),
+                             rtol=5e-4)
+  assert sorted(diag) == sorted(want_diag)
+  for name, w in want_diag.items():
+    np.testing.assert_allclose(diag[name].detach().numpy(), np.asarray(w),
+                               rtol=5e-4, err_msg=name)
+  got_grads = params.flat_params(port)
+  assert sorted(got_grads) == sorted(want_grads)
+  for key, p in got_grads.items():
+    w = np.asarray(want_grads[key], np.float32)
+    g = (np.zeros_like(w) if p.grad is None
+         else p.grad.detach().numpy())
+    np.testing.assert_allclose(g, w, rtol=2e-3,
+                               atol=2e-3 * np.abs(w).max(), err_msg=key)
+
+
+def test_train_step_runs_and_draws_from_its_generator():
+  """GenCast ``make_train_step`` on the CPU: finite losses, parameters that
+  change (the first step's learning rate is 0, so from the second), and
+  two generators that draw two losses."""
+  port = _port_model("splash_mha")
+  _, (t_in, t_tg, t_fc) = _batch()
+  stack = _stacks(_jax_model("mha"), port)[1]
+  step = train.make_train_step(
+      stack, train.graphcast_optimizer(port.parameters(), peak_lr=1e-3,
+                                       warmup_steps=2))
+  before = [p.detach().clone() for p in port.parameters()]
+  losses = [float(step(t_in, t_tg, t_fc,
+                       generator=torch.Generator().manual_seed(s))[0])
+            for s in (1, 2, 1)]
+  assert all(np.isfinite(losses))
+  assert losses[0] != losses[1]
+  assert any(not torch.equal(a, p) for a, p in zip(before, port.parameters()))
+  with torch.no_grad():
+    again = [float(stack.loss(t_in, t_tg, t_fc, generator=torch.Generator(
+        ).manual_seed(s))[0].mean()) for s in (3, 3, 4)]
+  assert again[0] == again[1] != again[2]

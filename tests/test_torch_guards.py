@@ -192,6 +192,59 @@ def test_gencast_samples_without_jax():
   assert proc.stdout.startswith("sampled"), proc.stdout
 
 
+def test_gencast_train_step_runs_without_jax():
+  code = textwrap.dedent("""
+      import sys
+      sys.modules["jax"] = None
+      sys.modules["graphcast_tpu"] = None
+      import torch
+      from graphcast_tpu_torch import train
+      from graphcast_tpu_torch.data import synthetic
+      from graphcast_tpu_torch.models import configs, denoiser, gencast
+      from graphcast_tpu_torch.models import sparse_transformer
+      from graphcast_tpu_torch.wrappers import InputsAndResiduals, NaNCleaner
+      task = configs.TaskConfig(
+          input_variables=("2m_temperature", "sea_surface_temperature",
+                           "day_progress_sin", "land_sea_mask"),
+          target_variables=("2m_temperature", "sea_surface_temperature"),
+          forcing_variables=("day_progress_sin",),
+          pressure_levels=(500,), input_duration="24h")
+      model = gencast.GenCast(
+          task, denoiser.DenoiserArchitectureConfig(
+              sparse_transformer_config=(
+                  sparse_transformer.SparseTransformerConfig(
+                      attention_k_hop=2, d_model=8, num_layers=1,
+                      num_heads=2, ffw_hidden=16)),
+              mesh_size=1, latent_size=8),
+          noise_config=gencast.NoiseConfig(),
+          noise_encoder_config=denoiser.NoiseEncoderConfig(
+              num_frequencies=4, output_sizes=(8, 4)),
+          generator=torch.Generator().manual_seed(0), device="cpu")
+      stack = NaNCleaner(InputsAndResiduals(
+          model, *synthetic.make_norm_stats(task, device="cpu")),
+          var_to_clean="sea_surface_temperature", fill_value=0.0)
+      data = synthetic.make_example_batch(task, 30.0, time_step_hours=12,
+                                          device="cpu")
+      before = [p.detach().clone() for p in model.parameters()]
+      step = train.make_train_step(
+          stack, train.graphcast_optimizer(model.parameters(), peak_lr=1e-3,
+                                           warmup_steps=1))
+      losses = [float(step(*data, generator=torch.Generator().manual_seed(s))[0])
+                for s in (1, 2)]
+      assert all(torch.isfinite(torch.tensor(losses)))
+      assert any(not torch.equal(a, p) for a, p in zip(before,
+                                                      model.parameters()))
+      assert not any(m == "jax" or m.startswith(("jax.", "graphcast_tpu."))
+                     for m in sys.modules if sys.modules[m] is not None)
+      print("losses", *losses)
+      """)
+  env = {**os.environ, "PYTHONPATH": str(REPO)}
+  proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                        text=True, env=env, cwd=REPO, timeout=300)
+  assert proc.returncode == 0, proc.stderr
+  assert proc.stdout.startswith("losses"), proc.stdout
+
+
 def test_port_sources_name_no_jax_package():
   """No module of the port, nor chip_smoke.py, imports jax or
   graphcast_tpu (the subprocess tests above prove the imports; this finds
@@ -207,13 +260,14 @@ def test_port_sources_name_no_jax_package():
 
 
 @pytest.mark.parametrize("case", ["splash_head_dim", "splash_dtype",
+                                  "splash_backward_cpu",
                                   "edge_embed_features", "edge_embed_ew0",
                                   "decoder_embed_features"])
 def test_new_kernel_wrappers_refuse_inputs_before_launching(case,
                                                             monkeypatch):
-  """K6 and the embed modes check their operands and raise before any
-  launch (the library load is made to fail loudly); no path falls back to
-  a plain version."""
+  """K6, K7/K8 and the embed modes check their operands and raise before
+  any launch (the library load is made to fail loudly); no path falls back
+  to a plain version."""
   import numpy as np
   import torch
   from graphcast_tpu_torch.ops import fused_decoder, fused_edge, splash
@@ -226,6 +280,13 @@ def test_new_kernel_wrappers_refuse_inputs_before_launching(case,
   if case.startswith("splash"):
     mask = __import__("scipy.sparse").sparse.identity(64, format="csr")
     bm = splash.build_block_map(mask)
+    if case == "splash_backward_cpu":
+      h = torch.zeros(2, 64, 128, dtype=bf16)
+      f = torch.zeros(2, 64)
+      for kernel in (splash.splash_dq, splash.splash_dkv):
+        with pytest.raises(ValueError, match="CUDA"):
+          kernel(h, h, h, h, f, f, bm, 1.0)
+      return
     d, dtype, err = ((64, bf16, ValueError) if case == "splash_head_dim"
                      else (128, torch.float32, TypeError))
     q = torch.zeros(1, 64, 2, d, dtype=dtype)

@@ -10,6 +10,14 @@ Tolerances: f32 2e-5 (only f32 summation order differs); bf16: relative RMS
 weights before rounding them to bf16, the TPU kernel rounds the
 unnormalised exp (splash.py:253) and divides at the end, so an output moves
 by up to a few bf16 ulps. lse against a float64 numpy logsumexp: 1e-5.
+
+Backward: the plain version of K7/K8 against ``jax.vjp`` of the JAX
+``BlockSparseAttention`` (its Pallas ``_dq_kernel`` and ``_dkv_kernel`` in
+interpret mode) with the same q, k, v and cotangent, each side's own o and
+lse. f32: 1e-4 of each gradient's largest element (summation order only);
+bf16: relative RMS <= 2e-2 per gradient (the two forwards' o differ by a
+few bf16 ulps, which moves δ, and the casts of p and ds to bf16 flip with
+it).
 """
 
 import jax
@@ -120,3 +128,92 @@ def test_cuda_only_inputs_are_checked_before_any_launch():
   q = torch.empty(1, 64, 4, 128, device="meta")
   with pytest.raises(ValueError, match="unsupported device"):
     splash.block_sparse_attention(q, q, q, splash.build_block_map(mask), 1.0)
+
+
+def _asymmetric_mask(n, seed):
+  """A random mask that is not symmetric (every row keeps its diagonal, so
+  no row is empty), with a dense 64 x 64 square so one tile is full."""
+  rng = np.random.RandomState(seed)
+  dense = (rng.rand(n, n) < 0.08) | np.eye(n, dtype=bool)
+  dense[64:128, 0:64] = True
+  assert (dense != dense.T).any()
+  return sp.csr_matrix(dense)
+
+
+@pytest.mark.parametrize("n", [150, 192])
+def test_transposed_map_covers_exactly_the_transposed_mask(n):
+  """The transposed map unpacks to maskᵀ: for every kv tile, its active q
+  tiles and one word per kv row (bit r: q row r attends it)."""
+  mask = _asymmetric_mask(n, seed=n)
+  bt = splash.build_block_map(mask).transposed
+  assert bt.n == n and bt.nnz == mask.nnz and bt.transposed is None
+  dense = np.zeros((bt.n_pad, bt.n_pad), bool)
+  bits = (bt.words[:, :, None] >> np.arange(64, dtype=np.uint64)) & 1
+  for kt in range(bt.nq):
+    qts = bt.kv_index[bt.kv_offsets[kt]:bt.kv_offsets[kt + 1]]
+    assert (np.diff(qts) > 0).all()
+    for a in range(bt.kv_offsets[kt], bt.kv_offsets[kt + 1]):
+      qt = bt.kv_index[a]
+      dense[kt * 64:(kt + 1) * 64, qt * 64:(qt + 1) * 64] = bits[a] == 1
+      assert bt.full[a] == bits[a].all() and bits[a].any()
+  np.testing.assert_array_equal(dense[:n, :n], mask.toarray().T)
+  assert not dense[n:].any() and not dense[:, n:].any()
+  assert bt.full.any()  # the dense square, transposed: kv tile 0, q tile 1
+
+
+def _jax_attention_grads(mask, q, k, v, do, scale, jdtype):
+  attn = jax_splash.BlockSparseAttention.from_mask(
+      mask, block_q=128, block_kv=128, interpret=True)
+  _, vjp = jax.vjp(lambda q, k, v: attn(q, k, v, scale=scale),
+                   *(jnp.asarray(x, jdtype) for x in (q, k, v)))
+  return [np.asarray(g, np.float32) for g in vjp(jnp.asarray(do, jdtype))]
+
+
+@pytest.mark.parametrize("dtype_name", sorted(_DTYPES))
+@pytest.mark.parametrize("mask_kind", ["banded", "asymmetric"])
+def test_plain_backward_matches_jax_vjp(mask_kind, dtype_name):
+  """(dq, dk, dv) of the plain K7/K8 against jax.vjp of the JAX attention
+  (Pallas backward kernels, interpret mode)."""
+  jdtype, tdtype = _DTYPES[dtype_name]
+  n = 200
+  mask = (_banded_mask(n, 40, seed=8) if mask_kind == "banded"
+          else _asymmetric_mask(n, seed=9))
+  q, k, v = _qkv(10, n)
+  do = np.random.RandomState(11).randn(*q.shape).astype(np.float32)
+  scale = 0.3
+  want = _jax_attention_grads(mask, q, k, v, do, scale, jdtype)
+  bm = splash.build_block_map(mask)
+  t = [torch.from_numpy(x).to(tdtype) for x in (q, k, v)]
+  o, lse = splash.block_sparse_attention(*t, bm, scale)
+  got = splash.block_sparse_attention_backward_reference(
+      *t, o, lse, torch.from_numpy(do).to(tdtype), bm, scale)
+  for name, g, w in zip(("dq", "dk", "dv"), got, want):
+    assert g.dtype == tdtype and g.shape == q.shape, name
+    g = g.float().numpy()
+    if dtype_name == "f32":
+      np.testing.assert_allclose(g, w, rtol=1e-4,
+                                 atol=1e-4 * np.abs(w).max(), err_msg=name)
+    else:
+      rel = np.sqrt(np.mean((g - w) ** 2) / np.mean(w * w))
+      assert rel <= 2e-2, (name, rel)
+
+
+def test_attention_is_differentiable_on_the_cpu_through_its_function():
+  """On CPU tensors that require grad, the autograd Function runs the plain
+  forward and the plain backward: torch.autograd.grad gives what
+  block_sparse_attention_backward_reference gives, and lse carries no
+  gradient."""
+  n = 150
+  mask = _asymmetric_mask(n, seed=12)
+  bm = splash.build_block_map(mask)
+  q, k, v = (torch.from_numpy(x).requires_grad_() for x in _qkv(13, n))
+  o, lse = splash.block_sparse_attention(q, k, v, bm, 0.25)
+  assert not lse.requires_grad
+  do = torch.from_numpy(
+      np.random.RandomState(14).randn(*o.shape).astype(np.float32))
+  got = torch.autograd.grad(o, (q, k, v), do)
+  with torch.no_grad():
+    want = splash.block_sparse_attention_backward_reference(
+        q, k, v, o, lse, do, bm, 0.25)
+  for g, w in zip(got, want):
+    assert torch.equal(g, w)
