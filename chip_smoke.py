@@ -3,8 +3,8 @@ one GPU.
 
 Usage: python3 chip_smoke.py            (all phases; needs one CUDA device)
        python3 chip_smoke.py --phases build,k1,k2   (a subset, for debugging)
-       python3 chip_smoke.py --profile DIR  (also profile one rollout step and
-                                             one train step)
+       python3 chip_smoke.py --profile DIR  (also profile one step of each
+                                             timed path)
 
 Phases, each printing one line with its seconds and results:
   build  compile csrc/*.cu with nvcc for sm_90a and load it; print the
@@ -44,7 +44,9 @@ Phases, each printing one line with its seconds and results:
          gradient per chunk).
   k6     the block-sparse attention kernel against its plain version on
          random bf16 q, k, v (4 heads of 128) over GenCast's real k-hop-16
-         masks: mesh-5 (GenCast 1p0deg) and mesh-6 (GenCast 0p25deg); also
+         masks: mesh-5 (GenCast 1p0deg) at batch 1 and at batch
+         ENSEMBLE_MEMBERS (the ensemble's shape, batch x heads = 16), and
+         mesh-6 (GenCast 0p25deg) at batch 1; also
          the host build time of each mask and block map, and
          torch.nn.functional.scaled_dot_product_attention with the dense
          boolean mask as the library yardstick where that mask fits.
@@ -70,7 +72,9 @@ Phases, each printing one line with its seconds and results:
          give different samples, and the launches per step (K6 once per
          layer per evaluation, K1 and K2 embed once per evaluation; 39
          evaluations).
-  gencast_small  zoo.gencast_mini() (mesh-4): one preconditioned denoiser
+  gencast_small  zoo.gencast_mini() (mesh-4; its transformer cut to
+         MINI_LAYERS layers, for the CPU side's sake, in all the Mini
+         phases): one preconditioned denoiser
          evaluation at three noise levels on the card against the port on
          the CPU, with the small phase's noise-floor rule per variable.
   gencast_train  GenCast's training path: train.make_train_step over
@@ -90,6 +94,33 @@ Phases, each printing one line with its seconds and results:
          parameter gradient on the card against the CPU port, with the
          small phase's noise-floor rule per variable and per parameter; then
          on the card, AR-2 with gradient_checkpointing on against off.
+  k3     the sorted segment sum (K3) against its plain version, bf16: on
+         the mesh-5 multimesh and the 1.0 deg GenCast grid2mesh set at
+         C = 4 x 512 (the batch-4 paths) and on the 0.25 deg grid2mesh set
+         at C = 2 x 512 (in-degrees up to 3,753), with
+         torch.segment_reduce over the CSR offsets as the library
+         yardstick.
+  ensemble  the main path of the batch > 1 slice, GenCast's ensemble
+         forecast: rollout.chunked_ensemble_prediction over NaNCleaner(
+         InputsAndResiduals(GenCast)) at zoo.gencast_1p0deg(), random
+         weights as in gencast, ENSEMBLE_MEMBERS members as the batch axis,
+         bf16; one warm-up chunk, then ENSEMBLE_STEPS timed 12 h chunks:
+         s per step and per member-step, peak memory; checks finite output
+         of the template's shape, distinct members and the launches per
+         step (K3 once per evaluation, K6 once per layer per evaluation, K1
+         and K2 none).
+  ensemble_small  zoo.gencast_mini() at batch 2 on the card: one
+         preconditioned denoiser evaluation (the general path, K3) per pair
+         of gencast_small's three noise levels, a level per member; each
+         member against the port on the CPU at its level (gencast_small's
+         own CPU runs, made once) with the small phase's noise-floor rule.
+  graphcast_batch  zoo.graphcast_small() at batch BATCH through Autoregressive(
+         InputsAndResiduals(Bfloat16Cast(GraphCast))): the general path with
+         K3. Member 0 of one step (the small phase's inputs) against a
+         batch-1 card step of its inputs (K1, K2) and against the small
+         phase's CPU f32 run, each within the small phase's noise floor;
+         then rollout_final over BATCH_STEPS timed steps: s per step, peak
+         memory, K3 once per aggregation (17 a step), K1 and K2 none.
 
 Kernel-vs-twin tolerances (both sides round at the same points and differ
 only in f32 summation order, which flips an occasional bf16 rounding):
@@ -109,7 +140,10 @@ embedding moves all of them the same way.
 Each kernel's line in the JSON carries its bound: the least time the card
 could take for the same work, the larger of the bytes it must move (inputs
 read once, outputs written once) over 3.35 TB/s and its operations over
-989 TFLOP/s (bf16 tensor cores), with which of the two bounds it.
+989 TFLOP/s (bf16 tensor cores; K3's f32 adds over 67 TFLOP/s), with which
+of the two bounds it. K3 against its plain version: the same tolerances (it
+sums in f32 in a fixed order, the plain version with atomics in f32, and
+both round once to bf16).
 
 Any failed phase exits non-zero. On success the last lines are the total
 seconds, the card's name and power limit, a JSON line describing each
@@ -119,6 +153,8 @@ kernel, and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -139,12 +175,18 @@ LSE_ATOL = 1e-3         # max-abs error of the attention's logsumexp
 GENCAST_STEPS = 2
 SST_NAN_ROWS = 10       # latitude rows of NaN SST in the GenCast train data
 GENCAST_TRAIN_SMALL_SIGMA = 1.0
+ENSEMBLE_MEMBERS = 4    # GenCast ensemble members, the batch axis
+ENSEMBLE_STEPS = 2      # timed 12 h chunks of the ensemble rollout
+BATCH = 4               # GraphCast_small batch of the graphcast_batch phase
+BATCH_STEPS = 2         # its timed 6 h steps
 PEAK_FLOPS = 989e12     # H100 SXM, dense bf16 tensor cores
+PEAK_F32 = 67e12        # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3, bytes/s
 DEVICE = "cuda"
 PHASES = ("build", "k1", "k2", "k4", "k5", "wgrad", "k6", "k7k8", "embed",
-          "embed_bwd", "main", "small", "train", "train_small", "gencast",
-          "gencast_small", "gencast_train", "gencast_train_small")
+          "embed_bwd", "k3", "main", "small", "train", "train_small",
+          "gencast", "gencast_small", "gencast_train", "gencast_train_small",
+          "ensemble", "ensemble_small", "graphcast_batch")
 
 
 def _log(phase, t0, **fields):
@@ -225,10 +267,10 @@ def _time_ms(torch, fn, reps=3):
   return start.elapsed_time(end) / reps
 
 
-def _bound(flops, nbytes):
-  """{bound_ms, bound_by}: the larger of operations over the bf16 peak and
-  bytes over the memory rate."""
-  t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+def _bound(flops, nbytes, peak_flops=PEAK_FLOPS):
+  """{bound_ms, bound_by}: the larger of operations over their peak rate
+  (bf16 tensor cores unless given) and bytes over the memory rate."""
+  t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
   return {"bound_ms": 1e3 * max(t_ops, t_bytes),
           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
@@ -712,14 +754,15 @@ def phase_main(torch, results, profile_dir=None):
   rollout_s = time.perf_counter() - t2
   k1, k2 = fused_edge.launches, fused_decode.launches
   k1_encoder = fused_edge.encoder_launches
+  k3 = _counters()["segment_sum"].launches
   peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
   steps_per = 1 + mc.gnn_msg_steps
   if (k1 != steps_per * ROLLOUT_STEPS or k2 != ROLLOUT_STEPS
-      or k1_encoder != ROLLOUT_STEPS):
+      or k1_encoder != ROLLOUT_STEPS or k3):
     raise AssertionError(f"launch counts K1={k1} (encoder {k1_encoder}) "
-                         f"K2={k2}, expected {steps_per * ROLLOUT_STEPS} "
-                         f"({ROLLOUT_STEPS}) and {ROLLOUT_STEPS}")
+                         f"K2={k2} K3={k3}, expected {steps_per * ROLLOUT_STEPS}"
+                         f" ({ROLLOUT_STEPS}), {ROLLOUT_STEPS} and 0")
   for name in final.var_names:
     f = final[name]
     if f.shape != inputs[name].shape:
@@ -740,41 +783,69 @@ def phase_main(torch, results, profile_dir=None):
        finite=True)
 
 
-def phase_small(torch):
+SMALL_SEED = 3  # weights of the GraphCast_small phases
+
+
+@functools.lru_cache(maxsize=None)
+def _small_references(torch):
+  """zoo.graphcast_small()'s batch-1 synthetic (inputs, targets, forcings)
+  on the CPU and one step of the port on the CPU from them, {bf16: out}
+  for f32 and bf16 (the small phase's noise floor). Built once: the
+  graphcast_batch phase holds its member 0 to the same runs."""
   from graphcast_tpu_torch.data import synthetic
+  from graphcast_tpu_torch.models import zoo
+  preset = zoo.graphcast_small()
+  data = synthetic.make_example_batch(
+      preset.task_config, resolution=preset.model_config.resolution, batch=1,
+      device="cpu")
+  outs = {}
+  for bf16 in (False, True):
+    _, cpu = _stack(torch, preset, seed=SMALL_SEED, bf16=bf16, device="cpu")
+    with torch.inference_mode():
+      outs[bf16] = cpu(*data)
+  return data, outs
+
+
+def _check_noise_floor(torch, phase, got, outs, names, ref=None):
+  """The small phases' rule per variable: rms(got - ref) <= 2 * rms(cpu
+  bf16 - cpu f32) + SMALL_EPS * rms(cpu f32), ``ref`` the CPU f32 run
+  unless given. ``got`` and ``ref`` map each name to a tensor, ``outs`` is
+  {bf16: FieldSet} of the CPU runs. Returns the worst error over its
+  bound."""
+  worst = 0.0
+  for name in names:
+    f32 = outs[False].data(name).double()
+    floor = (outs[True].data(name).double() - f32).square().mean().sqrt()
+    want = f32 if ref is None else ref[name].cpu().double()
+    err = (got[name].cpu().double() - want).square().mean().sqrt()
+    bound = 2 * floor + SMALL_EPS * f32.square().mean().sqrt()
+    if not (torch.isfinite(err) and err <= bound):
+      raise AssertionError(f"{phase} {name}: rms(card-ref)={err:.4g} > "
+                           f"2*floor+eps={bound:.4g}")
+    worst = max(worst, float(err / bound))
+  return worst
+
+
+def phase_small(torch):
   from graphcast_tpu_torch.models import zoo
   from graphcast_tpu_torch.params import flat_params
   t0 = time.perf_counter()
   preset = zoo.graphcast_small()
-  inputs, targets, forcings = synthetic.make_example_batch(
-      preset.task_config, resolution=preset.model_config.resolution, batch=1,
-      device="cpu")
-  model, card = _stack(torch, preset, seed=3)
+  (inputs, targets, forcings), outs = _small_references(torch)
+  model, card = _stack(torch, preset, seed=SMALL_SEED)
   card = card.to(DEVICE)
   with torch.inference_mode():
     out_card = card(inputs.to(DEVICE), targets.to(DEVICE),
                     forcings.to(DEVICE))
   torch.cuda.synchronize()
   card_s = time.perf_counter() - t0
-  outs = {}
-  for bf16 in (False, True):
-    cpu_model, cpu = _stack(torch, preset, seed=3, bf16=bf16, device="cpu")
-    same = all(torch.equal(a, b.cpu()) for a, b in zip(
-        flat_params(cpu_model).values(), flat_params(model).values()))
-    if not same:
-      raise AssertionError("CPU and card models differ in their weights")
-    with torch.inference_mode():
-      outs[bf16] = cpu(inputs, targets, forcings)
-  worst = 0.0
-  for name in targets.var_names:
-    f32 = outs[False].data(name).double()
-    floor = (outs[True].data(name).double() - f32).square().mean().sqrt()
-    err = (out_card.data(name).cpu().double() - f32).square().mean().sqrt()
-    bound = 2 * floor + SMALL_EPS * f32.square().mean().sqrt()
-    if not (torch.isfinite(err) and err <= bound):
-      raise AssertionError(f"small {name}: rms(card-f32)={err:.4g} > "
-                           f"2*floor+eps={bound:.4g}")
-    worst = max(worst, float(err / bound))
+  cpu_model, _ = _stack(torch, preset, seed=SMALL_SEED, device="cpu")
+  if not all(torch.equal(a, b.cpu()) for a, b in zip(
+      flat_params(cpu_model).values(), flat_params(model).values())):
+    raise AssertionError("CPU and card models differ in their weights")
+  worst = _check_noise_floor(
+      torch, "small", {n: out_card.data(n) for n in targets.var_names}, outs,
+      targets.var_names)
   _log("small", t0, config=_label(preset),
        card_s=f"{card_s:.1f}", worst_err_over_bound=f"{worst:.3f}")
 
@@ -784,6 +855,7 @@ def _counters():
       fused_decode, fused_decode_backward)
   from graphcast_tpu_torch.ops.fused_edge import (
       fused_edge, fused_edge_backward)
+  from graphcast_tpu_torch.ops.segment_sum import sorted_segment_sum
   from graphcast_tpu_torch.ops.splash import (
       block_sparse_attention, splash_dkv, splash_dq)
   from graphcast_tpu_torch.ops.weight_grad import feature_grad, weight_grad
@@ -792,7 +864,7 @@ def _counters():
           "fused_decoder_bwd": fused_decode_backward,
           "weight_grad": weight_grad, "feature_grad": feature_grad,
           "splash_fwd": block_sparse_attention, "splash_dq": splash_dq,
-          "splash_dkv": splash_dkv}
+          "splash_dkv": splash_dkv, "segment_sum": sorted_segment_sum}
 
 
 def _mode_counts():
@@ -1037,20 +1109,25 @@ def phase_k6(torch, results):
   entry = _entry("splash_fwd", "splash_fwd.cu",
                  "graphcast_tpu/ops/splash.py:217", launches=None)
   worst = 0.0
-  for mesh_size in (5, 6):
+  # (mesh, batch, key suffix): GenCast sampling's shape, the ensemble's
+  # (its members as the batch, so batch x heads = 16) and 0.25 deg's mesh-6.
+  for mesh_size, batch, suffix in ((5, 1, ""),
+                                   (5, ENSEMBLE_MEMBERS, "_ensemble"),
+                                   (6, 1, "_mesh6")):
     mask, bm, mask_s, host_s = _k_hop_block_map(mesh_size)
     n = bm.n
-    q, k, v = (_randn(torch, gen, (1, n, heads, d), 1.0, torch.bfloat16)
+    q, k, v = (_randn(torch, gen, (batch, n, heads, d), 1.0, torch.bfloat16)
                for _ in range(3))
+    case = f"k6 mesh{mesh_size} batch{batch}"
     with torch.inference_mode():
       got, lse = splash.block_sparse_attention(q, k, v, bm, scale)
       want, want_lse = splash.block_sparse_attention_reference(q, k, v, bm,
                                                                scale)
       torch.cuda.synchronize()
-      max_abs, rel_rms = _check_close(f"k6 mesh{mesh_size} o", got, want)
+      max_abs, rel_rms = _check_close(f"{case} o", got, want)
       lse_err = (lse - want_lse).abs().max().item()
       if not lse_err <= LSE_ATOL:
-        raise AssertionError(f"k6 mesh{mesh_size} lse max_abs={lse_err:.3g}"
+        raise AssertionError(f"{case} lse max_abs={lse_err:.3g}"
                              f" (tol {LSE_ATOL})")
       worst = max(worst, max_abs)
       del got, lse, want, want_lse
@@ -1070,14 +1147,13 @@ def phase_k6(torch, results):
       except torch.cuda.OutOfMemoryError:
         library_ms = None
       torch.cuda.empty_cache()
-    bound = _bound(4 * heads * bm.nnz * d,
-                   4 * n * heads * d * 2 + n * heads * 4)
-    suffix = "" if mesh_size == 5 else "_mesh6"
+    bound = _bound(4 * batch * heads * bm.nnz * d,
+                   batch * (4 * n * heads * d * 2 + n * heads * 4))
     entry.update({"ms" + suffix: ms, "plain_ms" + suffix: plain_ms,
                   "library_ms" + suffix: library_ms,
                   **{k + suffix: val for k, val in bound.items()}})
     covered = bm.n_active * splash.TILE ** 2
-    _log("k6", t0, mesh=mesh_size, nodes=n, mask_entries=bm.nnz,
+    _log("k6", t0, mesh=mesh_size, batch=batch, nodes=n, mask_entries=bm.nnz,
          active_tiles=bm.n_active, full_tiles=int(bm.full.sum()),
          covered_entries=covered, set_share=f"{bm.nnz / covered:.3f}",
          mask_build_s=f"{mask_s:.2f}", host_build_s=f"{host_s:.2f}",
@@ -1195,6 +1271,7 @@ def phase_k7k8(torch, results):
     results[name] = entry
 
 
+@functools.lru_cache(maxsize=None)
 def _gencast_artifact(resolution, mesh_size):
   from graphcast_tpu_torch.data import synthetic
   from graphcast_tpu_torch.geometry import artifact as artifact_lib
@@ -1565,7 +1642,8 @@ def phase_gencast(torch, results, profile_dir=None):
   got = {"splash_fwd": counts["splash_fwd"], **embed}
   if (any(got[k] != n * GENCAST_STEPS for k, n in expected.items())
       or counts["fused_edge"] != embed["fused_edge_embed"]
-      or counts["fused_decoder"] != embed["fused_decoder_embed"]):
+      or counts["fused_decoder"] != embed["fused_decoder_embed"]
+      or counts["segment_sum"]):
     raise AssertionError(f"gencast launches {got} (all {counts}), expected "
                          f"{expected} per step")
   for name in targets.var_names:
@@ -1595,51 +1673,86 @@ def phase_gencast(torch, results, profile_dir=None):
   torch.cuda.empty_cache()
 
 
-def phase_gencast_small(torch):
-  from graphcast_tpu_torch import params
-  from graphcast_tpu_torch.data import synthetic
+MINI_SEED = 12             # weights of the GenCast Mini phases
+MINI_SIGMAS = (80.0, 1.0, 0.03)
+MINI_LAYERS = 4            # their transformer depth (the preset has 16)
+
+
+def _mini_preset():
+  """zoo.gencast_mini() with its transformer cut to MINI_LAYERS layers:
+  the Mini phases' CPU references cost about a third less."""
   from graphcast_tpu_torch.models import zoo
-  t0 = time.perf_counter()
   preset = zoo.gencast_mini()
-  inputs, targets, forcings = synthetic.make_example_batch(
+  arch = preset.denoiser_architecture_config
+  return dataclasses.replace(preset, denoiser_architecture_config=(
+      dataclasses.replace(arch, sparse_transformer_config=dataclasses.replace(
+          arch.sparse_transformer_config, num_layers=MINI_LAYERS))))
+
+
+def _denoise(torch, model, inputs, noisy, levels, forcings, dtype, device):
+  """One preconditioned denoiser evaluation in ``dtype`` on ``device``."""
+  cast = lambda fs: fs.astype(dtype).to(device)  # noqa: E731
+  with torch.inference_mode():
+    return model._preconditioned_denoiser(
+        cast(inputs), cast(noisy), levels.to(dtype).to(device),
+        cast(forcings))
+
+
+@functools.lru_cache(maxsize=None)
+def _mini_references(torch):
+  """zoo.gencast_mini()'s batch-1 synthetic (inputs, targets, forcings) on
+  the CPU, and per noise level of MINI_SIGMAS the noisy targets and one
+  preconditioned evaluation of the port on the CPU from them, {bf16: out}
+  in f32 and bf16. Built once: ensemble_small holds its members to the
+  same runs."""
+  from graphcast_tpu_torch.data import synthetic
+  preset = _mini_preset()
+  data = synthetic.make_example_batch(
       preset.task_config, resolution=preset.resolution, batch=1,
       num_target_times=1, time_step_hours=12, device="cpu")
+  inputs, targets, forcings = data
+  cpu, _ = _gencast_stack(torch, preset, seed=MINI_SEED, device="cpu")
   rng = np.random.RandomState(11)
-  card, _ = _gencast_stack(torch, preset, seed=12)
-  cpu, _ = _gencast_stack(torch, preset, seed=12, device="cpu")
-  if not all(torch.equal(a.cpu(), b) for a, b in zip(
-      params.flat_params(card).values(), params.flat_params(cpu).values())):
-    raise AssertionError("CPU and card models differ in their weights")
-  worst = 0.0
-  for sigma in (80.0, 1.0, 0.03):
+  refs = {}
+  for sigma in MINI_SIGMAS:
     noisy = targets.map_data(
         lambda x: x + sigma * torch.from_numpy(
             rng.randn(*x.shape).astype(np.float32)))
-    levels = torch.tensor([sigma])
+    refs[sigma] = noisy, {bf16: _denoise(
+        torch, cpu, inputs, noisy, torch.tensor([sigma]), forcings,
+        torch.bfloat16 if bf16 else torch.float32, "cpu")
+                          for bf16 in (False, True)}
+  return data, refs
 
-    def run(model, dtype, device):
-      cast = lambda fs: fs.astype(dtype).to(device)  # noqa: E731
-      with torch.inference_mode():
-        out = model._preconditioned_denoiser(
-            cast(inputs), cast(noisy), levels.to(dtype).to(device),
-            cast(forcings))
-      return {n: out.data(n).double().cpu() for n in out.var_names}
 
-    out_card = run(card, torch.bfloat16, DEVICE)
-    f32 = run(cpu, torch.float32, "cpu")
-    b16 = run(cpu, torch.bfloat16, "cpu")
-    for name, ref in f32.items():
-      floor = _rms(torch, b16[name] - ref)
-      bound = 2 * floor + SMALL_EPS * _rms(torch, ref)
-      err = _rms(torch, out_card[name] - ref)
-      if not (np.isfinite(err) and err <= bound):
-        raise AssertionError(f"gencast_small sigma={sigma} {name}: "
-                             f"rms(card-f32)={err:.4g} > "
-                             f"2*floor+eps={bound:.4g}")
-      worst = max(worst, err / bound)
+def _card_mini(torch, preset):
+  """The GenCast Mini phases' model on the card, checked to carry the
+  same weights as the CPU references' model."""
+  from graphcast_tpu_torch import params
+  card, _ = _gencast_stack(torch, preset, seed=MINI_SEED)
+  cpu, _ = _gencast_stack(torch, preset, seed=MINI_SEED, device="cpu")
+  if not all(torch.equal(a.cpu(), b) for a, b in zip(
+      params.flat_params(card).values(), params.flat_params(cpu).values())):
+    raise AssertionError("CPU and card models differ in their weights")
+  return card
+
+
+def phase_gencast_small(torch):
+  t0 = time.perf_counter()
+  preset = _mini_preset()
+  (inputs, targets, forcings), refs = _mini_references(torch)
+  card = _card_mini(torch, preset)
+  worst = 0.0
+  for sigma, (noisy, outs) in refs.items():
+    out_card = _denoise(torch, card, inputs, noisy, torch.tensor([sigma]),
+                        forcings, torch.bfloat16, DEVICE)
+    worst = max(worst, _check_noise_floor(
+        torch, f"gencast_small sigma={sigma}",
+        {n: out_card.data(n) for n in targets.var_names}, outs,
+        targets.var_names))
   _log("gencast_small", t0, config=_gencast_label(preset),
        sigmas="80,1,0.03", worst_err_over_bound=f"{worst:.3f}")
-  del card, cpu
+  del card
   torch.cuda.empty_cache()
 
 
@@ -1676,7 +1789,7 @@ def _gencast_train_launches_per_step(preset, art):
           "fused_decoder_bwd": dec, "fused_decoder_bwd_embed": dec,
           "weight_grad": 3 * enc + 9 * dec, "feature_grad": enc + dec,
           "splash_fwd": layers.num_layers, "splash_dq": layers.num_layers,
-          "splash_dkv": layers.num_layers}
+          "splash_dkv": layers.num_layers, "segment_sum": 0}
 
 
 def phase_gencast_train(torch, results, profile_dir=None):
@@ -1765,9 +1878,8 @@ def _fix_noise_draw(torch, model, sigma, seed):
 
 def phase_gencast_train_small(torch):
   from graphcast_tpu_torch import params
-  from graphcast_tpu_torch.models import zoo
   t0 = time.perf_counter()
-  preset = zoo.gencast_mini()
+  preset = _mini_preset()
   card_model, card = _gencast_stack(torch, preset, seed=16)
   _fix_noise_draw(torch, card_model, GENCAST_TRAIN_SMALL_SIGMA, seed=17)
   data = _gencast_train_data(torch, preset, "cpu", torch.bfloat16)
@@ -1805,13 +1917,301 @@ def phase_gencast_train_small(torch):
   torch.cuda.empty_cache()
 
 
+def _segment_sum_cost(E, N, C, itemsize=2):
+  """(f32 adds, bytes) of one K3 call: each message read once, each output
+  row written once, the CSR offsets read once."""
+  return E * C, (E + N) * C * itemsize + 4 * (N + 1)
+
+
+def _segment_library_ms(torch, edges, msgs, want):
+  """(ms, call, max-abs vs the plain version) of one PyTorch call for the
+  same function: torch.segment_reduce over the CSR offsets; where it
+  refuses bf16 on the card, index_add_ into f32 and its casts."""
+  offsets = torch.as_tensor(edges.row_offsets, device=DEVICE).long()
+  recv = edges.receivers.long()
+  try:
+    got = torch.segment_reduce(msgs, "sum", offsets=offsets, axis=0)
+    fn = lambda: torch.segment_reduce(  # noqa: E731
+        msgs, "sum", offsets=offsets, axis=0)
+    call = "torch.segment_reduce"
+  except RuntimeError as err:
+    print(f"[k3] torch.segment_reduce refuses {msgs.dtype}: "
+          f"{str(err).splitlines()[0][:120]}", flush=True)
+    fn = lambda: torch.zeros(  # noqa: E731
+        edges.num_receivers, msgs.shape[1], dtype=torch.float32,
+        device=DEVICE).index_add_(0, recv, msgs.float()).to(msgs.dtype)
+    got, call = fn(), "index_add_ (f32) + casts"
+  err = (got.float() - want.float()).abs().max().item()
+  return _time_ms(torch, fn, reps=5), call, err
+
+
+def phase_k3(torch, art025, results):
+  """K3 against its plain version on the real edge sets, bf16: the mesh-5
+  multi-mesh and the 1.0° GenCast grid2mesh at C = 4 x 512 (the batch-4
+  paths), the 0.25° grid2mesh at C = 2 x 512 (its 3,753-edge receivers)."""
+  from graphcast_tpu_torch.ops.fused_edge import EdgeIndex
+  from graphcast_tpu_torch.ops.segment_sum import (
+      segment_sum_reference, sorted_segment_sum)
+  t0 = time.perf_counter()
+  gen = torch.Generator(device=DEVICE).manual_seed(21)
+  mesh5 = _geometry(1.0, 5)
+  g2m1 = _gencast_artifact(1.0, 5)
+  cases = {"": (g2m1.grid2mesh, g2m1.num_grid_nodes, g2m1.num_mesh_nodes,
+                2048),
+           "_mesh5": (mesh5.mesh, mesh5.num_mesh_nodes, mesh5.num_mesh_nodes,
+                      2048),
+           "_g2m_0p25": (art025.grid2mesh, art025.num_grid_nodes,
+                         art025.num_mesh_nodes, 1024)}
+  entry = _entry("segment_sum", "segment_sum.cu",
+                 "graphcast_tpu/ops/pallas_mp.py:39", launches=None)
+  worst = 0.0
+  for suffix, (es, num_snd, num_rcv, C) in cases.items():
+    edges = EdgeIndex(es.senders, es.receivers, num_snd, num_rcv, DEVICE)
+    msgs = _randn(torch, gen, (edges.num_edges, C), 1.0, torch.bfloat16)
+    with torch.inference_mode():
+      got = sorted_segment_sum(edges, msgs)
+      want = segment_sum_reference(edges, msgs)
+      torch.cuda.synchronize()
+      max_abs, rel_rms = _check_close(f"k3 {suffix or '_g2m_1p0'}", got, want)
+      worst = max(worst, max_abs)
+      ms = _time_ms(torch, lambda: sorted_segment_sum(edges, msgs), reps=20)
+      plain_ms = _time_ms(torch, lambda: segment_sum_reference(edges, msgs))
+      library_ms, library, library_err = _segment_library_ms(
+          torch, edges, msgs, want)
+    bound = _bound(*_segment_sum_cost(edges.num_edges, num_rcv, C),
+                   peak_flops=PEAK_F32)
+    entry.update({"ms" + suffix: ms, "plain_ms" + suffix: plain_ms,
+                  "library_ms" + suffix: library_ms,
+                  **{k + suffix: v for k, v in bound.items()}})
+    degrees = np.diff(edges.row_offsets)
+    plan = edges.segment_plan()
+    _log("k3", t0, edges_set=(suffix or "_g2m_1p0")[1:],
+         edges=edges.num_edges, receivers=num_rcv, channels=C,
+         max_in_degree=int(degrees.max()), empty=int((degrees == 0).sum()),
+         work_items=plan.items.shape[0], split_receivers=plan.splits.shape[0],
+         max_abs=f"{max_abs:.4g}", rel_rms=f"{rel_rms:.3g}", ms=f"{ms:.4f}",
+         plain_ms=f"{plain_ms:.4f}", library=repr(library),
+         library_ms=f"{library_ms:.4f}", library_max_abs=f"{library_err:.4g}",
+         bound_ms=f"{bound['bound_ms']:.4f}",
+         bound_share=f"{bound['bound_ms'] / ms:.3f}")
+    del msgs, got, want, edges
+    torch.cuda.empty_cache()
+  entry["library"] = library
+  entry["max_abs_err"] = worst
+  results["segment_sum"] = entry
+
+
+def _check_fieldset(torch, name, fs, template):
+  """Every variable of ``template`` finite in ``fs`` and of its shape."""
+  for var in template.var_names:
+    f = fs[var]
+    if f.shape != template[var].shape:
+      raise AssertionError(f"{name} {var}: shape {f.shape} != "
+                           f"{template[var].shape}")
+    if not torch.isfinite(f.data.float()).all():
+      raise AssertionError(f"{name} {var}: non-finite values")
+
+
+def phase_ensemble(torch, results, profile_dir=None):
+  """GenCast's ensemble forecast, this slice's main path (module doc)."""
+  from graphcast_tpu_torch import rollout
+  from graphcast_tpu_torch.data import synthetic
+  from graphcast_tpu_torch.models import zoo
+  from graphcast_tpu_torch.rollout import tile_batch
+  t0 = time.perf_counter()
+  preset = zoo.gencast_1p0deg()
+  model, stack = _gencast_stack(torch, preset, seed=0)
+  data = synthetic.make_example_batch(
+      preset.task_config, resolution=preset.resolution, batch=1,
+      num_target_times=ENSEMBLE_STEPS, time_step_hours=12, device=DEVICE)
+  inputs, targets, forcings = (fs.astype(torch.bfloat16) for fs in data)
+  setup_s = time.perf_counter() - t0
+
+  def run(seed, steps):
+    part = slice(0, steps)
+    return rollout.chunked_ensemble_prediction(
+        stack, torch.Generator(device=DEVICE).manual_seed(seed), inputs,
+        targets.isel(time=part), forcings.isel(time=part),
+        num_samples=ENSEMBLE_MEMBERS, pull_to_host=False)
+
+  t1 = time.perf_counter()
+  run(100, 1)  # warm-up: one chunk; builds the graph, mask, SHT basis, plan
+  torch.cuda.synchronize()
+  warm_s = time.perf_counter() - t1
+  torch.cuda.reset_peak_memory_stats()
+  _reset_counters()
+  t2 = time.perf_counter()
+  preds = run(1, ENSEMBLE_STEPS)
+  torch.cuda.synchronize()
+  steps_s = time.perf_counter() - t2
+  counts = {k: fn.launches for k, fn in _counters().items()}
+  counts.update(_mode_counts())
+  peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+  evals = 2 * preset.sampler_config.num_noise_levels - 1
+  layers = preset.denoiser_architecture_config.sparse_transformer_config
+  expected = {"segment_sum": evals, "splash_fwd": evals * layers.num_layers,
+              "fused_edge": 0, "fused_decoder": 0, "fused_edge_embed": 0,
+              "fused_decoder_embed": 0}
+  if any(counts[k] != n * ENSEMBLE_STEPS for k, n in expected.items()):
+    raise AssertionError(f"ensemble launches {counts}, expected {expected} "
+                         "per 12 h step")
+  _check_fieldset(torch, "ensemble", preds, tile_batch(targets, ENSEMBLE_MEMBERS))
+  t = preds.data("temperature").float()
+  spread = (t[0] - t[1]).square().mean().sqrt().item()
+  if not all((t[0] - t[m]).abs().max().item() > 0
+             for m in range(1, ENSEMBLE_MEMBERS)):
+    raise AssertionError("ensemble members are not all distinct")
+  if profile_dir:
+    _profile_step(torch, lambda: run(7, 1), profile_dir, "ensemble_step")
+  for name in ("segment_sum", "splash_fwd"):
+    results[name]["ensemble_launches"] = counts[name]
+  results["segment_sum"].update(
+      launches=counts["segment_sum"],
+      launches_per_step=counts["segment_sum"] / ENSEMBLE_STEPS)
+  _log("ensemble", t0, config=_gencast_label(preset),
+       members=ENSEMBLE_MEMBERS, steps=ENSEMBLE_STEPS,
+       setup_s=f"{setup_s:.1f}", warmup_chunk_s=f"{warm_s:.2f}",
+       s_per_12h_step=f"{steps_s / ENSEMBLE_STEPS:.4f}",
+       s_per_member_step=f"{steps_s / ENSEMBLE_STEPS / ENSEMBLE_MEMBERS:.4f}",
+       peak_mem_gb=f"{peak_gb:.2f}",
+       **{f"{k}_per_step": counts[k] // ENSEMBLE_STEPS for k in expected},
+       member_spread_t_rms=f"{spread:.4g}", finite=True)
+  del model, stack, preds
+  torch.cuda.empty_cache()
+
+
+def _concat_batch(torch, sets):
+  """FieldSets joined along "batch"; variables without a batch axis (the
+  statics) are taken from the first."""
+  from graphcast_tpu_torch.fields import Field, FieldSet
+  first = sets[0]
+  fields = {}
+  for name in first.var_names:
+    f = first[name]
+    if "batch" in f.dims:
+      f = Field(torch.cat([fs[name].data for fs in sets],
+                          dim=f.dims.index("batch")), f.dims)
+    fields[name] = f
+  return FieldSet(fields, coords=first.coords)
+
+
+def phase_ensemble_small(torch):
+  """zoo.gencast_mini() at batch 2 on the card: one preconditioned denoiser
+  evaluation (the general path, K3) per pair of MINI_SIGMAS, a noise level
+  per member, each member held to the port on the CPU at its level (the
+  gencast_small phase's runs) with the small phase's noise-floor rule."""
+  from graphcast_tpu_torch.rollout import tile_batch
+  t0 = time.perf_counter()
+  preset = _mini_preset()
+  (inputs, targets, forcings), refs = _mini_references(torch)
+  card = _card_mini(torch, preset)
+  k3 = _counters()["segment_sum"]
+  launches_before = k3.launches
+  pairs = list(zip(MINI_SIGMAS, MINI_SIGMAS[1:] + MINI_SIGMAS[:1]))
+  worst = 0.0
+  for pair in pairs:
+    noisy = _concat_batch(torch, [refs[sigma][0] for sigma in pair])
+    out = _denoise(torch, card, tile_batch(inputs, 2), noisy,
+                   torch.tensor(pair), tile_batch(forcings, 2),
+                   torch.bfloat16, DEVICE)
+    for member, sigma in enumerate(pair):
+      worst = max(worst, _check_noise_floor(
+          torch, f"ensemble_small member {member} sigma={sigma}",
+          {n: out.data(n)[member:member + 1] for n in targets.var_names},
+          refs[sigma][1], targets.var_names))
+  if k3.launches - launches_before != len(pairs):
+    raise AssertionError(f"ensemble_small: K3 launched "
+                         f"{k3.launches - launches_before} times, expected "
+                         f"{len(pairs)}")
+  _log("ensemble_small", t0, config=_gencast_label(preset), batch=2,
+       sigma_pairs=",".join(f"({a:g},{b:g})" for a, b in pairs),
+       k3_launches=len(pairs), worst_err_over_bound=f"{worst:.3f}")
+  del card
+  torch.cuda.empty_cache()
+
+
+def phase_graphcast_batch(torch, results, profile_dir=None):
+  """GraphCast_small at batch BATCH (module doc): member 0 of one step
+  (the small phase's inputs) against the small phase's CPU runs and a
+  batch-1 card step, then the timed rollout."""
+  from graphcast_tpu_torch.data import synthetic
+  from graphcast_tpu_torch.models import zoo
+  t0 = time.perf_counter()
+  preset = zoo.graphcast_small()
+  mc = preset.model_config
+  _, card = _stack(torch, preset, seed=SMALL_SEED)
+  card = card.to(DEVICE)
+  member0, outs = _small_references(torch)
+  others = synthetic.make_example_batch(
+      preset.task_config, resolution=mc.resolution, batch=BATCH - 1, seed=1,
+      device="cpu")
+  one_step = [_concat_batch(torch, pair).astype(torch.bfloat16).to(DEVICE)
+              for pair in zip(member0, others)]
+  data = synthetic.make_example_batch(
+      preset.task_config, resolution=mc.resolution, batch=BATCH,
+      num_target_times=BATCH_STEPS, device="cpu")
+  inputs, targets, forcings = (fs.astype(torch.bfloat16).to(DEVICE)
+                               for fs in data)
+  one = slice(0, 1)
+  setup_s = time.perf_counter() - t0
+
+  # One step at batch BATCH (also the warm-up) and member 0 alone.
+  t1 = time.perf_counter()
+  with torch.inference_mode():
+    step = card(*one_step)
+  torch.cuda.synchronize()
+  warm_s = time.perf_counter() - t1
+  with torch.inference_mode():
+    single = card(*(fs.astype(torch.bfloat16).to(DEVICE) for fs in member0))
+  names = member0[1].var_names
+  got = {n: step.data(n)[:1] for n in names}
+  worst = _check_noise_floor(torch, "graphcast_batch member 0 vs batch 1",
+                             got, outs, names,
+                             ref={n: single.data(n) for n in names})
+  worst_cpu = _check_noise_floor(torch, "graphcast_batch member 0 vs cpu",
+                                 got, outs, names)
+
+  torch.cuda.reset_peak_memory_stats()
+  _reset_counters()
+  t2 = time.perf_counter()
+  final = card.rollout_final(inputs, targets.isel(time=one), forcings)
+  torch.cuda.synchronize()
+  rollout_s = time.perf_counter() - t2
+  counts = {k: fn.launches for k, fn in _counters().items()}
+  peak_gb = torch.cuda.max_memory_allocated() / 1e9
+  expected = {"segment_sum": 1 + mc.gnn_msg_steps, "fused_edge": 0,
+              "fused_decoder": 0}
+  if any(counts[k] != n * BATCH_STEPS for k, n in expected.items()):
+    raise AssertionError(f"graphcast_batch launches {counts}, expected "
+                         f"{expected} per step")
+  _check_fieldset(torch, "graphcast_batch", final,
+                  inputs.select(list(final.var_names)))
+  if profile_dir:
+    _profile_step(torch, lambda: card.rollout_final(
+        inputs, targets.isel(time=one), forcings.isel(time=one)), profile_dir,
+                  "graphcast_batch_step")
+  results["segment_sum"]["graphcast_batch_launches"] = counts["segment_sum"]
+  _log("graphcast_batch", t0, config=_label(preset), batch=BATCH,
+       steps=BATCH_STEPS, setup_s=f"{setup_s:.1f}",
+       warmup_1step_s=f"{warm_s:.2f}", rollout_s=f"{rollout_s:.3f}",
+       s_per_step=f"{rollout_s / BATCH_STEPS:.4f}",
+       peak_mem_gb=f"{peak_gb:.2f}",
+       **{f"{k}_per_step": counts[k] // BATCH_STEPS for k in expected},
+       member0_vs_batch1_over_bound=f"{worst:.3f}",
+       member0_vs_cpu_over_bound=f"{worst_cpu:.3f}", finite=True)
+  del card, step, single, final
+  torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--phases", default=",".join(PHASES),
                       help="comma-separated subset of " + ",".join(PHASES))
   parser.add_argument("--profile", metavar="DIR",
                       help="also profile one main-path step, one train step, "
-                           "one GenCast step and one GenCast train step "
+                           "one GenCast step, one GenCast train step, one "
+                           "ensemble chunk and one batch-4 GraphCast step "
                            "(torch.profiler) and write their kernel tables "
                            "and traces to DIR")
   args = parser.parse_args(argv)
@@ -1830,7 +2230,8 @@ def main(argv=None) -> int:
   t_start = time.perf_counter()
   card = phase_build(torch)
   results = {}
-  if {"k1", "k2", "k4", "k5", "embed", "embed_bwd", "main"} & set(phases):
+  if {"k1", "k2", "k4", "k5", "embed", "embed_bwd", "k3", "main"} & set(
+      phases):
     t0 = time.perf_counter()
     art = _geometry(0.25, 6)
     _log("geometry", t0, grid_nodes=art.num_grid_nodes,
@@ -1856,6 +2257,8 @@ def main(argv=None) -> int:
     phase_embed(torch, art, results)
   if "embed_bwd" in phases:
     phase_embed_bwd(torch, art, results)
+  if "k3" in phases:
+    phase_k3(torch, art, results)
   if "main" in phases:
     for name in ("fused_edge", "fused_edge_encoder", "fused_decoder"):
       results.setdefault(name, {"name": name})
@@ -1880,6 +2283,15 @@ def main(argv=None) -> int:
     phase_gencast_train(torch, results, args.profile)
   if "gencast_train_small" in phases:
     phase_gencast_train_small(torch)
+  if {"ensemble", "graphcast_batch"} & set(phases):
+    results.setdefault("segment_sum", {"name": "segment_sum"})
+  if "ensemble" in phases:
+    results.setdefault("splash_fwd", {"name": "splash_fwd"})
+    phase_ensemble(torch, results, args.profile)
+  if "ensemble_small" in phases:
+    phase_ensemble_small(torch)
+  if "graphcast_batch" in phases:
+    phase_graphcast_batch(torch, results, args.profile)
   print(f"[total] {time.perf_counter() - t_start:.1f}s", flush=True)
   print(card)
   print(json.dumps({"kernels": list(results.values())}))

@@ -1,4 +1,4 @@
-"""GenCast's denoiser, batch 1 (port of graphcast_tpu/models/denoiser.py;
+"""GenCast's denoiser (port of graphcast_tpu/models/denoiser.py;
 reference: graphcast/denoiser.py).
 
 A GraphCast-shaped encode-process-decode network specialised for
@@ -12,20 +12,25 @@ denoising diffusion:
 - noisy targets enter as extra forcings; the noise-level encoding enters
   as a [batch, channels] input, split out as the conditioning vector.
 
-Only the JAX package's batch-1 fused paths are ported (``_nc_vectors``,
+At batch 1, the JAX package's fused paths (``_nc_vectors``,
 ``_run_grid2mesh_fused``, ``_run_mesh2grid_fused``): the conditioning is
 folded into per-evaluation vectors and matrices, We' = s_e·We and
 b0' = o_e·We + b0 in the activation dtype, and the grid2mesh and mesh2grid
 stages run through K1 and K2 in embed mode on the raw structural edge
-features (ops/fused_edge.py, ops/fused_decoder.py). The TPU's windowed
-grid2mesh gather and its ``node_order`` layout are Mosaic-specific; the port
-keeps the artifact's receiver order. Batch > 1 and the chunked forms raise
-NotImplementedError.
+features (ops/fused_edge.py, ops/fused_decoder.py). At batch > 1 (an
+ensemble's members), its general path: the DeepGraphNets' ``forward`` with
+the per-member conditioning [batch, K], the grid2mesh aggregation through
+K3 (ops/segment_sum.py) and the mesh2grid one through the plain segment
+sum, as in the JAX package; the transformer folds batch and heads for K6.
+The TPU's windowed grid2mesh gather and its ``node_order`` layout are
+Mosaic-specific; the port keeps the artifact's receiver order. The chunked
+encode/decode forms are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -37,7 +42,8 @@ from graphcast_tpu_torch.fields import Field, FieldSet, from_stacked, to_stacked
 from graphcast_tpu_torch.geometry import artifact as artifact_lib
 from graphcast_tpu_torch.models import configs
 from graphcast_tpu_torch.models.graphcast import (
-    EDGE_STRUCT_FEATURES, NODE_STRUCT_FEATURES, num_grid_input_channels)
+    EDGE_STRUCT_FEATURES, NODE_STRUCT_FEATURES, grid2mesh_graph,
+    mesh2grid_graph, num_grid_input_channels)
 from graphcast_tpu_torch.models.sparse_transformer import (
     SparseTransformerConfig)
 from graphcast_tpu_torch.models.transformer import MeshTransformer
@@ -45,6 +51,7 @@ from graphcast_tpu_torch.nn import core
 from graphcast_tpu_torch.nn.deep_gnn import DeepGraphNet
 from graphcast_tpu_torch.ops.fused_decoder import fused_decode
 from graphcast_tpu_torch.ops.fused_edge import EdgeIndex, fused_edge
+from graphcast_tpu_torch.ops.segment_sum import sorted_segment_sum
 
 # GenCast steps 12 hours: its inputs hold input_duration / 12h frames.
 STEP_HOURS = 12
@@ -122,7 +129,7 @@ class FourierFeaturesMLP(nn.ModuleDict):
 
 
 class DenoiserArchitecture(nn.Module):
-  """Encode (GNN) → process (sparse transformer) → decode (GNN), batch 1
+  """Encode (GNN) → process (sparse transformer) → decode (GNN)
   (reference: denoiser.py:248-731)."""
 
   def __init__(self, cfg: DenoiserArchitectureConfig,
@@ -150,7 +157,10 @@ class DenoiserArchitecture(nn.Module):
         edge_latent_size={"grid2mesh": latent},
         node_input_size={"mesh_nodes": node_in, "grid_nodes": node_in},
         edge_input_size={"grid2mesh": EDGE_STRUCT_FEATURES},
-        edge_sets={"grid2mesh": ("grid_nodes", "mesh_nodes")}, **common)
+        edge_sets={"grid2mesh": ("grid_nodes", "mesh_nodes")},
+        f32_aggregation=True,
+        aggregate_normalization=cfg.grid2mesh_aggregate_normalization,
+        **common)
     self.mesh_transformer = MeshTransformer(cfg.sparse_transformer_config,
                                             cond_size)
     self.mesh2grid_gnn = DeepGraphNet(
@@ -289,20 +299,34 @@ class DenoiserArchitecture(nn.Module):
     stacked = stacked.permute(1, 2, 0, 3)  # [lat, lon, batch, C]
     return stacked.reshape((-1,) + tuple(stacked.shape[2:])), cond
 
+  def _run_general(self, st, features, cond):
+    """Batch > 1: the two GNNs' general path on [nodes, batch, C] with the
+    per-member conditioning cond [batch, K] (graphcast_tpu models/
+    denoiser.py:715-744); K3 aggregates the grid2mesh edge set."""
+    g2m = self.grid2mesh_gnn(
+        grid2mesh_graph(st, features), cond=cond, edge_aggregators={
+            "grid2mesh": functools.partial(sorted_segment_sum, st["g2m"])})
+    latent_mesh = self.mesh_transformer(g2m.nodes["mesh_nodes"].features,
+                                        cond)
+    m2g = self.mesh2grid_gnn(mesh2grid_graph(
+        st, latent_mesh, g2m.nodes["grid_nodes"].features), cond=cond)
+    return m2g.nodes["grid_nodes"].features
+
   def forward(self, inputs: FieldSet, targets_template: FieldSet,
               forcings: FieldSet) -> FieldSet:
     features, cond = self._split_features_and_conditioning(inputs, forcings)
-    if features.shape[1] != 1:
-      raise NotImplementedError(
-          "batch > 1 needs the general message-passing path, not ported")
     self._maybe_init(inputs)
-    x = features[:, 0]
-    st = self._statics(x.device)
-    latent_mesh, latent_grid = self._run_grid2mesh(st, x, cond)
-    latent_mesh = self.mesh_transformer(latent_mesh[:, None], cond)[:, 0]
-    out = self._run_mesh2grid(st, latent_mesh, latent_grid, cond)
+    st = self._statics(features.device)
+    if features.shape[1] != 1:
+      out = self._run_general(st, features, cond)
+    else:
+      x = features[:, 0]
+      latent_mesh, latent_grid = self._run_grid2mesh(st, x, cond)
+      latent_mesh = self.mesh_transformer(latent_mesh[:, None], cond)[:, 0]
+      out = self._run_mesh2grid(st, latent_mesh, latent_grid, cond)[:, None]
     art = self._artifact
-    data = out.reshape(art.grid_lat.shape[0], art.grid_lon.shape[0], 1, -1)
+    data = out.reshape(art.grid_lat.shape[0], art.grid_lon.shape[0],
+                       *out.shape[1:])
     return from_stacked(data.permute(2, 0, 1, 3), targets_template)
 
 

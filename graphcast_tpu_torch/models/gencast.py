@@ -4,10 +4,11 @@ Port of graphcast_tpu/models/gencast.py (reference: graphcast/gencast.py):
 the norm-conditioned denoiser (models/denoiser.py), preconditioned with the
 EDM c_in / c_out / c_skip scalings, sampled with DPM-Solver++ 2S and
 stochastic churn on spherical noise (diffusion/), and trained with the
-λ(σ)-weighted denoising loss (``loss``). One call predicts one 12 h step at
-batch 1; the randomness of sampling and of the loss's σ and noise comes
-from the ``generator`` keyword argument, a ``torch.Generator`` on the
-data's device.
+λ(σ)-weighted denoising loss (``loss``). One call predicts one 12 h step;
+at batch > 1 (an ensemble's members, rollout.chunked_ensemble_prediction)
+every member draws its own noise and takes its own σ. The randomness of
+sampling and of the loss's σ and noise comes from the ``generator``
+keyword argument, a ``torch.Generator`` on the data's device.
 
 The spherical-harmonic synthesis basis of the targets' grid lives on the
 module as non-trainable float32 buffers (``noise_basis_*``), built at the

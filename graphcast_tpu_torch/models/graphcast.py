@@ -1,7 +1,7 @@
-"""GraphCast: the encode-process-decode GNN one-step predictor, batch 1.
+"""GraphCast: the encode-process-decode GNN one-step predictor.
 
-Port of graphcast_tpu/models/graphcast.py (reference: graphcast.py:213-796)
-on its batch-1 inference path:
+Port of graphcast_tpu/models/graphcast.py (reference: graphcast.py:213-796).
+At batch 1, its fused inference path:
 
   1. FieldSets → grid node features [num_grid_nodes, C]
   2. grid2mesh: embed grid and mesh nodes, one aggregation-only fused edge
@@ -11,10 +11,17 @@ on its batch-1 inference path:
   4. mesh2grid: the fused decoder (K2) → [num_grid_nodes, num_outputs]
   5. outputs → FieldSet via the targets template
 
+At batch > 1, the JAX package's general path (graphcast.py:864-903): the
+three DeepGraphNets' ``forward`` on TypedGraphs laid out [nodes, batch, C],
+with the mesh and grid2mesh aggregations through K3 (ops/segment_sum.py),
+where the JAX package installs ``BlockedSegmentSum``, and the mesh2grid one
+through the plain segment sum, as there. Nothing is hoisted at batch > 1
+(``precompute_step_statics`` returns {}), as in the JAX package.
+
 Which code runs is decided by the tensors' device alone: CUDA tensors go
 through the CUDA kernels, CPU tensors through their plain-PyTorch twins
-(ops/). Batch > 1, ``hidden_layers != 1`` and the chunked encode/decode
-forms are not ported and raise NotImplementedError.
+(ops/). ``hidden_layers != 1`` and the chunked encode/decode forms are not
+ported and raise NotImplementedError.
 
 The static graph (geometry/artifact.py) is built on the host at the first
 call from the inputs' lat/lon coords and kept on the device of the call.
@@ -32,6 +39,7 @@ the backward instead of kept. CUDA tensors run the backward kernels K4/K5.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -45,12 +53,64 @@ from graphcast_tpu_torch.models import configs
 from graphcast_tpu_torch.models.base import Predictor
 from graphcast_tpu_torch.nn import core
 from graphcast_tpu_torch.nn.deep_gnn import DeepGraphNet
+from graphcast_tpu_torch.nn.typed_graph import (
+    Context, EdgeSet, EdgeSetKey, EdgesIndices, NodeSet, TypedGraph)
 from graphcast_tpu_torch.ops.fused_decoder import fused_decode
 from graphcast_tpu_torch.ops.fused_edge import EdgeIndex, fused_edge
+from graphcast_tpu_torch.ops.segment_sum import sorted_segment_sum
 
 NODE_STRUCT_FEATURES = 3   # sin(lat), cos(lon), sin(lon)
 EDGE_STRUCT_FEATURES = 4   # |d|, dx, dy, dz in the receiver's frame
 _CONST_CHUNK_ROWS = 1 << 18
+
+
+def add_batch_second_axis(data: torch.Tensor, batch: int, dtype):
+  """[n, f] → [n, batch, f] in ``dtype`` (reference: graphcast.py:785-789)."""
+  return data.to(dtype)[:, None].expand(data.shape[0], batch, data.shape[-1])
+
+
+def edge_set(edges: EdgeIndex, features: torch.Tensor) -> EdgeSet:
+  """A TypedGraph edge set over ``edges``' sender and receiver indices."""
+  return EdgeSet(EdgesIndices(edges.senders, edges.receivers), features)
+
+
+def grid2mesh_graph(st: dict, grid_node_features: torch.Tensor
+                    ) -> TypedGraph:
+  """The grid2mesh TypedGraph of [num_grid, batch, C] grid node features:
+  grid nodes carry [features ++ structural], mesh nodes [zeros ++
+  structural] (reference: graphcast.py:609-663). ``st``: a model's device
+  statics (edge lists, structural node and edge features)."""
+  batch, dtype = grid_node_features.shape[1], grid_node_features.dtype
+  edges = st["g2m"]
+  dummy = grid_node_features.new_zeros(
+      (edges.num_receivers,) + tuple(grid_node_features.shape[1:]))
+  return TypedGraph(
+      context=Context(features=()),
+      nodes={
+          "grid_nodes": NodeSet(edges.num_senders, torch.cat(
+              [grid_node_features, add_batch_second_axis(
+                  st["grid_node_features"], batch, dtype)], dim=-1)),
+          "mesh_nodes": NodeSet(edges.num_receivers, torch.cat(
+              [dummy, add_batch_second_axis(st["mesh_node_features"], batch,
+                                            dtype)], dim=-1)),
+      },
+      edges={EdgeSetKey("grid2mesh", ("grid_nodes", "mesh_nodes")): edge_set(
+          edges, add_batch_second_axis(st["g2m_edge_features"], batch,
+                                       dtype))})
+
+
+def mesh2grid_graph(st: dict, latent_mesh_nodes: torch.Tensor,
+                    latent_grid_nodes: torch.Tensor) -> TypedGraph:
+  """The mesh2grid TypedGraph (reference: graphcast.py:701-738)."""
+  batch, dtype = latent_mesh_nodes.shape[1], latent_mesh_nodes.dtype
+  edges = st["m2g"]
+  return TypedGraph(
+      context=Context(features=()),
+      nodes={"grid_nodes": NodeSet(edges.num_receivers, latent_grid_nodes),
+             "mesh_nodes": NodeSet(edges.num_senders, latent_mesh_nodes)},
+      edges={EdgeSetKey("mesh2grid", ("mesh_nodes", "grid_nodes")): edge_set(
+          edges, add_batch_second_axis(st["m2g_edge_features"], batch,
+                                       dtype))})
 
 
 def num_grid_input_channels(task_config: configs.TaskConfig,
@@ -103,7 +163,7 @@ class GraphCast(Predictor):
         node_input_size={"mesh_nodes": node_in, "grid_nodes": node_in},
         edge_input_size={"grid2mesh": EDGE_STRUCT_FEATURES},
         edge_sets={"grid2mesh": ("grid_nodes", "mesh_nodes")},
-        num_message_passing_steps=1, **common)
+        num_message_passing_steps=1, f32_aggregation=True, **common)
     # Processor over the multi-mesh (reference: graphcast.py:280-293).
     self.mesh_gnn = DeepGraphNet(
         embed_nodes=False,
@@ -172,7 +232,10 @@ class GraphCast(Predictor):
 
   def precompute_step_statics(self, inputs: FieldSet) -> dict:
     """The encoder's and decoder's static first-layer edge parts,
-    embed(edge features) @ We + b0, once per rollout."""
+    embed(edge features) @ We + b0, once per rollout; {} at batch > 1,
+    whose general path hoists nothing."""
+    if inputs.sizes.get("batch", 1) != 1:
+      return {}
     self._maybe_init(inputs)
     data = inputs[inputs.var_names[0]].data
     dtype = data.dtype if data.is_floating_point() else torch.float32
@@ -268,6 +331,28 @@ class GraphCast(Predictor):
     return fused_decode(st["m2g"], latent_grid_nodes,
                         latent_mesh_nodes @ ws, const, weights)
 
+  def _run_general(self, st, features):
+    """Batch > 1: the three GNNs' general path on [nodes, batch, C]
+    (graphcast_tpu models/graphcast.py:864-903); K3 aggregates the
+    grid2mesh and mesh edge sets."""
+    g2m = self.grid2mesh_gnn(
+        grid2mesh_graph(st, features), edge_aggregators={
+            "grid2mesh": functools.partial(sorted_segment_sum, st["g2m"])})
+    mesh_nodes = g2m.nodes["mesh_nodes"]
+    batch, dtype = features.shape[1], features.dtype
+    mesh = self.mesh_gnn(
+        TypedGraph(
+            context=Context(features=()), nodes={"mesh_nodes": mesh_nodes},
+            edges={EdgeSetKey("mesh", ("mesh_nodes", "mesh_nodes")): edge_set(
+                st["mesh"], add_batch_second_axis(st["mesh_edge_features"],
+                                                  batch, dtype))}),
+        edge_aggregators={
+            "mesh": functools.partial(sorted_segment_sum, st["mesh"])})
+    m2g = self.mesh2grid_gnn(mesh2grid_graph(
+        st, mesh.nodes["mesh_nodes"].features,
+        g2m.nodes["grid_nodes"].features))
+    return m2g.nodes["grid_nodes"].features
+
   # ----- feature packing -----
 
   def _inputs_to_grid_node_features(self, inputs: FieldSet,
@@ -294,17 +379,17 @@ class GraphCast(Predictor):
               forcings: FieldSet, static_edge_latents=None) -> FieldSet:
     self._maybe_init(inputs)
     features = self._inputs_to_grid_node_features(inputs, forcings)
-    if features.shape[1] != 1:
-      raise NotImplementedError(
-          "batch > 1 needs the general message-passing path, not ported")
     expected = num_grid_input_channels(self._tc)
     if features.shape[-1] != expected:
       raise ValueError(f"stacked inputs have {features.shape[-1]} channels, "
                        f"the task config implies {expected}")
+    st = self._statics(features.device)
+    if features.shape[1] != 1:
+      return self._grid_node_outputs_to_prediction(
+          self._run_general(st, features), targets_template)
     x = features[:, 0]
     sel = static_edge_latents or self.precompute_step_statics(
         inputs)["static_edge_latents"]
-    st = self._statics(x.device)
     latent_mesh, latent_grid = self._run_grid2mesh(st, x, sel["g2m_const"])
     latent_mesh = self._run_mesh(st, latent_mesh)
     out = self._run_mesh2grid(st, latent_mesh, latent_grid,

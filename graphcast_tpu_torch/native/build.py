@@ -115,6 +115,8 @@ def _declare(lib: ctypes.CDLL):
   lib.gc_splash_dq.argtypes = [p] * 11 + [ctypes.c_float] + [i] * 3 + [p]
   lib.gc_splash_dkv.restype = i
   lib.gc_splash_dkv.argtypes = [p] * 12 + [ctypes.c_float] + [i] * 3 + [p]
+  lib.gc_segment_sum.restype = i
+  lib.gc_segment_sum.argtypes = [p, p, i, p, i, p, p, i, i, p]
   lib.gc_error_string.restype = ctypes.c_char_p
   lib.gc_error_string.argtypes = [i]
 

@@ -162,15 +162,35 @@ class MLPWithNorm(nn.Module):
                               if norm_conditioning_size else None)
 
   def forward(self, *inputs, cond=None):
+    x = inputs[0] if len(inputs) == 1 else torch.cat(inputs, dim=-1)
+    return self._norm(self.mlp(x), cond)
+
+  def _norm(self, x, cond):
     if (cond is None) != (self.norm_conditioning is None):
       raise ValueError("pass cond exactly when norm conditioning is on")
-    x = inputs[0] if len(inputs) == 1 else torch.cat(inputs, dim=-1)
-    x = self.mlp(x)
     if self.norm_conditioning is not None:
       return self.norm_conditioning(layer_norm_no_params(x), cond)
     if self.layer_norm is not None:
       x = self.layer_norm(x)
     return x
+
+  def factored_edge_update(self, edge_feats, sender_full, receiver_full,
+                           senders, receivers, cond=None):
+    """The edge update with the first layer factored (graphcast_tpu nn/
+    core.py:237-263): edge_feats @ We + (sender_full @ Ws)[senders] +
+    (receiver_full @ Wr)[receivers] + b0, then the remaining layers and the
+    norm, all in edge_feats' dtype. Node arrays are [nodes, ...], indices
+    int32 [edges]."""
+    dtype = edge_feats.dtype
+    we, ws, wr, b0 = self.factored_first_layer(edge_feats.shape[-1],
+                                               sender_full.shape[-1], dtype)
+    x = (edge_feats @ we
+         + (sender_full @ ws).index_select(0, senders)
+         + (receiver_full @ wr).index_select(0, receivers)
+         + b0.to(dtype))
+    for layer in list(self.mlp.values())[1:]:
+      x = layer(F.silu(x))
+    return self._norm(x, cond)
 
   def factored_first_layer(self, edge_size: int, sender_size: int, dtype):
     """(We, Ws, Wr, b0) of the first linear layer, cast to ``dtype``.

@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from graphcast_tpu_torch.native import build
+from graphcast_tpu_torch.ops import segment_sum
 from graphcast_tpu_torch.ops.weight_grad import feature_grad, weight_grad
 
 LN_EPS = 1e-5
@@ -91,10 +92,23 @@ class EdgeIndex:
     self.senders = torch.as_tensor(senders.astype(np.int32), device=device)
     self.receivers = torch.as_tensor(receivers.astype(np.int32),
                                      device=device)
+    # CSR row offsets [num_receivers + 1] of the sorted receivers (host).
+    self.row_offsets = np.concatenate(
+        [[0], np.cumsum(np.bincount(receivers, minlength=num_receivers))]
+    ).astype(np.int32)
+    self._segment_plan = None
 
   @property
   def device(self) -> torch.device:
     return self.senders.device
+
+  def segment_plan(self) -> segment_sum.SegmentPlan:
+    """K3's work plan for this edge list on its device (built at first
+    use; ops/segment_sum.py)."""
+    if self._segment_plan is None:
+      self._segment_plan = segment_sum.plan_segments(self.row_offsets,
+                                                     self.device)
+    return self._segment_plan
 
 
 def swish_of(x: torch.Tensor, dtype) -> torch.Tensor:

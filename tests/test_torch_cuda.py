@@ -241,10 +241,11 @@ def test_kernels_refuse_f32(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1000, 1024])
-def test_block_sparse_attention_kernel_matches_plain(n, cuda_device):
+@pytest.mark.parametrize("n,batch", [(1000, 1), (1024, 1), (1000, 4)])
+def test_block_sparse_attention_kernel_matches_plain(n, batch, cuda_device):
   """K6 on a banded mask with self loops (n not a multiple of the tile,
-  and one with a full tile), 4 heads of 128."""
+  and one with a full tile), 4 heads of 128; batch 4 as an ensemble's
+  members give it."""
   import scipy.sparse as sp
   rng = np.random.RandomState(n)
   i, j = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
@@ -253,8 +254,8 @@ def test_block_sparse_attention_kernel_matches_plain(n, cuda_device):
   bm = splash.build_block_map(sp.csr_matrix(dense))
   assert bm.full.any()
   gen = torch.Generator().manual_seed(n)
-  q, k, v = (_rand(gen, 1, n, 4, 128, dtype=torch.bfloat16).to(cuda_device)
-             for _ in range(3))
+  q, k, v = (_rand(gen, batch, n, 4, 128, dtype=torch.bfloat16)
+             .to(cuda_device) for _ in range(3))
   before = splash.block_sparse_attention.launches
   with torch.inference_mode():
     got, lse = splash.block_sparse_attention(q, k, v, bm, 128 ** -0.5)
@@ -493,3 +494,50 @@ def test_feature_grad_kernel_matches_plain(cuda_device):
   dx_want = feature_grad_reference(x, d, w0, want)
   torch.cuda.synchronize()
   _assert_grads_close({"dw0": got, "dx": dx}, {"dw0": want, "dx": dx_want})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_segment_sum_kernel_matches_plain(dtype, cuda_device):
+  """K3 against its plain version on a skewed receiver-sorted edge list
+  (one receiver with 3,000 edges, many with none), [E, 4, 512]: f32 within
+  1e-5 relative RMS (chunk sums added in another order), bf16 within one
+  bf16 ulp of the f32 sum per element; its gather backward too."""
+  from graphcast_tpu_torch.ops.segment_sum import (
+      segment_sum_reference, sorted_segment_sum)
+  rng = np.random.RandomState(0)
+  degrees = rng.randint(0, 20, size=2000)
+  degrees[::7] = 0
+  degrees[123] = 3000
+  receivers = np.repeat(np.arange(2000), degrees).astype(np.int32)
+  edges = EdgeIndex(np.zeros_like(receivers), receivers, 1, 2000,
+                    cuda_device)
+  gen = torch.Generator(device=cuda_device).manual_seed(1)
+  msgs = torch.randn(receivers.size, 4, C, generator=gen,
+                     device=cuda_device).to(dtype)
+  before = sorted_segment_sum.launches
+  got = sorted_segment_sum(edges, msgs)
+  torch.cuda.synchronize()
+  assert sorted_segment_sum.launches == before + 1
+  want = segment_sum_reference(edges, msgs.reshape(receivers.size, -1))
+  want = want.reshape(got.shape)
+  assert got.dtype == dtype and got.shape == (2000, 4, C)
+  if dtype == torch.float32:
+    d = (got - want).square().mean().sqrt() / want.square().mean().sqrt()
+    assert d.item() <= 1e-5
+  else:
+    flat = msgs.reshape(receivers.size, -1).double()
+    exact = torch.zeros(2000, 4 * C, dtype=torch.float64, device=cuda_device)
+    exact.index_add_(0, edges.receivers.long(), flat)
+    magnitude = torch.zeros_like(exact).index_add_(
+        0, edges.receivers.long(), flat.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(exact.abs().clamp_min(1e-30)))
+                     - 7)
+    # One bf16 ulp, plus the f32 reordering error where the sum cancels.
+    tol = (ulp + 2.0 ** -20 * magnitude).reshape(got.shape)
+    assert ((got.double() - want.double()).abs() <= tol).all()
+  assert not got[torch.from_numpy(degrees == 0).to(cuda_device)].any()
+  leaf = msgs.detach().float().requires_grad_()
+  g = torch.randn(got.shape, generator=gen, device=cuda_device)
+  sorted_segment_sum(edges, leaf).backward(g)
+  torch.testing.assert_close(leaf.grad, g[edges.receivers.long()])

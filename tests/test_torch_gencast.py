@@ -8,9 +8,11 @@ Weights are the JAX package's init carried into the port by
 conditioning, ``mha_final``, ``ffw_down``) are overwritten with seeded draws
 of stddev 1/sqrt(fan_in) in both packages: otherwise attention and the
 noise conditioning would vanish from the outputs and the comparisons would
-check neither. The JAX denoiser runs its batch-1 kernel path
-(``fused_aggregation=True``, Pallas interpret mode), as tests/test_gencast.py
-runs it.
+check neither. The JAX denoiser runs with ``fused_aggregation=True``
+(Pallas interpret mode), as tests/test_gencast.py runs it: its batch-1
+kernel path, and at batch 2 its general path (K3's counterpart
+``BlockedSegmentSum`` where the grid2mesh layout allows it), against the
+port's general path with a noise level per member.
 
 The whole-sample test feeds both samplers the same numpy noise: it replaces
 ``spherical_white_noise_like`` in both packages by draws keyed by (noise
@@ -226,17 +228,20 @@ def test_conditioned_mlp_with_norm_matches_jax():
   _assert_close(got.numpy(), want)
 
 
+@pytest.mark.parametrize("batch", [1, 2])
 @pytest.mark.parametrize("attention_type", ["mha", "splash_mha"])
-def test_denoiser_matches_jax(attention_type):
-  """One denoiser evaluation at batch 1, at three noise levels."""
+def test_denoiser_matches_jax(attention_type, batch):
+  """One denoiser evaluation at three noise levels: batch 1 (the fused
+  path) and batch 2 (the general path, K3's plain version, a noise level
+  per member)."""
   jmodel, tree, port = _shared_weights(attention_type)
-  (j_in, j_tg, j_fc), (t_in, t_tg, t_fc) = _batch()
+  (j_in, j_tg, j_fc), (t_in, t_tg, t_fc) = _batch(batch)
   jden = jmodel._denoiser
   for sigma in (80.0, 1.0, 0.03):
-    want = jden.apply(tree, j_in, j_tg, jnp.asarray([sigma], jnp.float32),
-                      j_fc)
+    levels = np.array([sigma, sigma / 3][:batch], np.float32)
+    want = jden.apply(tree, j_in, j_tg, jnp.asarray(levels), j_fc)
     with torch.inference_mode():
-      got = port.denoise(t_in, t_tg, torch.tensor([sigma]), t_fc)
+      got = port.denoise(t_in, t_tg, torch.from_numpy(levels), t_fc)
     assert got.var_names == want.var_names
     for name in want.var_names:
       _assert_close(got.data(name).numpy(), want.data(name))
@@ -315,11 +320,11 @@ class _NumpyNoise:
             for n, s in sorted(self.shapes.items())}
 
 
-def _sample_both(monkeypatch, inputs_nan=False):
+def _sample_both(monkeypatch, inputs_nan=False, batch=1):
   jmodel, tree, port = _shared_weights("mha")
   jtask = jax_configs.TaskConfig(**TINY_TASK)
   task = configs.TaskConfig(**TINY_TASK)
-  (j_in, j_tg, j_fc), (t_in, t_tg, t_fc) = _batch()
+  (j_in, j_tg, j_fc), (t_in, t_tg, t_fc) = _batch(batch)
   if inputs_nan:
     sst = np.asarray(j_in.data("sea_surface_temperature")).copy()
     sst[..., :2] = np.nan
@@ -375,16 +380,23 @@ def _sample_both(monkeypatch, inputs_nan=False):
   return got, want
 
 
-def test_sample_matches_jax(monkeypatch):
-  got, want = _sample_both(monkeypatch)
+@pytest.mark.parametrize("batch", [1, 2])
+def test_sample_matches_jax(monkeypatch, batch):
+  """The whole sample on shared numpy noise; at batch 2 every member draws
+  its own noise and runs the general path."""
+  got, want = _sample_both(monkeypatch, batch=batch)
   assert got.var_names == want.var_names
   for name in want.var_names:
     assert np.isfinite(np.asarray(want.data(name))).all()
     _assert_close(got.data(name).numpy(), want.data(name))
+  if batch > 1:
+    t = got.data("temperature")
+    assert not torch.allclose(t[0], t[1])
 
 
-def test_nans_in_sst_come_back(monkeypatch):
-  got, want = _sample_both(monkeypatch, inputs_nan=True)
+@pytest.mark.parametrize("batch", [1, 2])
+def test_nans_in_sst_come_back(monkeypatch, batch):
+  got, want = _sample_both(monkeypatch, inputs_nan=True, batch=batch)
   sst = got.data("sea_surface_temperature").numpy()
   assert np.isnan(sst[..., :2]).all() and np.isfinite(sst[..., 2:]).all()
   for name in want.var_names:
@@ -436,10 +448,6 @@ def test_unported_forms_raise():
     port(two[0], two[1], two[2], generator=torch.Generator())
   with pytest.raises(ValueError, match="generator"):
     port(t_in, t_tg, t_fc)
-  _, (b_in, b_tg, b_fc) = _batch(batch=2)
-  with pytest.raises(NotImplementedError, match="batch"):
-    with torch.inference_mode():
-      port(b_in, b_tg, b_fc, generator=torch.Generator())
   bad = dataclasses.replace(_st(sparse_transformer, "mha"),
                             node_ordering="spiral")
   with pytest.raises(ValueError, match="node_ordering"):

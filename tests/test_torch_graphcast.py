@@ -1,6 +1,7 @@
-"""The port's one-step GraphCast against graphcast_tpu's, f32, batch 1, on
-shared weights and inputs (tiny config: 30° grid, mesh-1, latent 16, 2
-message-passing steps).
+"""The port's one-step GraphCast against graphcast_tpu's, f32, on shared
+weights and inputs (tiny config: 30° grid, mesh-1, latent 16, 2
+message-passing steps): batch 1 (the port's fused K1/K2 path) and batch 2
+(its general path with K3's plain version, members with different inputs).
 
 The JAX model runs with ``fused_aggregation=True`` (Pallas kernels in
 interpret mode) and ``False`` (plain XLA); tolerance 5e-4, that of
@@ -53,28 +54,49 @@ def _port_model(jax_params):
   return model
 
 
-@pytest.mark.parametrize("fused", [False, True])
-def test_one_step_matches_jax_graphcast(fused, numpy_geometry):
+def _one_step_both(fused, batch):
+  """(port prediction, JAX prediction) of one step on shared weights and
+  inputs; at batch > 1 the inputs of each member differ."""
   task = jax_configs.TaskConfig(**TINY_TASK)
   inputs, targets, forcings = jax_synthetic.make_example_batch(
-      task, resolution=30.0, batch=1)
+      task, resolution=30.0, batch=batch)
+  t_in, t_tg, t_fc = synthetic.make_example_batch(
+      configs.TaskConfig(**TINY_TASK), resolution=30.0, batch=batch,
+      device="cpu")
+  if batch > 1:
+    rng = np.random.RandomState(7)
+    for name in t_in.var_names:
+      if "batch" in t_in[name].dims:
+        noisy = (np.asarray(inputs.data(name)) + rng.randn(
+            *inputs[name].shape).astype(np.float32))
+        inputs = inputs.replace_data(name, noisy)
+        t_in.data(name).copy_(torch.from_numpy(noisy))
   jax_model = JaxGraphCast(jax_configs.ModelConfig(**TINY_MODEL), task,
                            cache_dir="", fused_aggregation=fused)
   jax_params = jax_model.init(jax.random.PRNGKey(0), inputs, targets,
                               forcings)
   want = jax_model(jax_params, None, inputs, targets, forcings)
-
   model = _port_model(jax_params)
-  t_in, t_tg, t_fc = synthetic.make_example_batch(
-      configs.TaskConfig(**TINY_TASK), resolution=30.0, batch=1, device="cpu")
   with torch.inference_mode():
     got = model(t_in, t_tg, t_fc)
+  return got, want
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("fused", [False, True])
+def test_one_step_matches_jax_graphcast(fused, batch, numpy_geometry):
+  """Batch 1 (fused K1/K2 twins) and batch 2 (the general path, K3's plain
+  version) against JAX's fused and plain paths."""
+  got, want = _one_step_both(fused, batch)
   assert got.var_names == want.var_names
   for name in want.var_names:
     assert got[name].dims == want[name].dims
     np.testing.assert_allclose(got.data(name).numpy(),
                                np.asarray(want.data(name)),
                                rtol=5e-4, atol=5e-4, err_msg=name)
+  if batch > 1:
+    t = got.data("temperature")
+    assert not torch.allclose(t[0], t[1])  # members differ
 
 
 def test_hoisted_statics_give_the_same_prediction():
@@ -92,12 +114,25 @@ def test_hoisted_statics_give_the_same_prediction():
     assert torch.equal(a.data(name), b.data(name))
 
 
-def test_batch_above_one_is_not_ported():
+def test_batch_members_match_batch_one_runs():
+  """Each member of a batch-2 step (general path) equals a batch-1 step of
+  its own inputs (fused path) on the CPU, at f32 summation-order level,
+  and nothing is hoisted at batch 2."""
   model = GraphCast(configs.ModelConfig(**TINY_MODEL),
                     configs.TaskConfig(**TINY_TASK),
                     generator=torch.Generator().manual_seed(0), device="cpu")
   inputs, targets, forcings = synthetic.make_example_batch(
       configs.TaskConfig(**TINY_TASK), resolution=30.0, batch=2, device="cpu")
-  with pytest.raises(NotImplementedError, match="batch"):
-    with torch.inference_mode():
-      model(inputs, targets, forcings)
+  inputs = inputs.map(lambda n, f: f._replace(data=f.data + torch.arange(
+      2.0).reshape((2,) + (1,) * (f.data.ndim - 1)))
+      if "batch" in f.dims else f)
+  assert model.precompute_step_statics(inputs) == {}
+  with torch.inference_mode():
+    both = model(inputs, targets, forcings)
+    for b in range(2):
+      one = model(*(fs.isel(batch=slice(b, b + 1))
+                    for fs in (inputs, targets, forcings)))
+      for name in targets.var_names:
+        np.testing.assert_allclose(both.data(name)[b:b + 1].numpy(),
+                                   one.data(name).numpy(), rtol=1e-4,
+                                   atol=1e-4, err_msg=name)

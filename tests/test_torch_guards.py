@@ -53,6 +53,12 @@ def test_port_imports_and_runs_without_jax():
           task, 30.0, num_target_times=2, device="cpu")
       final = stack.rollout_final(inputs, targets, forcings)
       assert torch.isfinite(final.data("2m_temperature")).all()
+      # Batch 2: the general message-passing path and K3's plain version.
+      batch2 = synthetic.make_example_batch(
+          task, 30.0, batch=2, num_target_times=2, device="cpu")
+      final = stack.rollout_final(*batch2)
+      assert final.data("2m_temperature").shape[0] == 2
+      assert torch.isfinite(final.data("2m_temperature")).all()
       assert not any(m == "jax" or m.startswith(("jax.", "graphcast_tpu."))
                      for m in sys.modules if sys.modules[m] is not None)
       print("modules", len(names))
@@ -181,6 +187,16 @@ def test_gencast_samples_without_jax():
       with torch.inference_mode():
         out = stack(*data, generator=torch.Generator().manual_seed(1))
       assert torch.isfinite(out.data("2m_temperature")).all()
+      # A 2-member, 2-chunk ensemble: the denoiser's general path.
+      from graphcast_tpu_torch import rollout
+      inputs, targets, forcings = synthetic.make_example_batch(
+          task, 30.0, time_step_hours=12, num_target_times=2, device="cpu")
+      ens = rollout.chunked_ensemble_prediction(
+          stack, torch.Generator().manual_seed(2), inputs, targets,
+          forcings, num_samples=2)
+      t = ens.data("2m_temperature")
+      assert t.shape[:2] == (2, 2) and torch.isfinite(t).all()
+      assert not torch.equal(t[0], t[1])
       assert not any(m == "jax" or m.startswith(("jax.", "graphcast_tpu."))
                      for m in sys.modules if sys.modules[m] is not None)
       print("sampled", tuple(out.data("2m_temperature").shape))
@@ -262,21 +278,37 @@ def test_port_sources_name_no_jax_package():
 @pytest.mark.parametrize("case", ["splash_head_dim", "splash_dtype",
                                   "splash_backward_cpu",
                                   "edge_embed_features", "edge_embed_ew0",
-                                  "decoder_embed_features"])
+                                  "decoder_embed_features",
+                                  "segment_sum_dtype", "segment_sum_rows",
+                                  "segment_sum_channels",
+                                  "segment_sum_layout"])
 def test_new_kernel_wrappers_refuse_inputs_before_launching(case,
                                                             monkeypatch):
-  """K6, K7/K8 and the embed modes check their operands and raise before
-  any launch (the library load is made to fail loudly); no path falls back
-  to a plain version."""
+  """K3, K6, K7/K8 and the embed modes check their operands and raise
+  before any launch (the library load is made to fail loudly); no path
+  falls back to a plain version."""
   import numpy as np
   import torch
-  from graphcast_tpu_torch.ops import fused_decoder, fused_edge, splash
+  from graphcast_tpu_torch.ops import (
+      fused_decoder, fused_edge, segment_sum, splash)
 
   def no_launch():
     raise AssertionError("a kernel was launched")
 
   monkeypatch.setattr(build, "load_library", no_launch)
   bf16 = torch.bfloat16
+  if case.startswith("segment_sum"):
+    edges = fused_edge.EdgeIndex(np.zeros(6, np.int32),
+                                 np.array([0, 0, 1, 3, 3, 3], np.int32), 2, 5)
+    msgs = {"segment_sum_dtype": torch.zeros(6, 16, dtype=torch.float16),
+            "segment_sum_rows": torch.zeros(5, 16, dtype=bf16),
+            "segment_sum_channels": torch.zeros(6, 12, dtype=bf16),
+            "segment_sum_layout": torch.zeros(16, 6, dtype=bf16).t()}[case]
+    with pytest.raises((TypeError, ValueError)):
+      segment_sum._launch_segment_sum(edges, msgs)
+    with pytest.raises(AssertionError, match="launched"):
+      segment_sum._launch_segment_sum(edges, torch.zeros(6, 16, dtype=bf16))
+    return
   if case.startswith("splash"):
     mask = __import__("scipy.sparse").sparse.identity(64, format="csr")
     bm = splash.build_block_map(mask)
@@ -318,6 +350,17 @@ def test_new_kernel_wrappers_refuse_inputs_before_launching(case,
   with pytest.raises(ValueError, match="raw"):
     fused_decoder._launch_fused_decode(edges, m(G, C), m(2, C),
                                        m(3 * G, F), weights)
+
+
+def test_ensemble_over_a_device_mesh_is_not_ported():
+  from graphcast_tpu_torch import rollout
+
+  def never(**kwargs):
+    raise AssertionError("the predictor ran")
+
+  with pytest.raises(NotImplementedError, match="mesh"):
+    rollout.chunked_ensemble_prediction(never, None, None, None, None,
+                                        num_samples=2, mesh=object())
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

@@ -11,7 +11,12 @@ inputs (tiny config, batch 1, JAX side on its plain XLA path).
   within 2 x rms(jax bf16 - jax f32) + 1e-4 x rms(jax f32), the JAX
   package's own bf16 rounding noise.
 
-Also: the synthetic data and norm stats are the same numpy arrays.
+Also: the synthetic data and norm stats are the same numpy arrays; and
+rollout.py's chunked forms against the JAX package's with the one-step
+InputsAndResiduals(GraphCast) predictor, f32, 2e-4: ``chunked_prediction``
+(3 one-step chunks fed back as inputs), ``chunked_ensemble_prediction``
+(2 members, the batch-2 general path), ``tile_batch``, ``get_next_inputs``,
+the error on uneven target times, and one generator drawn in chunk order.
 """
 
 import functools
@@ -30,7 +35,7 @@ from graphcast_tpu.models.graphcast import GraphCast as JaxGraphCast
 from graphcast_tpu.wrappers import (
     Autoregressive as JaxAutoregressive, Bfloat16Cast as JaxBfloat16Cast,
     InputsAndResiduals as JaxInputsAndResiduals)
-from graphcast_tpu_torch import params
+from graphcast_tpu_torch import params, rollout
 from graphcast_tpu_torch.data import synthetic
 from graphcast_tpu_torch.models import configs
 from graphcast_tpu_torch.models.graphcast import GraphCast
@@ -93,8 +98,14 @@ def case():
         Bfloat16Cast(model, enabled=bf16), stddev_by_level=t_stats[0],
         mean_by_level=t_stats[1], diffs_stddev_by_level=t_stats[2]))
 
+  def jax_stack(bf16):
+    return JaxInputsAndResiduals(
+        JaxBfloat16Cast(jax_model, enabled=bf16), stddev_by_level=j_stats[0],
+        mean_by_level=j_stats[1], diffs_stddev_by_level=j_stats[2])
+
   return dict(jax=jax_out, port_stack=port_stack, inputs=t_in,
-              targets=t_tg, forcings=t_fc)
+              targets=t_tg, forcings=t_fc, jax_stack=jax_stack,
+              jax_params=jax_params, jax_data=(j_in, j_tg, j_fc))
 
 
 def _rms(x):
@@ -173,3 +184,108 @@ def test_extend_targets_template_matches_jax():
     assert tuple(ours[n].shape) == tuple(ref[n].shape)
     assert not ours.data(n).any()
   assert extend_targets_template(ours, 2).sizes["time"] == 2
+
+
+def _one_step_stacks(case):
+  """(port predictor_fn, JAX predictor_fn): InputsAndResiduals(GraphCast),
+  f32, one step a call."""
+  port = case["port_stack"](False)._predictor
+  jstack = case["jax_stack"](False)
+
+  def jax_fn(rng, inputs, targets_template, forcings):
+    return jstack(case["jax_params"], rng, inputs, targets_template,
+                  forcings)
+
+  return port, jax_fn
+
+
+def _assert_fieldsets_close(got, want, tol=2e-4):
+  assert got.var_names == want.var_names
+  for name in want.var_names:
+    assert got[name].dims == want[name].dims
+    assert got.data(name).device.type == "cpu"
+    np.testing.assert_allclose(got.data(name).numpy(),
+                               np.asarray(want.data(name)), rtol=tol,
+                               atol=tol, err_msg=name)
+  for k in ("time",):
+    np.testing.assert_array_equal(got.coords[k], want.coords[k])
+
+
+def test_chunked_prediction_matches_jax(case):
+  """3 chunks of one step each, fed back as inputs (f32, 2e-4 as the
+  autoregressive tests)."""
+  port, jax_fn = _one_step_stacks(case)
+  j_in, j_tg, j_fc = case["jax_data"]
+  want = jax_rollout.chunked_prediction(jax_fn, jax.random.PRNGKey(0), j_in,
+                                        j_tg, j_fc)
+  got = rollout.chunked_prediction(port, None, case["inputs"],
+                                   case["targets"], case["forcings"])
+  assert got.sizes["time"] == STEPS
+  _assert_fieldsets_close(got, want)
+
+
+def test_chunked_ensemble_prediction_matches_jax(case):
+  """Two members of a deterministic predictor, two chunks of one step: the
+  batch-2 general path in both packages; the members agree."""
+  port, jax_fn = _one_step_stacks(case)
+  j_in, j_tg, j_fc = case["jax_data"]
+  two = slice(0, 2)
+  want = jax_rollout.chunked_ensemble_prediction(
+      jax_fn, jax.random.PRNGKey(0), j_in, j_tg.isel(time=two),
+      j_fc.isel(time=two), num_samples=2)
+  got = rollout.chunked_ensemble_prediction(
+      port, None, case["inputs"], case["targets"].isel(time=two),
+      case["forcings"].isel(time=two), num_samples=2)
+  assert got.sizes["batch"] == 2 and got.sizes["time"] == 2
+  _assert_fieldsets_close(got, want)
+  t = got.data("temperature")
+  np.testing.assert_allclose(t[0].numpy(), t[1].numpy(), rtol=1e-5,
+                             atol=1e-5)
+
+
+def test_tile_batch_and_get_next_inputs_match_jax(case):
+  j_in, j_tg, j_fc = case["jax_data"]
+  t_in, t_tg, t_fc = case["inputs"], case["targets"], case["forcings"]
+  for ours, ref in ((rollout.tile_batch(t_in, 3),
+                     jax_rollout.tile_batch(j_in, 3)),
+                    (rollout.get_next_inputs(t_in, t_tg.isel(time=slice(0, 1)),
+                                             t_fc.isel(time=slice(0, 1))),
+                     jax_rollout.get_next_inputs(
+                         j_in, j_tg.isel(time=slice(0, 1)),
+                         j_fc.isel(time=slice(0, 1))))):
+    assert ours.var_names == ref.var_names
+    assert ours.coords.keys() == ref.coords.keys()
+    for n in ref.var_names:
+      assert ours[n].dims == ref[n].dims
+      np.testing.assert_array_equal(ours.data(n).numpy(),
+                                    np.asarray(ref.data(n)))
+
+
+def test_non_equispaced_target_times_raise(case):
+  port, _ = _one_step_stacks(case)
+  targets = case["targets"]
+  bad = targets.assign_coords(time=targets.coords["time"] * np.array([1, 2,
+                                                                      4]))
+  with pytest.raises(ValueError, match="evenly spaced"):
+    rollout.chunked_prediction(port, None, case["inputs"], bad,
+                               case["forcings"])
+  with pytest.raises(ValueError, match="divide"):
+    rollout.chunked_prediction(port, None, case["inputs"], targets,
+                               case["forcings"], num_steps_per_chunk=2)
+
+
+def test_generator_is_drawn_in_chunk_order(case):
+  """One generator serves every chunk, drawn in chunk order: chunk k gets
+  the k-th draw of a fresh generator of the same seed."""
+  def noisy(inputs, targets_template, forcings, generator):
+    del inputs, forcings
+    draw = float(torch.rand(1, generator=generator))
+    return targets_template.map_data(lambda x: torch.full_like(x, draw))
+
+  got = rollout.chunked_prediction(
+      noisy, torch.Generator().manual_seed(3), case["inputs"],
+      case["targets"], case["forcings"])
+  want = torch.rand(STEPS, generator=torch.Generator().manual_seed(3))
+  t = got.data("2m_temperature")
+  for k in range(STEPS):
+    assert torch.all(t[:, k] == want[k])
