@@ -121,6 +121,23 @@ Phases, each printing one line with its seconds and results:
          phase's CPU f32 run, each within the small phase's noise floor;
          then rollout_final over BATCH_STEPS timed steps: s per step, peak
          memory, K3 once per aggregation (17 a step), K1 and K2 none.
+  k1p    the pipelined edge kernel (K1p) against its plain version and
+         against K1 on the same inputs: processor mode on the mesh-6
+         multi-mesh, encoder mode on the 0.25° grid2mesh set, embed mode on
+         the 1.0° GenCast and the 0.25° grid2mesh sets; e' bit-identical to
+         K1's, the receiver sums to f32 reassociation; K1p ms beside K1 ms
+         (timed in turns), plain ms and the bound; then one K4 backward
+         behind a K1p forward through fused_edge against one behind K1.
+  main_pipelined  the main path of main with GC_PIPELINED_EDGE=1: the same
+         weights, inputs and rollout_final, K1p 16 + 1 launches a step and
+         K1 none; the final state against main's, per variable; s/step of
+         both runs and the peak memory.
+  bench  the benchmark mirror's main() (python3 -m graphcast_tpu_torch.bench)
+         with BENCH_FALLBACK_ONLY=1, BENCH_NUM_STEPS=BENCH_STEPS and
+         GC_PIPELINED_EDGE=1: the GenCast 1.0° 12 h step (K1p in embed mode,
+         39 a step) and the 1.0° GraphCast fallback rollout (K1p processor
+         and encoder modes); checks its lines' keys and metric names and
+         that K1p ran where K1 would have.
 
 Kernel-vs-twin tolerances (both sides round at the same points and differ
 only in f32 summation order, which flips an occasional bf16 rounding):
@@ -135,7 +152,13 @@ plain version the normalised ones), lse max-abs <= 1e-3. K1's embed-mode
 sums over the real GenCast edge sets may also differ by 2^-8 per summed
 edge (``_check_close``): at the poles hundreds of edges that share one raw
 feature row meet one mesh node, and a rounding flip in that row's bf16
-embedding moves all of them the same way.
+embedding moves all of them the same way. K1p against K1: e' equal bit for
+bit, the receiver sums within relative RMS K1P_AGG_RTOL (only runs that
+cross a tile boundary are summed in another f32 order); each gradient
+behind a K1p forward against the one behind K1: rms(K1p - K1) <= 2 rms(K1'
+- K1) + K1P_GRAD_RTOL rms(K1), K1' a second run of K1's path (K4's f32
+atomics add in a run-dependent order, and the bf16 gradients round their
+sums).
 
 Each kernel's line in the JSON carries its bound: the least time the card
 could take for the same work, the larger of the bytes it must move (inputs
@@ -179,6 +202,10 @@ ENSEMBLE_MEMBERS = 4    # GenCast ensemble members, the batch axis
 ENSEMBLE_STEPS = 2      # timed 12 h chunks of the ensemble rollout
 BATCH = 4               # GraphCast_small batch of the graphcast_batch phase
 BATCH_STEPS = 2         # its timed 6 h steps
+K1P_AGG_RTOL = 1e-6     # relative RMS, K1p's receiver sums vs K1's
+K1P_GRAD_RTOL = 1e-6    # slack over K4's run-to-run noise, relative to rms
+MAIN_PIPELINED_RTOL = 1e-2  # relative RMS per variable, vs main's final
+BENCH_STEPS = 4         # the bench phase's BENCH_NUM_STEPS
 PEAK_FLOPS = 989e12     # H100 SXM, dense bf16 tensor cores
 PEAK_F32 = 67e12        # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3, bytes/s
@@ -186,7 +213,8 @@ DEVICE = "cuda"
 PHASES = ("build", "k1", "k2", "k4", "k5", "wgrad", "k6", "k7k8", "embed",
           "embed_bwd", "k3", "main", "small", "train", "train_small",
           "gencast", "gencast_small", "gencast_train", "gencast_train_small",
-          "ensemble", "ensemble_small", "graphcast_batch")
+          "ensemble", "ensemble_small", "graphcast_batch", "k1p",
+          "main_pipelined", "bench")
 
 
 def _log(phase, t0, **fields):
@@ -720,67 +748,151 @@ def _profile_step(torch, run, out_dir, name="main_step"):
     print(f"[profile] {ms:9.3f} ms  {kernel[:110]}", flush=True)
 
 
-def phase_main(torch, results, profile_dir=None):
+@functools.lru_cache(maxsize=None)
+def _main_data(torch):
+  """The main path's batch-1 bf16 inputs, one-step targets template and
+  ROLLOUT_STEPS steps of forcings on the card (main and main_pipelined)."""
   from graphcast_tpu_torch.data import synthetic
   from graphcast_tpu_torch.models import zoo
-  from graphcast_tpu_torch.ops.fused_decoder import fused_decode
-  from graphcast_tpu_torch.ops.fused_edge import fused_edge
   from graphcast_tpu_torch.rollout import extend_targets_template
+  preset = zoo.graphcast()
+  inputs, targets, forcings = synthetic.make_example_batch(
+      preset.task_config, resolution=preset.model_config.resolution,
+      batch=1)
+  bf16 = torch.bfloat16
+  return (inputs.astype(bf16).to(DEVICE), targets.astype(bf16).to(DEVICE),
+          extend_targets_template(forcings, ROLLOUT_STEPS).astype(bf16).to(
+              DEVICE))
+
+
+_MAIN_FINAL = {}  # main's final state, for main_pipelined
+
+
+def _main_rollout(torch, phase, profile_dir=None):
+  """The main path (zoo.graphcast(), weights from seed 0): one warm-up
+  step, then rollout_final over ROLLOUT_STEPS steps with every counter set
+  to 0 just before it. Checks the final state's shapes and finiteness;
+  returns (preset, predictor, final state, {setup_s, warm_s, rollout_s,
+  peak_gb}, launch counts)."""
+  from graphcast_tpu_torch.models import zoo
   t0 = time.perf_counter()
   preset = zoo.graphcast()
-  mc = preset.model_config
   _, predictor = _stack(torch, preset, seed=0)
   predictor = predictor.to(DEVICE)
-  inputs, targets, forcings = synthetic.make_example_batch(
-      preset.task_config, resolution=mc.resolution, batch=1)
-  bf16 = torch.bfloat16
-  inputs = inputs.astype(bf16).to(DEVICE)
-  targets1 = targets.astype(bf16).to(DEVICE)
-  forcings_n = extend_targets_template(forcings, ROLLOUT_STEPS).astype(
-      bf16).to(DEVICE)
-  setup_s = time.perf_counter() - t0
+  inputs, targets1, forcings_n = _main_data(torch)
+  times = {"setup_s": time.perf_counter() - t0}
   # Warm-up: one step builds the graph (host) and its device statics.
   t1 = time.perf_counter()
   predictor.rollout_final(inputs, targets1,
                           forcings_n.isel(time=slice(0, 1)))
   torch.cuda.synchronize()
-  warm_s = time.perf_counter() - t1
+  times["warm_s"] = time.perf_counter() - t1
 
   torch.cuda.reset_peak_memory_stats()
   _reset_counters()
   t2 = time.perf_counter()
   final = predictor.rollout_final(inputs, targets1, forcings_n)
   torch.cuda.synchronize()
-  rollout_s = time.perf_counter() - t2
-  k1, k2 = fused_edge.launches, fused_decode.launches
-  k1_encoder = fused_edge.encoder_launches
-  k3 = _counters()["segment_sum"].launches
-  peak_gb = torch.cuda.max_memory_allocated() / 1e9
-
-  steps_per = 1 + mc.gnn_msg_steps
-  if (k1 != steps_per * ROLLOUT_STEPS or k2 != ROLLOUT_STEPS
-      or k1_encoder != ROLLOUT_STEPS or k3):
-    raise AssertionError(f"launch counts K1={k1} (encoder {k1_encoder}) "
-                         f"K2={k2} K3={k3}, expected {steps_per * ROLLOUT_STEPS}"
-                         f" ({ROLLOUT_STEPS}), {ROLLOUT_STEPS} and 0")
+  times["rollout_s"] = time.perf_counter() - t2
+  counts = {**{k: fn.launches for k, fn in _counters().items()},
+            **_mode_counts()}
+  times["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
   for name in final.var_names:
     f = final[name]
     if f.shape != inputs[name].shape:
-      raise AssertionError(f"{name}: shape {f.shape} != {inputs[name].shape}")
+      raise AssertionError(f"{phase} {name}: shape {f.shape} != "
+                           f"{inputs[name].shape}")
     if not torch.isfinite(f.data.float()).all():
-      raise AssertionError(f"{name}: non-finite values in the final state")
+      raise AssertionError(f"{phase} {name}: non-finite values in the final "
+                           "state")
   if profile_dir:
     _profile_step(torch, lambda: predictor.rollout_final(
-        inputs, targets1, forcings_n.isel(time=slice(0, 1))), profile_dir)
+        inputs, targets1, forcings_n.isel(time=slice(0, 1))), profile_dir,
+                  f"{phase}_step")
+  return preset, predictor, final, times, counts
+
+
+def _worst_rel_rms(got, want):
+  """The largest relative RMS error over the variables of two states."""
+  return max(_errors(got.data(n), want.data(n))[1] for n in want.var_names)
+
+
+def phase_main(torch, results, profile_dir=None):
+  t0 = time.perf_counter()
+  preset, predictor, final, times, counts = _main_rollout(torch, "main",
+                                                          profile_dir)
+  # The same rollout again: K1's atomics add the sums of runs that cross a
+  # tile boundary in a run-dependent order, so two runs differ this much.
+  noise = _worst_rel_rms(predictor.rollout_final(*_main_data(torch)), final)
+  del predictor
+  _MAIN_FINAL.update(final=final, noise=noise,
+                     s_per_step=times["rollout_s"] / ROLLOUT_STEPS)
+  k1, k2 = counts["fused_edge"], counts["fused_decoder"]
+  k1_encoder = counts["fused_edge_encoder"]
+  steps_per = 1 + preset.model_config.gnn_msg_steps
+  if (k1 != steps_per * ROLLOUT_STEPS or k2 != ROLLOUT_STEPS
+      or k1_encoder != ROLLOUT_STEPS or counts["segment_sum"]
+      or counts["fused_edge_pipelined_all"]):
+    raise AssertionError(f"launch counts {counts}, expected K1 "
+                         f"{steps_per * ROLLOUT_STEPS} ({ROLLOUT_STEPS} "
+                         f"encoder), K2 {ROLLOUT_STEPS}, K3 and K1p 0")
   for name, n in (("fused_edge", k1 - k1_encoder),
                   ("fused_edge_encoder", k1_encoder), ("fused_decoder", k2)):
     results[name].update(launches=n, launches_per_step=n / ROLLOUT_STEPS)
   _log("main", t0, config=_label(preset),
-       steps=ROLLOUT_STEPS, setup_s=f"{setup_s:.1f}",
-       warmup_1step_s=f"{warm_s:.2f}", rollout_s=f"{rollout_s:.3f}",
-       s_per_step=f"{rollout_s / ROLLOUT_STEPS:.4f}",
-       peak_mem_gb=f"{peak_gb:.2f}", k1_launches=k1, k2_launches=k2,
-       finite=True)
+       steps=ROLLOUT_STEPS, setup_s=f"{times['setup_s']:.1f}",
+       warmup_1step_s=f"{times['warm_s']:.2f}",
+       rollout_s=f"{times['rollout_s']:.3f}",
+       s_per_step=f"{times['rollout_s'] / ROLLOUT_STEPS:.4f}",
+       peak_mem_gb=f"{times['peak_gb']:.2f}", k1_launches=k1,
+       k2_launches=k2, rerun_worst_rel_rms=f"{noise:.3g}", finite=True)
+
+
+def phase_main_pipelined(torch, results, profile_dir=None):
+  """main's path with GC_PIPELINED_EDGE=1 (module doc)."""
+  import os
+  t0 = time.perf_counter()
+  if "final" not in _MAIN_FINAL:  # main did not run: its run is the reference
+    phase_main(torch, {k: {} for k in ("fused_edge", "fused_edge_encoder",
+                                       "fused_decoder")})
+  saved = os.environ.get("GC_PIPELINED_EDGE")
+  os.environ["GC_PIPELINED_EDGE"] = "1"  # read once, at the model's first call
+  try:
+    preset, _, final, times, counts = _main_rollout(
+        torch, "main_pipelined", profile_dir)
+  finally:
+    if saved is None:
+      del os.environ["GC_PIPELINED_EDGE"]
+    else:
+      os.environ["GC_PIPELINED_EDGE"] = saved
+  steps_per = 1 + preset.model_config.gnn_msg_steps
+  expected = {"fused_edge_pipelined_all": steps_per * ROLLOUT_STEPS,
+              "fused_edge_pipelined_encoder": ROLLOUT_STEPS,
+              "fused_edge_pipelined_embed": 0, "fused_edge": 0,
+              "fused_decoder": ROLLOUT_STEPS, "segment_sum": 0}
+  if any(counts[k] != n for k, n in expected.items()):
+    raise AssertionError(f"main_pipelined launches {counts}, expected "
+                         f"{expected}")
+  worst = _worst_rel_rms(final, _MAIN_FINAL["final"])
+  if not (np.isfinite(worst) and worst <= MAIN_PIPELINED_RTOL):
+    raise AssertionError(f"main_pipelined: relative RMS {worst:.3g} against "
+                         f"main's final state (tol {MAIN_PIPELINED_RTOL})")
+  k1p = counts["fused_edge_pipelined_all"]
+  k1p_encoder = counts["fused_edge_pipelined_encoder"]
+  for name, n in (("fused_edge_pipelined", k1p - k1p_encoder),
+                  ("fused_edge_pipelined_encoder", k1p_encoder)):
+    results[name].update(launches=n, launches_per_step=n / ROLLOUT_STEPS)
+  _log("main_pipelined", t0, config=_label(preset), steps=ROLLOUT_STEPS,
+       setup_s=f"{times['setup_s']:.1f}",
+       warmup_1step_s=f"{times['warm_s']:.2f}",
+       s_per_step=f"{times['rollout_s'] / ROLLOUT_STEPS:.4f}",
+       main_s_per_step=f"{_MAIN_FINAL['s_per_step']:.4f}",
+       peak_mem_gb=f"{times['peak_gb']:.2f}",
+       k1p_per_step=k1p // ROLLOUT_STEPS,
+       k1p_encoder_per_step=k1p_encoder // ROLLOUT_STEPS,
+       k1_per_step=counts["fused_edge"] // ROLLOUT_STEPS,
+       worst_rel_rms_vs_main=f"{worst:.3g}",
+       main_rerun_worst_rel_rms=f"{_MAIN_FINAL['noise']:.3g}", finite=True)
 
 
 SMALL_SEED = 3  # weights of the GraphCast_small phases
@@ -868,10 +980,15 @@ def _counters():
 
 
 def _mode_counts():
-  """The per-mode launch counts: {kernel entry name: count}."""
+  """The per-mode launch counts, K1p's among them: {kernel entry name:
+  count}."""
   c = _counters()
-  return {"fused_edge_encoder": c["fused_edge"].encoder_launches,
-          "fused_edge_embed": c["fused_edge"].embed_launches,
+  k1 = c["fused_edge"]
+  return {"fused_edge_encoder": k1.encoder_launches,
+          "fused_edge_embed": k1.embed_launches,
+          "fused_edge_pipelined_all": k1.pipelined_launches,
+          "fused_edge_pipelined_encoder": k1.pipelined_encoder_launches,
+          "fused_edge_pipelined_embed": k1.pipelined_embed_launches,
           "fused_decoder_embed": c["fused_decoder"].embed_launches,
           "fused_edge_bwd_embed": c["fused_edge_bwd"].embed_launches,
           "fused_decoder_bwd_embed": c["fused_decoder_bwd"].embed_launches}
@@ -882,7 +999,10 @@ def _reset_counters():
   for fn in _counters().values():
     fn.launches = 0
   c = _counters()
-  c["fused_edge"].encoder_launches = c["fused_edge"].embed_launches = 0
+  k1 = c["fused_edge"]
+  k1.encoder_launches = k1.embed_launches = 0
+  k1.pipelined_launches = k1.pipelined_encoder_launches = 0
+  k1.pipelined_embed_launches = 0
   for name in ("fused_decoder", "fused_edge_bwd", "fused_decoder_bwd"):
     c[name].embed_launches = 0
 
@@ -1774,16 +1894,19 @@ def _gencast_train_data(torch, preset, device, dtype):
 def _gencast_train_launches_per_step(preset, art):
   """Kernel launches per GenCast train step that the graph implies: one
   denoiser evaluation (K6 once per transformer layer, K1 and K2 in embed
-  mode once) and its backward (K7 and K8 once per layer; K4 in embed mode
-  once per BWD_CHUNK_ROWS grid2mesh edges, K5 once per BWD_CHUNK_NODES
-  grid nodes; per chunk the weight-gradient reduction 3 times for K4
-  (dW1, dWe', dEw1) and 9 for K5 (its 7, dWe', dEw1), and the feature
-  pass once). Every launch of K1, K2, K4 and K5 is an embed-mode one."""
+  mode once, K1p never) and its backward (K7 and K8 once per layer; K4 in
+  embed mode once per BWD_CHUNK_ROWS grid2mesh edges, K5 once per
+  BWD_CHUNK_NODES grid nodes; per chunk the weight-gradient reduction 3
+  times for K4 (dW1, dWe', dEw1) and 9 for K5 (its 7, dWe', dEw1), and the
+  feature pass once). Every launch of K1, K2, K4 and K5 is an embed-mode
+  one."""
   from graphcast_tpu_torch.ops import fused_decoder, fused_edge
   layers = preset.denoiser_architecture_config.sparse_transformer_config
   enc = -(-art.grid2mesh.senders.size // fused_edge.BWD_CHUNK_ROWS)
   dec = -(-art.num_grid_nodes // fused_decoder.BWD_CHUNK_NODES)
   return {"fused_edge": 1, "fused_edge_encoder": 0, "fused_edge_embed": 1,
+          "fused_edge_pipelined_all": 0, "fused_edge_pipelined_encoder": 0,
+          "fused_edge_pipelined_embed": 0,
           "fused_decoder": 1, "fused_decoder_embed": 1,
           "fused_edge_bwd": enc, "fused_edge_bwd_embed": enc,
           "fused_decoder_bwd": dec, "fused_decoder_bwd_embed": dec,
@@ -2204,6 +2327,204 @@ def phase_graphcast_batch(torch, results, profile_dir=None):
   torch.cuda.empty_cache()
 
 
+def _k1p_entry(mode):
+  name = {"processor": "fused_edge_pipelined",
+          "encoder": "fused_edge_pipelined_encoder",
+          "embed": "fused_edge_pipelined_embed"}[mode]
+  return _entry(name, "fused_edge_pipelined.cu",
+                "graphcast_tpu/ops/pallas_edge.py:201", mode=mode,
+                launches=None)
+
+
+def phase_k1p(torch, art025, results):
+  """K1p against its plain version and K1 on the real edge sets (module
+  doc), then K4 behind a K1p forward against K4 behind K1."""
+  from graphcast_tpu_torch.ops.fused_edge import (
+      EdgeIndex, fused_edge, fused_edge_reference)
+  t0 = time.perf_counter()
+  gen = torch.Generator(device=DEVICE).manual_seed(22)
+  C, bf16 = 512, torch.bfloat16
+  g, m = art025.num_grid_nodes, art025.num_mesh_nodes
+  art1 = _gencast_artifact(1.0, 5)
+  # (mode, key suffix, edge list)
+  cases = [
+      ("processor", "", EdgeIndex(art025.mesh.senders, art025.mesh.receivers,
+                                  m, m, DEVICE)),
+      ("encoder", "", EdgeIndex(art025.grid2mesh.senders,
+                                art025.grid2mesh.receivers, g, m, DEVICE)),
+      ("embed", "", EdgeIndex(art1.grid2mesh.senders, art1.grid2mesh.receivers,
+                              art1.num_grid_nodes, art1.num_mesh_nodes,
+                              DEVICE)),
+      ("embed", "_0p25", EdgeIndex(art025.grid2mesh.senders,
+                                   art025.grid2mesh.receivers, g, m, DEVICE)),
+  ]
+  entries = {}
+  for mode, suffix, edges in cases:
+    entry = entries.setdefault(mode, _k1p_entry(mode))
+    args = _edge_case(torch, gen, edges, C, encoder=mode == "encoder")
+    args["write_edges"] = mode == "processor"
+    shared = None
+    if mode == "embed":
+      feats = (art1 if suffix == "" else art025).grid2mesh.features
+      args["e"] = torch.as_tensor(feats, device=DEVICE)
+      args["we"] = args["we"].to(bf16)
+      args["embed_weights"] = _embed_weights(torch, gen, C)
+      shared = _shared_feature_rows(torch, edges, args["e"])
+    run = {"k1p": lambda: fused_edge(edges, pipelined=True, **args),
+           "k1": lambda: fused_edge(edges, pipelined=False, **args),
+           "plain": lambda: fused_edge_reference(edges, **args)}
+    with torch.inference_mode():
+      got, k1, want = run["k1p"](), run["k1"](), run["plain"]()
+      torch.cuda.synchronize()
+      if mode == "processor":
+        if not torch.equal(got[0], k1[0]):
+          raise AssertionError("k1p processor e_out differs from K1's: "
+                               f"max_abs={_errors(got[0], k1[0])[0]:.3g}")
+        e_abs, e_rel = _check_close("k1p processor e_out", got[0], want[0])
+        got, k1, want = got[1], k1[1], want[1]
+      k1_abs, k1_rel = _errors(got, k1)
+      if not k1_rel <= K1P_AGG_RTOL:
+        raise AssertionError(f"k1p {mode}{suffix} agg vs K1: rel_rms="
+                             f"{k1_rel:.3g} (tol {K1P_AGG_RTOL})")
+      max_abs, rel_rms = _check_close(f"k1p {mode}{suffix} agg", got, want,
+                                      shared=shared)
+      if mode == "processor":
+        max_abs = max(max_abs, e_abs)
+      del got, k1, want
+      # In turns (K1p, K1, K1, K1p), 10 launches each.
+      turns = [_time_ms(torch, run[k], reps=10)
+               for k in ("k1p", "k1", "k1", "k1p")]
+      ms, k1_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+      plain_ms = _time_ms(torch, run["plain"], reps=1)
+    entry["max_abs_err"] = max(entry.get("max_abs_err", 0.0), max_abs)
+    entry.update({"ms" + suffix: ms, "k1_ms" + suffix: k1_ms,
+                  "plain_ms" + suffix: plain_ms,
+                  "max_abs_vs_k1" + suffix: k1_abs,
+                  "rel_rms_vs_k1" + suffix: k1_rel,
+                  **{k + suffix: v for k, v in _bound(*_edge_cost(
+                      edges.num_edges, edges.num_senders,
+                      edges.num_receivers, C, mode)).items()}})
+    _log("k1p", t0, mode=mode + suffix, edges=edges.num_edges,
+         max_abs=f"{max_abs:.4g}", rel_rms=f"{rel_rms:.3g}",
+         **({"e_out_equal_k1": True} if mode == "processor" else {}),
+         agg_max_abs_vs_k1=f"{k1_abs:.3g}", agg_rel_rms_vs_k1=f"{k1_rel:.3g}",
+         ms=f"{ms:.3f}", k1_ms=f"{k1_ms:.3f}", plain_ms=f"{plain_ms:.3f}",
+         bound_ms=f"{entry['bound_ms' + suffix]:.4f}",
+         turns_ms="/".join(f"{t:.3f}" for t in turns))
+    del args, run
+    torch.cuda.empty_cache()
+
+  # K4 behind each forward, processor mode on the mesh-6 set, the same
+  # seeded cotangents: under grad the forward is K1p or K1, the backward K4,
+  # whose f32 atomics add in a run-dependent order: K1's path twice gives
+  # the noise that K1p's may differ by.
+  edges = cases[0][2]
+  args = _edge_case(torch, gen, edges, C, encoder=False)
+  args["we"] = args["we"].to(bf16)
+  cot = (_randn(torch, gen, (edges.num_edges, C), 1.0, bf16),
+         _randn(torch, gen, (edges.num_receivers, C)))
+  grads = {}
+  for run_name, pipelined in (("k1", False), ("k1_again", False),
+                              ("k1p", True)):
+    leaves = {k: v.detach().clone().requires_grad_() for k, v in args.items()}
+    grads[run_name], _ = _autograd(
+        torch, lambda **kw: fused_edge(edges, write_edges=True,
+                                       pipelined=pipelined, **kw),
+        leaves, cot, list(leaves))
+  torch.cuda.synchronize()
+  worst = 0.0
+  for name, want in grads["k1"].items():
+    noise = _rms(torch, grads["k1_again"][name] - want)
+    err = _rms(torch, grads["k1p"][name] - want)
+    bound = 2 * noise + K1P_GRAD_RTOL * _rms(torch, want)
+    if not (np.isfinite(err) and err <= bound):
+      raise AssertionError(f"k1p: grad {name} behind K1p vs behind K1 "
+                           f"{err:.4g} > 2*noise+eps={bound:.4g}")
+    worst = max(worst, err / bound)
+  _log("k1p", t0, k4_behind_k1p="processor",
+       worst_grad_err_over_bound=f"{worst:.3f}")
+  del args, cot, grads
+  torch.cuda.empty_cache()
+  for entry in entries.values():
+    results[entry["name"]] = {**results.get(entry["name"], {}), **entry}
+
+
+def phase_bench(torch, card, results):
+  """The benchmark mirror (module doc)."""
+  import contextlib
+  import io
+  import os
+  from graphcast_tpu_torch import bench
+  from graphcast_tpu_torch.models import zoo
+  t0 = time.perf_counter()
+  knobs = {"BENCH_FALLBACK_ONLY": "1", "BENCH_NUM_STEPS": str(BENCH_STEPS),
+           "GC_PIPELINED_EDGE": "1"}
+  cleared = ("BENCH_GENCAST", "BENCH_SKIP_GENCAST", "BENCH_FUSED",
+             "BENCH_GENCAST_RESOLUTION", "BENCH_GENCAST_MESH_SIZE")
+  saved = {k: os.environ.get(k) for k in (*knobs, *cleared)}
+  out, err = io.StringIO(), io.StringIO()
+  os.environ.update(knobs)
+  for k in cleared:
+    os.environ.pop(k, None)
+  _reset_counters()
+  try:
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+      result = bench.main(DEVICE)
+  finally:
+    for k, v in saved.items():
+      if v is None:
+        os.environ.pop(k, None)
+      else:
+        os.environ[k] = v
+  counts = {**{k: fn.launches for k, fn in _counters().items()},
+            **_mode_counts()}
+  for ln in (out.getvalue() + err.getvalue()).splitlines():
+    print(f"[bench] {ln}", flush=True)
+  lines = [json.loads(ln) for ln in out.getvalue().splitlines()]
+  gencast = [json.loads(ln.split("# gencast: ", 1)[1].split(" compile=")[0])
+             for ln in err.getvalue().splitlines()
+             if ln.startswith("# gencast: ")]
+  name, limit = (part.strip() for part in card.split(","))
+  want = {"fallback": f"graphcast_1.0deg_13lev_mesh5_{BENCH_STEPS}step_rollout",
+          "gencast": "gencast_1.0deg_mesh5_splash_12h_step_40evals"}
+  keys = {"metric", "value", "unit", "card", "power_limit"}
+  for line, metric in ((lines[0] if lines else {}, want["fallback"]),
+                       (gencast[0] if gencast else {}, want["gencast"])):
+    if (set(line) != keys or line["metric"] != metric or line["unit"] != "s"
+        or not line["value"] > 0 or line["card"] != name
+        or line["power_limit"] != limit):
+      raise AssertionError(f"bench line {line}, expected keys {keys}, metric "
+                           f"{metric} on {card!r}")
+  if len(lines) != 1 or lines[0] != result or len(gencast) != 1:
+    raise AssertionError(f"bench printed {lines} and {gencast}")
+  # The mirror times a warm-up and bench.NUM_RUNS calls of each path: the
+  # GenCast step (39 evaluations), the 1.0° rollout (BENCH_STEPS steps of
+  # 16 processor steps and one encoder step).
+  calls = 1 + bench.NUM_RUNS
+  evals = 2 * zoo.gencast_custom(1.0, 5).sampler_config.num_noise_levels - 1
+  expected = {"fused_edge": 0, "fused_edge_pipelined_embed": calls * evals,
+              "fused_edge_pipelined_encoder": calls * BENCH_STEPS,
+              "fused_edge_pipelined_all": calls * (evals + 17 * BENCH_STEPS)}
+  if any(counts[k] != n for k, n in expected.items()):
+    raise AssertionError(f"bench launches {counts}, expected {expected}")
+  results["fused_edge_pipelined_embed"].update(
+      launches=counts["fused_edge_pipelined_embed"],
+      launches_per_step=evals)
+  for key in ("fused_edge_pipelined", "fused_edge_pipelined_encoder"):
+    results[key]["bench_launches"] = (
+        counts["fused_edge_pipelined_encoder"] if key.endswith("encoder")
+        else counts["fused_edge_pipelined_all"]
+        - counts["fused_edge_pipelined_encoder"]
+        - counts["fused_edge_pipelined_embed"])
+  _log("bench", t0, fallback=f"{lines[0]['value']:.4f}",
+       gencast_12h_step=f"{gencast[0]['value']:.4f}",
+       k1p_embed_per_12h_step=counts["fused_edge_pipelined_embed"] // calls,
+       k1p_per_6h_step=(counts["fused_edge_pipelined_all"]
+                        - counts["fused_edge_pipelined_embed"])
+       // (calls * BENCH_STEPS),
+       k1_launches=counts["fused_edge"], lines_ok=True)
+
+
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--phases", default=",".join(PHASES),
@@ -2230,8 +2551,8 @@ def main(argv=None) -> int:
   t_start = time.perf_counter()
   card = phase_build(torch)
   results = {}
-  if {"k1", "k2", "k4", "k5", "embed", "embed_bwd", "k3", "main"} & set(
-      phases):
+  if {"k1", "k2", "k4", "k5", "embed", "embed_bwd", "k3", "main",
+      "k1p"} & set(phases):
     t0 = time.perf_counter()
     art = _geometry(0.25, 6)
     _log("geometry", t0, grid_nodes=art.num_grid_nodes,
@@ -2292,6 +2613,16 @@ def main(argv=None) -> int:
     phase_ensemble_small(torch)
   if "graphcast_batch" in phases:
     phase_graphcast_batch(torch, results, args.profile)
+  if {"k1p", "main_pipelined", "bench"} & set(phases):
+    for name in ("fused_edge_pipelined", "fused_edge_pipelined_encoder",
+                 "fused_edge_pipelined_embed"):
+      results.setdefault(name, {"name": name})
+  if "k1p" in phases:
+    phase_k1p(torch, art, results)
+  if "main_pipelined" in phases:
+    phase_main_pipelined(torch, results, args.profile)
+  if "bench" in phases:
+    phase_bench(torch, card, results)
   print(f"[total] {time.perf_counter() - t_start:.1f}s", flush=True)
   print(card)
   print(json.dumps({"kernels": list(results.values())}))

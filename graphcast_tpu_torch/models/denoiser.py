@@ -24,7 +24,10 @@ K3 (ops/segment_sum.py) and the mesh2grid one through the plain segment
 sum, as in the JAX package; the transformer folds batch and heads for K6.
 The TPU's windowed grid2mesh gather and its ``node_order`` layout are
 Mosaic-specific; the port keeps the artifact's receiver order. The chunked
-encode/decode forms are not ported.
+encode/decode forms are not ported. ``GC_PIPELINED_EDGE`` (env_flags.py),
+read once at the first call, as the JAX package builds its grid2mesh
+``FusedEdgeStep`` then, runs the embed-mode grid2mesh step through K1p
+instead of K1.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from graphcast_tpu_torch import env_flags
 from graphcast_tpu_torch.fields import Field, FieldSet, from_stacked, to_stacked
 from graphcast_tpu_torch.geometry import artifact as artifact_lib
 from graphcast_tpu_torch.models import configs
@@ -143,6 +147,7 @@ class DenoiserArchitecture(nn.Module):
       raise ValueError("unknown node_ordering "
                        f"{cfg.sparse_transformer_config.node_ordering!r}")
     self._cfg = cfg
+    self._pipelined: Optional[bool] = None
     self._artifact: Optional[artifact_lib.GridMeshArtifact] = None
     self._graph: dict = {}
     latent = cfg.latent_size
@@ -177,6 +182,7 @@ class DenoiserArchitecture(nn.Module):
   def _maybe_init(self, inputs: FieldSet):
     if self._artifact is not None:
       return
+    self._pipelined = env_flags.env_flag("GC_PIPELINED_EDGE")
     coords = inputs.coords
     st_cfg = self._cfg.sparse_transformer_config
     self._artifact = artifact_lib.build_artifact(
@@ -239,7 +245,8 @@ class DenoiserArchitecture(nn.Module):
         s_e[:, None] * we, o_e @ we + b0.to(dtype), pe.mlp["linear_1"].w,
         pe.mlp["linear_1"].b, s1, o1, write_edges=False,
         embed_weights=(ee["linear_0"].w, ee["linear_0"].b,
-                       ee["linear_1"].w, ee["linear_1"].b))
+                       ee["linear_1"].w, ee["linear_1"].b),
+        pipelined=self._pipelined)
     if self._cfg.grid2mesh_aggregate_normalization:
       agg = agg / self._cfg.grid2mesh_aggregate_normalization
     mesh_upd = gnn["processor_0_nodes_mesh_nodes"](mesh_emb, agg.to(dtype),

@@ -27,7 +27,7 @@ from graphcast_tpu_torch.diffusion import noise as noise_lib
 from graphcast_tpu_torch.diffusion.samplers import DPMSolverPlusPlus2S
 from graphcast_tpu_torch.fields import Field, FieldSet, align_for_broadcast
 from graphcast_tpu_torch.models import configs
-from graphcast_tpu_torch.models.base import Predictor
+from graphcast_tpu_torch.models.base import Predictor, refuse_unported_forms
 from graphcast_tpu_torch.models.denoiser import (
     Denoiser, DenoiserArchitectureConfig, NoiseEncoderConfig)
 from graphcast_tpu_torch.nn import core
@@ -118,12 +118,29 @@ class GenCast(Denoiser, Predictor):
                denoiser_architecture_config: DenoiserArchitectureConfig,
                sampler_config: Optional[SamplerConfig] = None,
                noise_config: Optional[NoiseConfig] = None,
-               noise_encoder_config: Optional[NoiseEncoderConfig] = None, *,
+               noise_encoder_config: Optional[NoiseEncoderConfig] = None,
+               cache_dir: Optional[str] = None,
+               interpret_attention: Optional[bool] = None,
+               decode_chunks: int = 1,
+               encode_chunks: int = 1,
+               fused_aggregation: Optional[bool] = None,
+               sequence_parallel: Optional[tuple] = None, *,
                generator: torch.Generator,
                device: torch.device | str = devices.DEFAULT_DEVICE):
     """Parameters are drawn on the CPU from ``generator`` (a CPU generator),
     then moved to ``device`` (the card unless the caller asks for "cpu");
-    or loaded later with params.load_params."""
+    or loaded later with params.load_params. The keywords between are the
+    JAX package's: the artifact cache, chunked encode/decode, the XLA-only
+    and split ``fused_aggregation`` modes, ``interpret_attention`` (the
+    tensors' device picks the kernel or its plain version) and sequence
+    parallelism are not ported, and asking for them raises
+    NotImplementedError (models/base.py refuse_unported_forms)."""
+    refuse_unported_forms(
+        "GenCast", cache_dir, decode_chunks, encode_chunks, fused_aggregation,
+        **{f"interpret_attention={interpret_attention!r}":
+               interpret_attention is not None,
+           "sequence parallelism (sequence_parallel)":
+               sequence_parallel is not None})
     device = devices.resolve(device)
     super().__init__(noise_encoder_config, dataclasses.replace(
         denoiser_architecture_config,

@@ -20,8 +20,13 @@ through the plain segment sum, as there. Nothing is hoisted at batch > 1
 
 Which code runs is decided by the tensors' device alone: CUDA tensors go
 through the CUDA kernels, CPU tensors through their plain-PyTorch twins
-(ops/). ``hidden_layers != 1`` and the chunked encode/decode forms are not
-ported and raise NotImplementedError.
+(ops/). The constructor takes the JAX package's keywords; ``hidden_layers !=
+1``, chunked encode/decode (``decode_chunks``/``encode_chunks`` > 1), the
+XLA-only and split ``fused_aggregation`` modes, ``remat_processor=True`` and
+the artifact cache (``cache_dir``) are not ported and raise
+NotImplementedError. ``GC_PIPELINED_EDGE`` (env_flags.py), read once at the
+first call, as the JAX package builds its ``FusedEdgeStep``s then, runs the
+encoder's and the processor's edge steps through K1p instead of K1.
 
 The static graph (geometry/artifact.py) is built on the host at the first
 call from the inputs' lat/lon coords and kept on the device of the call.
@@ -46,11 +51,11 @@ import numpy as np
 import torch
 from torch.utils import checkpoint
 
-from graphcast_tpu_torch import devices, losses
+from graphcast_tpu_torch import devices, env_flags, losses
 from graphcast_tpu_torch.fields import FieldSet, from_stacked, to_stacked
 from graphcast_tpu_torch.geometry import artifact as artifact_lib
 from graphcast_tpu_torch.models import configs
-from graphcast_tpu_torch.models.base import Predictor
+from graphcast_tpu_torch.models.base import Predictor, refuse_unported_forms
 from graphcast_tpu_torch.nn import core
 from graphcast_tpu_torch.nn.deep_gnn import DeepGraphNet
 from graphcast_tpu_torch.nn.typed_graph import (
@@ -137,18 +142,29 @@ class GraphCast(Predictor):
   """The GraphCast one-step predictor (f32 master parameters)."""
 
   def __init__(self, model_config: configs.ModelConfig,
-               task_config: configs.TaskConfig, *,
+               task_config: configs.TaskConfig,
+               cache_dir: Optional[str] = None,
+               decode_chunks: int = 1,
+               encode_chunks: int = 1,
+               fused_aggregation: Optional[bool] = None,
+               remat_processor: bool = False, *,
                generator: torch.Generator,
                device: torch.device | str = devices.DEFAULT_DEVICE):
     """Parameters are drawn on the CPU from ``generator`` (a CPU generator),
     then moved to ``device`` (the card unless the caller asks for "cpu");
-    or loaded later with params.load_params."""
+    or loaded later with params.load_params. The keywords between are the
+    JAX package's (module doc: the values of unported forms raise)."""
+    refuse_unported_forms(
+        "GraphCast", cache_dir, decode_chunks, encode_chunks,
+        fused_aggregation,
+        **{"processor remat (remat_processor=True)": remat_processor})
     device = devices.resolve(device)
     super().__init__()
     if model_config.hidden_layers != 1:
       raise NotImplementedError("only hidden_layers=1 is ported")
     self._mc = model_config
     self._tc = task_config
+    self._pipelined: Optional[bool] = None
     self._artifact: Optional[artifact_lib.GridMeshArtifact] = None
     self._graph: dict = {}
     latent = model_config.latent_size
@@ -191,6 +207,7 @@ class GraphCast(Predictor):
   def _maybe_init(self, inputs: FieldSet):
     if self._artifact is not None:
       return
+    self._pipelined = env_flags.env_flag("GC_PIPELINED_EDGE")
     coords = inputs.coords
     self._artifact = artifact_lib.build_artifact(
         grid_lat=coords["lat"],
@@ -293,7 +310,8 @@ class GraphCast(Predictor):
     lin1 = pe.mlp["linear_1"]
     agg = fused_edge(st["g2m"], const, grid_emb @ ws, mesh_emb @ wr, None,
                      None, lin1.w, lin1.b, pe.layer_norm.scale,
-                     pe.layer_norm.offset, write_edges=False)
+                     pe.layer_norm.offset, write_edges=False,
+                     pipelined=self._pipelined)
     mesh_upd = gnn["processor_0_nodes_mesh_nodes"](mesh_emb, agg.to(dtype))
     grid_upd = gnn["processor_0_nodes_grid_nodes"](grid_emb)
     return mesh_emb + mesh_upd, grid_emb + grid_upd
@@ -304,7 +322,8 @@ class GraphCast(Predictor):
     e = gnn["encoder_edges_mesh"](st["mesh_edge_features"].to(dtype))
     x = latent_mesh_nodes
     for i in range(gnn.num_message_passing_steps):
-      x, e = gnn.processor_step(i, "mesh", "mesh_nodes", st["mesh"], x, e)
+      x, e = gnn.processor_step(i, "mesh", "mesh_nodes", st["mesh"], x, e,
+                                pipelined=self._pipelined)
     return x
 
   def _run_mesh2grid(self, st, latent_mesh_nodes, latent_grid_nodes, const):

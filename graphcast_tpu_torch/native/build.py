@@ -91,6 +91,8 @@ def _declare(lib: ctypes.CDLL):
   p, i = ctypes.c_void_p, ctypes.c_int
   lib.gc_fused_edge.restype = i
   lib.gc_fused_edge.argtypes = [p] * 13 + [i] * 4 + [p]
+  lib.gc_fused_edge_pipelined.restype = i
+  lib.gc_fused_edge_pipelined.argtypes = [p] * 13 + [i] * 4 + [p]
   lib.gc_fused_decoder.restype = i
   lib.gc_fused_decoder.argtypes = [p] * 21 + [i] * 4 + [p]
   lib.gc_fused_edge_bwd.restype = i
@@ -101,6 +103,8 @@ def _declare(lib: ctypes.CDLL):
   lib.gc_weight_grad.argtypes = [p, i, p, i, p, i, i, i, p]
   lib.gc_fused_edge_embed.restype = i
   lib.gc_fused_edge_embed.argtypes = [p] * 16 + [i] * 3 + [p]
+  lib.gc_fused_edge_embed_pipelined.restype = i
+  lib.gc_fused_edge_embed_pipelined.argtypes = [p] * 16 + [i] * 3 + [p]
   lib.gc_fused_decoder_embed.restype = i
   lib.gc_fused_decoder_embed.argtypes = [p] * 27 + [i] * 5 + [p]
   lib.gc_splash_fwd.restype = i

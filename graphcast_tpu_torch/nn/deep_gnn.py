@@ -14,8 +14,8 @@ that package's flat param keys. Two ways to run it:
   models (ops/segment_sum.py); other sets through the plain segment sum
   (ops/segment.py). The models run it at batch > 1.
 - ``processor_step``, the batch-1 fused step: the edge MLP, LayerNorm, edge
-  residual and aggregation go through ops.fused_edge (K1); the node update
-  and residual run here. It takes one hidden layer, layer norm on and no
+  residual and aggregation go through ops.fused_edge (K1, or K1p with
+  ``pipelined``); the node update and residual run here. It takes one hidden layer, layer norm on and no
   norm conditioning.
 
 With ``norm_conditioning_size`` (GenCast's denoiser) every MLP but the
@@ -199,10 +199,12 @@ class DeepGraphNet(nn.ModuleDict):
   # ----- the batch-1 fused step -----
 
   def processor_step(self, i: int, edge_name: str, node_name: str,
-                     edges: EdgeIndex, x: torch.Tensor, e: torch.Tensor):
+                     edges: EdgeIndex, x: torch.Tensor, e: torch.Tensor,
+                     pipelined: Optional[bool] = None):
     """One fused processor step on a single node set / edge set graph
     (graphcast_tpu nn/deep_gnn.py:346-383). x: [N, C] node latents,
-    e: [E, C] edge latents in ``edges`` order. Returns (x', e')."""
+    e: [E, C] edge latents in ``edges`` order; ``pipelined`` as in
+    ops.fused_edge. Returns (x', e')."""
     if e.shape[0] != edges.num_edges:
       raise ValueError(f"{e.shape[0]} edge rows for {edges.num_edges} edges")
     dtype = e.dtype
@@ -214,6 +216,6 @@ class DeepGraphNet(nn.ModuleDict):
     lin1 = pe.mlp["linear_1"]
     e_new, agg = fused_edge(edges, e, x @ ws, x @ wr, we, b0, lin1.w, lin1.b,
                             pe.layer_norm.scale, pe.layer_norm.offset,
-                            write_edges=True)
+                            write_edges=True, pipelined=pipelined)
     n_upd = self[f"processor_{i}_nodes_{node_name}"](x, agg.to(dtype))
     return x + n_upd, e_new

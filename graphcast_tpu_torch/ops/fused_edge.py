@@ -1,8 +1,10 @@
-"""K1: the fused InteractionNetwork edge step, its backward K4, and the
-plain-PyTorch twin.
+"""K1 and K1p: the fused InteractionNetwork edge step, its backward K4, and
+the plain-PyTorch twin.
 
-Replaces graphcast_tpu/ops/pallas_edge.py::_fused_edge_kernel (ground truth:
-``FusedEdgeStep._reference_math``). One call computes, over a receiver-sorted
+K1 replaces graphcast_tpu/ops/pallas_edge.py::_fused_edge_kernel (ground
+truth: ``FusedEdgeStep._reference_math``), K1p its software-pipelined
+variant ``_fused_edge_pipelined_kernel`` (csrc/fused_edge_pipelined.cu),
+which computes the same function. One call computes, over a receiver-sorted
 edge list,
 
     x0  = e @ We + sproj[senders] + rproj[receivers] + b0
@@ -40,7 +42,12 @@ chunk-aligned padded layout and bitpacked one-hot masks (ops/pallas_mp.py)
 are Mosaic-specific and not ported.
 
 ``fused_edge`` runs the CUDA kernels for CUDA tensors and the twin for CPU
-tensors; nothing else selects between them.
+tensors; nothing else selects between them. ``pipelined`` picks K1p over K1
+on the card, in all three modes; the backward stays K4, which recomputes
+from the inputs alone, so the gradients are those of the K1 path. On the
+CPU both run the same twin. Unset, it reads ``GC_PIPELINED_EDGE``
+(env_flags.py), as the JAX package's ``FusedEdgeStep`` does; the models read
+it once, at their first call.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from graphcast_tpu_torch import env_flags
 from graphcast_tpu_torch.native import build
 from graphcast_tpu_torch.ops import segment_sum
 from graphcast_tpu_torch.ops.weight_grad import feature_grad, weight_grad
@@ -60,6 +68,9 @@ LN_EPS = 1e-5
 BWD_CHUNK_ROWS = 1 << 18
 # Raw edge features the embed-mode kernel takes (GenCast: 4).
 MAX_EMBED_FEATURES = 16
+# K1p's latent widths are multiples of this (csrc/fused_edge_pipelined.cu
+# kPipeNC).
+PIPELINED_WIDTH_STEP = 256
 
 
 class EdgeIndex:
@@ -197,6 +208,14 @@ def _check_edge_shapes(edges: EdgeIndex, E: int, C: int, sproj, rproj,
     raise ValueError(f"edge list is on {edges.device}, tensors on {device}")
 
 
+def _check_pipelined_width(C: int):
+  """K1p streams its weights in 256-column passes: it takes K1's widths
+  that are multiples of 256."""
+  if C % PIPELINED_WIDTH_STEP:
+    raise ValueError(f"K1p (pipelined=True) takes latent widths 256 and 512, "
+                     f"not {C}")
+
+
 def _matrix_bf16(w, C: int, name: str):
   w = w.to(torch.bfloat16).contiguous()
   if w.shape != (C, C):
@@ -205,10 +224,13 @@ def _matrix_bf16(w, C: int, name: str):
 
 
 def _launch_fused_edge(edges: EdgeIndex, e, sproj, rproj, we, b0, w1, b1,
-                       scale, offset, write_edges: bool):
-  """K1 on CUDA tensors (checks, then one launch)."""
+                       scale, offset, write_edges: bool, pipelined: bool):
+  """K1, or K1p with ``pipelined``, on CUDA tensors (checks, then one
+  launch)."""
   _check_edge_shapes(edges, *e.shape, sproj, rproj, e.device)
   C = e.shape[1]
+  if pipelined:
+    _check_pipelined_width(C)
   dev = e.device
   w1 = _matrix_bf16(w1, C, "w1")
   if we is not None:
@@ -222,18 +244,30 @@ def _launch_fused_edge(edges: EdgeIndex, e, sproj, rproj, we, b0, w1, b1,
   agg = torch.zeros(edges.num_receivers, C, dtype=torch.float32, device=dev)
   eout = torch.empty_like(e) if write_edges else None
   ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-  code = lib.gc_fused_edge(
+  launch = lib.gc_fused_edge_pipelined if pipelined else lib.gc_fused_edge
+  code = launch(
       e.data_ptr(), sproj.data_ptr(), edges.senders.data_ptr(),
       rproj.data_ptr(), edges.receivers.data_ptr(), ptr(we),
       ptr(vecs.get("b0")), w1.data_ptr(), vecs["b1"].data_ptr(),
       vecs["scale"].data_ptr(), vecs["offset"].data_ptr(), ptr(eout),
       agg.data_ptr(), edges.num_edges, C, int(we is not None),
       int(write_edges), torch.cuda.current_stream(dev).cuda_stream)
-  build.check(lib, code, "fused_edge kernel launch")
-  fused_edge.launches += 1
-  if we is None:
-    fused_edge.encoder_launches += 1
+  build.check(lib, code, "fused_edge_pipelined kernel launch" if pipelined
+              else "fused_edge kernel launch")
+  _count_launch(pipelined, "encoder" if we is None else None)
   return (eout, agg) if write_edges else agg
+
+
+def _count_launch(pipelined: bool, mode: Optional[str]):
+  """One launch of K1 (``fused_edge.launches``) or K1p
+  (``fused_edge.pipelined_launches``), and of its mode ("encoder",
+  "embed"; None for processor mode)."""
+  prefix = "pipelined_" if pipelined else ""
+  setattr(fused_edge, prefix + "launches",
+          getattr(fused_edge, prefix + "launches") + 1)
+  if mode is not None:
+    name = f"{prefix}{mode}_launches"
+    setattr(fused_edge, name, getattr(fused_edge, name) + 1)
 
 
 def fused_edge_backward(edges: EdgeIndex, e, sproj, rproj, we, b0, w1, b1,
@@ -315,17 +349,18 @@ fused_edge_backward.launches = 0
 
 
 class _FusedEdgeFunction(torch.autograd.Function):
-  """K1 forward, K4 backward (module doc). Saves only the inputs."""
+  """K1 (or K1p) forward, K4 backward (module doc). Saves only the
+  inputs."""
 
   @staticmethod
-  def forward(ctx, edges, write_edges, e, sproj, rproj, we, b0, w1, b1,
-              scale, offset):
+  def forward(ctx, edges, write_edges, pipelined, e, sproj, rproj, we, b0,
+              w1, b1, scale, offset):
     ctx.edges = edges
     ctx.write_edges = write_edges
     ctx.offset_dtype = offset.dtype
     ctx.save_for_backward(e, sproj, rproj, we, b0, w1, b1, scale)
     return _launch_fused_edge(edges, e, sproj, rproj, we, b0, w1, b1, scale,
-                              offset, write_edges)
+                              offset, write_edges, pipelined)
 
   @staticmethod
   def backward(ctx, *grads):
@@ -334,22 +369,27 @@ class _FusedEdgeFunction(torch.autograd.Function):
     de, dsproj, drproj, dwe, db0, dw1, db1, dscale, doff = (
         fused_edge_backward(ctx.edges, e, sproj, rproj, we, b0, w1, b1,
                             scale, d_eout, d_agg))
-    return (None, None, de, dsproj, drproj, dwe, db0, dw1, db1, dscale,
+    return (None, None, None, de, dsproj, drproj, dwe, db0, dw1, db1, dscale,
             doff.to(ctx.offset_dtype))
 
 
 def _launch_fused_edge_embed(edges: EdgeIndex, features, sproj, rproj, we,
-                             b0, w1, b1, scale, offset, embed_weights):
-  """K1 in embed mode on CUDA tensors, aggregation only (checks, then one
-  launch)."""
+                             b0, w1, b1, scale, offset, embed_weights,
+                             pipelined: bool):
+  """K1 (or K1p with ``pipelined``) in embed mode on CUDA tensors,
+  aggregation only (checks, then one launch)."""
   mats, vecs = _embed_operands(edges, features, sproj, rproj, we, b0, w1, b1,
                                scale, offset, embed_weights)
   E, F = features.shape
   C = sproj.shape[1]
+  if pipelined:
+    _check_pipelined_width(C)
   dev = sproj.device
   lib = build.load_library()
   agg = torch.zeros(edges.num_receivers, C, dtype=torch.float32, device=dev)
-  code = lib.gc_fused_edge_embed(
+  launch = (lib.gc_fused_edge_embed_pipelined if pipelined
+            else lib.gc_fused_edge_embed)
+  code = launch(
       mats["features"].data_ptr(), mats["ew0"].data_ptr(),
       vecs["eb0"].data_ptr(), mats["ew1"].data_ptr(), vecs["eb1"].data_ptr(),
       sproj.data_ptr(), edges.senders.data_ptr(), rproj.data_ptr(),
@@ -357,9 +397,9 @@ def _launch_fused_edge_embed(edges: EdgeIndex, features, sproj, rproj, we,
       vecs["b0"].data_ptr(), mats["w1"].data_ptr(), vecs["b1"].data_ptr(),
       vecs["scale"].data_ptr(), vecs["offset"].data_ptr(), agg.data_ptr(),
       E, F, C, torch.cuda.current_stream(dev).cuda_stream)
-  build.check(lib, code, "fused_edge embed kernel launch")
-  fused_edge.launches += 1
-  fused_edge.embed_launches += 1
+  build.check(lib, code, "fused_edge_pipelined embed kernel launch"
+              if pipelined else "fused_edge embed kernel launch")
+  _count_launch(pipelined, "embed")
   return agg
 
 
@@ -466,19 +506,19 @@ fused_edge_backward.embed_launches = 0
 
 
 class _FusedEdgeEmbedFunction(torch.autograd.Function):
-  """K1 in embed mode forward, K4's embed mode backward (module doc).
-  Saves only the inputs."""
+  """K1 (or K1p) in embed mode forward, K4's embed mode backward (module
+  doc). Saves only the inputs."""
 
   @staticmethod
-  def forward(ctx, edges, features, sproj, rproj, we, b0, w1, b1, scale,
-              offset, ew0, eb0, ew1, eb1):
+  def forward(ctx, edges, pipelined, features, sproj, rproj, we, b0, w1, b1,
+              scale, offset, ew0, eb0, ew1, eb1):
     ctx.edges = edges
     ctx.offset_dtype = offset.dtype
     ctx.save_for_backward(features, sproj, rproj, we, b0, w1, b1, scale, ew0,
                           eb0, ew1, eb1)
     return _launch_fused_edge_embed(edges, features, sproj, rproj, we, b0,
                                     w1, b1, scale, offset,
-                                    (ew0, eb0, ew1, eb1))
+                                    (ew0, eb0, ew1, eb1), pipelined)
 
   @staticmethod
   def backward(ctx, d_agg):
@@ -487,14 +527,15 @@ class _FusedEdgeEmbedFunction(torch.autograd.Function):
     *grads, doff, dembed = fused_edge_embed_backward(
         ctx.edges, features, sproj, rproj, we, b0, w1, b1, scale, embed,
         d_agg)
-    return (None, *grads, doff.to(ctx.offset_dtype), *dembed)
+    return (None, None, *grads, doff.to(ctx.offset_dtype), *dembed)
 
 
 def fused_edge(edges: EdgeIndex, e: torch.Tensor, sproj: torch.Tensor,
                rproj: torch.Tensor, we: Optional[torch.Tensor],
                b0: Optional[torch.Tensor], w1: torch.Tensor,
                b1: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor,
-               write_edges: bool = True, embed_weights=None):
+               write_edges: bool = True, embed_weights=None,
+               pipelined: Optional[bool] = None):
   """One fused edge step (module doc). Returns (e_out [E, C], agg [N, C]
   f32), or agg alone with ``write_edges=False``.
 
@@ -509,7 +550,12 @@ def fused_edge(edges: EdgeIndex, e: torch.Tensor, sproj: torch.Tensor,
       Matrices are cast to the activation dtype; vectors are used in f32.
     embed_weights: (ew0 [F, C], eb0, ew1 [C, C], eb1) for embed mode, where
       ``e`` holds the raw [E, F] edge features; needs ``we``.
+    pipelined: launch K1p instead of K1 on the card (module doc); None reads
+      ``GC_PIPELINED_EDGE``.
   """
+  if pipelined is None:
+    pipelined = env_flags.env_flag("GC_PIPELINED_EDGE")
+  pipelined = bool(pipelined)
   if (we is None) != (b0 is None):
     raise ValueError("pass we and b0 together")
   if embed_weights is not None and we is None:
@@ -525,9 +571,9 @@ def fused_edge(edges: EdgeIndex, e: torch.Tensor, sproj: torch.Tensor,
           "the embed mode kernel runs aggregation-only (write_edges=False)")
     inputs = (e, sproj, rproj, we, b0, w1, b1, scale, offset, *embed_weights)
     if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
-      return _FusedEdgeEmbedFunction.apply(edges, *inputs)
+      return _FusedEdgeEmbedFunction.apply(edges, pipelined, *inputs)
     return _launch_fused_edge_embed(edges, e, sproj, rproj, we, b0, w1, b1,
-                                    scale, offset, embed_weights)
+                                    scale, offset, embed_weights, pipelined)
   inputs = (e, sproj, rproj, we, b0, w1, b1, scale, offset)
   if torch.is_grad_enabled() and any(
       t is not None and t.requires_grad for t in inputs):
@@ -535,10 +581,13 @@ def fused_edge(edges: EdgeIndex, e: torch.Tensor, sproj: torch.Tensor,
       raise NotImplementedError(
           "the backward kernel covers processor mode (we, e' written) and "
           "encoder mode (no we, aggregation only)")
-    return _FusedEdgeFunction.apply(edges, write_edges, *inputs)
-  return _launch_fused_edge(edges, *inputs, write_edges)
+    return _FusedEdgeFunction.apply(edges, write_edges, pipelined, *inputs)
+  return _launch_fused_edge(edges, *inputs, write_edges, pipelined)
 
 
 fused_edge.launches = 0          # every K1 launch
 fused_edge.encoder_launches = 0  # the encoder-mode ones among them
 fused_edge.embed_launches = 0    # the embed-mode ones among them
+fused_edge.pipelined_launches = 0          # every K1p launch
+fused_edge.pipelined_encoder_launches = 0  # the encoder-mode ones among them
+fused_edge.pipelined_embed_launches = 0    # the embed-mode ones among them

@@ -541,3 +541,110 @@ def test_segment_sum_kernel_matches_plain(dtype, cuda_device):
   g = torch.randn(got.shape, generator=gen, device=cuda_device)
   sorted_segment_sum(edges, leaf).backward(g)
   torch.testing.assert_close(leaf.grad, g[edges.receivers.long()])
+
+
+def _pipelined_case(mode, seed, device):
+  """(edge list, fused_edge keyword arguments) of a small K1/K1p case:
+  5,000 edges (a partial last tile), receiver runs across tile bounds."""
+  rng = np.random.RandomState(seed)
+  n, e, F = 700, 5000, 4
+  ns = 700 if mode == "processor" else 2000
+  edges = EdgeIndex(rng.randint(0, ns, e), np.sort(rng.randint(0, n, e)),
+                    ns, n, device=device)
+  gen = torch.Generator().manual_seed(seed)
+  bf16 = torch.bfloat16
+  args = dict(
+      e=_rand(gen, e, F) if mode == "embed" else _rand(gen, e, C, dtype=bf16),
+      sproj=_rand(gen, ns, C, dtype=bf16), rproj=_rand(gen, n, C, dtype=bf16),
+      we=None if mode == "encoder" else _rand(gen, C, C, scale=C ** -0.5,
+                                              dtype=bf16),
+      b0=None if mode == "encoder" else _rand(gen, C, scale=0.1),
+      w1=_rand(gen, C, C, scale=C ** -0.5), b1=_rand(gen, C, scale=0.1),
+      scale=_rand(gen, C, scale=0.1, offset=1.0),
+      offset=_rand(gen, C, scale=0.1), write_edges=mode == "processor")
+  if mode == "embed":
+    args["embed_weights"] = (
+        _rand(gen, F, C), _rand(gen, C, scale=0.1),
+        _rand(gen, C, C, scale=C ** -0.5), _rand(gen, C, scale=0.1))
+  move = lambda v: v.to(device) if torch.is_tensor(v) else v  # noqa: E731
+  args = {k: tuple(map(move, v)) if isinstance(v, tuple) else move(v)
+          for k, v in args.items()}
+  return edges, args
+
+
+def _rel_rms(got, want):
+  d = got.float() - want.float()
+  return (d.square().mean().sqrt() / want.float().square().mean().sqrt()
+          ).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["processor", "encoder", "embed"])
+def test_pipelined_kernel_matches_k1_and_twin(mode, cuda_device):
+  """K1p against K1 on the same inputs: e' bit-identical (the same products
+  in the same K order, the same rounding points), the receiver sums equal to
+  f32 reassociation (relative RMS <= 1e-6: K1p's 32-row tiles split other
+  runs than K1's 64-row ones); against the twin at the forward tolerance.
+  Each launch counts on its own kernel's counters."""
+  edges, args = _pipelined_case(mode, 31, cuda_device)
+  counts = lambda: (fused_edge.launches, fused_edge.pipelined_launches,  # noqa
+                    fused_edge.pipelined_encoder_launches,
+                    fused_edge.pipelined_embed_launches)
+  before = counts()
+  with torch.inference_mode():
+    k1p = fused_edge(edges, pipelined=True, **args)
+    after_k1p = counts()
+    k1 = fused_edge(edges, pipelined=False, **args)
+    want = fused_edge_reference(edges, **args)
+  torch.cuda.synchronize()
+  assert after_k1p == (before[0], before[1] + 1,
+                       before[2] + (mode == "encoder"),
+                       before[3] + (mode == "embed"))
+  assert counts()[0] == before[0] + 1
+  if mode == "processor":
+    assert torch.equal(k1p[0], k1[0])
+    _assert_close(k1p[0], want[0])
+    k1p, k1, want = k1p[1], k1[1], want[1]
+  assert _rel_rms(k1p, k1) <= 1e-6
+  _assert_close(k1p, want)
+
+
+@pytest.mark.cuda
+def test_k4_behind_pipelined_forward_gives_k1_path_gradients(cuda_device):
+  """Under grad the forward is K1p and the backward still K4, which keeps
+  only the inputs: the gradients are those behind K1, up to the order of
+  K4's f32 atomics (two runs of K1's path give that noise)."""
+  edges, args = _pipelined_case("processor", 32, cuda_device)
+  gen = torch.Generator().manual_seed(33)
+  cot = (_rand(gen, edges.num_edges, C, dtype=torch.bfloat16).to(cuda_device),
+         _rand(gen, edges.num_receivers, C).to(cuda_device))
+  names = ["e", "sproj", "rproj", "we", "b0", "w1", "b1", "scale", "offset"]
+  grads = {}
+  for run, pipelined in (("k1", False), ("k1_again", False), ("k1p", True)):
+    leaves = {k: args[k].detach().clone().requires_grad_() for k in names}
+    out = fused_edge(edges, write_edges=True, pipelined=pipelined, **leaves)
+    grads[run] = torch.autograd.grad(out, list(leaves.values()), cot)
+  torch.cuda.synchronize()
+  rms = lambda x: x.double().square().mean().sqrt().item()  # noqa: E731
+  for name, want, again, got in zip(names, grads["k1"], grads["k1_again"],
+                                    grads["k1p"]):
+    assert rms(got - want) <= 2 * rms(again - want) + 1e-6 * rms(want), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 384, 640])
+def test_pipelined_kernel_refuses_widths_it_does_not_take(width,
+                                                          cuda_device):
+  """K1p takes latent widths 256 and 512 (K1 also takes 128 and 384) and
+  raises before launching on any other, on the card as well: no fallback
+  to K1 or the twin."""
+  edges = EdgeIndex(np.zeros(4, np.int32), np.arange(4, dtype=np.int32), 2,
+                    4, device=cuda_device)
+  z = lambda *s: torch.zeros(*s, dtype=torch.bfloat16,  # noqa: E731
+                             device=cuda_device)
+  v = torch.zeros(width, device=cuda_device)
+  before = fused_edge.pipelined_launches, fused_edge.launches
+  with pytest.raises(ValueError, match="latent width"):
+    fused_edge(edges, z(4, width), z(2, width), z(4, width), z(width, width),
+               v, z(width, width), v, v, v, pipelined=True)
+  assert (fused_edge.pipelined_launches, fused_edge.launches) == before

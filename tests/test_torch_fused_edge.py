@@ -1,6 +1,9 @@
 """K1's plain-PyTorch twin (ops/fused_edge.py) against the JAX package's
 FusedEdgeStep, run as its own tests run it on the CPU (Pallas interpret
-mode) and through its ``_reference_math``, in processor and encoder mode.
+mode) and through its ``_reference_math``, in processor, encoder and embed
+mode; with ``pipelined`` on both sides too (the JAX package's
+``_fused_edge_pipelined_kernel``, K1p; on the CPU the port runs the same
+twin, which K1p must match as K1 does).
 
 Inputs are made with numpy from a seed and fed to both. The JAX step works
 on the chunk-aligned padded layout; the port on the receiver-sorted edge
@@ -56,7 +59,7 @@ def _case(seed, encoder, n=96, e=600, c=128, num_senders=150):
   return senders, receivers, arrays
 
 
-def _jax_step(senders, receivers, a, encoder, dtype):
+def _jax_step(senders, receivers, a, encoder, dtype, pipelined):
   """FusedEdgeStep (interpret) and its _reference_math, mapped back to the
   original edge order: ((e_out or None, agg) kernel, (...) reference)."""
   n = a["rproj"].shape[0]
@@ -65,7 +68,7 @@ def _jax_step(senders, receivers, a, encoder, dtype):
       padded_input=True)
   step = pallas_edge.FusedEdgeStep(
       summer, interpret=True, include_edge_matmul=not encoder,
-      write_edges=not encoder)
+      write_edges=not encoder, pipelined=pipelined)
   e_pad = jnp.asarray(summer.pad_edges(a["e"]), dtype)
   gs = jnp.asarray(summer.pad_edges(a["sproj"][senders]), dtype)
   gr_pad = step.pad_nodes(jnp.asarray(a["rproj"], dtype))
@@ -91,7 +94,7 @@ def _jax_step(senders, receivers, a, encoder, dtype):
   return unpad(kernel), unpad(ref)
 
 
-def _port(senders, receivers, a, encoder, dtype):
+def _port(senders, receivers, a, encoder, dtype, pipelined):
   n = a["rproj"].shape[0]
   edges = EdgeIndex(senders, receivers, a["sproj"].shape[0], n)
   t = {k: torch.from_numpy(v) for k, v in a.items()}
@@ -99,7 +102,7 @@ def _port(senders, receivers, a, encoder, dtype):
     t[k] = t[k].to(dtype)
   out = fused_edge(edges, t["e"], t["sproj"], t["rproj"], t.get("we"),
                    t.get("b0"), t["w1"], t["b1"], t["scale"], t["offset"],
-                   write_edges=not encoder)
+                   write_edges=not encoder, pipelined=pipelined)
   if encoder:
     return None, out.numpy()
   return out[0].float().numpy(), out[1].numpy()
@@ -115,15 +118,16 @@ def _assert_close(got, want, dtype_name):
   assert np.abs(d).max() <= 0.1, np.abs(d).max()
 
 
+@pytest.mark.parametrize("pipelined", [False, True])
 @pytest.mark.parametrize("dtype_name", sorted(_DTYPES))
 @pytest.mark.parametrize("mode", ["processor", "encoder"])
-def test_twin_matches_jax_fused_edge_step(mode, dtype_name):
+def test_twin_matches_jax_fused_edge_step(mode, dtype_name, pipelined):
   encoder = mode == "encoder"
   jdtype, tdtype = _DTYPES[dtype_name]
   senders, receivers, a = _case(seed=7 if encoder else 3, encoder=encoder)
   (k_eout, k_agg), (r_eout, r_agg) = _jax_step(senders, receivers, a,
-                                               encoder, jdtype)
-  eout, agg = _port(senders, receivers, a, encoder, tdtype)
+                                               encoder, jdtype, pipelined)
+  eout, agg = _port(senders, receivers, a, encoder, tdtype, pipelined)
   assert agg.dtype == np.float32 and agg.shape == k_agg.shape
   for want in (k_agg, r_agg):
     _assert_close(agg, want, dtype_name)
@@ -174,7 +178,7 @@ _GRAD_NAMES = ("e", "sproj", "rproj", "we", "b0", "w1", "b1", "scale",
                "offset")
 
 
-def _jax_grads(senders, receivers, a, cot, encoder, dtype):
+def _jax_grads(senders, receivers, a, cot, encoder, dtype, pipelined):
   """jax.vjp of FusedEdgeStep (fused backward kernel, interpret mode) in
   the original edge order."""
   n = a["rproj"].shape[0]
@@ -184,7 +188,7 @@ def _jax_grads(senders, receivers, a, cot, encoder, dtype):
       padded_input=True)
   step = pallas_edge.FusedEdgeStep(
       summer, interpret=True, include_edge_matmul=not encoder,
-      write_edges=not encoder, fused_backward=True)
+      write_edges=not encoder, fused_backward=True, pipelined=pipelined)
   valid = summer.layout_index < summer.num_edges
   slot = np.where(valid, summer.layout_index, E)   # pad slots → zero row
   pos = np.zeros(E, np.int64)
@@ -213,7 +217,7 @@ def _jax_grads(senders, receivers, a, cot, encoder, dtype):
   return {k: np.asarray(g, np.float32) for k, g in zip(names, vjp(cot_j))}
 
 
-def _port_grads(senders, receivers, a, cot, encoder, dtype):
+def _port_grads(senders, receivers, a, cot, encoder, dtype, pipelined):
   n = a["rproj"].shape[0]
   edges = EdgeIndex(senders, receivers, a["sproj"].shape[0], n)
   act = ("e", "sproj", "rproj") + (("we",) if not encoder else ())
@@ -221,7 +225,7 @@ def _port_grads(senders, receivers, a, cot, encoder, dtype):
                        requires_grad=True) for k, v in a.items()}
   out = fused_edge(edges, t["e"], t["sproj"], t["rproj"], t.get("we"),
                    t.get("b0"), t["w1"], t["b1"], t["scale"], t["offset"],
-                   write_edges=not encoder)
+                   write_edges=not encoder, pipelined=pipelined)
   outs = (out,) if encoder else out
   cots = ((torch.from_numpy(cot[0]),) if encoder else
           (torch.from_numpy(cot[0]).to(dtype), torch.from_numpy(cot[1])))
@@ -232,9 +236,10 @@ def _port_grads(senders, receivers, a, cot, encoder, dtype):
   return {k: g.float().numpy() for k, g in zip(names, grads)}
 
 
+@pytest.mark.parametrize("pipelined", [False, True])
 @pytest.mark.parametrize("dtype_name", sorted(_DTYPES))
 @pytest.mark.parametrize("mode", ["processor", "encoder"])
-def test_twin_grads_match_jax_fused_backward(mode, dtype_name):
+def test_twin_grads_match_jax_fused_backward(mode, dtype_name, pipelined):
   encoder = mode == "encoder"
   jdtype, tdtype = _DTYPES[dtype_name]
   senders, receivers, a = _case(seed=11 if encoder else 13, encoder=encoder)
@@ -242,8 +247,8 @@ def test_twin_grads_match_jax_fused_backward(mode, dtype_name):
   d_agg = rng.randn(a["rproj"].shape[0], a["e"].shape[1]).astype(np.float32)
   cot = (d_agg,) if encoder else (
       rng.randn(*a["e"].shape).astype(np.float32), d_agg)
-  want = _jax_grads(senders, receivers, a, cot, encoder, jdtype)
-  got = _port_grads(senders, receivers, a, cot, encoder, tdtype)
+  want = _jax_grads(senders, receivers, a, cot, encoder, jdtype, pipelined)
+  got = _port_grads(senders, receivers, a, cot, encoder, tdtype, pipelined)
   assert set(got) == set(want) == (
       set(_GRAD_NAMES) - ({"we", "b0"} if encoder else set()))
   for name in want:
@@ -275,8 +280,9 @@ def _embed_case(seed, n=96, e=600, c=128, num_senders=150, f=4):
 _EMBED = ("ew0", "eb0", "ew1", "eb1")
 
 
+@pytest.mark.parametrize("pipelined", [False, True])
 @pytest.mark.parametrize("dtype_name", sorted(_DTYPES))
-def test_embed_mode_twin_matches_jax_fused_edge_step(dtype_name):
+def test_embed_mode_twin_matches_jax_fused_edge_step(dtype_name, pipelined):
   """Embed mode, aggregation only: FusedEdgeStep(embed_weights=...) in
   interpret mode and its _reference_math."""
   jdtype, tdtype = _DTYPES[dtype_name]
@@ -287,7 +293,7 @@ def test_embed_mode_twin_matches_jax_fused_edge_step(dtype_name):
       padded_input=True)
   step = pallas_edge.FusedEdgeStep(summer, interpret=True,
                                    include_edge_matmul=True,
-                                   write_edges=False)
+                                   write_edges=False, pipelined=pipelined)
   e_pad = jnp.asarray(summer.pad_edges(a["e"]), jdtype)
   gs = jnp.asarray(summer.pad_edges(a["sproj"][senders]), jdtype)
   gr_pad = step.pad_nodes(jnp.asarray(a["rproj"], jdtype))
@@ -305,7 +311,8 @@ def test_embed_mode_twin_matches_jax_fused_edge_step(dtype_name):
                    t["rproj"].to(tdtype), t["we"].to(tdtype), t["b0"],
                    t["w1"], t["b1"], t["scale"], t["offset"],
                    write_edges=False,
-                   embed_weights=tuple(t[k] for k in _EMBED))
+                   embed_weights=tuple(t[k] for k in _EMBED),
+                   pipelined=pipelined)
   assert agg.dtype == torch.float32 and agg.shape == (n, a["w1"].shape[1])
   for name, want_agg in want.items():
     _assert_close(agg.numpy(), np.asarray(want_agg, np.float32), dtype_name)
@@ -326,8 +333,10 @@ def test_embed_mode_needs_the_edge_matmul():
 _EMBED_GRAD_NAMES = _GRAD_NAMES + _EMBED
 
 
+@pytest.mark.parametrize("pipelined", [False, True])
 @pytest.mark.parametrize("dtype_name", sorted(_DTYPES))
-def test_embed_mode_twin_grads_match_jax_fused_backward(dtype_name):
+def test_embed_mode_twin_grads_match_jax_fused_backward(dtype_name,
+                                                        pipelined):
   """Embed mode's gradients (K4's embed mode in the JAX package): the twin
   under autograd against jax.vjp of FusedEdgeStep(embed_weights=...) with
   ``fused_backward=True``, for every input: the raw features, the node
@@ -343,7 +352,7 @@ def test_embed_mode_twin_grads_match_jax_fused_backward(dtype_name):
       padded_input=True)
   step = pallas_edge.FusedEdgeStep(
       summer, interpret=True, include_edge_matmul=True, write_edges=False,
-      fused_backward=True)
+      fused_backward=True, pipelined=pipelined)
   valid = summer.layout_index < summer.num_edges
   slot = np.where(valid, summer.layout_index, E)
 
@@ -370,7 +379,8 @@ def test_embed_mode_twin_grads_match_jax_fused_backward(dtype_name):
   agg = fused_edge(edges, t["e"], t["sproj"], t["rproj"], t["we"], t["b0"],
                    t["w1"], t["b1"], t["scale"], t["offset"],
                    write_edges=False,
-                   embed_weights=tuple(t[k] for k in _EMBED))
+                   embed_weights=tuple(t[k] for k in _EMBED),
+                   pipelined=pipelined)
   grads = torch.autograd.grad(agg, [t[k] for k in _EMBED_GRAD_NAMES],
                               torch.from_numpy(d_agg))
   for name, g in zip(_EMBED_GRAD_NAMES, grads):

@@ -457,6 +457,45 @@ def test_unported_forms_raise():
             node_output_size=5), configs.TaskConfig(**TINY_TASK), 8)
 
 
+def _port_model_with(**keywords):
+  return gencast.GenCast(
+      configs.TaskConfig(**TINY_TASK),
+      denoiser.DenoiserArchitectureConfig(
+          sparse_transformer_config=_st(sparse_transformer, "mha"),
+          mesh_size=1, latent_size=16, hidden_layers=1),
+      gencast.SamplerConfig(num_noise_levels=NOISE_LEVELS),
+      gencast.NoiseConfig(),
+      denoiser.NoiseEncoderConfig(num_frequencies=8, output_sizes=(16, 8)),
+      **keywords, generator=torch.Generator().manual_seed(0), device="cpu")
+
+
+@pytest.mark.parametrize("keywords", [
+    {"cache_dir": ""}, {"cache_dir": None}, {"interpret_attention": None},
+    {"decode_chunks": 1, "encode_chunks": 1}, {"fused_aggregation": True},
+    {"fused_aggregation": None, "sequence_parallel": None}])
+def test_constructor_takes_the_jax_keywords(keywords):
+  """The JAX constructor's keywords, at the values of the forms the port
+  has, build the same model as without them."""
+  want = params.flat_params(_port_model("mha"))
+  got = params.flat_params(_port_model_with(**keywords))
+  assert got.keys() == want.keys()
+  assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+@pytest.mark.parametrize("keywords,form", [
+    ({"decode_chunks": 4}, "chunked decode"),
+    ({"encode_chunks": 4}, "chunked encode"),
+    ({"fused_aggregation": False}, "XLA-only and split"),
+    ({"cache_dir": "/tmp/artifacts"}, "artifact cache"),
+    ({"interpret_attention": True}, "interpret_attention"),
+    ({"sequence_parallel": (object(), "mesh")}, "sequence parallelism"),
+])
+def test_constructor_refuses_unported_forms(keywords, form):
+  """Each unported value raises NotImplementedError naming its form."""
+  with pytest.raises(NotImplementedError, match=form):
+    _port_model_with(**keywords)
+
+
 def _stacks(jmodel, port):
   """NaNCleaner(InputsAndResiduals(·)) around both models."""
   jtask = jax_configs.TaskConfig(**TINY_TASK)

@@ -5,9 +5,12 @@ message-passing steps): batch 1 (the port's fused K1/K2 path) and batch 2
 
 The JAX model runs with ``fused_aggregation=True`` (Pallas kernels in
 interpret mode) and ``False`` (plain XLA); tolerance 5e-4, that of
-tests/test_graphcast_model.py:245-247. Both packages build the geometry with
-the numpy connectivity backend (the port has no other), so the JAX side's
-``build_artifact`` is pinned to it here.
+tests/test_graphcast_model.py:245-247; and at batch 1 with
+``GC_PIPELINED_EDGE=1`` on both sides (JAX's pipelined edge kernel, the
+port's K1p path). Both packages build the geometry with the numpy
+connectivity backend (the port has no other), so the JAX side's
+``build_artifact`` is pinned to it here. The constructor takes the JAX
+package's keywords and refuses the values of the forms it does not port.
 """
 
 import functools
@@ -22,10 +25,13 @@ from graphcast_tpu.data import synthetic as jax_synthetic
 from graphcast_tpu.geometry import artifact as jax_artifact
 from graphcast_tpu.models import configs as jax_configs
 from graphcast_tpu.models.graphcast import GraphCast as JaxGraphCast
+from graphcast_tpu.ops import pallas_edge
 from graphcast_tpu_torch import params
 from graphcast_tpu_torch.data import synthetic
 from graphcast_tpu_torch.models import configs
+from graphcast_tpu_torch.models import graphcast as port_graphcast
 from graphcast_tpu_torch.models.graphcast import GraphCast
+from graphcast_tpu_torch.nn import deep_gnn
 
 TINY_TASK = dict(
     input_variables=("2m_temperature", "temperature",
@@ -82,18 +88,22 @@ def _one_step_both(fused, batch):
   return got, want
 
 
-@pytest.mark.parametrize("batch", [1, 2])
-@pytest.mark.parametrize("fused", [False, True])
-def test_one_step_matches_jax_graphcast(fused, batch, numpy_geometry):
-  """Batch 1 (fused K1/K2 twins) and batch 2 (the general path, K3's plain
-  version) against JAX's fused and plain paths."""
-  got, want = _one_step_both(fused, batch)
+def _assert_matches(got, want):
   assert got.var_names == want.var_names
   for name in want.var_names:
     assert got[name].dims == want[name].dims
     np.testing.assert_allclose(got.data(name).numpy(),
                                np.asarray(want.data(name)),
                                rtol=5e-4, atol=5e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("fused", [False, True])
+def test_one_step_matches_jax_graphcast(fused, batch, numpy_geometry):
+  """Batch 1 (fused K1/K2 twins) and batch 2 (the general path, K3's plain
+  version) against JAX's fused and plain paths."""
+  got, want = _one_step_both(fused, batch)
+  _assert_matches(got, want)
   if batch > 1:
     t = got.data("temperature")
     assert not torch.allclose(t[0], t[1])  # members differ
@@ -136,3 +146,72 @@ def test_batch_members_match_batch_one_runs():
         np.testing.assert_allclose(both.data(name)[b:b + 1].numpy(),
                                    one.data(name).numpy(), rtol=1e-4,
                                    atol=1e-4, err_msg=name)
+
+
+def test_one_step_with_pipelined_edge_matches_jax(monkeypatch,
+                                                  numpy_geometry):
+  """GC_PIPELINED_EDGE=1 on both sides: JAX's fused path runs its pipelined
+  edge kernel (interpret mode), and the port hands pipelined=True to every
+  edge step (the processor's and the encoder's), read once at the first
+  call."""
+  monkeypatch.setenv("GC_PIPELINED_EDGE", "1")
+  jax_kernel_traces, port_flags = [], []
+  pipelined_kernel = pallas_edge._fused_edge_pipelined_kernel
+
+  def traced(*args, **kwargs):
+    jax_kernel_traces.append(1)
+    return pipelined_kernel(*args, **kwargs)
+
+  def recording(fn):
+    def wrapped(*args, pipelined=None, **kwargs):
+      port_flags.append(pipelined)
+      return fn(*args, pipelined=pipelined, **kwargs)
+    return wrapped
+
+  monkeypatch.setattr(pallas_edge, "_fused_edge_pipelined_kernel", traced)
+  monkeypatch.setattr(port_graphcast, "fused_edge",
+                      recording(port_graphcast.fused_edge))
+  monkeypatch.setattr(deep_gnn, "fused_edge", recording(deep_gnn.fused_edge))
+  got, want = _one_step_both(True, 1)
+  _assert_matches(got, want)
+  assert jax_kernel_traces
+  assert port_flags == [True] * (1 + TINY_MODEL["gnn_msg_steps"])
+
+
+_TINY_ARGS = (configs.ModelConfig(**TINY_MODEL),
+              configs.TaskConfig(**TINY_TASK))
+
+
+@pytest.mark.parametrize("keywords", [
+    {}, {"cache_dir": None}, {"cache_dir": ""}, {"decode_chunks": 1},
+    {"encode_chunks": 1}, {"fused_aggregation": None},
+    {"fused_aggregation": True}, {"remat_processor": False},
+    {"cache_dir": "", "decode_chunks": 1, "encode_chunks": 1,
+     "fused_aggregation": True, "remat_processor": False}])
+def test_constructor_takes_the_jax_keywords(keywords):
+  """bench.py's and the JAX constructor's keywords, at the values of the
+  forms the port has, build a model that predicts."""
+  model = GraphCast(*_TINY_ARGS, **keywords,
+                    generator=torch.Generator().manual_seed(0), device="cpu")
+  data = synthetic.make_example_batch(_TINY_ARGS[1], resolution=30.0,
+                                      device="cpu")
+  with torch.inference_mode():
+    out = model(*data)
+  assert torch.isfinite(out.data("temperature")).all()
+
+
+@pytest.mark.parametrize("keywords,form", [
+    ({"decode_chunks": 32}, "chunked decode"),
+    ({"encode_chunks": 25}, "chunked encode"),
+    ({"fused_aggregation": False}, "XLA-only and split"),
+    ({"fused_aggregation": "processor"}, "XLA-only and split"),
+    ({"fused_aggregation": "encoder"}, "XLA-only and split"),
+    ({"remat_processor": True}, "processor remat"),
+    ({"cache_dir": "/tmp/artifacts"}, "artifact cache"),
+])
+def test_constructor_refuses_unported_forms(keywords, form):
+  """Each unported value raises NotImplementedError naming its form (a
+  call written for JAX gets no TypeError)."""
+  with pytest.raises(NotImplementedError, match=form):
+    GraphCast(*_TINY_ARGS, **keywords, generator=torch.Generator(),
+              device="cpu")

@@ -1,8 +1,9 @@
 """Guards against hidden fallbacks in graphcast_tpu_torch.
 
 - Every module of the port imports, and a tiny model runs one step and one
-  training step, in a process where ``jax`` and ``graphcast_tpu`` cannot
-  be imported.
+  training step, and the benchmark mirror runs with the pipelined edge step
+  (K1p's path), in a process where ``jax`` and ``graphcast_tpu`` cannot be
+  imported.
 - Building the CUDA kernels raises (and does not return) when nvcc is
   missing; the kernel wrappers raise instead of falling back to a twin.
 """
@@ -115,6 +116,37 @@ def test_train_step_runs_without_jax():
                         text=True, env=env, cwd=REPO, timeout=300)
   assert proc.returncode == 0, proc.stderr
   assert proc.stdout.startswith("losses"), proc.stdout
+
+
+def test_bench_mirror_and_pipelined_step_run_without_jax():
+  code = textwrap.dedent("""
+      import json, os, sys
+      sys.modules["jax"] = None
+      sys.modules["graphcast_tpu"] = None
+      os.environ.update(BENCH_RESOLUTION="30", BENCH_MESH_SIZE="1",
+                        BENCH_LATENT="16", BENCH_MSG_STEPS="2",
+                        BENCH_NUM_STEPS="2", BENCH_SKIP_GENCAST="1",
+                        GC_PIPELINED_EDGE="1")
+      import numpy as np
+      import torch
+      from graphcast_tpu_torch import bench
+      from graphcast_tpu_torch.ops.fused_edge import EdgeIndex, fused_edge
+      result = bench.main(device="cpu")
+      assert result["metric"] == "graphcast_30.0deg_37lev_mesh1_2step_rollout"
+      edges = EdgeIndex(np.array([0, 1, 1]), np.array([0, 0, 1]), 2, 2)
+      r = lambda *s: torch.randn(*s)
+      out = fused_edge(edges, r(3, 8), r(2, 8), r(2, 8), r(8, 8), r(8),
+                       r(8, 8), r(8), r(8), r(8), pipelined=True)
+      assert all(torch.isfinite(t).all() for t in out)
+      assert not any(m == "jax" or m.startswith(("jax.", "graphcast_tpu."))
+                     for m in sys.modules if sys.modules[m] is not None)
+      print("mirror", json.dumps(result))
+      """)
+  env = {**os.environ, "PYTHONPATH": str(REPO)}
+  proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                        text=True, env=env, cwd=REPO, timeout=300)
+  assert proc.returncode == 0, proc.stderr
+  assert proc.stdout.splitlines()[-1].startswith("mirror"), proc.stdout
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -262,15 +294,15 @@ def test_gencast_train_step_runs_without_jax():
 
 
 def test_port_sources_name_no_jax_package():
-  """No module of the port, nor chip_smoke.py, imports jax or
-  graphcast_tpu (the subprocess tests above prove the imports; this finds
-  a lazy import inside a function too)."""
+  """No module of the port, nor chip_smoke.py or k1p_study.py, imports jax
+  or graphcast_tpu (the subprocess tests above prove the imports; this
+  finds a lazy import inside a function too)."""
   import re
   pattern = re.compile(
       r"^\s*(import\s+(jax|graphcast_tpu)([.\s,]|$)"
       r"|from\s+(jax|graphcast_tpu)(\.\w+)*\s+import\b)", re.MULTILINE)
   files = sorted((REPO / "graphcast_tpu_torch").rglob("*.py"))
-  files.append(REPO / "chip_smoke.py")
+  files += [REPO / "chip_smoke.py", REPO / "k1p_study.py"]
   offenders = [str(f) for f in files if pattern.search(f.read_text())]
   assert not offenders, offenders
 
@@ -278,6 +310,7 @@ def test_port_sources_name_no_jax_package():
 @pytest.mark.parametrize("case", ["splash_head_dim", "splash_dtype",
                                   "splash_backward_cpu",
                                   "edge_embed_features", "edge_embed_ew0",
+                                  "edge_pipelined_width",
                                   "decoder_embed_features",
                                   "segment_sum_dtype", "segment_sum_rows",
                                   "segment_sum_channels",
@@ -328,6 +361,17 @@ def test_new_kernel_wrappers_refuse_inputs_before_launching(case,
   C = 128
   m = lambda *s: torch.zeros(*s, dtype=bf16)  # noqa: E731
   v = lambda: torch.zeros(C)  # noqa: E731
+  if case == "edge_pipelined_width":
+    edges = fused_edge.EdgeIndex(np.zeros(4, np.int32),
+                                 np.arange(4, dtype=np.int32), 2, 4)
+    W = 384  # K1 takes it, K1p only 256 and 512
+    mw = lambda *s: torch.zeros(*s, dtype=bf16)  # noqa: E731
+    with pytest.raises(ValueError, match="K1p .* takes latent widths"):
+      fused_edge._launch_fused_edge(
+          edges, mw(4, W), mw(2, W), mw(4, W), mw(W, W), torch.zeros(W),
+          mw(W, W), torch.zeros(W), torch.zeros(W), torch.zeros(W), True,
+          True)
+    return
   if case.startswith("edge"):
     edges = fused_edge.EdgeIndex(np.zeros(4, np.int32),
                                  np.arange(4, dtype=np.int32), 2, 4)
@@ -337,7 +381,7 @@ def test_new_kernel_wrappers_refuse_inputs_before_launching(case,
     with pytest.raises(ValueError):
       fused_edge._launch_fused_edge_embed(
           edges, m(4, F), m(2, C), m(4, C), m(C, C), v(), m(C, C), v(), v(),
-          v(), (ew0, v(), m(C, C), v()))
+          v(), (ew0, v(), m(C, C), v()), False)
     return
   G, F = 4, fused_edge.MAX_EMBED_FEATURES + 1
   edges = fused_edge.EdgeIndex(np.zeros(3 * G, np.int32),
