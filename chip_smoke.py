@@ -32,7 +32,10 @@ Phases, each printing one line with its seconds and results:
          against one chunk; then the kernel alone at all nodes.
   wgrad  the weight-gradient reduction that K4 and K5 share
          (csrc/weight_grad.cu) against its plain version at the shapes the
-         train step gives it.
+         train step gives it, a rerun bit-equal (fixed-order sums); timed
+         in turns with cuBLAS's a.t() @ b (kernel, library, library,
+         kernel), its two passes split by torch.profiler; the kernel's
+         registers, spills and shared memory from the build log.
   train  the training slice: train.make_train_step over Autoregressive(
          InputsAndResiduals(Bfloat16Cast(GraphCast)), gradient_checkpointing
          =True) at zoo.graphcast(), graphcast_optimizer(peak_lr=1e-3), AR-1,
@@ -49,7 +52,9 @@ Phases, each printing one line with its seconds and results:
          mesh-6 (GenCast 0p25deg) at batch 1; also
          the host build time of each mask and block map, and
          torch.nn.functional.scaled_dot_product_attention with the dense
-         boolean mask as the library yardstick where that mask fits.
+         boolean mask as the library yardstick where that mask fits, timed
+         in turns with the kernel; the kernel's registers, spills, shared
+         memory and any ptxas wgmma advisory from the build log.
   k7k8   the attention's backward kernels, K7 (dq) and K8 (dk, dv), against
          the plain backward on random bf16 q, k, v and cotangent over the
          same masks (the kernels' own o and lse from K6), with the backward
@@ -293,6 +298,47 @@ def _time_ms(torch, fn, reps=3):
   end.record()
   torch.cuda.synchronize()
   return start.elapsed_time(end) / reps
+
+
+def _time_in_turns(torch, kernel, library, reps=3):
+  """(kernel ms, library ms): ``_time_ms`` of each in turns, kernel,
+  library, library, kernel, and the mean of each pair."""
+  k1 = _time_ms(torch, kernel, reps)
+  l1 = _time_ms(torch, library, reps)
+  l2 = _time_ms(torch, library, reps)
+  k2 = _time_ms(torch, kernel, reps)
+  return (k1 + k2) / 2, (l1 + l2) / 2
+
+
+def _kernel_usage(name):
+  """ptxas's registers and spills of each compiled kernel whose (mangled)
+  name holds ``name``, and its performance advisories (wgmma serialised),
+  from this run's build log: [(kernel, text)]."""
+  from graphcast_tpu_torch.native import build
+  usage, kernel = [], None
+  for ln in build.build_log().splitlines():
+    if "Compiling entry function" in ln:
+      kernel = ln.split("'")[1] if "'" in ln else ln
+      continue
+    if "Performance Loss" in ln and name in ln:  # ptxas's wgmma advisories
+      usage.append((name, ln.split(":", 1)[-1].strip()))
+      continue
+    if kernel is None or name not in kernel:
+      continue
+    if "spill" in ln or "registers" in ln:
+      usage.append((kernel, ln.split(":", 1)[-1].strip()))
+  return usage
+
+
+def _print_usage(phase, name, smem_bytes):
+  usage = _kernel_usage(name)
+  if not usage:
+    print(f"[{phase}] {name}: not in this run's build log (prebuilt "
+          "library)", flush=True)
+  for kernel, text in usage:
+    print(f"[{phase}] ptxas {kernel}: {text}", flush=True)
+  print(f"[{phase}] {name} dynamic shared memory {smem_bytes} bytes",
+        flush=True)
 
 
 def _bound(flops, nbytes, peak_flops=PEAK_FLOPS):
@@ -634,11 +680,38 @@ def phase_k5(torch, art, results):
   torch.cuda.empty_cache()
 
 
+def _wgrad_split(torch, run, reps=5):
+  """Device ms per call of weight_grad's two kernels, the split-K product
+  and the fixed-order reduction, from torch.profiler over ``reps`` calls."""
+  from torch.profiler import ProfilerActivity, profile
+  run()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(reps):
+      run()
+    torch.cuda.synchronize()
+  main = reduce = 0.0
+  for evt in prof.events():
+    if evt.device_type != torch.autograd.DeviceType.CUDA:
+      continue
+    ms = evt.time_range.elapsed_us() / 1e3
+    if "weight_grad_reduce" in evt.name:
+      reduce += ms
+    elif "weight_grad_kernel" in evt.name:
+      main += ms
+  return main / reps, reduce / reps
+
+
 def phase_wgrad(torch, results):
+  from graphcast_tpu_torch.native import build
   from graphcast_tpu_torch.ops import fused_decoder, fused_edge
   from graphcast_tpu_torch.ops.weight_grad import (
       weight_grad, weight_grad_reference)
   t0 = time.perf_counter()
+  lib = build.load_library()
+  for bn in (256, 128):
+    _print_usage("wgrad", f"weight_grad_kernelILi{bn}E",
+                 lib.gc_weight_grad_smem(bn))
   gen = torch.Generator(device=DEVICE).manual_seed(7)
   C, bf16 = 512, torch.bfloat16
   # (rows, K, N) of the train step's reductions: a K4 row chunk (dW1, dWe),
@@ -662,22 +735,34 @@ def phase_wgrad(torch, results):
     max_abs, rels = _check_grads(f"wgrad {name}", {"dw": got}, {"dw": want},
                                  WGRAD_RTOL)
     worst = max(worst, max_abs)
-    ms = _time_ms(torch, lambda: weight_grad(a, b, got))
+    # The partials are summed in a fixed order: a second run is bit-equal.
+    again = torch.zeros(k, n, device=DEVICE)
+    weight_grad(a, b, again)
+    if not torch.equal(got, again):
+      raise AssertionError(f"wgrad {name}: two runs differ by "
+                           f"{(got - again).abs().max().item():.3g}")
+    # The library yardstick: one cuBLAS bf16 product (bf16 output), timed
+    # in turns with the kernel, 20 calls a turn: the host's ~30 us of
+    # preparation per call is hidden behind the queue after the first.
+    ms, library_ms = _time_in_turns(
+        torch, lambda: weight_grad(a, b, got), lambda: a.t() @ b, reps=20)
     plain_ms = _time_ms(torch, lambda: weight_grad_reference(a, b, want))
-    # The library yardstick: one cuBLAS bf16 product (bf16 output).
-    library_ms = _time_ms(torch, lambda: a.t() @ b)
+    main_ms, reduce_ms = _wgrad_split(torch, lambda: weight_grad(a, b, got))
     suffix = "" if name == "k4_chunk" else "_" + name
     entry["ms" + suffix] = ms
     entry["plain_ms" + suffix] = plain_ms
     entry["library_ms" + suffix] = library_ms
+    entry["main_pass_ms" + suffix] = main_ms
+    entry["reduce_pass_ms" + suffix] = reduce_ms
     entry.update({key + suffix: v for key, v in _bound(
         2 * rows * k * n, rows * (k + n) * 2 + 2 * k * n * 4).items()})
     _log("wgrad", t0, case=name, rows=rows, k=k, n=n,
          max_abs=f"{max_abs:.4g}", rel_rms=f"{rels['dw']:.3g}",
-         ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
-         library_ms=f"{library_ms:.3f}",
+         bit_equal_rerun=True, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}",
+         library_ms=f"{library_ms:.4f}", main_pass_ms=f"{main_ms:.4f}",
+         reduce_pass_ms=f"{reduce_ms:.4f}",
          bound_ms=f"{entry['bound_ms' + suffix]:.4f}")
-    del a, b, got, want
+    del a, b, got, want, again
   entry["max_abs_err"] = worst
   results["weight_grad"] = entry
   torch.cuda.empty_cache()
@@ -1221,8 +1306,11 @@ def _k_hop_block_map(mesh_size):
 
 
 def phase_k6(torch, results):
+  from graphcast_tpu_torch.native import build
   from graphcast_tpu_torch.ops import splash
   t0 = time.perf_counter()
+  _print_usage("k6", "splash_fwd_kernel",
+               build.load_library().gc_splash_fwd_smem())
   gen = torch.Generator(device=DEVICE).manual_seed(8)
   heads, d = 4, 128
   scale = d ** -0.5
@@ -1251,21 +1339,23 @@ def phase_k6(torch, results):
                              f" (tol {LSE_ATOL})")
       worst = max(worst, max_abs)
       del got, lse, want, want_lse
-      ms = _time_ms(torch, lambda: splash.block_sparse_attention(
-          q, k, v, bm, scale), reps=20)
+      def kernel():
+        splash.block_sparse_attention(q, k, v, bm, scale)
       plain_ms = _time_ms(torch, lambda: splash.block_sparse_attention_reference(
           q, k, v, bm, scale), reps=1)
       # The library yardstick: SDPA with the dense boolean mask, where it
-      # fits on the card.
+      # fits on the card, timed in turns with the kernel.
       try:
         dense = torch.as_tensor(mask.toarray(), device=DEVICE)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        library_ms = _time_ms(
-            torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=dense, scale=scale), reps=3)
+        ms, library_ms = _time_in_turns(
+            torch, kernel,
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=dense, scale=scale), reps=10)
         del dense, qt, kt, vt
       except torch.cuda.OutOfMemoryError:
-        library_ms = None
+        torch.cuda.empty_cache()
+        ms, library_ms = _time_ms(torch, kernel, reps=20), None
       torch.cuda.empty_cache()
     bound = _bound(4 * batch * heads * bm.nnz * d,
                    batch * (4 * n * heads * d * 2 + n * heads * 4))
@@ -1278,9 +1368,9 @@ def phase_k6(torch, results):
          covered_entries=covered, set_share=f"{bm.nnz / covered:.3f}",
          mask_build_s=f"{mask_s:.2f}", host_build_s=f"{host_s:.2f}",
          o_max_abs=f"{max_abs:.4g}", o_rel_rms=f"{rel_rms:.3g}",
-         lse_max_abs=f"{lse_err:.3g}", ms=f"{ms:.3f}",
+         lse_max_abs=f"{lse_err:.3g}", ms=f"{ms:.4f}",
          plain_ms=f"{plain_ms:.3f}",
-         library_ms="none" if library_ms is None else f"{library_ms:.3f}",
+         library_ms="none" if library_ms is None else f"{library_ms:.4f}",
          bound_ms=f"{bound['bound_ms']:.4f}")
     del q, k, v, mask, bm
     torch.cuda.empty_cache()

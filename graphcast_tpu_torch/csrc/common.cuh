@@ -183,10 +183,10 @@ inline int persistent_blocks(int tiles) {
 }
 
 // The attention kernels (splash_fwd.cu, splash_bwd.cu): tiles of 64 q rows
-// by 64 kv columns at head dim 128, and their register-level bf16 products:
-// one warp-wide mma.sync m16n8k16 with f32 accumulation, fragment packing
-// and loads, and sums over the 4 threads of a quad (the threads that share
-// a fragment row).
+// by 64 kv columns at head dim 128, fragment packing and sums over the 4
+// threads of a quad (the threads that share a fragment row), and the
+// backward kernels' register-level bf16 product: one warp-wide mma.sync
+// m16n8k16 with f32 accumulation and its fragment loads.
 constexpr int kSpT = 64;            // q rows and kv columns per tile
 constexpr int kSpD = 128;           // head dim
 constexpr int kSpThreads = 128;     // 4 warps x 16 q rows

@@ -33,12 +33,13 @@ it; K8 walks it. The TPU version's 512×512 tiles and its sublane-strided
 bit packing (splash.py:72-107) are Mosaic layouts and are not ported; at
 64×64 the k-hop-16 mask of the 1.0° mesh-5 covers 35 % fewer entries.
 
-``block_sparse_attention`` runs the CUDA kernels (csrc/splash_fwd.cu,
-csrc/splash_bwd.cu) for CUDA tensors and the plain versions for CPU
-tensors, both inside one ``torch.autograd.Function`` (forward K6, backward
-K7 then K8); it raises on CUDA inputs the kernels do not take (head dim
-other than 128, dtypes other than bf16). The logsumexp output carries no
-gradient, as the JAX ``_attend`` returns o alone.
+``block_sparse_attention`` runs the CUDA kernels (csrc/splash_fwd.cu, on
+the map's ``paired_lists``, and csrc/splash_bwd.cu) for CUDA tensors and
+the plain versions for CPU tensors, both inside one
+``torch.autograd.Function`` (forward K6, backward K7 then K8); it raises
+on CUDA inputs the kernels do not take (head dim other than 128, dtypes
+other than bf16). The logsumexp output carries no gradient, as the JAX
+``_attend`` returns o alone.
 """
 
 from __future__ import annotations
@@ -267,9 +268,52 @@ def block_sparse_attention_backward_reference(q, k, v, o, lse, do,
   return (_dq_reference(*args), *_dkv_reference(*args))
 
 
+def heaviest_first(offsets: np.ndarray) -> np.ndarray:
+  """Launch order of the rows of a CSR list (K6's q tile pairs): by entry
+  count, largest first (ties in row order), so that the longest lists
+  start first."""
+  counts = np.diff(offsets)
+  return np.argsort(-counts, kind="stable").astype(np.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class PairedLists:
+  """K6's work lists: q tiles 2g and 2g + 1 form group g, which walks the
+  union of the two tiles' kv lists, so each K and V tile it loads serves
+  both (neighbouring q tiles of the k-hop mask share about half their kv
+  tiles: 4,230 union entries for 8,161 pairs at mesh-5).
+
+  Attributes:
+    offsets: [groups + 1] int32, CSR offsets of each group's union list.
+    kv: [entries] int32, the kv tile of each entry, ascending per group.
+    pairs: [entries, 2] int32, the BlockMap pair of q tile 2g (column 0)
+      and 2g + 1 (column 1) with that kv tile, -1 where the tile has none.
+    order: [groups] int32, the groups heaviest first (``heaviest_first``).
+  """
+  offsets: np.ndarray
+  kv: np.ndarray
+  pairs: np.ndarray
+  order: np.ndarray
+
+
+def paired_lists(bm: BlockMap) -> PairedLists:
+  """The union kv lists of q tile pairs (``PairedLists``) of a BlockMap."""
+  nq = bm.nq
+  groups = -(-nq // 2)
+  qt = np.repeat(np.arange(nq), np.diff(bm.kv_offsets))
+  key = (qt // 2).astype(np.int64) * nq + bm.kv_index
+  uniq, inverse = np.unique(key, return_inverse=True)
+  pairs = np.full((len(uniq), 2), -1, np.int32)
+  pairs[inverse, qt % 2] = np.arange(bm.n_active, dtype=np.int32)
+  offsets = np.zeros(groups + 1, np.int32)
+  offsets[1:] = np.cumsum(np.bincount(uniq // nq, minlength=groups))
+  return PairedLists(offsets=offsets, kv=(uniq % nq).astype(np.int32),
+                     pairs=pairs, order=heaviest_first(offsets))
+
+
 class _DeviceMap:
   """A BlockMap's arrays (and its transpose's) on one device, as the
-  kernels read them."""
+  kernels read them, and K6's paired work lists."""
 
   def __init__(self, bm: BlockMap, device):
     def tensor(a):
@@ -278,6 +322,13 @@ class _DeviceMap:
     self.kv_index = tensor(bm.kv_index)
     self.words = tensor(bm.words.view(np.int64))
     self.full = tensor(bm.full.astype(np.int32))
+    if bm.transposed is not None:  # a forward map: K6 reads it
+      lists = paired_lists(bm)
+      self.groups = len(lists.order)
+      self.group_offsets = tensor(lists.offsets)
+      self.group_kv = tensor(lists.kv)
+      self.group_pairs = tensor(lists.pairs)
+      self.group_order = tensor(lists.order)
 
 
 def _to_heads(x, n_pad):
@@ -317,10 +368,12 @@ def _launch_splash(q, k, v, bm: BlockMap, scale: float):
                     device=q.device)
   lib = build.load_library()
   code = lib.gc_splash_fwd(
-      qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), dm.kv_offsets.data_ptr(),
-      dm.kv_index.data_ptr(), dm.words.data_ptr(), dm.full.data_ptr(),
-      o.data_ptr(), lse.data_ptr(), float(scale), batch * heads, bm.nq,
-      bm.n_pad, torch.cuda.current_stream(q.device).cuda_stream)
+      qh.data_ptr(), kh.data_ptr(), vh.data_ptr(),
+      dm.group_offsets.data_ptr(), dm.group_kv.data_ptr(),
+      dm.group_pairs.data_ptr(), dm.group_order.data_ptr(),
+      dm.words.data_ptr(), dm.full.data_ptr(), o.data_ptr(), lse.data_ptr(),
+      float(scale), batch * heads, bm.nq, dm.groups, bm.n_pad,
+      torch.cuda.current_stream(q.device).cuda_stream)
   build.check(lib, code, "splash_fwd kernel launch")
   block_sparse_attention.launches += 1
   # The padded rows attend nothing; the backward reads their lse as 0.

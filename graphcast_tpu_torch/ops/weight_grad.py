@@ -1,10 +1,13 @@
 """The weight-gradient reduction shared by the backward kernels K4 and K5.
 
 ``out[K, N] += a[R, K]^T @ b[R, N]`` with bf16 operands and f32 sums
-(csrc/weight_grad.cu, a split-K reduction over the rows). It replaces the
-constant-index f32 accumulator blocks of the TPU backward kernels
-(pallas_edge.py::_fused_edge_bwd_kernel, pallas_decoder.py::
-_decoder_bwd_kernel), which sum over a grid that runs in order.
+(csrc/weight_grad.cu: split-K over the rows, TMA and wgmma, partials
+reduced in a fixed order). It replaces the constant-index f32 accumulator
+blocks of the TPU backward kernels (pallas_edge.py::_fused_edge_bwd_kernel,
+pallas_decoder.py::_decoder_bwd_kernel), which sum over a grid that runs in
+order. ``plan`` is the kernel's work plan, made here so that the CPU tests
+can check it; ``run_plan_reference`` executes a plan with the plain
+product.
 
 ``feature_grad`` is its narrow sibling for the embed modes' first layer
 (the F raw edge features, 4 in GenCast): ``dw0[F, C] += x[R, F]^T @ d[R, C]``
@@ -19,9 +22,79 @@ Each runs its kernel for CUDA tensors and its plain version
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
+import numpy as np
 import torch
 
 from graphcast_tpu_torch.native import build
+
+TILE_M = 128    # dW rows (of K) per tile (csrc kWgBM)
+SLAB = 64       # contraction rows per ring stage (csrc kWgSlab)
+MIN_SLABS = 4   # least slabs in a row range
+
+
+@dataclasses.dataclass(frozen=True)
+class WorkPlan:
+  """The kernel's work items for one (R, K, N).
+
+  Attributes:
+    items: [splits * tiles, 4] int32, item i = (k0, n0, r0, r1): the dW tile
+      at rows k0.. of K and columns n0.. of N over operand rows [r0, r1).
+      Item s * tiles + kt * (N // tile_n) + nt is row range s of tile
+      (kt, nt); r0 is a multiple of SLAB, r1 too or R.
+    splits: number of row ranges.
+    tile_n: dW tile width, 256, or 128 where N is an odd multiple of 128.
+  """
+  items: np.ndarray
+  splits: int
+  tile_n: int
+
+
+def plan(R: int, K: int, N: int, num_sms: int) -> WorkPlan:
+  """Split-K plan: about one item per SM, each row range at least
+  MIN_SLABS slabs, ranges in row order, each with every tile in order (so
+  the blocks that run together read the same rows)."""
+  tile_n = 256 if N % 256 == 0 else 128
+  tiles_k, tiles_n = K // TILE_M, N // tile_n
+  slabs = -(-R // SLAB)
+  splits = max(1, min(num_sms // (tiles_k * tiles_n), -(-slabs // MIN_SLABS)))
+  per = -(-slabs // splits) * SLAB
+  splits = max(1, -(-R // per))
+  r0 = np.arange(splits) * per
+  r1 = np.minimum(r0 + per, R)
+  kt, nt = np.meshgrid(np.arange(tiles_k), np.arange(tiles_n), indexing="ij")
+  tiles = np.stack([kt.ravel() * TILE_M, nt.ravel() * tile_n], 1)
+  items = np.concatenate([
+      np.repeat(tiles[None], splits, 0),
+      np.broadcast_to(np.stack([r0, r1], 1)[:, None], (splits, len(tiles), 2))
+  ], 2).reshape(-1, 4)
+  return WorkPlan(items.astype(np.int32), int(splits), tile_n)
+
+
+def run_plan_reference(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
+                       work: WorkPlan):
+  """``out += a^T @ b`` by ``work``'s items, as the kernel runs it: each
+  item's partial tile in f32, then the partials of each tile summed in row
+  range order and added to out."""
+  af, bf = (t.to(torch.bfloat16).float() for t in (a, b))
+  partial = [af[r0:r1, k0:k0 + TILE_M].t() @ bf[r0:r1, n0:n0 + work.tile_n]
+             for k0, n0, r0, r1 in work.items.tolist()]
+  tiles = len(partial) // work.splits
+  for i, (k0, n0, _, _) in enumerate(work.items[:tiles].tolist()):
+    total = partial[i]
+    for s in range(1, work.splits):
+      total = total + partial[s * tiles + i]
+    out[k0:k0 + TILE_M, n0:n0 + work.tile_n] += total
+
+
+@functools.lru_cache(maxsize=256)
+def _device_plan(R, K, N, device):
+  """``plan`` for this card, and its items on the device."""
+  sms = torch.cuda.get_device_properties(device).multi_processor_count
+  work = plan(R, K, N, sms)
+  return work, torch.as_tensor(work.items, device=device)
 
 
 def weight_grad_reference(a: torch.Tensor, b: torch.Tensor,
@@ -58,10 +131,14 @@ def weight_grad(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor):
                        "aligned rows")
   if out.dtype != torch.float32 or not out.is_contiguous():
     raise TypeError("out must be contiguous f32")
+  work, items = _device_plan(R, K, N, out.device)
+  ws = torch.empty(len(work.items) * TILE_M * work.tile_n,
+                   dtype=torch.float32, device=out.device)
   lib = build.load_library()
   code = lib.gc_weight_grad(
       a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0), out.data_ptr(),
-      R, K, N, torch.cuda.current_stream(out.device).cuda_stream)
+      R, K, N, items.data_ptr(), len(work.items), work.splits, work.tile_n,
+      ws.data_ptr(), torch.cuda.current_stream(out.device).cuda_stream)
   build.check(lib, code, "weight_grad kernel launch")
   weight_grad.launches += 1
 

@@ -229,6 +229,35 @@ def test_weight_grad_kernel_matches_plain(rows, n, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(128, 128), (384, 256), (512, 512)])
+@pytest.mark.parametrize("rows", [1, 63, 64, 5000, 262_161])
+def test_weight_grad_kernel_over_rows_and_tiles(rows, k, n, cuda_device):
+  """The TMA + wgmma reduction at ragged row counts (a partial last slab,
+  fewer rows than one slab) and 1 to 8 dW tiles, asymmetric operands that
+  are row slices of wider buffers (lda > K), a nonzero out; a second run
+  from the same out is bit-equal (the partials are summed in a fixed
+  order)."""
+  gen = torch.Generator().manual_seed(rows + k + n)
+  bf16 = torch.bfloat16
+  a = _rand(gen, rows, k + 64, offset=0.5, dtype=bf16).to(cuda_device)[:, :k]
+  b = _rand(gen, rows, n + 128, scale=2.0, dtype=bf16).to(cuda_device)
+  b = b[:, 8:8 + n]
+  init = _rand(gen, k, n).to(cuda_device)
+  got, again, want = init.clone(), init.clone(), init.clone()
+  before = weight_grad.launches
+  weight_grad(a, b, got)
+  weight_grad(a, b, again)
+  weight_grad_reference(a, b, want)
+  torch.cuda.synchronize()
+  assert weight_grad.launches == before + 2
+  assert torch.equal(got, again)
+  delta, want_delta = got - init, want - init
+  rel = ((delta - want_delta).square().mean().sqrt()
+         / want_delta.square().mean().sqrt())
+  assert rel.item() <= 1e-4, rel.item()
+
+
+@pytest.mark.cuda
 def test_kernels_refuse_f32(cuda_device):
   edges = EdgeIndex(np.zeros(4, np.int32), np.arange(4), 1, 4,
                     device=cuda_device)
@@ -264,6 +293,37 @@ def test_block_sparse_attention_kernel_matches_plain(n, batch, cuda_device):
   torch.cuda.synchronize()
   assert splash.block_sparse_attention.launches == before + 1
   assert got.shape == q.shape and got.dtype == torch.bfloat16
+  _assert_close(got, want)
+  assert (lse - want_lse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,batch", [(1000, 1), (1000, 4), (700, 4)])
+def test_block_sparse_attention_kernel_long_kv_lists(n, batch, cuda_device):
+  """K6 where the kv lists are much longer than its 4-stage ring (a block
+  of rows attends every node: 16 pairs, full and partial) and have
+  different lengths (so the launch order differs from the tile order), n
+  not a multiple of the tile, an odd number of q tiles (700: the last
+  pair's tile has no partner), batch x heads up to 16, asymmetric mask."""
+  import scipy.sparse as sp
+  rng = np.random.RandomState(7)
+  i, j = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+  dense = ((np.abs(i - j) <= 150) & (rng.rand(n, n) < 0.05)) | (i == j)
+  dense[64:128, :] = True
+  dense[300:340, 500:900] = True
+  bm = splash.build_block_map(sp.csr_matrix(dense))
+  counts = np.diff(bm.kv_offsets)
+  assert counts.max() == bm.nq > 4 and bm.full.any() and not bm.full.all()
+  order = splash.paired_lists(bm).order
+  assert (order != np.arange(len(order))).any()
+  gen = torch.Generator().manual_seed(batch)
+  q, k, v = (_rand(gen, batch, n, 4, 128, scale=s, dtype=torch.bfloat16)
+             .to(cuda_device) for s in (1.0, 2.0, 1.0))
+  with torch.inference_mode():
+    got, lse = splash.block_sparse_attention(q, k, v, bm, 128 ** -0.5)
+    want, want_lse = splash.block_sparse_attention_reference(
+        q, k, v, bm, 128 ** -0.5)
+  torch.cuda.synchronize()
   _assert_close(got, want)
   assert (lse - want_lse).abs().max().item() <= 1e-3
 

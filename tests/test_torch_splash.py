@@ -217,3 +217,59 @@ def test_attention_is_differentiable_on_the_cpu_through_its_function():
         q, k, v, o, lse, do, bm, 0.25)
   for g, w in zip(got, want):
     assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n", [640, 700, 1000])
+def test_paired_lists_hold_every_pair_once(n):
+  """K6's work lists: group g walks the union of q tiles 2g and 2g + 1's
+  kv lists in ascending order; each active pair of the map sits exactly
+  once in its group, in its tile's column, beside its own kv tile; every
+  entry holds a pair of at least one tile; an odd last tile has no
+  partner."""
+  bm = splash.build_block_map(_banded_mask(n, 100, seed=n,
+                                           dense_block=(0, 0, 64)))
+  lists = splash.paired_lists(bm)
+  groups = -(-bm.nq // 2)
+  assert lists.offsets.shape == (groups + 1,) and lists.offsets[0] == 0
+  assert lists.pairs.shape == (lists.offsets[-1], 2)
+  seen = np.zeros(bm.n_active, int)
+  for g in range(groups):
+    e0, e1 = lists.offsets[g], lists.offsets[g + 1]
+    assert (np.diff(lists.kv[e0:e1]) > 0).all()
+    for e in range(e0, e1):
+      assert (lists.pairs[e] >= 0).any()
+      for w in range(2):
+        a = lists.pairs[e, w]
+        if a < 0:
+          continue
+        seen[a] += 1
+        assert bm.kv_offsets[2 * g + w] <= a < bm.kv_offsets[2 * g + w + 1]
+        assert bm.kv_index[a] == lists.kv[e]
+  assert (seen == 1).all()
+  assert lists.offsets[-1] < bm.n_active  # neighbouring tiles share kv tiles
+  if bm.nq % 2:
+    assert (lists.pairs[lists.offsets[-2]:, 1] == -1).all()
+
+
+@pytest.mark.parametrize("n", [640, 1000])
+def test_heaviest_first_orders_groups_by_list_length(n):
+  """K6's launch order is a permutation of the q tile pairs,
+  non-increasing in union list length, ties in order."""
+  bm = splash.build_block_map(_banded_mask(n, 100, seed=n,
+                                           dense_block=(0, 0, 64)))
+  lists = splash.paired_lists(bm)
+  order = lists.order
+  assert order.dtype == np.int32
+  np.testing.assert_array_equal(np.sort(order), np.arange(len(order)))
+  counts = np.diff(lists.offsets)[order]
+  assert (np.diff(counts) <= 0).all()
+  for c in np.unique(counts):
+    assert (np.diff(order[counts == c]) > 0).all()
+  assert len(np.unique(counts)) > 1  # the order is not moot
+
+
+def test_heaviest_first_keeps_empty_rows_last():
+  """A row with no entries (q tiles that attend nothing) is launched too,
+  after every row with entries."""
+  np.testing.assert_array_equal(
+      splash.heaviest_first(np.array([0, 4, 4, 6, 6])), [0, 2, 1, 3])
