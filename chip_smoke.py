@@ -57,9 +57,11 @@ Phases, each printing one line with its seconds and results:
          memory and any ptxas wgmma advisory from the build log.
   k7k8   the attention's backward kernels, K7 (dq) and K8 (dk, dv), against
          the plain backward on random bf16 q, k, v and cotangent over the
-         same masks (the kernels' own o and lse from K6), with the backward
-         of scaled_dot_product_attention with the dense boolean mask at
-         mesh-5 as the library yardstick.
+         same masks at k6's three shapes (the kernels' own o and lse from
+         K6), a rerun bit-equal, each kernel's registers, spills and shared
+         memory from the build log, and the pair timed in turns with the
+         backward of scaled_dot_product_attention with the dense boolean
+         mask (the library yardstick) where that mask fits.
   embed  K1 and K2 in embed mode (GenCast's grid2mesh and mesh2grid, raw
          edge features embedded in the kernel) against their plain versions
          on the real 1.0° GenCast and 0.25° edge sets.
@@ -1379,11 +1381,16 @@ def phase_k6(torch, results):
 
 
 def phase_k7k8(torch, results):
-  """K7 (dq) and K8 (dk, dv) against the plain backward on the kernel's own
-  o and lse, over the real k-hop-16 masks; SDPA's backward with the dense
-  boolean mask at mesh-5 as the library yardstick."""
+  """K7 (dq) and K8 (dk, dv) against the plain backward on the kernels' own
+  o and lse over the real k-hop-16 masks, at K6's three shapes; a rerun
+  bit-equal; the pair timed in turns with the backward of SDPA with the
+  dense boolean mask (the library yardstick) where that mask fits."""
+  from graphcast_tpu_torch.native import build
   from graphcast_tpu_torch.ops import splash
   t0 = time.perf_counter()
+  lib = build.load_library()
+  _print_usage("k7k8", "splash_dq_kernel", lib.gc_splash_dq_smem())
+  _print_usage("k7k8", "splash_dkv_kernel", lib.gc_splash_dkv_smem())
   gen = torch.Generator(device=DEVICE).manual_seed(13)
   heads, d = 4, 128
   scale = d ** -0.5
@@ -1394,33 +1401,40 @@ def phase_k7k8(torch, results):
                            "graphcast_tpu/ops/splash.py:437", launches=None)}
   worst = {k: 0.0 for k in entries}
   worst_abs = {k: 0.0 for k in entries}
-  for mesh_size in (5, 6):
+  # K6's shapes: GenCast training's (mesh-5, batch x heads 4), the
+  # ensemble's (batch x heads 16) and 0.25 deg's mesh-6.
+  for mesh_size, batch, suffix in ((5, 1, ""),
+                                   (5, ENSEMBLE_MEMBERS, "_ensemble"),
+                                   (6, 1, "_mesh6")):
     mask, bm, _, _ = _k_hop_block_map(mesh_size)
     n = bm.n
-    q, k, v, do = (_randn(torch, gen, (1, n, heads, d), 1.0, torch.bfloat16)
-                   for _ in range(4))
+    q, k, v, do = (_randn(torch, gen, (batch, n, heads, d), 1.0,
+                          torch.bfloat16) for _ in range(4))
+    phase = f"k7k8 mesh{mesh_size} batch{batch}"
     with torch.inference_mode():
       (qh, kh, vh), oh, lseh = splash._launch_splash(q, k, v, bm, scale)
       doh = splash._to_heads(do, bm.n_pad)
       delta = splash.attention_delta(oh, doh)
       args = (qh, kh, vh, doh, lseh, delta, bm, scale)
-      dq = splash.splash_dq(*args)
-      dk, dv = splash.splash_dkv(*args)
+      got = (splash.splash_dq(*args), *splash.splash_dkv(*args))
+      again = (splash.splash_dq(*args), *splash.splash_dkv(*args))
       torch.cuda.synchronize()
-      o, lse = splash._outputs(oh, lseh, 1, n)
+      # Each block owns its rows and walks its list in a fixed order.
+      for name, a, b in zip(("dq", "dk", "dv"), got, again):
+        if not torch.equal(a, b):
+          raise AssertionError(f"{phase} {name}: a rerun is not bit-equal")
+      del again
+      o, lse = splash._outputs(oh, lseh, batch, n)
       ref = (q, k, v, o, lse, do, bm, scale)
       want_dq = splash._dq_reference(*ref)
       want_dk, want_dv = splash._dkv_reference(*ref)
-      phase = f"k7k8 mesh{mesh_size}"
-      errs = {"splash_dq": _check_grads(
-                  phase, {"dq": splash._from_heads(dq, 1, n)},
-                  {"dq": want_dq}),
+      dq, dk, dv = (splash._from_heads(g, batch, n) for g in got)
+      errs = {"splash_dq": _check_grads(phase, {"dq": dq}, {"dq": want_dq}),
               "splash_dkv": _check_grads(
-                  phase, {"dk": splash._from_heads(dk, 1, n),
-                          "dv": splash._from_heads(dv, 1, n)},
+                  phase, {"dk": dk, "dv": dv},
                   {"dk": want_dk, "dv": want_dv})}
       rels = {**errs["splash_dq"][1], **errs["splash_dkv"][1]}
-      del want_dq, want_dk, want_dv, dq, dk, dv
+      del want_dq, want_dk, want_dv, dq, dk, dv, got
       ms = {"splash_dq": _time_ms(torch, lambda: splash.splash_dq(*args),
                                   reps=20),
             "splash_dkv": _time_ms(torch, lambda: splash.splash_dkv(*args),
@@ -1429,50 +1443,70 @@ def phase_k7k8(torch, results):
                    *ref), reps=1),
                "splash_dkv": _time_ms(torch, lambda: splash._dkv_reference(
                    *ref), reps=1)}
-    library_ms = None
-    if mesh_size == 5:
-      # The library yardstick: the backward of SDPA with the dense boolean
-      # mask (dq, dk and dv together: K7 and K8's work).
+
+    def kernels():
+      splash.splash_dq(*args)
+      splash.splash_dkv(*args)
+    # The library yardstick: the backward of SDPA with the dense boolean
+    # mask (dq, dk and dv together: K7 and K8's work), in turns with the
+    # pair, where the mask fits on the card.
+    try:
       dense = torch.as_tensor(mask.toarray(), device=DEVICE)
       qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                     for x in (q, k, v))
       out = torch.nn.functional.scaled_dot_product_attention(
           qt, kt, vt, attn_mask=dense, scale=scale)
       dot = do.transpose(1, 2)
-      library_ms = _time_ms(torch, lambda: torch.autograd.grad(
-          out, (qt, kt, vt), dot, retain_graph=True), reps=3)
+      pair_ms, library_ms = _time_in_turns(
+          torch, kernels, lambda: torch.autograd.grad(
+              out, (qt, kt, vt), dot, retain_graph=True), reps=20)
       del dense, qt, kt, vt, out, dot
+    except torch.cuda.OutOfMemoryError:
+      dense = qt = kt = vt = out = dot = None
+      torch.cuda.empty_cache()
+      pair_ms, library_ms = _time_ms(torch, kernels, reps=20), None
     torch.cuda.empty_cache()
-    suffix = "" if mesh_size == 5 else "_mesh6"
     # K7: S, dP and dQ per mask entry; reads q, k, v, do, lse and delta,
-    # writes dq. K8: S^T, dP^T, dV and dK; writes dk and dv.
-    rows = n * heads
-    bounds = {"splash_dq": _bound(6 * heads * bm.nnz * d,
+    # writes dq. K8: S^T, dP^T, dV and dK; writes dk and dv. The tile
+    # bound counts the same products over every entry of the active 64 x 64
+    # tiles, which the kernels compute whole.
+    rows = batch * n * heads
+    products = {"splash_dq": 3, "splash_dkv": 4}
+    bounds = {"splash_dq": _bound(6 * batch * heads * bm.nnz * d,
                                   5 * rows * d * 2 + 2 * rows * 4),
-              "splash_dkv": _bound(8 * heads * bm.nnz * d,
+              "splash_dkv": _bound(8 * batch * heads * bm.nnz * d,
                                    6 * rows * d * 2 + 2 * rows * 4)}
+    tile_ms = {name: 1e3 * 2 * c * batch * heads * bm.n_active
+               * splash.TILE ** 2 * d / PEAK_FLOPS
+               for name, c in products.items()}
     for name, entry in entries.items():
       worst_abs[name] = max(worst_abs[name], errs[name][0])
       worst[name] = max(worst[name], *errs[name][1].values())
       entry.update({"ms" + suffix: ms[name], "plain_ms" + suffix: plain[name],
+                    "library_ms" + suffix: library_ms,
+                    "pair_ms" + suffix: pair_ms,
                     **{key + suffix: val for key, val in
                        bounds[name].items()}})
-      if mesh_size == 5:
-        entry["library_ms"] = library_ms
-        entry["library_covers"] = "SDPA backward: dq, dk and dv"
-    _log("k7k8", t0, mesh=mesh_size, nodes=n, mask_entries=bm.nnz,
-         active_tiles=bm.n_active,
+      entry["library_covers"] = "SDPA backward: dq, dk and dv"
+    union = {"": splash.paired_lists(bm).offsets[-1],
+             "_t": splash.paired_lists(bm.transposed).offsets[-1]}
+    _log("k7k8", t0, mesh=mesh_size, batch=batch, nodes=n,
+         mask_entries=bm.nnz, active_tiles=bm.n_active,
+         union_entries=int(union[""]), union_entries_t=int(union["_t"]),
          transposed_full_tiles=int(bm.transposed.full.sum()),
          dq_rel_rms=f"{rels['dq']:.3g}", dk_rel_rms=f"{rels['dk']:.3g}",
          dv_rel_rms=f"{rels['dv']:.3g}",
          k7_max_abs=f"{errs['splash_dq'][0]:.4g}",
-         k8_max_abs=f"{errs['splash_dkv'][0]:.4g}",
-         k7_ms=f"{ms['splash_dq']:.3f}", k8_ms=f"{ms['splash_dkv']:.3f}",
+         k8_max_abs=f"{errs['splash_dkv'][0]:.4g}", rerun="bit-equal",
+         k7_ms=f"{ms['splash_dq']:.4f}", k8_ms=f"{ms['splash_dkv']:.4f}",
+         pair_ms=f"{pair_ms:.4f}",
+         library_ms="none" if library_ms is None else f"{library_ms:.4f}",
          k7_plain_ms=f"{plain['splash_dq']:.3f}",
          k8_plain_ms=f"{plain['splash_dkv']:.3f}",
-         library_ms="none" if library_ms is None else f"{library_ms:.3f}",
          k7_bound_ms=f"{bounds['splash_dq']['bound_ms']:.4f}",
-         k8_bound_ms=f"{bounds['splash_dkv']['bound_ms']:.4f}")
+         k8_bound_ms=f"{bounds['splash_dkv']['bound_ms']:.4f}",
+         k7_tile_bound_ms=f"{tile_ms['splash_dq']:.4f}",
+         k8_tile_bound_ms=f"{tile_ms['splash_dkv']:.4f}")
     del q, k, v, do, qh, kh, vh, oh, lseh, doh, delta, args, ref, o, lse
     torch.cuda.empty_cache()
   for name, entry in entries.items():

@@ -183,33 +183,26 @@ inline int persistent_blocks(int tiles) {
 }
 
 // The attention kernels (splash_fwd.cu, splash_bwd.cu): tiles of 64 q rows
-// by 64 kv columns at head dim 128, fragment packing and sums over the 4
-// threads of a quad (the threads that share a fragment row), and the
-// backward kernels' register-level bf16 product: one warp-wide mma.sync
-// m16n8k16 with f32 accumulation and its fragment loads.
+// by 64 kv columns at head dim 128, base-2 exponentials, fragment packing
+// and sums over the 4 threads of a quad (the threads that share a fragment
+// row).
 constexpr int kSpT = 64;            // q rows and kv columns per tile
 constexpr int kSpD = 128;           // head dim
-constexpr int kSpThreads = 128;     // 4 warps x 16 q rows
-constexpr int kLdK = kSpD + 8;      // Q/K row stride (bf16): 272 B
-constexpr int kLdVt = kSpT + 8;     // transposed-V row stride (bf16): 144 B
 constexpr float kSpNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
-                                          const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// 2^x, one MUFU instruction (the attention kernels' exponentials, taken in
+// base 2 with log2(e) folded into the scale).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 __device__ __forceinline__ float quad_max(float v) {

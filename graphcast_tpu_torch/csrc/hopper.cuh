@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
-// (weight_grad.cu, splash_fwd.cu): mbarriers, TMA tile loads, wgmma
-// shared-memory descriptors for the 128-byte swizzle, the wgmma issue and
-// wait instructions and the bf16 -> f32 products the kernels use, and the
-// host-side tensor map encoder.
+// (weight_grad.cu, splash_fwd.cu, splash_bwd.cu): mbarriers, TMA tile
+// loads, wgmma shared-memory descriptors for the 128-byte swizzle, the wgmma
+// issue and wait instructions and the bf16 -> f32 products the kernels use,
+// and the host-side tensor map encoder.
 //
 // Layout conventions. Every operand tile in shared memory is one or more
 // TMA boxes of 64 bf16 columns (128 bytes, the widest inner box the

@@ -18,332 +18,411 @@
 //
 // The TPU carries dq (and dk, dv) across an in-order grid dimension in
 // scratch; Hopper's blocks run in no order. The split into two kernels does
-// that job here: each block owns its output rows and loops over its pairs,
-// so neither kernel needs atomics.
+// that job here: each block owns its output rows and walks its list in a
+// fixed order, so neither kernel needs atomics and a rerun is bit-equal.
 //
-// What bounds them on an H100: per active (q tile, kv tile) pair, four
-// 64x64x128 products (K7: S, dP, dQ and the recomputed mask; K8: S^T, dP^T,
-// dV, dK), 4.2 MFLOP against 32-64 KB of tiles that all blocks of a head
-// read from L2. Design, as K6 (mma.sync m16n8k16 bf16, f32 accumulation,
-// 4 warps of 16 rows):
-//   * K7: one block per (q tile, batch·head). Q and dO stay in registers as
-//     A fragments, and so does the 16 x 128 f32 dq accumulator of each warp.
-//     Per active kv tile, K is staged twice (row-major for S = Q K^T,
-//     transposed for dS K) and V row-major for dP = dO V^T; S and dP are
-//     computed 16 kv columns at a time, dS repacked to bf16 as an A
-//     fragment and multiplied straight away (53 KB of shared memory).
-//   * K8: one block per (kv tile, batch·head), walking the transposed
-//     map's q tiles. Each warp owns 16 kv rows and computes S^T = K Q^T and
-//     dP^T = V dO^T directly, so P^T and dS^T are A fragments in registers;
-//     K and V stay in shared memory, Q and dO are staged row-major and
-//     transposed with lse and delta per q column (105 KB). dK and dV
-//     accumulate in f32 registers (2 x 16 x 128 per warp).
-// Simple first: no cp.async/TMA pipelining and no wgmma.
+// What bounds them on an H100: per active (q tile, kv tile) pair, the
+// 64x64x128 products (K7: S, dP, dQ; K8: S^T, dP^T, dV, dK) and the
+// exponentials between them. Only ~25 % of a pair's entries are in the
+// k-hop mask, but every entry of an active tile costs the same, so the
+// products over the active tiles, ~4x the entries' own, are the floor.
+// Design, on K6's (hopper.cuh, and the ring and mask words of splash.cuh):
+//   * one block per (pair of neighbouring tiles 2g, 2g + 1, batch·head),
+//     walking the union of the two tiles' lists (ops/splash.py
+//     paired_lists), heaviest first: K7 over the forward map's q tiles,
+//     K8 over the transposed map's kv tiles. Each streamed tile then serves
+//     both of the block's tiles where both have a pair with it;
+//   * a producer warp loads the block's own tiles once (K7: Q and dO; K8: K
+//     and V) and streams each union entry's other two tiles (K7: K and V;
+//     K8: Q and dO, with the q tile's 64 lse and 64 delta values) and each
+//     present, not full pair's 512 bytes of mask words by TMA (64-column
+//     boxes, 128-byte swizzle) into a 4-stage ring with full/empty
+//     mbarriers. An entry where a tile has no pair runs with all-zero
+//     words, a full pair with all-one words, so every entry keeps the same
+//     pipeline; an all-zero word gives p = 0 exactly, so such entries add
+//     exactly 0;
+//   * two consumer warpgroups, one per tile of the pair. Per entry: the
+//     score products as wgmma m64n64k16 with both operands K-major; p and
+//     ds in registers, the exponential in base 2 (one ex2 each) with the
+//     mask bits tested at constant shifts; bf16(p), bf16(ds) packed
+//     straight into the register A operand; and the gradient product as
+//     wgmma m64n128k16 with the streamed tile (K7: K; K8: dO, then Q) read
+//     MN-major from its TMA tile, so no tile is ever transposed. A
+//     warpgroup's products wait for its own exponentials and its
+//     exponentials for its products; the other warpgroup's products run in
+//     between;
+//   * registers decide the rest: ptxas keeps a warpgroup's products
+//     asynchronous only while its live accumulators and A operands fit.
+//     K7 holds dQ (64 f32 a thread), S and dP (32 each) and bf16(dS) (16).
+//     Holding dK and dV (128) besides S^T and dP^T, K8 had ptxas spill dK
+//     and dV around every product and serialise all of them, at 168
+//     registers a thread and at 240 under setmaxnreg alike (as did issuing
+//     the next entry's scores beside this entry's gradient product, in
+//     both kernels). So K8 walks its list twice: dV += bf16(P^T) dO (S^T,
+//     then dV: 2 products an entry), then dK += bf16(dS^T) Q (S^T and
+//     dP^T, then dK: 3), each pass with K7's live set: one more product an
+//     entry, the stream and the exponentials twice, for products that run
+//     asynchronously. One block fills an SM (~200 KB of shared memory, 288
+//     threads).
 
-#include "common.cuh"
+#include "splash.cuh"
 
 namespace gc {
 
-// Copies a [kSpT, kSpD] tile to shared memory, row-major (stride kLdK) and,
-// where `dst_t` is given, transposed (stride kLdVt).
-__device__ __forceinline__ void stage_tile(bf16* dst, bf16* dst_t,
-                                           const bf16* __restrict__ src) {
-  for (int i = threadIdx.x; i < kSpT * kSpD / 8; i += kSpThreads) {
-    const int r = i / (kSpD / 8), c = (i % (kSpD / 8)) * 8;
-    const uint4 x = *reinterpret_cast<const uint4*>(src + (size_t)r * kSpD + c);
-    *reinterpret_cast<uint4*>(dst + r * kLdK + c) = x;
-    if (dst_t != nullptr) {
-      const bf16* xe = reinterpret_cast<const bf16*>(&x);
+constexpr int kDqSmem = splash_smem(2, false);
+constexpr int kDkvSmem = splash_smem(2, true);
+
+// acc += A B over the 64 columns of A's fragments (4 k16 steps), B the
+// 64 x 128 tile at b read MN-major (its rows are the contraction), then
+// waits for it. The caller has written A's registers since the last wait.
+__device__ __forceinline__ void run_grad(float (&acc)[kSpD / 2],
+                                         uint32_t (&a)[kSpT / 16][4],
+                                         uint32_t b) {
+  fence_operands(acc);
+  fence_operands(a);
+  wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 8; ++e) dst_t[(c + e) * kLdVt + r] = xe[e];
-    }
+  for (int ks = 0; ks < kSpT / 16; ++ks) {
+    wgmma_m64n128k16_rs<1>(acc, a[ks], mnmajor_desc(b, ks, kSpBox));
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_operands(acc);
+  fence_operands(a);
+}
+
+// Stores this thread's two rows of a 64 x 128 f32 accumulator as bf16.
+__device__ __forceinline__ void store_rows(bf16* __restrict__ out,
+                                           const float (&acc)[kSpD / 2],
+                                           int t) {
+#pragma unroll
+  for (int j = 0; j < kSpD / 8; ++j) {
+    const int c = j * 8 + t * 2;
+    store_bf16x2(out + c, acc[4 * j], acc[4 * j + 1]);
+    store_bf16x2(out + 8 * kSpD + c, acc[4 * j + 2], acc[4 * j + 3]);
   }
 }
 
-__device__ __forceinline__ bool mask_bit(unsigned long long w, int col) {
-  return (w >> col) & 1ull;
+template <int kN>
+__device__ __forceinline__ void zero(float (&acc)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) acc[i] = 0.f;
 }
 
-__global__ void __launch_bounds__(kSpThreads) splash_dq_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+// ---- K7: dq ---------------------------------------------------------------
+
+__device__ __forceinline__ void dq_consumer(
+    const SplashSmem& sm, int e_begin, int n, const Lane& ln,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    const int* __restrict__ kv_offsets, const int* __restrict__ kv_index,
+    const int2* __restrict__ group_pairs, const int* __restrict__ full,
+    bf16* __restrict__ dq, float scale, int nq, int row0, int grp) {
+  const int qt = 2 * grp + ln.wg;
+  float lse0 = 0.f, lse1 = 0.f, dl0 = 0.f, dl1 = 0.f;  // lse in base 2
+  if (qt < nq) {
+    const size_t r = (size_t)row0 + (size_t)qt * kSpT + ln.r0;
+    lse0 = lse[r] * kLog2e;
+    lse1 = lse[r + 8] * kLog2e;
+    dl0 = delta[r];
+    dl1 = delta[r + 8];
+  }
+  const float scale2 = scale * kLog2e;
+  float acc[kSpD / 2], s[kSpT / 2], dp[kSpT / 2];
+  uint32_t da[kSpT / 16][4];  // bf16(dS), the A operand of dS K
+  zero(acc);
+  mbar_wait(sm.own_bar, 0);
+  const uint32_t q_addr = smem_u32(sm.own[0] + ln.wg * kSpTile);
+  const uint32_t do_addr = smem_u32(sm.own[1] + ln.wg * kSpTile);
+  // One loop with a block-uniform trip count and no wgmma in a branch.
+  for (int r = 0; r < n; ++r) {
+    mbar_wait(&sm.full_bar[ring_stage(r)], ring_phase(r));
+    const uint32_t kv = sm.streamed(r);
+    fence_operands(acc);
+    issue_scores(s, q_addr, kv);
+    issue_scores(dp, do_addr, kv + kSpTile);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(s);
+    fence_operands(dp);
+    RowBits b0, b1;
+    entry_bits(sm, group_pairs, full, r, e_begin + r, ln, b0, b1);
+#pragma unroll
+    for (int j = 0; j < kSpT / 8; ++j) {
+      float ds0[2], ds1[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float e0 = fast_exp2(fmaf(s[4 * j + c], scale2, -lse0));
+        const float e1 = fast_exp2(fmaf(s[4 * j + 2 + c], scale2, -lse1));
+        const float p0 = b0.has(j, c) ? e0 : 0.f;
+        const float p1 = b1.has(j, c) ? e1 : 0.f;
+        ds0[c] = p0 * (dp[4 * j + c] - dl0) * scale;
+        ds1[c] = p1 * (dp[4 * j + 2 + c] - dl1) * scale;
+      }
+      da[j / 2][(j % 2) * 2] = pack_bf16x2(ds0[0], ds0[1]);
+      da[j / 2][(j % 2) * 2 + 1] = pack_bf16x2(ds1[0], ds1[1]);
+    }
+    run_grad(acc, da, kv);
+    if (ln.lane == 0) mbar_arrive(&sm.empty_bar[ring_stage(r)]);
+  }
+  if (qt >= nq) return;  // the odd last tile's missing partner
+  store_rows(dq + ((size_t)row0 + (size_t)qt * kSpT + ln.r0) * kSpD, acc,
+             ln.t);
+}
+
+__global__ void __launch_bounds__(kSpBlockThreads, 1) splash_dq_kernel(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tdo,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const int* __restrict__ group_offsets, const int* __restrict__ group_kv,
+    const int2* __restrict__ group_pairs, const int* __restrict__ group_order,
     const unsigned long long* __restrict__ words,
-    const int* __restrict__ full, bf16* __restrict__ dq, float scale,
-    int n_pad) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);   // [kSpT, kLdK]
-  bf16* Vs = Ks + kSpT * kLdK;                // [kSpT, kLdK]
-  bf16* Kt = Vs + kSpT * kLdK;                // [kSpD, kLdVt]
-
-  const int qt = blockIdx.x;
-  const size_t head = (size_t)blockIdx.y * n_pad * kSpD;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
-
-  // Q and dO fragments, staged through Ks and Vs.
-  const size_t qtile = head + (size_t)qt * kSpT * kSpD;
-  stage_tile(Ks, nullptr, q + qtile);
-  stage_tile(Vs, nullptr, dout + qtile);
+    const int* __restrict__ full, bf16* __restrict__ dq, float scale, int nq,
+    int n_pad, int bh) {
+  extern __shared__ unsigned char smem_raw[];
+  const SplashSmem sm(smem_raw, 2, false);
+  const int grp = group_order[blockIdx.x / bh];
+  const int row0 = (blockIdx.x % bh) * n_pad;  // the head's first row
+  const int e_begin = group_offsets[grp];
+  const int n = group_offsets[grp + 1] - e_begin;
+  // The warp index, warp-uniform as ptxas sees it (a broadcast).
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) sm.init();
   __syncthreads();
-  uint32_t qa[kSpD / 16][4], da[kSpD / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < kSpD / 16; ++ks) {
-    const bf16* p = Ks + r0 * kLdK + ks * 16 + t * 2;
-    const bf16* d = Vs + r0 * kLdK + ks * 16 + t * 2;
-    qa[ks][0] = lds32(p);
-    qa[ks][1] = lds32(p + 8 * kLdK);
-    qa[ks][2] = lds32(p + 8);
-    qa[ks][3] = lds32(p + 8 * kLdK + 8);
-    da[ks][0] = lds32(d);
-    da[ks][1] = lds32(d + 8 * kLdK);
-    da[ks][2] = lds32(d + 8);
-    da[ks][3] = lds32(d + 8 * kLdK + 8);
-  }
-  const size_t row = (size_t)blockIdx.y * n_pad + (size_t)qt * kSpT + r0;
-  const float lse0 = lse[row], lse1 = lse[row + 8];
-  const float dl0 = delta[row], dl1 = delta[row + 8];
 
-  float acc[kSpD / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < kSpD / 8; ++dt) {
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  }
-
-  const int a_end = kv_offsets[qt + 1];
-  for (int a = kv_offsets[qt]; a < a_end; ++a) {
-    const size_t tile = head + (size_t)kv_index[a] * kSpT * kSpD;
-    __syncthreads();  // the previous pair (or the Q/dO staging) is done
-    stage_tile(Ks, Kt, k + tile);
-    stage_tile(Vs, nullptr, v + tile);
-    __syncthreads();
-    unsigned long long w0 = ~0ull, w1 = ~0ull;
-    if (!full[a]) {
-      w0 = words[(size_t)a * kSpT + r0];
-      w1 = words[(size_t)a * kSpT + r0 + 8];
-    }
-    // 16 kv columns at a time: S and dP tiles 2 ks2 and 2 ks2 + 1, dS as
-    // the A fragment of k step ks2 of dS K.
-#pragma unroll
-    for (int ks2 = 0; ks2 < kSpT / 16; ++ks2) {
-      uint32_t dsa[4];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int nt = 2 * ks2 + half;
-        float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-        const bf16* kr = Ks + (nt * 8 + g) * kLdK + t * 2;
-        const bf16* vr = Vs + (nt * 8 + g) * kLdK + t * 2;
-#pragma unroll
-        for (int ks = 0; ks < kSpD / 16; ++ks) {
-          const uint32_t bk[2] = {lds32(kr + ks * 16), lds32(kr + ks * 16 + 8)};
-          const uint32_t bv[2] = {lds32(vr + ks * 16), lds32(vr + ks * 16 + 8)};
-          mma_16816(s, qa[ks], bk);
-          mma_16816(dp, da[ks], bv);
-        }
-        float ds0[2], ds1[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = nt * 8 + t * 2 + e;
-          const float p0 =
-              mask_bit(w0, col) ? __expf(s[e] * scale - lse0) : 0.f;
-          const float p1 =
-              mask_bit(w1, col) ? __expf(s[2 + e] * scale - lse1) : 0.f;
-          ds0[e] = p0 * (dp[e] - dl0) * scale;
-          ds1[e] = p1 * (dp[2 + e] - dl1) * scale;
-        }
-        dsa[half * 2] = pack_bf16x2(ds0[0], ds0[1]);
-        dsa[half * 2 + 1] = pack_bf16x2(ds1[0], ds1[1]);
-      }
-#pragma unroll
-      for (int dt = 0; dt < kSpD / 8; ++dt) {
-        const bf16* kc = Kt + (dt * 8 + g) * kLdVt + ks2 * 16 + t * 2;
-        const uint32_t b[2] = {lds32(kc), lds32(kc + 8)};
-        mma_16816(acc[dt], dsa, b);
+  if (warp == 8) {  // the producer warp
+    if (lane == 0) {
+      sm.load_own(&tq, &tdo, row0, grp, min(2, nq - 2 * grp));
+      for (int r = 0; r < n; ++r) {
+        const int e = e_begin + r;
+        sm.stream(r, e, &tk, &tv, row0 + group_kv[e] * kSpT, group_pairs,
+                  full, words, 0);
       }
     }
+    return;
   }
-
-  const size_t out0 = qtile + (size_t)r0 * kSpD;
-#pragma unroll
-  for (int dt = 0; dt < kSpD / 8; ++dt) {
-    const int c = dt * 8 + t * 2;
-    store_bf16x2(dq + out0 + c, acc[dt][0], acc[dt][1]);
-    store_bf16x2(dq + out0 + 8 * kSpD + c, acc[dt][2], acc[dt][3]);
-  }
+  dq_consumer(sm, e_begin, n, Lane(warp, lane), lse, delta, group_pairs,
+              full, dq, scale, nq, row0, grp);
 }
 
-__global__ void __launch_bounds__(kSpThreads) splash_dkv_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+// ---- K8: dk, dv -----------------------------------------------------------
+
+// K8's consumer warpgroup (kv tile 2 grp + wg: its rows are kv rows, its
+// columns the streamed q tile's rows), over its list twice: stream
+// positions 0 .. n - 1 for dV, n .. 2n - 1 for dK.
+__device__ __forceinline__ void dkv_consumer(
+    const SplashSmem& sm, int e_begin, int n, const Lane& ln,
+    const int2* __restrict__ group_pairs, const int* __restrict__ full_t,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, float scale, int nkv,
+    int row0, int grp) {
+  const int kt = 2 * grp + ln.wg;
+  const float scale2 = scale * kLog2e;
+  float acc[kSpD / 2], st[kSpT / 2], dpt[kSpT / 2];
+  uint32_t fa[kSpT / 16][4];  // bf16(P^T), then bf16(dS^T): the A operand
+  mbar_wait(sm.own_bar, 0);
+  const uint32_t k_addr = smem_u32(sm.own[0] + ln.wg * kSpTile);
+  const uint32_t v_addr = smem_u32(sm.own[1] + ln.wg * kSpTile);
+  const size_t orow = ((size_t)row0 + (size_t)kt * kSpT + ln.r0) * kSpD;
+
+  // Each pass writes its exponentials out in full: a helper that handed
+  // its per-column arrays to a callback by reference put them in local
+  // memory, and ptxas serialised the products again.
+  // dV += bf16(P^T) dO.
+  zero(acc);
+  for (int r = 0; r < n; ++r) {
+    mbar_wait(&sm.full_bar[ring_stage(r)], ring_phase(r));
+    const uint32_t qd = sm.streamed(r);
+    fence_operands(acc);
+    issue_scores(st, k_addr, qd);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(st);
+    RowBits b0, b1;
+    entry_bits(sm, group_pairs, full_t, r, e_begin + r, ln, b0, b1);
+    const float* ls = sm.lse + ring_stage(r) * kSpT + 2 * ln.t;
+#pragma unroll
+    for (int j = 0; j < kSpT / 8; ++j) {
+      // lse (base 2) of q columns 8 j + 2 t and 8 j + 2 t + 1.
+      const float2 lc = *reinterpret_cast<const float2*>(ls + 8 * j);
+      const float l2[2] = {lc.x * kLog2e, lc.y * kLog2e};
+      float p0[2], p1[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float e0 = fast_exp2(fmaf(st[4 * j + c], scale2, -l2[c]));
+        const float e1 = fast_exp2(fmaf(st[4 * j + 2 + c], scale2, -l2[c]));
+        p0[c] = b0.has(j, c) ? e0 : 0.f;
+        p1[c] = b1.has(j, c) ? e1 : 0.f;
+      }
+      fa[j / 2][(j % 2) * 2] = pack_bf16x2(p0[0], p0[1]);
+      fa[j / 2][(j % 2) * 2 + 1] = pack_bf16x2(p1[0], p1[1]);
+    }
+    run_grad(acc, fa, qd + kSpTile);
+    if (ln.lane == 0) mbar_arrive(&sm.empty_bar[ring_stage(r)]);
+  }
+  if (kt < nkv) store_rows(dv + orow, acc, ln.t);
+
+  // dK += bf16(dS^T) Q.
+  zero(acc);
+  for (int r = n; r < 2 * n; ++r) {
+    mbar_wait(&sm.full_bar[ring_stage(r)], ring_phase(r));
+    const uint32_t qd = sm.streamed(r);
+    fence_operands(acc);
+    issue_scores(st, k_addr, qd);
+    issue_scores(dpt, v_addr, qd + kSpTile);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(st);
+    fence_operands(dpt);
+    RowBits b0, b1;
+    entry_bits(sm, group_pairs, full_t, r, e_begin + r % n, ln, b0, b1);
+    const float* ls = sm.lse + ring_stage(r) * kSpT + 2 * ln.t;
+    const float* dl = sm.delta + ring_stage(r) * kSpT + 2 * ln.t;
+#pragma unroll
+    for (int j = 0; j < kSpT / 8; ++j) {
+      // lse and delta of q columns 8 j + 2 t and 8 j + 2 t + 1.
+      const float2 lc = *reinterpret_cast<const float2*>(ls + 8 * j);
+      const float2 d = *reinterpret_cast<const float2*>(dl + 8 * j);
+      const float l2[2] = {lc.x * kLog2e, lc.y * kLog2e};
+      const float d2[2] = {d.x, d.y};
+      float ds0[2], ds1[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float e0 = fast_exp2(fmaf(st[4 * j + c], scale2, -l2[c]));
+        const float e1 = fast_exp2(fmaf(st[4 * j + 2 + c], scale2, -l2[c]));
+        const float p0 = b0.has(j, c) ? e0 : 0.f;
+        const float p1 = b1.has(j, c) ? e1 : 0.f;
+        ds0[c] = p0 * (dpt[4 * j + c] - d2[c]) * scale;
+        ds1[c] = p1 * (dpt[4 * j + 2 + c] - d2[c]) * scale;
+      }
+      fa[j / 2][(j % 2) * 2] = pack_bf16x2(ds0[0], ds0[1]);
+      fa[j / 2][(j % 2) * 2 + 1] = pack_bf16x2(ds1[0], ds1[1]);
+    }
+    run_grad(acc, fa, qd);
+    if (ln.lane == 0) mbar_arrive(&sm.empty_bar[ring_stage(r)]);
+  }
+  if (kt < nkv) store_rows(dk + orow, acc, ln.t);
+}
+
+__global__ void __launch_bounds__(kSpBlockThreads, 1) splash_dkv_kernel(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tdo,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    const int* __restrict__ q_offsets, const int* __restrict__ q_index,
+    const int* __restrict__ group_offsets, const int* __restrict__ group_q,
+    const int2* __restrict__ group_pairs, const int* __restrict__ group_order,
     const unsigned long long* __restrict__ words_t,
     const int* __restrict__ full_t, bf16* __restrict__ dk,
-    bf16* __restrict__ dv, float scale, int n_pad) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);   // [kSpT, kLdK]
-  bf16* Vs = Ks + kSpT * kLdK;                // [kSpT, kLdK]
-  bf16* Qs = Vs + kSpT * kLdK;                // [kSpT, kLdK]
-  bf16* Ds = Qs + kSpT * kLdK;                // [kSpT, kLdK] dO
-  bf16* Qt = Ds + kSpT * kLdK;                // [kSpD, kLdVt]
-  bf16* Dt = Qt + kSpD * kLdVt;               // [kSpD, kLdVt] dO^T
-  float* Ls = reinterpret_cast<float*>(Dt + kSpD * kLdVt);  // [kSpT] lse
-  float* Dl = Ls + kSpT;                                     // [kSpT] delta
+    bf16* __restrict__ dv, float scale, int nkv, int n_pad, int bh) {
+  extern __shared__ unsigned char smem_raw[];
+  const SplashSmem sm(smem_raw, 2, true);
+  const int grp = group_order[blockIdx.x / bh];
+  const int row0 = (blockIdx.x % bh) * n_pad;
+  const int e_begin = group_offsets[grp];
+  const int n = group_offsets[grp + 1] - e_begin;
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) sm.init();
+  __syncthreads();
 
-  const int jt = blockIdx.x;
-  const size_t head = (size_t)blockIdx.y * n_pad * kSpD;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = warp * 16 + g;  // this thread's kv rows: r0 and r0 + 8
-
-  const size_t kvtile = head + (size_t)jt * kSpT * kSpD;
-  stage_tile(Ks, nullptr, k + kvtile);
-  stage_tile(Vs, nullptr, v + kvtile);
-
-  float dka[kSpD / 8][4], dva[kSpD / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < kSpD / 8; ++dt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[dt][e] = dva[dt][e] = 0.f;
-  }
-
-  const int a_end = q_offsets[jt + 1];
-  for (int a = q_offsets[jt]; a < a_end; ++a) {
-    const int it = q_index[a];
-    const size_t qtile = head + (size_t)it * kSpT * kSpD;
-    __syncthreads();  // the previous pair is done with Qs, Ds, Qt, Dt
-    stage_tile(Qs, Qt, q + qtile);
-    stage_tile(Ds, Dt, dout + qtile);
-    if (threadIdx.x < kSpT) {
-      const size_t r = (size_t)blockIdx.y * n_pad + (size_t)it * kSpT +
-                       threadIdx.x;
-      Ls[threadIdx.x] = lse[r];
-      Dl[threadIdx.x] = delta[r];
-    }
-    __syncthreads();
-    unsigned long long w0 = ~0ull, w1 = ~0ull;
-    if (!full_t[a]) {
-      w0 = words_t[(size_t)a * kSpT + r0];
-      w1 = words_t[(size_t)a * kSpT + r0 + 8];
-    }
-    // 16 q columns at a time: S^T and dP^T tiles 2 ks2 and 2 ks2 + 1, P^T
-    // and dS^T as the A fragments of k step ks2 of P^T dO and dS^T Q.
-#pragma unroll
-    for (int ks2 = 0; ks2 < kSpT / 16; ++ks2) {
-      uint32_t pa[4], dsa[4];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int nt = 2 * ks2 + half;
-        float st[4] = {0.f, 0.f, 0.f, 0.f}, dpt[4] = {0.f, 0.f, 0.f, 0.f};
-        const bf16* qr = Qs + (nt * 8 + g) * kLdK + t * 2;
-        const bf16* dr = Ds + (nt * 8 + g) * kLdK + t * 2;
-#pragma unroll
-        for (int ks = 0; ks < kSpD / 16; ++ks) {
-          const bf16* kp = Ks + r0 * kLdK + ks * 16 + t * 2;
-          const bf16* vp = Vs + r0 * kLdK + ks * 16 + t * 2;
-          const uint32_t ka[4] = {lds32(kp), lds32(kp + 8 * kLdK),
-                                  lds32(kp + 8), lds32(kp + 8 * kLdK + 8)};
-          const uint32_t va[4] = {lds32(vp), lds32(vp + 8 * kLdK),
-                                  lds32(vp + 8), lds32(vp + 8 * kLdK + 8)};
-          const uint32_t bq[2] = {lds32(qr + ks * 16), lds32(qr + ks * 16 + 8)};
-          const uint32_t bd[2] = {lds32(dr + ks * 16), lds32(dr + ks * 16 + 8)};
-          mma_16816(st, ka, bq);
-          mma_16816(dpt, va, bd);
-        }
-        float p0[2], p1[2], ds0[2], ds1[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = nt * 8 + t * 2 + e;  // q row of the q tile
-          const float lq = Ls[col], dlq = Dl[col];
-          p0[e] = mask_bit(w0, col) ? __expf(st[e] * scale - lq) : 0.f;
-          p1[e] = mask_bit(w1, col) ? __expf(st[2 + e] * scale - lq) : 0.f;
-          ds0[e] = p0[e] * (dpt[e] - dlq) * scale;
-          ds1[e] = p1[e] * (dpt[2 + e] - dlq) * scale;
-        }
-        pa[half * 2] = pack_bf16x2(p0[0], p0[1]);
-        pa[half * 2 + 1] = pack_bf16x2(p1[0], p1[1]);
-        dsa[half * 2] = pack_bf16x2(ds0[0], ds0[1]);
-        dsa[half * 2 + 1] = pack_bf16x2(ds1[0], ds1[1]);
-      }
-#pragma unroll
-      for (int dt = 0; dt < kSpD / 8; ++dt) {
-        const bf16* dc = Dt + (dt * 8 + g) * kLdVt + ks2 * 16 + t * 2;
-        const bf16* qc = Qt + (dt * 8 + g) * kLdVt + ks2 * 16 + t * 2;
-        const uint32_t bd[2] = {lds32(dc), lds32(dc + 8)};
-        const uint32_t bq[2] = {lds32(qc), lds32(qc + 8)};
-        mma_16816(dva[dt], pa, bd);
-        mma_16816(dka[dt], dsa, bq);
+  if (warp == 8) {  // the producer warp: the list twice, as the consumers
+    if (lane == 0) {
+      sm.load_own(&tk, &tv, row0, grp, min(2, nkv - 2 * grp));
+      for (int r = 0; r < 2 * n; ++r) {
+        const int e = e_begin + r % n;
+        const int qr = row0 + group_q[e] * kSpT;
+        uint64_t* bar = sm.stream(r, e, &tq, &tdo, qr, group_pairs, full_t,
+                                  words_t, 2 * kSpRowVals);
+        bulk_load(sm.lse + ring_stage(r) * kSpT, lse + qr, kSpRowVals, bar);
+        bulk_load(sm.delta + ring_stage(r) * kSpT, delta + qr, kSpRowVals,
+                  bar);
       }
     }
+    return;
   }
+  dkv_consumer(sm, e_begin, n, Lane(warp, lane), group_pairs, full_t, dk, dv,
+               scale, nkv, row0, grp);
+}
 
-  const size_t out0 = kvtile + (size_t)r0 * kSpD;
-#pragma unroll
-  for (int dt = 0; dt < kSpD / 8; ++dt) {
-    const int c = dt * 8 + t * 2;
-    store_bf16x2(dk + out0 + c, dka[dt][0], dka[dt][1]);
-    store_bf16x2(dk + out0 + 8 * kSpD + c, dka[dt][2], dka[dt][3]);
-    store_bf16x2(dv + out0 + c, dva[dt][0], dva[dt][1]);
-    store_bf16x2(dv + out0 + 8 * kSpD + c, dva[dt][2], dva[dt][3]);
+// The four bf16 operands' tensor maps ([bh * n_pad, 128] each, 64 x 64
+// boxes).
+inline cudaError_t operand_maps(CUtensorMap (&maps)[4], const void* q,
+                                const void* k, const void* v,
+                                const void* dout, int bh, int n_pad) {
+  const uint64_t rows = (uint64_t)bh * n_pad;
+  const void* ptrs[4] = {q, k, v, dout};
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t err =
+        bf16_tile_map(&maps[i], ptrs[i], rows, kSpD, kSpD, kSpT);
+    if (err != cudaSuccess) return err;
   }
+  return cudaSuccess;
 }
 
 }  // namespace gc
 
 // q, k, v, dout, dq: [bh, n_pad, 128] bf16; lse, delta: [bh, n_pad] f32
-// (lse 0 past n); the forward map (kv_offsets [nq + 1], kv_index, words
-// [n_active, 64], full [n_active]).
+// (lse 0 past n), 16-byte aligned; n_pad = nq * 64. The forward map's
+// words [n_active, 64] and full [n_active] and its work lists from
+// ops/splash.py paired_lists: group_offsets [groups + 1], group_kv
+// [entries], group_pairs [entries, 2], group_order [groups].
 extern "C" int gc_splash_dq(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
-                            const float* delta, const int* kv_offsets,
-                            const int* kv_index, const void* words,
+                            const float* delta, const int* group_offsets,
+                            const int* group_kv, const void* group_pairs,
+                            const int* group_order, const void* words,
                             const int* full, void* dq, float scale, int bh,
-                            int nq, int n_pad, void* stream) {
+                            int nq, int groups, int n_pad, void* stream) {
   using gc::bf16;
   if (bh <= 0 || nq <= 0) return 0;
-  const size_t smem = sizeof(bf16) * (2 * gc::kSpT * gc::kLdK +
-                                       gc::kSpD * gc::kLdVt);
-  cudaError_t err = cudaFuncSetAttribute(
-      gc::splash_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  if (groups != (nq + 1) / 2) return cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  cudaError_t err = gc::operand_maps(maps, q, k, v, dout, bh, n_pad);
   if (err != cudaSuccess) return err;
-  gc::splash_dq_kernel<<<dim3(nq, bh), gc::kSpThreads, smem,
+  err = cudaFuncSetAttribute(gc::splash_dq_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             gc::kDqSmem);
+  if (err != cudaSuccess) return err;
+  gc::splash_dq_kernel<<<groups * bh, gc::kSpBlockThreads, gc::kDqSmem,
                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-      delta, kv_offsets, kv_index,
+      maps[0], maps[1], maps[2], maps[3], lse, delta, group_offsets,
+      group_kv, static_cast<const int2*>(group_pairs), group_order,
       static_cast<const unsigned long long*>(words), full,
-      static_cast<bf16*>(dq), scale, n_pad);
+      static_cast<bf16*>(dq), scale, nq, n_pad, bh);
   return cudaGetLastError();
 }
 
-// As gc_splash_dq, over the transposed map (q_offsets [nkv + 1], q_index,
-// words_t [n_active, 64] one word per kv row, full_t); dk, dv: [bh, n_pad,
-// 128] bf16.
+// As gc_splash_dq, over the transposed map: its words_t (one word per kv
+// row), full_t and paired lists (group_q: the q tile of each entry); dk,
+// dv: [bh, n_pad, 128] bf16.
 extern "C" int gc_splash_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const float* lse,
-                             const float* delta, const int* q_offsets,
-                             const int* q_index, const void* words_t,
+                             const float* delta, const int* group_offsets,
+                             const int* group_q, const void* group_pairs,
+                             const int* group_order, const void* words_t,
                              const int* full_t, void* dk, void* dv,
-                             float scale, int bh, int nkv, int n_pad,
-                             void* stream) {
+                             float scale, int bh, int nkv, int groups,
+                             int n_pad, void* stream) {
   using gc::bf16;
   if (bh <= 0 || nkv <= 0) return 0;
-  const size_t smem = sizeof(bf16) * (4 * gc::kSpT * gc::kLdK +
-                                       2 * gc::kSpD * gc::kLdVt) +
-                      sizeof(float) * 2 * gc::kSpT;
-  cudaError_t err = cudaFuncSetAttribute(
-      gc::splash_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  if (groups != (nkv + 1) / 2) return cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  cudaError_t err = gc::operand_maps(maps, q, k, v, dout, bh, n_pad);
   if (err != cudaSuccess) return err;
-  gc::splash_dkv_kernel<<<dim3(nkv, bh), gc::kSpThreads, smem,
+  err = cudaFuncSetAttribute(gc::splash_dkv_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             gc::kDkvSmem);
+  if (err != cudaSuccess) return err;
+  gc::splash_dkv_kernel<<<groups * bh, gc::kSpBlockThreads, gc::kDkvSmem,
                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-      delta, q_offsets, q_index,
+      maps[0], maps[1], maps[2], maps[3], lse, delta, group_offsets, group_q,
+      static_cast<const int2*>(group_pairs), group_order,
       static_cast<const unsigned long long*>(words_t), full_t,
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), scale, n_pad);
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), scale, nkv, n_pad, bh);
   return cudaGetLastError();
 }
+
+// Dynamic shared memory of splash_dq_kernel and splash_dkv_kernel, bytes.
+extern "C" int gc_splash_dq_smem() { return gc::kDqSmem; }
+extern "C" int gc_splash_dkv_smem() { return gc::kDkvSmem; }

@@ -22,7 +22,8 @@
 // pair at a time, K and V would cost 4.3 GB of L2 traffic there; pairing q
 // tiles (below) halves that. What remains is the chain per entry: the
 // products, and the softmax that the next products wait for. Design
-// (hopper.cuh):
+// (hopper.cuh; the ring and mask words it shares with K7 and K8 are in
+// splash.cuh):
 //   * one block per (pair of neighbouring q tiles 2g, 2g + 1, batch·head):
 //     one producer warp and two consumer warpgroups, one per q tile. The
 //     block walks the union of the two tiles' kv lists (ops/splash.py
@@ -53,51 +54,19 @@
 //     kv tiles at mesh-5), each pair's heads together, so the long lists
 //     start first; one block fills an SM (~169 KB of shared memory).
 
-#include "common.cuh"
-#include "hopper.cuh"
+#include "splash.cuh"
 
 namespace gc {
 
-constexpr int kFwdStages = 4;                       // ring depth
-constexpr int kFwdBox = kSpT * 64 * 2;              // a 64 x 64 bf16 box
-constexpr int kFwdTile = 2 * kFwdBox;               // a 64 x 128 tile
-constexpr int kFwdWords = kSpT * 8;                 // a pair's mask words
-constexpr int kFwdThreads = 2 * 128 + 32;           // consumers + producer
-constexpr int kFwdSmem = 2 * kFwdTile +
-                         kFwdStages * (2 * kFwdTile + 2 * kFwdWords) +
-                         (2 * kFwdStages + 1) * 8 + 1024;
-
-// S = Q K^T for one entry into s: 8 k16 steps over the head dim, both
-// operands K-major, the first overwriting s. Issues the wgmma.fence; the
-// caller commits.
-__device__ __forceinline__ void issue_scores(float (&s)[kSpT / 2],
-                                             uint32_t q_addr,
-                                             uint32_t k_addr) {
-  fence_operands(s);
-  wgmma_fence();
-#pragma unroll
-  for (int ks = 0; ks < kSpD / 16; ++ks) {
-    wgmma_m64n64k16_ss<0, 0>(s, kmajor_desc(q_addr, ks, kFwdBox),
-                             kmajor_desc(k_addr, ks, kFwdBox), ks > 0);
-  }
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kFwdSmem = splash_smem(1, false);
 
 // The online softmax of this thread's two rows (r0: s[4 j + c], r0 + 8:
 // s[4 j + 2 + c], column 8 j + 2 t + c) in base 2: the scores are scaled
 // by scale * log2(e) once, so each weight is one ex2 of a difference, and
-// m is kept in those units. It masks the scores (this thread's 16 columns
-// of words w0, w1, tested at constant shifts), updates (m, l) in f32 and
-// packs P = 2^(x - m) in bf16 as the A operand of P V (k step ks covers kv
-// columns 16 ks .. 16 ks + 15, accumulator column blocks 2 ks and 2 ks + 1).
+// m is kept in those units. It masks the scores (the rows' bits b0, b1),
+// updates (m, l) in f32 and packs P = 2^(x - m) in bf16 as the A operand
+// of P V (k step ks covers kv columns 16 ks .. 16 ks + 15, accumulator
+// column blocks 2 ks and 2 ks + 1).
 // alpha = 2^(m_old - m_new) rescales O. It reads s and never writes it: the
 // scores are a wgmma's accumulator, and a non-wgmma definition of one
 // would serialise the products.
@@ -105,26 +74,20 @@ struct SoftmaxRows {
   float m0 = kSpNegInf, m1 = kSpNegInf, l0 = 0.f, l1 = 0.f;
 
   __device__ __forceinline__ void step(const float (&s)[kSpT / 2],
-                                       unsigned long long w0,
-                                       unsigned long long w1, float scale2,
-                                       int t, uint32_t (&pa)[kSpT / 16][4],
+                                       const RowBits& b0, const RowBits& b1,
+                                       float scale2,
+                                       uint32_t (&pa)[kSpT / 16][4],
                                        float* alpha0 = nullptr,
                                        float* alpha1 = nullptr) {
-    // Bit 8 j + c of (w >> 2 t): column 8 j + 2 t + c; j < 4 in the low
-    // word, j >= 4 in the high one.
-    const unsigned long long v0 = w0 >> (2 * t), v1 = w1 >> (2 * t);
-    const uint32_t lo0 = (uint32_t)v0, hi0 = (uint32_t)(v0 >> 32);
-    const uint32_t lo1 = (uint32_t)v1, hi1 = (uint32_t)(v1 >> 32);
     float x[kSpT / 2];
     float mx0 = kSpNegInf, mx1 = kSpNegInf;
 #pragma unroll
     for (int j = 0; j < kSpT / 8; ++j) {
-      const uint32_t b0 = j < 4 ? lo0 : hi0, b1 = j < 4 ? lo1 : hi1;
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        const uint32_t bit = 1u << (8 * (j % 4) + c);
-        x[4 * j + c] = (b0 & bit) ? s[4 * j + c] * scale2 : kSpNegInf;
-        x[4 * j + 2 + c] = (b1 & bit) ? s[4 * j + 2 + c] * scale2 : kSpNegInf;
+        x[4 * j + c] = b0.has(j, c) ? s[4 * j + c] * scale2 : kSpNegInf;
+        x[4 * j + 2 + c] =
+            b1.has(j, c) ? s[4 * j + 2 + c] * scale2 : kSpNegInf;
         mx0 = fmaxf(mx0, x[4 * j + c]);
         mx1 = fmaxf(mx1, x[4 * j + 2 + c]);
       }
@@ -161,7 +124,7 @@ struct SoftmaxRows {
   }
 };
 
-__global__ void __launch_bounds__(kFwdThreads, 1) splash_fwd_kernel(
+__global__ void __launch_bounds__(kSpBlockThreads, 1) splash_fwd_kernel(
     const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv,
@@ -171,114 +134,58 @@ __global__ void __launch_bounds__(kFwdThreads, 1) splash_fwd_kernel(
     const int* __restrict__ full, bf16* __restrict__ o,
     float* __restrict__ lse, float scale, int nq, int n_pad, int bh) {
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = align_1024(smem_raw);
-  unsigned char* Qs = smem;                 // q tiles 2g, 2g + 1
-  unsigned char* KV = smem + 2 * kFwdTile;  // stage s: K, then V
-  unsigned long long* Ws = reinterpret_cast<unsigned long long*>(
-      KV + kFwdStages * 2 * kFwdTile);  // [stages][2 tiles][kSpT]
-  uint64_t* full_bar =
-      reinterpret_cast<uint64_t*>(Ws + kFwdStages * 2 * kSpT);
-  uint64_t* empty_bar = full_bar + kFwdStages;
-  uint64_t* q_bar = empty_bar + kFwdStages;
-
+  const SplashSmem sh(smem_raw, 1, false);  // own: q tiles 2g, 2g + 1
   const int grp = group_order[blockIdx.x / bh];
-  const int h = blockIdx.x % bh;
-  const int row0 = h * n_pad;  // the head's first row in [bh * n_pad, 128]
-  const int tiles = min(2, nq - 2 * grp);  // q tiles in the pair
+  const int row0 = (blockIdx.x % bh) * n_pad;  // the head's first row
   const int e_begin = group_offsets[grp], e_end = group_offsets[grp + 1];
   // The warp index, warp-uniform as ptxas sees it (a broadcast).
   const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
   const int lane = threadIdx.x % 32;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kFwdStages; ++s) {
-      mbar_init(&full_bar[s], 1);
-      mbar_init(&empty_bar[s], 8);
-    }
-    mbar_init(q_bar, 1);
-    mbar_fence_init();
-  }
+  if (threadIdx.x == 0) sh.init();
   __syncthreads();
 
   if (warp == 8) {  // the producer warp
     if (lane == 0) {
-      mbar_arrive_expect_tx(q_bar, tiles * kFwdTile);
-      for (int w = 0; w < tiles; ++w) {
-        const int qr = row0 + (2 * grp + w) * kSpT;
-        tma_load_2d(Qs + w * kFwdTile, &tq, q_bar, 0, qr);
-        tma_load_2d(Qs + w * kFwdTile + kFwdBox, &tq, q_bar, 64, qr);
-      }
-      int stage = 0;
-      uint32_t phase = 0;
+      sh.load_own(&tq, nullptr, row0, grp, min(2, nq - 2 * grp));
       for (int e = e_begin; e < e_end; ++e) {
-        const int2 pr = group_pairs[e];
-        const bool w0 = pr.x >= 0 && !full[pr.x];
-        const bool w1 = pr.y >= 0 && !full[pr.y];
-        mbar_wait(&empty_bar[stage], phase ^ 1);
-        uint64_t* bar = &full_bar[stage];
-        mbar_arrive_expect_tx(bar, 2 * kFwdTile + (w0 + w1) * kFwdWords);
-        unsigned char* kd = KV + stage * 2 * kFwdTile;
-        const int kr = row0 + group_kv[e] * kSpT;
-        tma_load_2d(kd, &tk, bar, 0, kr);
-        tma_load_2d(kd + kFwdBox, &tk, bar, 64, kr);
-        tma_load_2d(kd + kFwdTile, &tv, bar, 0, kr);
-        tma_load_2d(kd + kFwdTile + kFwdBox, &tv, bar, 64, kr);
-        unsigned long long* ws = Ws + stage * 2 * kSpT;
-        if (w0) bulk_load(ws, words + (size_t)pr.x * kSpT, kFwdWords, bar);
-        if (w1) {
-          bulk_load(ws + kSpT, words + (size_t)pr.y * kSpT, kFwdWords, bar);
-        }
-        if (++stage == kFwdStages) {
-          stage = 0;
-          phase ^= 1;
-        }
+        sh.stream(e - e_begin, e, &tk, &tv, row0 + group_kv[e] * kSpT,
+                  group_pairs, full, words, 0);
       }
     }
     return;
   }
 
-  // Consumer warpgroup wg, q tile 2 grp + wg: warp w of it owns q rows
-  // 16 w .. 16 w + 15; this thread rows r0 and r0 + 8, columns 8 j + 2 t
-  // (+1) of each accumulator. Entries where the tile has no pair run with
-  // all-zero mask words (3.7 % of the entries at mesh-5), so every entry
-  // keeps the same pipeline: their weights are exactly 0 once a row has
-  // met an entry of its mask, and whatever they add before that is scaled
-  // by exactly 0 when it does, so a row with any mask entry gets the result
-  // of its tile's own pairs. (A row with none, such as the padding past n,
-  // averages v over every entry's columns instead of its own pairs'.)
+  // Consumer warpgroup wg, q tile 2 grp + wg (Lane). Entries where the
+  // tile has no pair run with all-zero mask words (3.7 % of the entries at
+  // mesh-5), so every entry keeps the same pipeline: their weights are
+  // exactly 0 once a row has met an entry of its mask, and whatever they
+  // add before that is scaled by exactly 0 when it does, so a row with any
+  // mask entry gets the result of its tile's own pairs. (A row with none,
+  // such as the padding past n, averages v over every entry's columns
+  // instead of its own pairs'.)
   // The pipeline, per entry i: S(i + 1) = Q K(i + 1)^T and O += P(i) V(i)
   // are issued together, the softmax of S(i + 1) runs under P(i) V(i), and
   // O is rescaled once P(i) V(i) is done.
-  const int wg = warp / 4;
-  const int qt = 2 * grp + wg;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = (warp % 4) * 16 + g;
+  const Lane ln(warp, lane);
+  const int qt = 2 * grp + ln.wg;
   float acc[kSpD / 2];
 #pragma unroll
   for (int i = 0; i < kSpD / 2; ++i) acc[i] = 0.f;
   SoftmaxRows sm;
   const float scale2 = scale * kLog2e;
-  mbar_wait(q_bar, 0);
-  const uint32_t q_addr = smem_u32(Qs + wg * kFwdTile);
-
-  // The stage of entry e and its words for this tile (all zero where the
-  // tile has no pair, all ones where the pair is full).
-  auto stage_of = [&](int e) { return (e - e_begin) % kFwdStages; };
-  auto row_words = [&](int e, unsigned long long& w0,
-                       unsigned long long& w1) {
-    const int2 pr = group_pairs[e];
-    const int a = wg == 0 ? pr.x : pr.y;
-    w0 = w1 = a < 0 ? 0ull : ~0ull;
-    if (a >= 0 && !full[a]) {
-      const unsigned long long* ws = Ws + (stage_of(e) * 2 + wg) * kSpT;
-      w0 = ws[r0];
-      w1 = ws[r0 + 8];
-    }
+  mbar_wait(sh.own_bar, 0);
+  const uint32_t q_addr = smem_u32(sh.own[0] + ln.wg * kSpTile);
+  // Entry e sits at stream position e - e_begin: waiting for its stage,
+  // its tiles, this tile's mask bits of it, and handing its stage back.
+  auto wait_full = [&](int e) {
+    mbar_wait(&sh.full_bar[ring_stage(e - e_begin)], ring_phase(e - e_begin));
   };
-  auto kv_addr = [&](int e) {
-    return smem_u32(KV + stage_of(e) * 2 * kFwdTile);
+  auto kv_addr = [&](int e) { return sh.streamed(e - e_begin); };
+  auto bits = [&](int e, RowBits& b0, RowBits& b1) {
+    entry_bits(sh, group_pairs, full, e - e_begin, e, ln, b0, b1);
   };
-  auto phase_of = [&](int e) {
-    return (uint32_t)(((e - e_begin) / kFwdStages) & 1);
+  auto release = [&](int e) {
+    if (lane == 0) mbar_arrive(&sh.empty_bar[ring_stage(e - e_begin)]);
   };
 
   // Every wgmma below sits in a loop with a block-uniform trip count and
@@ -291,40 +198,40 @@ __global__ void __launch_bounds__(kFwdThreads, 1) splash_fwd_kernel(
   uint32_t pa[kSpT / 16][4], pb[kSpT / 16][4];
   const int e_first_end = min(e_begin + 1, e_end);
   for (int e = e_begin; e < e_first_end; ++e) {  // the first entry's S
-    mbar_wait(&full_bar[stage_of(e)], phase_of(e));
+    wait_full(e);
     issue_scores(s, q_addr, kv_addr(e));
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(s);
-    unsigned long long w0, w1;
-    row_words(e, w0, w1);
-    sm.step(s, w0, w1, scale2, t, pa);  // O is zero: no rescale needed
+    RowBits b0, b1;
+    bits(e, b0, b1);
+    sm.step(s, b0, b1, scale2, pa);  // O is zero: no rescale needed
   }
   // Entry e, which has a next one: P(e) in cur, P(e + 1) into nxt.
   auto body = [&](int e, uint32_t(&cur)[kSpT / 16][4],
                   uint32_t(&nxt)[kSpT / 16][4]) {
-    mbar_wait(&full_bar[stage_of(e + 1)], phase_of(e + 1));
+    wait_full(e + 1);
     // O's rescale and P's registers are settled before the wgmma.fence.
     fence_operands(acc);
     fence_operands(cur);
     issue_scores(s, q_addr, kv_addr(e + 1));
     wgmma_commit();
-    const uint32_t v_addr = kv_addr(e) + kFwdTile;
+    const uint32_t v_addr = kv_addr(e) + kSpTile;
 #pragma unroll
     for (int ks = 0; ks < kSpT / 16; ++ks) {
-      wgmma_m64n128k16_rs<1>(acc, cur[ks], mnmajor_desc(v_addr, ks, kFwdBox));
+      wgmma_m64n128k16_rs<1>(acc, cur[ks], mnmajor_desc(v_addr, ks, kSpBox));
     }
     wgmma_commit();
     wgmma_wait<1>();  // S(e + 1) is done; P(e) V(e) may still run
     fence_operands(s);
-    unsigned long long w0, w1;
-    row_words(e + 1, w0, w1);
+    RowBits b0, b1;
+    bits(e + 1, b0, b1);
     float alpha0, alpha1;
-    sm.step(s, w0, w1, scale2, t, nxt, &alpha0, &alpha1);
+    sm.step(s, b0, b1, scale2, nxt, &alpha0, &alpha1);
     wgmma_wait<0>();
     fence_operands(acc);
     fence_operands(cur);
-    if (lane == 0) mbar_arrive(&empty_bar[stage_of(e)]);
+    release(e);
 #pragma unroll
     for (int j = 0; j < kSpD / 8; ++j) {
       acc[4 * j] *= alpha0;
@@ -338,16 +245,16 @@ __global__ void __launch_bounds__(kFwdThreads, 1) splash_fwd_kernel(
     fence_operands(acc);
     fence_operands(cur);
     wgmma_fence();
-    const uint32_t v_addr = kv_addr(e) + kFwdTile;
+    const uint32_t v_addr = kv_addr(e) + kSpTile;
 #pragma unroll
     for (int ks = 0; ks < kSpT / 16; ++ks) {
-      wgmma_m64n128k16_rs<1>(acc, cur[ks], mnmajor_desc(v_addr, ks, kFwdBox));
+      wgmma_m64n128k16_rs<1>(acc, cur[ks], mnmajor_desc(v_addr, ks, kSpBox));
     }
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(acc);
     fence_operands(cur);
-    if (lane == 0) mbar_arrive(&empty_bar[stage_of(e)]);
+    release(e);
   };
   const int with_next = max(e_end - e_begin - 1, 0);  // entries with a next
   const int pairs_end = e_begin + (with_next & ~1);
@@ -369,16 +276,16 @@ __global__ void __launch_bounds__(kFwdThreads, 1) splash_fwd_kernel(
 
   const float ls0 = l0 == 0.f ? 1.f : l0, ls1 = l1 == 0.f ? 1.f : l1;
   const float inv0 = 1.f / ls0, inv1 = 1.f / ls1;
-  const size_t orow = ((size_t)row0 + (size_t)qt * kSpT + r0) * kSpD;
+  const size_t orow = ((size_t)row0 + (size_t)qt * kSpT + ln.r0) * kSpD;
 #pragma unroll
   for (int j = 0; j < kSpD / 8; ++j) {
-    const int c = j * 8 + t * 2;
+    const int c = j * 8 + ln.t * 2;
     store_bf16x2(o + orow + c, acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
     store_bf16x2(o + orow + 8 * kSpD + c, acc[4 * j + 2] * inv1,
                  acc[4 * j + 3] * inv1);
   }
-  if (t == 0) {
-    float* lrow = lse + (size_t)row0 + (size_t)qt * kSpT + r0;
+  if (ln.t == 0) {
+    float* lrow = lse + (size_t)row0 + (size_t)qt * kSpT + ln.r0;
     lrow[0] = sm.lse(m0, ls0);
     lrow[8] = sm.lse(m1, ls1);
   }
@@ -413,7 +320,7 @@ extern "C" int gc_splash_fwd(const void* q, const void* k, const void* v,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              gc::kFwdSmem);
   if (err != cudaSuccess) return err;
-  gc::splash_fwd_kernel<<<groups * bh, gc::kFwdThreads, gc::kFwdSmem,
+  gc::splash_fwd_kernel<<<groups * bh, gc::kSpBlockThreads, gc::kFwdSmem,
                           static_cast<cudaStream_t>(stream)>>>(
       tq, tk, tv, group_offsets, group_kv,
       static_cast<const int2*>(group_pairs), group_order,

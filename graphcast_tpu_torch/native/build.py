@@ -120,9 +120,12 @@ def _declare(lib: ctypes.CDLL):
   lib.gc_feature_grad.restype = i
   lib.gc_feature_grad.argtypes = [p, i, p, i, p, p, p, i, i, p]
   lib.gc_splash_dq.restype = i
-  lib.gc_splash_dq.argtypes = [p] * 11 + [ctypes.c_float] + [i] * 3 + [p]
+  lib.gc_splash_dq.argtypes = [p] * 13 + [ctypes.c_float] + [i] * 4 + [p]
   lib.gc_splash_dkv.restype = i
-  lib.gc_splash_dkv.argtypes = [p] * 12 + [ctypes.c_float] + [i] * 3 + [p]
+  lib.gc_splash_dkv.argtypes = [p] * 14 + [ctypes.c_float] + [i] * 4 + [p]
+  for name in ("gc_splash_dq_smem", "gc_splash_dkv_smem"):
+    getattr(lib, name).restype = i
+    getattr(lib, name).argtypes = []
   lib.gc_segment_sum.restype = i
   lib.gc_segment_sum.argtypes = [p, p, i, p, i, p, p, i, i, p]
   lib.gc_error_string.restype = ctypes.c_char_p

@@ -33,8 +33,9 @@ it; K8 walks it. The TPU version's 512×512 tiles and its sublane-strided
 bit packing (splash.py:72-107) are Mosaic layouts and are not ported; at
 64×64 the k-hop-16 mask of the 1.0° mesh-5 covers 35 % fewer entries.
 
-``block_sparse_attention`` runs the CUDA kernels (csrc/splash_fwd.cu, on
-the map's ``paired_lists``, and csrc/splash_bwd.cu) for CUDA tensors and
+``block_sparse_attention`` runs the CUDA kernels (csrc/splash_fwd.cu and
+csrc/splash_bwd.cu, K6 and K7 on the map's ``paired_lists``, K8 on its
+transpose's) for CUDA tensors and
 the plain versions for CPU tensors, both inside one
 ``torch.autograd.Function`` (forward K6, backward K7 then K8); it raises
 on CUDA inputs the kernels do not take (head dim other than 128, dtypes
@@ -278,10 +279,12 @@ def heaviest_first(offsets: np.ndarray) -> np.ndarray:
 
 @dataclasses.dataclass(frozen=True)
 class PairedLists:
-  """K6's work lists: q tiles 2g and 2g + 1 form group g, which walks the
-  union of the two tiles' kv lists, so each K and V tile it loads serves
-  both (neighbouring q tiles of the k-hop mask share about half their kv
-  tiles: 4,230 union entries for 8,161 pairs at mesh-5).
+  """The work lists of K6 and K7 (of K8 over the transposed map): q tiles
+  2g and 2g + 1 form group g, which walks the union of the two tiles' kv
+  lists, so each K and V tile it loads serves both (neighbouring q tiles of
+  the k-hop mask share about half their kv tiles: 4,230 union entries for
+  8,161 pairs at mesh-5). Over the transposed map the roles swap: kv tiles
+  pair up and walk the union of their q lists.
 
   Attributes:
     offsets: [groups + 1] int32, CSR offsets of each group's union list.
@@ -312,23 +315,21 @@ def paired_lists(bm: BlockMap) -> PairedLists:
 
 
 class _DeviceMap:
-  """A BlockMap's arrays (and its transpose's) on one device, as the
-  kernels read them, and K6's paired work lists."""
+  """A BlockMap's mask words and paired work lists on one device, as the
+  kernels read them: K6 and K7 read the forward map's, K8 its transpose's
+  (``group_kv`` then holds q tiles)."""
 
   def __init__(self, bm: BlockMap, device):
     def tensor(a):
       return torch.as_tensor(np.ascontiguousarray(a), device=device)
-    self.kv_offsets = tensor(bm.kv_offsets)
-    self.kv_index = tensor(bm.kv_index)
     self.words = tensor(bm.words.view(np.int64))
     self.full = tensor(bm.full.astype(np.int32))
-    if bm.transposed is not None:  # a forward map: K6 reads it
-      lists = paired_lists(bm)
-      self.groups = len(lists.order)
-      self.group_offsets = tensor(lists.offsets)
-      self.group_kv = tensor(lists.kv)
-      self.group_pairs = tensor(lists.pairs)
-      self.group_order = tensor(lists.order)
+    lists = paired_lists(bm)
+    self.groups = len(lists.order)
+    self.group_offsets = tensor(lists.offsets)
+    self.group_kv = tensor(lists.kv)
+    self.group_pairs = tensor(lists.pairs)
+    self.group_order = tensor(lists.order)
 
 
 def _to_heads(x, n_pad):
@@ -410,6 +411,10 @@ def _check_heads(bm: BlockMap, qh, kh, vh, do, lse, delta):
         t.is_contiguous()) or t.device != qh.device:
       raise ValueError(f"{name} must be contiguous f32 of shape "
                        f"{tuple(qh.shape[:2])} on {qh.device}")
+  for name, t in (("q", qh), ("k", kh), ("v", vh), ("do", do), ("lse", lse),
+                  ("delta", delta)):
+    if t.data_ptr() % 16:  # TMA and bulk copies read 16-byte aligned rows
+      raise ValueError(f"{name} must start at a 16-byte aligned address")
 
 
 def splash_dq(qh, kh, vh, do, lse, delta, bm: BlockMap, scale: float):
@@ -423,9 +428,10 @@ def splash_dq(qh, kh, vh, do, lse, delta, bm: BlockMap, scale: float):
   lib = build.load_library()
   code = lib.gc_splash_dq(
       qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), do.data_ptr(),
-      lse.data_ptr(), delta.data_ptr(), dm.kv_offsets.data_ptr(),
-      dm.kv_index.data_ptr(), dm.words.data_ptr(), dm.full.data_ptr(),
-      dq.data_ptr(), float(scale), qh.shape[0], bm.nq, bm.n_pad,
+      lse.data_ptr(), delta.data_ptr(), dm.group_offsets.data_ptr(),
+      dm.group_kv.data_ptr(), dm.group_pairs.data_ptr(),
+      dm.group_order.data_ptr(), dm.words.data_ptr(), dm.full.data_ptr(),
+      dq.data_ptr(), float(scale), qh.shape[0], bm.nq, dm.groups, bm.n_pad,
       torch.cuda.current_stream(qh.device).cuda_stream)
   build.check(lib, code, "splash_dq kernel launch")
   splash_dq.launches += 1
@@ -433,17 +439,19 @@ def splash_dq(qh, kh, vh, do, lse, delta, bm: BlockMap, scale: float):
 
 
 def splash_dkv(qh, kh, vh, do, lse, delta, bm: BlockMap, scale: float):
-  """K8 on CUDA tensors, operands as ``splash_dq``. Returns (dk, dv)."""
+  """K8 on CUDA tensors, operands as ``splash_dq``, over the transposed
+  map's paired lists. Returns (dk, dv)."""
   _check_heads(bm, qh, kh, vh, do, lse, delta)
   dt = bm.transposed.on_device(qh.device)
   dk, dv = torch.empty_like(kh), torch.empty_like(vh)
   lib = build.load_library()
   code = lib.gc_splash_dkv(
       qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), do.data_ptr(),
-      lse.data_ptr(), delta.data_ptr(), dt.kv_offsets.data_ptr(),
-      dt.kv_index.data_ptr(), dt.words.data_ptr(), dt.full.data_ptr(),
+      lse.data_ptr(), delta.data_ptr(), dt.group_offsets.data_ptr(),
+      dt.group_kv.data_ptr(), dt.group_pairs.data_ptr(),
+      dt.group_order.data_ptr(), dt.words.data_ptr(), dt.full.data_ptr(),
       dk.data_ptr(), dv.data_ptr(), float(scale), qh.shape[0],
-      bm.transposed.nq, bm.n_pad,
+      bm.transposed.nq, dt.groups, bm.n_pad,
       torch.cuda.current_stream(qh.device).cuda_stream)
   build.check(lib, code, "splash_dkv kernel launch")
   splash_dkv.launches += 1

@@ -414,39 +414,67 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda_device):
   assert grad.shape == qg.shape and torch.isfinite(grad.float()).all()
 
 
-def _attention_case(n, seed, asymmetric):
+def _attention_case(n, seed, kind):
+  """A block map for the backward tests: "banded" (symmetric, with self
+  loops), "asymmetric" (random) or "long" (banded and sparse, plus q rows
+  64-127 attending every node and every q row attending nodes 128-191, so
+  that both maps have lists much longer than the kernels' 4-stage ring,
+  of different lengths)."""
   import scipy.sparse as sp
   rng = np.random.RandomState(seed)
   i, j = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
-  if asymmetric:
+  if kind == "asymmetric":
     dense = (rng.rand(n, n) < 0.05) | (i == j)
-  else:
+  elif kind == "banded":
     dense = ((np.abs(i - j) <= 150) & (rng.rand(n, n) < 0.3)) | (i == j)
     dense |= dense.T
+  else:
+    dense = ((np.abs(i - j) <= 150) & (rng.rand(n, n) < 0.05)) | (i == j)
+    dense[64:128, :] = True
+    dense[:, 128:192] = True
   dense[64:128, :64] = True
   return splash.build_block_map(sp.csr_matrix(dense))
 
 
+def _backward_operands(bm, batch, seed, device):
+  gen = torch.Generator().manual_seed(seed)
+  q, k, v = (_rand(gen, batch, bm.n, 4, 128, dtype=torch.bfloat16).to(
+      device).requires_grad_() for _ in range(3))
+  do = _rand(gen, batch, bm.n, 4, 128, dtype=torch.bfloat16).to(device)
+  return q, k, v, do
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,asymmetric", [(1000, False), (1024, True)])
-def test_block_sparse_attention_backward_kernels_match_plain(n, asymmetric,
+@pytest.mark.parametrize("n,batch,kind", [
+    (1000, 1, "banded"), (1024, 1, "asymmetric"), (700, 1, "banded"),
+    (700, 4, "asymmetric"), (1000, 4, "banded"), (1000, 1, "long"),
+    (700, 4, "long")])
+def test_block_sparse_attention_backward_kernels_match_plain(n, batch, kind,
                                                              cuda_device):
   """K7 and K8 (through autograd of block_sparse_attention) against the
   plain backward on the same q, k, v, do and the kernel's own o and lse:
-  a symmetric banded mask with n not a multiple of the tile, and an
-  asymmetric random one; 4 heads of 128, bf16."""
-  bm = _attention_case(n, n, asymmetric)
+  a symmetric banded mask with n not a multiple of the tile, an asymmetric
+  random one, lists longer than the ring in both maps ("long"); an odd
+  number of tiles (700: the last group's tile has no partner); batch 4
+  (batch x heads 16); 4 heads of 128, bf16. K7 and K8 own their output
+  rows and walk their lists in a fixed order, with no atomics, so a second
+  backward gives the same dq, dk and dv bit for bit."""
+  bm = _attention_case(n, n, kind)
   assert bm.full.any() and bm.transposed.full.any()
-  gen = torch.Generator().manual_seed(n + 1)
-  q, k, v = (_rand(gen, 1, n, 4, 128, dtype=torch.bfloat16).to(
-      cuda_device).requires_grad_() for _ in range(3))
-  do = _rand(gen, 1, n, 4, 128, dtype=torch.bfloat16).to(cuda_device)
+  if kind == "long":
+    for m in (bm, bm.transposed):
+      counts = np.diff(m.kv_offsets)
+      assert counts.max() == m.nq > 4 and len(np.unique(counts)) > 1
+  q, k, v, do = _backward_operands(bm, batch, n + 1, cuda_device)
   before = splash.splash_dq.launches, splash.splash_dkv.launches
   o, lse = splash.block_sparse_attention(q, k, v, bm, 128 ** -0.5)
-  got = torch.autograd.grad(o, (q, k, v), do)
+  got = torch.autograd.grad(o, (q, k, v), do, retain_graph=True)
   torch.cuda.synchronize()
   assert (splash.splash_dq.launches, splash.splash_dkv.launches) == (
       before[0] + 1, before[1] + 1)
+  again = torch.autograd.grad(o, (q, k, v), do)
+  for name, a, b in zip(("dq", "dk", "dv"), got, again):
+    assert torch.equal(a, b), name
   with torch.no_grad():
     want = splash.block_sparse_attention_backward_reference(
         q, k, v, o, lse, do, bm, 128 ** -0.5)

@@ -219,15 +219,43 @@ def test_attention_is_differentiable_on_the_cpu_through_its_function():
     assert torch.equal(g, w)
 
 
+def _skewed_band_mask(n, seed):
+  """An asymmetric banded mask: row i attends 60 % of columns i - 40 ..
+  i + 160 and itself, plus a dense 64 x 64 square below the diagonal, so
+  list lengths vary at the edges and the transposed map differs."""
+  rng = np.random.RandomState(seed)
+  i, j = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+  dense = ((j - i >= -40) & (j - i <= 160) & (rng.rand(n, n) < 0.6))
+  dense |= i == j
+  dense[64:128, 0:64] = True
+  assert (dense != dense.T).any()
+  return sp.csr_matrix(dense)
+
+
+def _work_map(n, mask_kind, which):
+  """The BlockMap whose paired lists a kernel walks: K6 and K7 the forward
+  map's, K8 the transposed map's."""
+  mask = (_banded_mask(n, 100, seed=n, dense_block=(0, 0, 64))
+          if mask_kind == "banded" else _skewed_band_mask(n, seed=n))
+  bm = splash.build_block_map(mask)
+  return bm if which == "forward" else bm.transposed
+
+
+_MAPS = pytest.mark.parametrize("which", ["forward", "transposed"])
+_MASKS = pytest.mark.parametrize("mask_kind", ["banded", "asymmetric"])
+
+
+@_MAPS
+@_MASKS
 @pytest.mark.parametrize("n", [640, 700, 1000])
-def test_paired_lists_hold_every_pair_once(n):
-  """K6's work lists: group g walks the union of q tiles 2g and 2g + 1's
-  kv lists in ascending order; each active pair of the map sits exactly
-  once in its group, in its tile's column, beside its own kv tile; every
-  entry holds a pair of at least one tile; an odd last tile has no
+def test_paired_lists_hold_every_pair_once(n, mask_kind, which):
+  """The work lists of K6 and K7 (forward map) and of K8 (transposed map):
+  group g walks the union of tiles 2g and 2g + 1's lists in ascending
+  order; each active pair of the map sits exactly once in its group, in
+  its tile's column, beside its own partner tile; every entry holds a pair
+  of at least one tile; an odd last tile (n 700: 11 tiles) has no
   partner."""
-  bm = splash.build_block_map(_banded_mask(n, 100, seed=n,
-                                           dense_block=(0, 0, 64)))
+  bm = _work_map(n, mask_kind, which)
   lists = splash.paired_lists(bm)
   groups = -(-bm.nq // 2)
   assert lists.offsets.shape == (groups + 1,) and lists.offsets[0] == 0
@@ -251,13 +279,14 @@ def test_paired_lists_hold_every_pair_once(n):
     assert (lists.pairs[lists.offsets[-2]:, 1] == -1).all()
 
 
-@pytest.mark.parametrize("n", [640, 1000])
-def test_heaviest_first_orders_groups_by_list_length(n):
-  """K6's launch order is a permutation of the q tile pairs,
-  non-increasing in union list length, ties in order."""
-  bm = splash.build_block_map(_banded_mask(n, 100, seed=n,
-                                           dense_block=(0, 0, 64)))
-  lists = splash.paired_lists(bm)
+@_MAPS
+@_MASKS
+@pytest.mark.parametrize("n", [640, 700, 1000])
+def test_heaviest_first_orders_groups_by_list_length(n, mask_kind, which):
+  """The launch order of K6, K7 (forward map) and K8 (transposed map) is a
+  permutation of the tile pairs, non-increasing in union list length, ties
+  in order."""
+  lists = splash.paired_lists(_work_map(n, mask_kind, which))
   order = lists.order
   assert order.dtype == np.int32
   np.testing.assert_array_equal(np.sort(order), np.arange(len(order)))
@@ -266,6 +295,90 @@ def test_heaviest_first_orders_groups_by_list_length(n):
   for c in np.unique(counts):
     assert (np.diff(order[counts == c]) > 0).all()
   assert len(np.unique(counts)) > 1  # the order is not moot
+
+
+def test_device_maps_hold_the_paired_lists_of_both_maps():
+  """K7 reads the forward map's words and paired lists on the device, K8
+  the transposed map's: each map builds its own, once per device."""
+  bm = splash.build_block_map(_skewed_band_mask(700, seed=3))
+  for m in (bm, bm.transposed):
+    dm = m.on_device("cpu")
+    assert m.on_device("cpu") is dm
+    lists = splash.paired_lists(m)
+    assert dm.groups == len(lists.order) == -(-m.nq // 2)
+    for name in ("offsets", "kv", "pairs", "order"):
+      np.testing.assert_array_equal(getattr(dm, "group_" + name).numpy(),
+                                    getattr(lists, name))
+    np.testing.assert_array_equal(dm.words.numpy().view(np.uint64), m.words)
+    np.testing.assert_array_equal(dm.full.numpy(), m.full)
+
+
+def _paired_walk(m):
+  """The entries of K7's (forward map) or K8's (transposed map) blocks as
+  their consumer warpgroups take them: per group, heaviest first, per union
+  entry, each of the group's tiles with the entry's tile and its pair's
+  mask ([TILE, TILE] bool), all False where the tile has no pair there."""
+  lists = splash.paired_lists(m)
+  words = torch.from_numpy(m.words.view(np.int64))
+  for g in lists.order:
+    for e in range(lists.offsets[g], lists.offsets[g + 1]):
+      for w in range(2):
+        own, a = 2 * g + w, lists.pairs[e, w]
+        if own >= m.nq:
+          continue
+        allowed = (splash._allowed(words[a:a + 1]) if a >= 0 else
+                   torch.zeros(splash.TILE, splash.TILE, dtype=torch.bool))
+        yield own, lists.kv[e], allowed
+
+
+@_MASKS
+@pytest.mark.parametrize("n", [640, 700])
+def test_paired_walk_gives_the_plain_backward(n, mask_kind):
+  """K7's and K8's plan, emulated in f32: summing every entry of every
+  group's union list, with all-zero words where a tile has no pair, gives
+  the plain backward's dq (over the forward map) and dk, dv (over the
+  transposed map): the absent pairs add exactly nothing and no pair is
+  missed. Tolerance 1e-5 of each gradient's largest element (f32
+  summation order only)."""
+  mask = (_banded_mask(n, 100, seed=n, dense_block=(0, 0, 64))
+          if mask_kind == "banded" else _skewed_band_mask(n, seed=n))
+  bm = splash.build_block_map(mask)
+  q, k, v = (torch.from_numpy(x) for x in _qkv(n + 5, n))
+  do = torch.from_numpy(
+      np.random.RandomState(n + 6).randn(*q.shape).astype(np.float32))
+  scale = 0.3
+  o, lse = splash.block_sparse_attention_reference(q, k, v, bm, scale)
+  qf, kf, vf, dof, delta, lsep = splash._backward_operands(
+      q, k, v, o, lse, do, bm)
+
+  def rows(t):
+    return slice(t * splash.TILE, (t + 1) * splash.TILE)
+
+  dq = torch.zeros_like(qf)
+  for qt, kt, allowed in _paired_walk(bm):
+    s = torch.einsum("bqhd,bkhd->bhqk", qf[:, rows(qt)], kf[:, rows(kt)])
+    p = torch.where(allowed, torch.exp(s * scale - lsep[..., rows(qt), None]),
+                    torch.zeros(()))
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof[:, rows(qt)], vf[:, rows(kt)])
+    ds = p * (dp - delta[..., rows(qt), None]) * scale
+    dq[:, rows(qt)] += torch.einsum("bhqk,bkhd->bqhd", ds, kf[:, rows(kt)])
+  dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+  for kt, qt, allowed in _paired_walk(bm.transposed):  # [kv row, q row]
+    st = torch.einsum("bkhd,bqhd->bhkq", kf[:, rows(kt)], qf[:, rows(qt)])
+    pt = torch.where(allowed,
+                     torch.exp(st * scale - lsep[..., None, rows(qt)]),
+                     torch.zeros(()))
+    dpt = torch.einsum("bkhd,bqhd->bhkq", vf[:, rows(kt)], dof[:, rows(qt)])
+    dst = pt * (dpt - delta[..., None, rows(qt)]) * scale
+    dv[:, rows(kt)] += torch.einsum("bhkq,bqhd->bkhd", pt, dof[:, rows(qt)])
+    dk[:, rows(kt)] += torch.einsum("bhkq,bqhd->bkhd", dst, qf[:, rows(qt)])
+  want = splash.block_sparse_attention_backward_reference(
+      q, k, v, o, lse, do, bm, scale)
+  for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+    assert not g[:, n:].any(), name  # the padded rows get exactly 0
+    np.testing.assert_allclose(g[:, :n].numpy(), w.numpy(), rtol=0,
+                               atol=1e-5 * w.abs().max().item(),
+                               err_msg=name)
 
 
 def test_heaviest_first_keeps_empty_rows_last():
