@@ -13,7 +13,11 @@ Phases, each printing one line with its seconds and results:
          processor mode on the real mesh-6 multi-mesh edge set and encoder
          mode on the real 0.25° grid2mesh edge set, latent 512, bf16.
   k2     the fused decoder kernel against its twin at 0.25° (1,038,240 grid
-         nodes, 227 outputs).
+         nodes, 227 outputs); its registers, spills, shared memory and any
+         ptxas wgmma advisory from the build log; timed in turns with the
+         products-only yardstick (its 11 products per node as bf16 cuBLAS
+         GEMMs over all nodes, gemm_ms, not a library call for its
+         function).
   main   the main path: zoo.graphcast() (0.25°, 37 levels, mesh-6, latent
          512, 16 message-passing steps), random weights from a fixed
          torch.Generator, Autoregressive(InputsAndResiduals(Bfloat16Cast(
@@ -28,8 +32,12 @@ Phases, each printing one line with its seconds and results:
   k5     the decoder's backward kernel against autograd of the K2 twin on
          the first 131,072 grid nodes of the 0.25° mesh2grid list with all
          mesh-6 nodes (the twin's f32 autograd at all 1,038,240 nodes would
-         hold several 6.4 GB tensors); the kernel in uneven node chunks
-         against one chunk; then the kernel alone at all nodes.
+         hold several 6.4 GB tensors); a rerun bit-equal (fixed-order
+         sums); the kernel in uneven node chunks against one chunk; then
+         the kernel alone at all nodes. Its registers, spills, shared memory
+         and ptxas advisories; the whole backward timed in turns with its
+         products-only yardstick (25 GEMMs per node, gemm_ms), the per-node
+         kernel's own device time from the profiler (kernel_ms).
   wgrad  the weight-gradient reduction that K4 and K5 share
          (csrc/weight_grad.cu) against its plain version at the shapes the
          train step gives it, a rerun bit-equal (fixed-order sums); timed
@@ -64,11 +72,14 @@ Phases, each printing one line with its seconds and results:
          mask (the library yardstick) where that mask fits.
   embed  K1 and K2 in embed mode (GenCast's grid2mesh and mesh2grid, raw
          edge features embedded in the kernel) against their plain versions
-         on the real 1.0° GenCast and 0.25° edge sets.
+         on the real 1.0° GenCast and 0.25° edge sets; K2 timed in turns
+         with its products-only yardstick (17 GEMMs per node).
   embed_bwd  K4 and K5 in embed mode against torch.autograd.grad of the K1
-         and K2 embed twins on the real 1.0° GenCast edge sets, each kernel
-         alone on the 0.25° sets, and the feature-gradient pass they share
-         against its plain version.
+         and K2 embed twins on the real 1.0° GenCast edge sets (K5 also a
+         rerun bit-equal), each kernel alone on the 0.25° sets (K5 in turns
+         with its 40-GEMM products-only yardstick, and its own device
+         time), and the feature-gradient pass they share against its plain
+         version.
   gencast  GenCast's sampling path: zoo.gencast_1p0deg() (1.0°, 13 levels,
          mesh-5, latent 512, 16-layer 4-head k-hop-16 transformer, 20 noise
          levels) at full width, random weights from a fixed generator with
@@ -477,7 +488,7 @@ def phase_k1(torch, art, results):
 
 def phase_k2(torch, art, results):
   from graphcast_tpu_torch.ops.fused_decoder import (
-      MATRICES, VECTORS, fused_decode, fused_decode_reference)
+      MATRICES, VECTORS, fused_decode, fused_decode_reference, smem_layout)
   from graphcast_tpu_torch.ops.fused_edge import EdgeIndex
   t0 = time.perf_counter()
   gen = torch.Generator(device=DEVICE).manual_seed(2)
@@ -496,6 +507,8 @@ def phase_k2(torch, art, results):
   grid = _randn(torch, gen, (g, C), 1.0, bf16)
   mesh_proj = _randn(torch, gen, (m, C), 1.0, bf16)
   const = _randn(torch, gen, (3 * g, C), 1.0, bf16)
+  _print_usage("k2", "fused_decoder_kernel",
+               smem_layout(C, num_out)["total"])
   with torch.inference_mode():
     got = fused_decode(edges, grid, mesh_proj, const, weights)
     want = fused_decode_reference(edges, grid, mesh_proj, const, weights)
@@ -503,17 +516,24 @@ def phase_k2(torch, art, results):
     max_abs, rel_rms = _check_close("k2 out", got, want)
     del want
     torch.cuda.empty_cache()
-    ms = _time_ms(torch, lambda: fused_decode(edges, grid, mesh_proj, const,
-                                              weights))
+    # The products-only yardstick: the kernel's 11 products per node as
+    # bf16 cuBLAS GEMMs over all nodes, timed in turns with the kernel.
+    gemms = _gemm_yardstick(torch, gen, g, _decoder_products(
+        C, 256, embed=False, backward=False))
+    ms, gemm_ms = _time_in_turns(torch, lambda: fused_decode(
+        edges, grid, mesh_proj, const, weights), gemms)
+    del gemms
+    torch.cuda.empty_cache()
     plain_ms = _time_ms(torch, lambda: fused_decode_reference(
         edges, grid, mesh_proj, const, weights), reps=1)
   results["fused_decoder"] = _entry(
       "fused_decoder", "fused_decoder.cu",
       "graphcast_tpu/ops/pallas_decoder.py:76", mode="plain", launches=None,
-      max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+      max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, gemm_ms=gemm_ms,
       **_bound(*_decoder_cost(g, m, C, num_out, embed=False)))
   _log("k2", t0, grid_nodes=g, outputs=num_out, max_abs=f"{max_abs:.4g}",
        rel_rms=f"{rel_rms:.3g}", ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
+       gemm_ms=f"{gemm_ms:.3f}",
        bound_ms=f"{results['fused_decoder']['bound_ms']:.4f}")
   del grid, mesh_proj, const, got
   torch.cuda.empty_cache()
@@ -598,7 +618,7 @@ def phase_k5(torch, art, results):
   from graphcast_tpu_torch.ops import fused_decoder
   from graphcast_tpu_torch.ops.fused_decoder import (
       KEYS, MATRICES, VECTORS, fused_decode, fused_decode_backward,
-      fused_decode_reference)
+      fused_decode_reference, smem_layout)
   from graphcast_tpu_torch.ops.fused_edge import EdgeIndex
   t0 = time.perf_counter()
   gen = torch.Generator(device=DEVICE).manual_seed(5)
@@ -645,11 +665,31 @@ def phase_k5(torch, art, results):
         edges, acts["grid"], acts["mesh_proj"], acts["const"], det, dout)
     return {"grid": dgrid, "mesh_proj": dmesh, "const": dconst, **dw}
 
-  ms = _time_ms(torch, k5)
+  _print_usage("k5", "fused_decoder_bwd_kernel",
+               smem_layout(C, num_out, backward=True)["total"])
+  # The products-only yardstick: the per-node kernel's 25 products as bf16
+  # cuBLAS GEMMs over the chunk, timed in turns with the whole backward
+  # (kernel, 7 weight-gradient reductions, scatter); the kernel's own
+  # device time from the profiler.
+  gemms = _gemm_yardstick(torch, gen, K5_NODES, _decoder_products(
+      C, 256, embed=False, backward=True))
+  ms, gemm_ms = _time_in_turns(torch, k5, gemms)
+  del gemms
+  kernel_ms = _device_ms(torch, k5, ("fused_decoder_bwd_kernel",),
+                         reps=3)["fused_decoder_bwd_kernel"]
+  # K5's outputs and the weight gradients are summed in a fixed order: a
+  # rerun at the same chunking is bit-equal. (mesh_proj's gradient is the
+  # wrapper's index_add_ scatter of dgs, summed with atomics.)
+  one_chunk = k5()
+  again = k5()
+  for k in one_chunk:
+    if k != "mesh_proj" and not torch.equal(one_chunk[k], again[k]):
+      raise AssertionError(f"k5: two runs differ in {k} by "
+                           f"{(one_chunk[k] - again[k]).abs().max().item():.3g}")
+  del again
   # The 131,072 nodes above are one of the wrapper's node chunks; the train
   # path runs 8. The same call in uneven chunks (partial last tiles) must
-  # agree to the atomics' run-to-run noise.
-  one_chunk = k5()
+  # agree within the backward tolerance.
   chunk_nodes = fused_decoder.BWD_CHUNK_NODES
   fused_decoder.BWD_CHUNK_NODES = K5_NODES // 3 + 1
   try:
@@ -666,9 +706,10 @@ def phase_k5(torch, art, results):
       edges, acts["grid"], acts["mesh_proj"], acts["const"], det, dout))
   _log("k5", t0, grid_nodes=K5_NODES, edges=3 * K5_NODES,
        worst_rel_rms=f"{max(rels.values()):.3g}",
-       chunked_worst_rel_rms=f"{max(chunk_rels.values()):.3g}", ms=f"{ms:.3f}",
-       plain_ms=f"{plain_ms:.3f}", full_grid_nodes=g,
-       ms_full=f"{ms_full:.3f}")
+       chunked_worst_rel_rms=f"{max(chunk_rels.values()):.3g}",
+       bit_equal_rerun=True, ms=f"{ms:.3f}", kernel_ms=f"{kernel_ms:.3f}",
+       gemm_ms=f"{gemm_ms:.3f}", plain_ms=f"{plain_ms:.3f}",
+       full_grid_nodes=g, ms_full=f"{ms_full:.3f}")
   # The backward recomputes the forward and takes 2 products per forward
   # product; it reads the forward's inputs and dout, writes dgrid, dconst,
   # dmesh_proj and the weight grads (f32).
@@ -677,14 +718,16 @@ def phase_k5(torch, art, results):
       "fused_decoder_bwd", "fused_decoder_bwd.cu",
       "graphcast_tpu/ops/pallas_decoder.py:160", launches=None,
       max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, ms_full_grid=ms_full,
+      kernel_ms=kernel_ms, gemm_ms=gemm_ms,
       **_bound(3 * fwd_flops, 2 * fwd_bytes + 4 * K5_NODES * C * 2))
   del edges, acts, dout, det
   torch.cuda.empty_cache()
 
 
-def _wgrad_split(torch, run, reps=5):
-  """Device ms per call of weight_grad's two kernels, the split-K product
-  and the fixed-order reduction, from torch.profiler over ``reps`` calls."""
+def _device_ms(torch, run, names, reps=5):
+  """Device ms per call of ``run`` spent in kernels whose names hold each of
+  ``names`` (the first that matches), from torch.profiler over ``reps``
+  calls after a warm-up."""
   from torch.profiler import ProfilerActivity, profile
   run()
   torch.cuda.synchronize()
@@ -692,16 +735,56 @@ def _wgrad_split(torch, run, reps=5):
     for _ in range(reps):
       run()
     torch.cuda.synchronize()
-  main = reduce = 0.0
+  total = dict.fromkeys(names, 0.0)
   for evt in prof.events():
     if evt.device_type != torch.autograd.DeviceType.CUDA:
       continue
-    ms = evt.time_range.elapsed_us() / 1e3
-    if "weight_grad_reduce" in evt.name:
-      reduce += ms
-    elif "weight_grad_kernel" in evt.name:
-      main += ms
-  return main / reps, reduce / reps
+    for name in names:
+      if name in evt.name:
+        total[name] += evt.time_range.elapsed_us() / 1e3
+        break
+  return {name: ms / reps for name, ms in total.items()}
+
+
+def _wgrad_split(torch, run, reps=5):
+  """Device ms per call of weight_grad's two kernels, the split-K product
+  and the fixed-order reduction."""
+  split = _device_ms(torch, run, ("weight_grad_reduce", "weight_grad_kernel"),
+                     reps)
+  return split["weight_grad_kernel"], split["weight_grad_reduce"]
+
+
+def _decoder_products(C, NO, embed, backward):
+  """(K, N, transposed) of each product that K2 (or K5) runs per grid node:
+  K2 10 C x C products and the output layer (embed mode 6 more); K5 the
+  forward's C x C ones, then dout @ Wd1^T, Wd0^T, Wn1^T, Wng^T, Wna^T, per
+  edge slot Wr, W1, W1^T (embed: We', We'^T, Ew1^T) and Wr^T."""
+  sq, sqt = (C, C, False), (C, C, True)
+  fwd = [sq] * (16 if embed else 10)
+  if not backward:
+    return fwd + [(C, NO, False)]
+  slot = [sq, sq, sqt] + ([sq, sqt, sqt] if embed else [])
+  return fwd + [(NO, C, True)] + [sqt] * 4 + slot * 3 + [sqt]
+
+
+def _gemm_yardstick(torch, gen, rows, products):
+  """The products-only yardstick of a decoder kernel: each of ``products``
+  as one bf16 cuBLAS GEMM [rows, K] @ [K, N] (a transposed weight as a
+  W.t() view) into preallocated outputs; returns the call."""
+  bf16 = torch.bfloat16
+  x = _randn(torch, gen, (rows, max(k for k, _, _ in products)), 1.0, bf16)
+  ws, outs = {}, {}
+  for k, n, t in products:
+    if (k, n, t) not in ws:
+      w = _randn(torch, gen, (n, k) if t else (k, n), 0.05, bf16)
+      ws[(k, n, t)] = w.t() if t else w
+    if n not in outs:
+      outs[n] = torch.empty(rows, n, dtype=bf16, device=DEVICE)
+
+  def run():
+    for k, n, t in products:
+      torch.mm(x[:, :k], ws[(k, n, t)], out=outs[n])
+  return run
 
 
 def phase_wgrad(torch, results):
@@ -1598,12 +1681,16 @@ def phase_embed(torch, art025, results):
       d_abs, d_rel = _check_close(f"embed k2 {res}", got, want)
       del got, want
       torch.cuda.empty_cache()
-      d_ms = _time_ms(torch, lambda: fused_decode(edges, grid, mesh_proj,
-                                                  feats, weights))
+      gemms = _gemm_yardstick(torch, gen, g, _decoder_products(
+          C, 128, embed=True, backward=False))
+      d_ms, d_gemm = _time_in_turns(torch, lambda: fused_decode(
+          edges, grid, mesh_proj, feats, weights), gemms)
+      del gemms
       d_plain = _time_ms(torch, lambda: fused_decode_reference(
           edges, grid, mesh_proj, feats, weights), reps=1)
     worst["dec"] = max(worst["dec"], d_abs)
     dec.update({"ms" + suffix: d_ms, "plain_ms" + suffix: d_plain,
+                "gemm_ms" + suffix: d_gemm,
                 **{k + suffix: v for k, v in _bound(*_decoder_cost(
                     g, m, C, num_out, embed=True)).items()}})
     _log("embed", t0, grid=res, g2m_edges=art.grid2mesh.senders.size,
@@ -1611,7 +1698,8 @@ def phase_embed(torch, art025, results):
          k1_max_abs=f"{e_abs:.4g}", k1_rel_rms=f"{e_rel:.3g}",
          k1_ms=f"{e_ms:.3f}", k1_plain_ms=f"{e_plain:.3f}",
          grid_nodes=g, k2_max_abs=f"{d_abs:.4g}", k2_rel_rms=f"{d_rel:.3g}",
-         k2_ms=f"{d_ms:.3f}", k2_plain_ms=f"{d_plain:.3f}")
+         k2_ms=f"{d_ms:.3f}", k2_gemm_ms=f"{d_gemm:.3f}",
+         k2_plain_ms=f"{d_plain:.3f}")
     del weights, grid, mesh_proj, feats
     torch.cuda.empty_cache()
   edge["max_abs_err"] = worst["edge"]
@@ -1748,17 +1836,43 @@ def phase_embed_bwd(torch, art025, results):
       torch.cuda.empty_cache()
     det = {k: v.detach() for k, v in weights.items()}
     acts = {k: v.detach() for k, v in acts.items()}
-    d_ms = _time_ms(torch, lambda: fused_decode_backward(
-        edges, acts["grid"], acts["mesh_proj"], acts["const"], det, dout))
-    dec.update({"ms" + suffix: d_ms, **{k + suffix: v for k, v in
+
+    def k5():
+      return fused_decode_backward(edges, acts["grid"], acts["mesh_proj"],
+                                   acts["const"], det, dout)
+
+    if res == "1p0":
+      # Fixed-order sums: a rerun is bit-equal, but for the two gradients
+      # summed with atomics outside K5, mesh_proj's (index_add_) and ew0's
+      # (feature_grad).
+      first, again = k5(), k5()
+      pairs = [("grid", first[0], again[0]), ("const", first[2], again[2])]
+      pairs += [(k, v, again[3][k]) for k, v in first[3].items() if k != "ew0"]
+      for name, a, b in pairs:
+        if not torch.equal(a, b):
+          raise AssertionError(f"embed_bwd k5: two runs differ in {name}")
+      del first, again, pairs
+    # Products-only yardstick (40 GEMMs per node) in turns with the whole
+    # backward; the kernel's own device time from the profiler.
+    gemms = _gemm_yardstick(torch, gen, g, _decoder_products(
+        C, 128, embed=True, backward=True))
+    d_ms, d_gemm = _time_in_turns(torch, k5, gemms)
+    del gemms
+    d_kernel = _device_ms(torch, k5, ("fused_decoder_bwd_kernel",),
+                          reps=3)["fused_decoder_bwd_kernel"]
+    dec.update({"ms" + suffix: d_ms, "gemm_ms" + suffix: d_gemm,
+                "kernel_ms" + suffix: d_kernel,
+                **{k + suffix: v for k, v in
                 _embed_bwd_bounds(g, "decoder", C, F, M=m,
                                   NO=num_out).items()}})
     _log("embed_bwd", t0, grid=res, g2m_edges=n_g2m, grid_nodes=g,
          **({"k4_worst_rel_rms": f"{max(e_rels.values()):.3g}",
              "k4_plain_ms": f"{e_plain:.3f}",
              "k5_worst_rel_rms": f"{max(d_rels.values()):.3g}",
+             "k5_bit_equal_rerun": True,
              "k5_plain_ms": f"{d_plain:.3f}"} if res == "1p0" else {}),
          k4_ms=f"{e_ms:.3f}", k5_ms=f"{d_ms:.3f}",
+         k5_kernel_ms=f"{d_kernel:.3f}", k5_gemm_ms=f"{d_gemm:.3f}",
          k4_bound_ms=f"{edge['bound_ms' + suffix]:.4f}",
          k5_bound_ms=f"{dec['bound_ms' + suffix]:.4f}")
     del weights, det, acts, dout, edges

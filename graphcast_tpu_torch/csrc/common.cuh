@@ -1,14 +1,15 @@
-// Shared pieces of the port's Hopper kernels (fused_edge.cu, fused_decoder.cu,
-// their backward passes fused_edge_bwd.cu, fused_decoder_bwd.cu, and the
-// attention kernels splash_fwd.cu, splash_bwd.cu).
+// Shared pieces of the port's Hopper kernels (fused_edge.cu and
+// fused_edge_pipelined.cu, their backward pass fused_edge_bwd.cu, the
+// decoder kernels on decoder.cuh, the attention kernels splash_fwd.cu,
+// splash_bwd.cu, and weight_grad.cu).
 //
-// The kernels are chains of [rows, C] x [C, N] products on a tile of rows
-// held in shared memory, with elementwise and LayerNorm epilogues between
-// them. block_mm is that product: nvcuda::wmma bf16 16x16x16 fragments with
-// f32 accumulation, the weight matrix streamed from global memory (where it
-// stays L2-resident: every block reads the same few 512x512 matrices)
-// through a [64, 128] shared-memory tile. A later PR replaces it with
-// wgmma + TMA; the epilogues stay.
+// The edge kernels are chains of [rows, C] x [C, N] products on a tile of
+// rows held in shared memory, with elementwise and LayerNorm epilogues
+// between them. block_mm is that product: nvcuda::wmma bf16 16x16x16
+// fragments with f32 accumulation, the weight matrix streamed from global
+// memory (where it stays L2-resident: every block reads the same few
+// 512x512 matrices) through a [64, 128] shared-memory tile. The decoder
+// kernels (K2, K5) issue wgmma over a TMA ring instead (decoder.cuh).
 
 #pragma once
 

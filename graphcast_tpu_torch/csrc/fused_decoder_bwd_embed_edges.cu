@@ -1,0 +1,6 @@
+// K5's edge pass in embed mode: fused_decoder_bwd.cu built as its own
+// translation unit for gc_fused_decoder_bwd_embed_edges, so that nvcc
+// compiles K5's kernels in parallel.
+
+#define GC_K5_UNIT 3
+#include "fused_decoder_bwd.cu"

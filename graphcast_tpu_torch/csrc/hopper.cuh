@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
-// (weight_grad.cu, splash_fwd.cu, splash_bwd.cu): mbarriers, TMA tile
-// loads, wgmma shared-memory descriptors for the 128-byte swizzle, the wgmma
-// issue and wait instructions and the bf16 -> f32 products the kernels use,
-// and the host-side tensor map encoder.
+// (weight_grad.cu, splash_fwd.cu, splash_bwd.cu, fused_decoder.cu,
+// fused_decoder_bwd.cu): mbarriers, TMA tile loads, thread block clusters
+// (multicast loads, arrivals on a partner block's barriers), wgmma
+// shared-memory descriptors for the 128-byte swizzle, the wgmma issue and
+// wait instructions and the bf16 -> f32 products the kernels use, and the
+// host-side tensor map encoder.
 //
 // Layout conventions. Every operand tile in shared memory is one or more
 // TMA boxes of 64 bf16 columns (128 bytes, the widest inner box the
@@ -123,6 +125,78 @@ __device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map))
                : "memory");
+}
+
+// ---- clusters -------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster arrives, then waits for all
+// (release / acquire at cluster scope). Not .aligned: a warp may reach it
+// diverged (the producer warp, whose lane 0 ran the stream).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// tma_load_2d into the same shared-memory offset of every block of the
+// cluster in `mask` (bit b: cluster rank b); each destination block's
+// barrier at `bar`'s offset receives the box's bytes.
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst,
+                                                      const CUtensorMap* map,
+                                                      uint64_t* bar, int c0,
+                                                      int c1, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask),
+      "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// One arrival on the barrier at `bar`'s offset in the block of cluster rank
+// `cta` (this block's own rank included), with the default (CTA-scope)
+// release, as CUTLASS's cluster barriers arrive: spelled
+// .release.cluster, it compiles to a GPU-scope MEMBAR before every arrival.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(
+          smem_u32(bar)),
+      "r"(cta)
+      : "memory");
+}
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of it (a wgmma operand written by st.shared).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Moves this warpgroup's register budget to kRegs a thread (every warp of
+// the warpgroup executes it): a producer warpgroup gives registers back,
+// the consumer warpgroups take them.
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+// Named barrier `id` over `threads` threads (a multiple of 32).
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // ---- wgmma ----------------------------------------------------------------

@@ -94,11 +94,12 @@ def _declare(lib: ctypes.CDLL):
   lib.gc_fused_edge_pipelined.restype = i
   lib.gc_fused_edge_pipelined.argtypes = [p] * 13 + [i] * 4 + [p]
   lib.gc_fused_decoder.restype = i
-  lib.gc_fused_decoder.argtypes = [p] * 21 + [i] * 4 + [p]
+  lib.gc_fused_decoder.argtypes = [p] * 22 + [i] * 5 + [p]
   lib.gc_fused_edge_bwd.restype = i
   lib.gc_fused_edge_bwd.argtypes = [p] * 20 + [i] * 3 + [p]
-  lib.gc_fused_decoder_bwd.restype = i
-  lib.gc_fused_decoder_bwd.argtypes = [p] * 30 + [i] * 4 + [p]
+  for name in ("gc_fused_decoder_bwd_nodes", "gc_fused_decoder_bwd_edges"):
+    getattr(lib, name).restype = i
+    getattr(lib, name).argtypes = [p] * 28 + [i] * 5 + [p]
   lib.gc_weight_grad.restype = i
   lib.gc_weight_grad.argtypes = [p, i, p, i, p, i, i, i, p, i, i, i, p, p]
   lib.gc_weight_grad_smem.restype = i
@@ -108,13 +109,17 @@ def _declare(lib: ctypes.CDLL):
   lib.gc_fused_edge_embed_pipelined.restype = i
   lib.gc_fused_edge_embed_pipelined.argtypes = [p] * 16 + [i] * 3 + [p]
   lib.gc_fused_decoder_embed.restype = i
-  lib.gc_fused_decoder_embed.argtypes = [p] * 27 + [i] * 5 + [p]
+  lib.gc_fused_decoder_embed.argtypes = [p] * 28 + [i] * 6 + [p]
   lib.gc_splash_fwd.restype = i
   lib.gc_splash_fwd.argtypes = [p] * 11 + [ctypes.c_float] + [i] * 4 + [p]
   lib.gc_splash_fwd_smem.restype = i
   lib.gc_splash_fwd_smem.argtypes = []
-  lib.gc_fused_decoder_bwd_embed.restype = i
-  lib.gc_fused_decoder_bwd_embed.argtypes = [p] * 39 + [i] * 5 + [p]
+  for name in ("gc_fused_decoder_bwd_embed_nodes",
+               "gc_fused_decoder_bwd_embed_edges"):
+    getattr(lib, name).restype = i
+    getattr(lib, name).argtypes = [p] * 36 + [i] * 6 + [p]
+  lib.gc_decoder_layout.restype = None
+  lib.gc_decoder_layout.argtypes = [i, i, i, p]
   lib.gc_fused_edge_bwd_embed.restype = i
   lib.gc_fused_edge_bwd_embed.argtypes = [p] * 28 + [i] * 3 + [p]
   lib.gc_feature_grad.restype = i

@@ -33,6 +33,9 @@ b0', escale/eoffset and nscale/noffset.
 All weights are cast to the activation dtype at use (vectors too, then used
 in f32), as the TPU kernel receives them. ``fused_decode`` runs the CUDA
 kernel (csrc/fused_decoder.cu) for CUDA tensors and the twin for CPU tensors.
+Both kernels (csrc/decoder.cuh) run a cluster of two 64-node blocks that
+share every weight box by TMA multicast; ``smem_layout`` is their shared
+memory plan, made here so that the CPU tests can check it.
 
 Gradients: on CUDA tensors that require grad, K2 runs inside a
 ``torch.autograd.Function`` whose backward is K5 (``fused_decode_backward``;
@@ -44,6 +47,8 @@ under plain autograd.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -71,6 +76,62 @@ _BWD_SUMS_EMBED = ("b0", "eb1", "eb0")
 _SLABS = {"agg": 0, "hn": 1, "res": 2, "ho": 3, "dxo": 4, "dyn": 5,
           "dxn": 6, "dgproj": 7, "hs": 8, "dys": 11, "hh": 14, "en": 17,
           "dy0": 20, "dxe": 23}
+# The kernels' block plan (csrc/decoder.cuh): the latent width they are
+# built for (a narrower one runs in the same layout, zero-padded), grid
+# nodes per block, blocks per cluster, the weight box, the shared memory a
+# block may have, the ring's cap, the alignment slack, the row exchange and
+# rstd areas.
+WIDTH = 512
+ROWS = 64
+CLUSTER = 2
+BOX = 64 * 64 * 2
+SMEM_LIMIT = 232448
+MAX_STAGES = 16
+ALIGN = 1008
+EXCHANGE = 2 * 2 * ROWS * 8
+RSTD = 4 * ROWS * 4
+# K5's per-block work scratch in f32 per latent column (csrc kDecWork): an
+# f32 tile of ROWS rows and two bf16 ones.
+BWD_WORK = ROWS + 2 * ROWS // 2
+
+
+def smem_layout(C: int, outputs: int, embed: bool = False,
+                backward: bool = False) -> dict:
+  """Shared memory of one block of K2 (``backward`` False) or K5 at latent
+  width C, in bytes from its 1024-aligned base, as csrc/decoder.cuh
+  dec_layout lays it out. Every width runs in the layout of WIDTH: the
+  operand A (K5: wide enough for the padded outputs), the grid latents G,
+  the weight ring (``stages`` boxes of BOX bytes, what is left up to
+  MAX_STAGES), the row exchange, the rstd area, K5's column sums and their
+  per-warp parts, the barriers; ``total`` is the dynamic shared memory the
+  launch asks for (with ALIGN bytes of slack)."""
+  if C % 128 or not 128 <= C <= WIDTH or not 1 <= outputs <= 512:
+    raise ValueError(f"latent width {C} or outputs {outputs} not taken")
+  no_pad = -(-outputs // 128) * 128
+  a_cols = max(WIDTH, no_pad) if backward else WIDTH
+  kinds = len(_BWD_SUMS) + (len(_BWD_SUMS_EMBED) if embed else 0)
+  sums = kinds * WIDTH + no_pad if backward else 0
+  lay = {"a": 0, "g": a_cols // 64 * BOX}
+  lay["ring"] = lay["g"] + WIDTH // 64 * BOX
+  colred = 4 * WIDTH * 4 if sums else 0
+  bars = (2 * MAX_STAGES + 2) * 8
+  tail = EXCHANGE + RSTD + sums * 4 + colred + bars
+  lay["stages"] = min(MAX_STAGES, (SMEM_LIMIT - ALIGN - lay["ring"] - tail)
+                      // BOX)
+  lay["exchange"] = lay["ring"] + lay["stages"] * BOX
+  lay["rstd"] = lay["exchange"] + EXCHANGE
+  lay["sums"] = lay["rstd"] + RSTD
+  lay["colred"] = lay["sums"] + sums * 4
+  lay["bars"] = lay["colred"] + colred
+  lay["total"] = lay["bars"] + bars + ALIGN
+  return lay
+
+
+@functools.lru_cache(maxsize=8)
+def _max_blocks(device) -> int:
+  """Blocks a decoder launch may use (its scratch is sized for them): one
+  per SM."""
+  return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def fused_decode_reference(edges: EdgeIndex, grid, mesh_proj, const,
@@ -147,10 +208,16 @@ def _kernel_operands(edges: EdgeIndex, grid, mesh_proj, const,
       raise ValueError(f"{k} must have shape ({C},)")
   if mats["wd1"].shape != (C, num_out) or vecs["bd1"].shape != (num_out,):
     raise ValueError("wd1/bd1 shapes disagree")
-  # Output columns padded to whole 128-column passes of the kernel's product.
+  # Output columns padded to whole 128-column passes of the kernel's product;
+  # the other vectors (and ew0's columns) zero-padded to the kernels' WIDTH.
   mats["wd1"] = torch.nn.functional.pad(
       mats["wd1"], (0, no_pad - num_out)).contiguous()
-  vecs["bd1"] = torch.nn.functional.pad(vecs["bd1"], (0, no_pad - num_out))
+  vecs = {k: torch.nn.functional.pad(v, (0, (no_pad - num_out) if k == "bd1"
+                                         else WIDTH - C)).contiguous()
+          for k, v in vecs.items()}
+  if embed:
+    mats["ew0_pad"] = torch.nn.functional.pad(
+        mats["ew0"], (0, WIDTH - C)).contiguous()
   _check_cuda({"grid": grid, "mesh_proj": mesh_proj, "const": const, **mats},
               dev, bf16)
   _check_cuda(vecs, dev, torch.float32)
@@ -168,11 +235,14 @@ def _launch_fused_decode(edges: EdgeIndex, grid, mesh_proj, const,
   G = grid.shape[0]
   lib = build.load_library()
   out = torch.empty(G, num_out, dtype=torch.bfloat16, device=grid.device)
+  blocks = _max_blocks(grid.device)
+  agg = torch.empty(blocks, ROWS * WIDTH, dtype=torch.float32,
+                    device=grid.device)
   stream = torch.cuda.current_stream(grid.device).cuda_stream
   if embed:
     code = lib.gc_fused_decoder_embed(
         grid.data_ptr(), mesh_proj.data_ptr(), const.data_ptr(),
-        edges.senders.data_ptr(), mats["ew0"].data_ptr(),
+        edges.senders.data_ptr(), mats["ew0_pad"].data_ptr(),
         vecs["eb0"].data_ptr(), mats["ew1"].data_ptr(),
         vecs["eb1"].data_ptr(), mats["we"].data_ptr(), vecs["b0"].data_ptr(),
         mats["wr"].data_ptr(), mats["w1"].data_ptr(),
@@ -182,8 +252,9 @@ def _launch_fused_decode(edges: EdgeIndex, grid, mesh_proj, const,
         mats["wn1"].data_ptr(), vecs["bn1"].data_ptr(),
         vecs["nscale"].data_ptr(), vecs["noffset"].data_ptr(),
         mats["wd0"].data_ptr(), vecs["bd0"].data_ptr(),
-        mats["wd1"].data_ptr(), vecs["bd1"].data_ptr(), out.data_ptr(), G,
-        C, no_pad, num_out, const.shape[1], stream)
+        mats["wd1"].data_ptr(), vecs["bd1"].data_ptr(), out.data_ptr(),
+        agg.data_ptr(), G, C, no_pad, num_out, const.shape[1], blocks,
+        stream)
     build.check(lib, code, "fused_decoder embed kernel launch")
     fused_decode.launches += 1
     fused_decode.embed_launches += 1
@@ -197,7 +268,7 @@ def _launch_fused_decode(edges: EdgeIndex, grid, mesh_proj, const,
       vecs["bn1"].data_ptr(), vecs["nscale"].data_ptr(),
       vecs["noffset"].data_ptr(), mats["wd0"].data_ptr(),
       vecs["bd0"].data_ptr(), mats["wd1"].data_ptr(), vecs["bd1"].data_ptr(),
-      out.data_ptr(), G, C, no_pad, num_out, stream)
+      out.data_ptr(), agg.data_ptr(), G, C, no_pad, num_out, blocks, stream)
   build.check(lib, code, "fused_decoder kernel launch")
   fused_decode.launches += 1
   return out
@@ -230,17 +301,22 @@ def fused_decode_backward(edges: EdgeIndex, grid, mesh_proj, const,
     raise ValueError(f"dout must have shape ({G}, {num_out})")
   dout = torch.nn.functional.pad(dout.to(bf16),
                                  (0, no_pad - num_out)).contiguous()
-  tr = {k: mats[k].t().contiguous()
-        for k in MATRICES + (("ew1", "we") if embed else ())}
   lib = build.load_library()
   dgrid = torch.empty(G, C, dtype=bf16, device=dev)
   dgs = torch.empty(3 * G, C, dtype=bf16, device=dev)
   dmesh = torch.zeros(edges.num_senders, C, dtype=f32, device=dev)
   sum_keys = _BWD_SUMS + (_BWD_SUMS_EMBED if embed else ())
   sums = torch.zeros(len(sum_keys) * C + no_pad, dtype=f32, device=dev)
+  blocks = _max_blocks(dev)
+  work = torch.empty(blocks, BWD_WORK * WIDTH, dtype=f32, device=dev)
+  partials = torch.empty(blocks, sums.numel(), dtype=f32, device=dev)
+  slab_rows = min(G, BWD_CHUNK_NODES)
+  # The node pass hands each tile's dg and dagg to the edge pass (tiles in
+  # whole cluster pairs).
+  tiles = -(-slab_rows // (2 * ROWS)) * 2
+  dg_t = torch.empty(2, tiles, ROWS * WIDTH, dtype=f32, device=dev)
   dw = {k: torch.zeros(C, C, dtype=f32, device=dev) for k in MATRICES}
   dw["wd1"] = torch.zeros(C, no_pad, dtype=f32, device=dev)
-  slab_rows = min(G, BWD_CHUNK_NODES)
   slabs = 26 if embed else 14
   scratch = torch.empty(slabs, slab_rows, C, dtype=bf16, device=dev)
   flat = scratch.view(slabs * slab_rows, C)
@@ -250,6 +326,7 @@ def fused_decode_backward(edges: EdgeIndex, grid, mesh_proj, const,
               ew1=torch.zeros(C, C, dtype=f32, device=dev),
               ew0=torch.zeros(F, C, dtype=f32, device=dev))
     en32 = torch.empty(3 * slab_rows, C, dtype=f32, device=dev)
+    rstd0 = torch.empty(3 * slab_rows, dtype=f32, device=dev)
     dconst = torch.empty(3 * G, F, dtype=f32, device=dev)
   else:
     dconst = dgs
@@ -258,31 +335,33 @@ def fused_decode_backward(edges: EdgeIndex, grid, mesh_proj, const,
     n = min(BWD_CHUNK_NODES, G - v0)
     nodes, rows = slice(v0, v0 + n), slice(3 * v0, 3 * (v0 + n))
     common = (
-        mats["wr"].data_ptr(), tr["wr"].data_ptr(), mats["w1"].data_ptr(),
-        tr["w1"].data_ptr(), vecs["b1"].data_ptr(), vecs["escale"].data_ptr(),
-        vecs["eoffset"].data_ptr(), mats["wng"].data_ptr(),
-        tr["wng"].data_ptr(), mats["wna"].data_ptr(), tr["wna"].data_ptr(),
-        vecs["bn0"].data_ptr(), mats["wn1"].data_ptr(), tr["wn1"].data_ptr(),
+        mats["wr"].data_ptr(), mats["w1"].data_ptr(), vecs["b1"].data_ptr(),
+        vecs["escale"].data_ptr(), vecs["eoffset"].data_ptr(),
+        mats["wng"].data_ptr(), mats["wna"].data_ptr(),
+        vecs["bn0"].data_ptr(), mats["wn1"].data_ptr(),
         vecs["bn1"].data_ptr(), vecs["nscale"].data_ptr(),
         vecs["noffset"].data_ptr(), mats["wd0"].data_ptr(),
-        tr["wd0"].data_ptr(), vecs["bd0"].data_ptr(), tr["wd1"].data_ptr(),
+        vecs["bd0"].data_ptr(), mats["wd1"].data_ptr(),
         dout[nodes].data_ptr(), dgrid[nodes].data_ptr(), dgs[rows].data_ptr(),
         scratch.data_ptr())
-    if embed:
-      code = lib.gc_fused_decoder_bwd_embed(
-          grid[nodes].data_ptr(), mesh_proj.data_ptr(),
-          const[rows].data_ptr(), edges.senders[rows].data_ptr(),
-          mats["ew0"].data_ptr(), vecs["eb0"].data_ptr(),
-          mats["ew1"].data_ptr(), tr["ew1"].data_ptr(),
-          vecs["eb1"].data_ptr(), mats["we"].data_ptr(), tr["we"].data_ptr(),
-          vecs["b0"].data_ptr(), *common, en32.data_ptr(), sums.data_ptr(),
-          slab_rows, n, C, no_pad, F, stream)
-    else:
-      code = lib.gc_fused_decoder_bwd(
-          grid[nodes].data_ptr(), mesh_proj.data_ptr(),
-          const[rows].data_ptr(), edges.senders[rows].data_ptr(), *common,
-          sums.data_ptr(), slab_rows, n, C, no_pad, stream)
-    build.check(lib, code, "fused_decoder_bwd kernel launch")
+    tail = (work.data_ptr(), dg_t[0].data_ptr(), dg_t[1].data_ptr(),
+            partials.data_ptr(), sums.data_ptr(), slab_rows, n, C, no_pad)
+    # The node pass, then the edge pass (csrc/fused_decoder_bwd.cu).
+    for passes in ("nodes", "edges"):
+      if embed:
+        code = getattr(lib, f"gc_fused_decoder_bwd_embed_{passes}")(
+            grid[nodes].data_ptr(), mesh_proj.data_ptr(),
+            const[rows].data_ptr(), edges.senders[rows].data_ptr(),
+            mats["ew0_pad"].data_ptr(), vecs["eb0"].data_ptr(),
+            mats["ew1"].data_ptr(), vecs["eb1"].data_ptr(),
+            mats["we"].data_ptr(), vecs["b0"].data_ptr(), *common,
+            en32.data_ptr(), rstd0.data_ptr(), *tail, F, blocks, stream)
+      else:
+        code = getattr(lib, f"gc_fused_decoder_bwd_{passes}")(
+            grid[nodes].data_ptr(), mesh_proj.data_ptr(),
+            const[rows].data_ptr(), edges.senders[rows].data_ptr(),
+            *common, *tail, blocks, stream)
+      build.check(lib, code, f"fused_decoder_bwd {passes} pass launch")
     fused_decode_backward.launches += 1
     fused_decode_backward.embed_launches += int(embed)
 

@@ -736,3 +736,117 @@ def test_pipelined_kernel_refuses_widths_it_does_not_take(width,
     fused_edge(edges, z(4, width), z(2, width), z(4, width), z(width, width),
                v, z(width, width), v, v, v, pipelined=True)
   assert (fused_edge.pipelined_launches, fused_edge.launches) == before
+
+
+# K2 and K5 at the shapes their block plan must handle: a grid-node count
+# below one 64-node tile, partial last tiles, an odd tile count (the last
+# cluster's second block holds no node), latent widths 128 to 512, one
+# output and 227 (a partial 128-column pass), embed mode.
+_DECODER_SHAPES = [(1, 512, 227, False), (37, 128, 1, False),
+                   (150, 256, 227, True), (200, 384, 84, False),
+                   (129, 512, 1, True), (1000, 512, 227, False)]
+
+
+def _decoder_case(seed, G, width, num_out, embed, M=300, F=4):
+  rng = np.random.RandomState(seed)
+  senders = rng.randint(0, M, 3 * G)
+  gen = torch.Generator().manual_seed(seed)
+  bf16 = torch.bfloat16
+  w = {k: _rand(gen, width, width, scale=width ** -0.5) for k in MATRICES}
+  w["wd1"] = _rand(gen, width, num_out, scale=width ** -0.5)
+  w.update({k: _rand(gen, width, scale=0.1) for k in VECTORS})
+  w["bd1"] = _rand(gen, num_out, scale=0.1)
+  for k in ("escale", "nscale"):
+    w[k] = w[k] + 1.0
+  if embed:
+    w.update(ew0=_rand(gen, F, width, scale=0.5),
+             eb0=_rand(gen, width, scale=0.1),
+             ew1=_rand(gen, width, width, scale=width ** -0.5),
+             eb1=_rand(gen, width, scale=0.1),
+             we=_rand(gen, width, width, scale=width ** -0.5),
+             b0=_rand(gen, width, scale=0.1))
+  acts = dict(grid=_rand(gen, G, width, dtype=bf16),
+              mesh_proj=_rand(gen, M, width, dtype=bf16),
+              const=(_rand(gen, 3 * G, F) if embed
+                     else _rand(gen, 3 * G, width, dtype=bf16)))
+  dout = _rand(gen, G, num_out, dtype=bf16)
+  return senders, w, acts, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,width,num_out,embed", _DECODER_SHAPES)
+def test_fused_decoder_kernel_at_edge_shapes_matches_twin(G, width, num_out,
+                                                          embed, cuda_device):
+  senders, w, acts, _ = _decoder_case(11, G, width, num_out, embed)
+  edges = EdgeIndex(senders, np.repeat(np.arange(G), 3), 300, G,
+                    device=cuda_device)
+  w = {k: v.to(cuda_device) for k, v in w.items()}
+  acts = {k: v.to(cuda_device) for k, v in acts.items()}
+  before = fused_decode.launches, fused_decode.embed_launches
+  with torch.inference_mode():
+    got = fused_decode(edges, acts["grid"], acts["mesh_proj"],
+                       acts["const"], w)
+    want = fused_decode_reference(edges, acts["grid"], acts["mesh_proj"],
+                                  acts["const"], w)
+  torch.cuda.synchronize()
+  assert (fused_decode.launches - before[0],
+          fused_decode.embed_launches - before[1]) == (1, int(embed))
+  assert got.shape == (G, num_out) and got.dtype == torch.bfloat16
+  _assert_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,width,num_out,embed", _DECODER_SHAPES)
+def test_fused_decoder_backward_at_edge_shapes_matches_twin_and_reruns_bit_equal(
+    G, width, num_out, embed, cuda_device):
+  senders, w, acts, dout = _decoder_case(12, G, width, num_out, embed)
+  edges = EdgeIndex(senders, np.repeat(np.arange(G), 3), 300, G,
+                    device=cuda_device)
+  leaves = {k: v.to(cuda_device).requires_grad_()
+            for k, v in {**acts, **w}.items()}
+  dout = dout.to(cuda_device)
+
+  def run(fn):
+    return lambda grid, mesh_proj, const, **weights: fn(
+        edges, grid, mesh_proj, const, weights)
+
+  got = _grads(run(fused_decode), leaves, (dout,))
+  want = _grads(run(fused_decode_reference), leaves, (dout,))
+  torch.cuda.synchronize()
+  _assert_grads_close(got, want)
+  # Fixed-order sums: a rerun at the same chunking is bit-equal, but for
+  # the gradients summed with atomics outside K5: mesh_proj's (index_add_)
+  # and ew0's (feature_grad).
+  det = {k: v.detach() for k, v in leaves.items()}
+  weights = {k: det[k] for k in w}
+  runs = [fused_decode_backward(edges, det["grid"], det["mesh_proj"],
+                                det["const"], weights, dout)
+          for _ in range(2)]
+  assert torch.equal(runs[0][0], runs[1][0])  # dgrid
+  assert torch.equal(runs[0][2], runs[1][2])  # dconst
+  for k in runs[0][3]:
+    if k != "ew0":
+      assert torch.equal(runs[0][3][k], runs[1][3][k]), k
+
+
+@pytest.mark.cuda
+def test_decoder_smem_layout_matches_kernels(cuda_device):
+  import ctypes
+  from graphcast_tpu_torch.native import build
+  from graphcast_tpu_torch.ops import fused_decoder
+  lib = build.load_library()
+  keys = ("a", "g", "ring", "exchange", "rstd", "sums", "colred", "bars",
+          "stages", "total")
+  for width in (128, 256, 384, 512):
+    for outputs in (1, 227, 512):
+      for embed in (False, True):
+        for backward in (False, True):
+          want = fused_decoder.smem_layout(width, outputs, embed, backward)
+          no_pad = -(-outputs // 128) * 128
+          kinds = len(fused_decoder._BWD_SUMS) + (
+              len(fused_decoder._BWD_SUMS_EMBED) if embed else 0)
+          W = fused_decoder.WIDTH
+          buf = (ctypes.c_int * len(keys))()
+          lib.gc_decoder_layout(W, max(W, no_pad) if backward else W,
+                                kinds * W + no_pad if backward else 0, buf)
+          assert dict(zip(keys, buf)) == want

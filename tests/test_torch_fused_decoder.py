@@ -18,6 +18,9 @@ gradient (the TPU kernel rounds each cotangent before its product and
 evaluates swish' in bf16; autograd of the twin rounds at the twin's casts).
 """
 
+import pathlib
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +28,7 @@ import pytest
 import torch
 
 from graphcast_tpu.ops.pallas_decoder import FusedMesh2GridDecoder
+from graphcast_tpu_torch.ops import fused_decoder
 from graphcast_tpu_torch.ops.fused_decoder import (
     KEYS, MATRICES, VECTORS, fused_decode)
 from graphcast_tpu_torch.ops.fused_edge import EdgeIndex
@@ -248,3 +252,81 @@ def test_embed_mode_twin_grads_match_jax_fused_backward(dtype_name):
     else:
       rel = np.sqrt(np.mean((g - wv) ** 2) / np.mean(wv * wv))
       assert rel <= 2e-2, (name, rel)
+
+
+_CSRC = pathlib.Path(__file__).resolve().parents[1] / "graphcast_tpu_torch" / "csrc"
+
+
+def _kernel_constants():
+  """The ``constexpr int`` constants of csrc/decoder.cuh and
+  csrc/fused_decoder_bwd.cu, evaluated in order (sums and products of
+  integers and earlier constants), and the count of K5's column sums from
+  its enum."""
+  consts = {}
+  for name in ("decoder.cuh", "fused_decoder_bwd.cu"):
+    text = (_CSRC / name).read_text()
+    for key, expr in re.findall(r"constexpr int (kDec\w+) = ([^;]+);", text):
+      consts[key] = eval(expr, {"__builtins__": {}}, dict(consts))  # noqa
+  enum = re.search(r"enum \{ (kSBd0[^}]*)\}", (_CSRC / "fused_decoder_bwd.cu")
+                   .read_text()).group(1)
+  names = [n.split("=")[0].strip() for n in enum.split(",")]
+  consts["kDecSums"] = names.index("kDecSums")
+  consts["kDecSumsEmbed"] = (consts["kDecSums"]
+                             + names.index("kDecSumsEmbed")
+                             - names.index("kSB0"))
+  return consts
+
+
+def test_layout_constants_match_kernels():
+  k = _kernel_constants()
+  assert (k["kDecWidth"], k["kDecRows"], k["kDecCluster"], k["kDecBox"],
+          k["kDecSmemLimit"], k["kDecMaxStages"], k["kDecAlign"],
+          k["kDecExchange"], k["kDecRstd"]) == (
+              fused_decoder.WIDTH, fused_decoder.ROWS, fused_decoder.CLUSTER,
+              fused_decoder.BOX, fused_decoder.SMEM_LIMIT,
+              fused_decoder.MAX_STAGES, fused_decoder.ALIGN,
+              fused_decoder.EXCHANGE, fused_decoder.RSTD)
+  assert k["kDecWork"] == fused_decoder.BWD_WORK
+  assert k["kDecSums"] == len(fused_decoder._BWD_SUMS)
+  assert (k["kDecSumsEmbed"] - k["kDecSums"]
+          == len(fused_decoder._BWD_SUMS_EMBED))
+  # Each weight byte fetched from L2 serves a cluster's rows.
+  assert k["kDecRows"] * k["kDecCluster"] >= 128
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("embed", [False, True])
+@pytest.mark.parametrize("C", [128, 256, 384, 512])
+def test_smem_layout_fits_every_width_the_wrapper_takes(C, embed, backward):
+  """K2's and K5's block plan fits a block's 232,448 bytes at every latent
+  width and output count the wrapper accepts (each width in the layout of
+  the kernels' WIDTH), its swizzled tiles on 1024-byte boundaries, A wide
+  enough for its widest operand, and a ring of at least 4 boxes."""
+  W = fused_decoder.WIDTH
+  assert C <= W
+  for outputs in (1, 84, 127, 128, 227, 256, 383, 512):
+    lay = fused_decoder.smem_layout(C, outputs, embed, backward)
+    no_pad = -(-outputs // 128) * 128
+    assert lay["total"] <= fused_decoder.SMEM_LIMIT, (outputs, lay)
+    assert lay["stages"] >= 4, (outputs, lay)
+    assert lay["g"] - lay["a"] == 64 * max(W, no_pad) * 2
+    assert lay["ring"] - lay["g"] == 64 * W * 2
+    assert lay["exchange"] - lay["ring"] == lay["stages"] * fused_decoder.BOX
+    for key in ("a", "g", "ring"):
+      assert lay[key] % 1024 == 0, key
+    kinds = len(fused_decoder._BWD_SUMS) + (
+        len(fused_decoder._BWD_SUMS_EMBED) if embed else 0)
+    assert lay["colred"] - lay["sums"] == (
+        4 * (kinds * W + no_pad) if backward else 0)
+    order = [lay[k] for k in ("a", "g", "ring", "exchange", "rstd", "sums",
+                              "colred", "bars")]
+    assert order == sorted(order)
+    assert lay["bars"] % 8 == 0
+    assert lay["total"] == (lay["bars"] + (2 * fused_decoder.MAX_STAGES + 2)
+                            * 8 + fused_decoder.ALIGN)
+
+
+def test_smem_layout_refuses_widths_the_kernels_do_not_take():
+  for C, outputs in ((64, 10), (640, 10), (200, 10), (512, 513)):
+    with pytest.raises(ValueError):
+      fused_decoder.smem_layout(C, outputs)
