@@ -9,9 +9,14 @@ Usage: python3 chip_smoke.py            (all phases; needs one CUDA device)
 Phases, each printing one line with its seconds and results:
   build  compile csrc/*.cu with nvcc for sm_90a and load it; print the
          card's name and power limit (nvidia-smi).
-  k1     the fused edge kernel against its plain-PyTorch twin on the card:
-         processor mode on the real mesh-6 multi-mesh edge set and encoder
-         mode on the real 0.25° grid2mesh edge set, latent 512, bf16.
+  k1     the fused edge kernel against its plain-PyTorch twin on the card,
+         latent 512, bf16: processor mode, We without e' and e' without We
+         on the real mesh-6 multi-mesh edge set, encoder mode on the real
+         0.25° grid2mesh edge set; the kernels' registers, spills, shared
+         memory and any ptxas wgmma advisory from the build log; each mode
+         timed in turns with its products as bf16 cuBLAS GEMMs over the
+         same rows (gemm_ms, a yardstick, not a library call for its
+         function).
   k2     the fused decoder kernel against its twin at 0.25° (1,038,240 grid
          nodes, 227 outputs); its registers, spills, shared memory and any
          ptxas wgmma advisory from the build log; timed in turns with the
@@ -28,7 +33,12 @@ Phases, each printing one line with its seconds and results:
          rms(card bf16 - cpu f32) <= 2 * rms(cpu bf16 - cpu f32) + eps.
   k4     the edge step's backward kernel against torch.autograd.grad of the
          K1 twin, seeded random cotangents: processor mode on the mesh-6
-         edge set, encoder mode on the 0.25° grid2mesh edge set.
+         edge set, encoder mode on the 0.25° grid2mesh edge set; a rerun
+         bit-equal (fixed-order column sums and weight gradients) but for
+         the gradients of sproj and rproj (atomics); registers, spills and
+         shared memory from the build log; the whole backward timed in
+         turns with its products as cuBLAS GEMMs (gemm_ms), the per-row
+         kernel's own device time from the profiler (kernel_ms).
   k5     the decoder's backward kernel against autograd of the K2 twin on
          the first 131,072 grid nodes of the 0.25° mesh2grid list with all
          mesh-6 nodes (the twin's f32 autograd at all 1,038,240 nodes would
@@ -72,14 +82,15 @@ Phases, each printing one line with its seconds and results:
          mask (the library yardstick) where that mask fits.
   embed  K1 and K2 in embed mode (GenCast's grid2mesh and mesh2grid, raw
          edge features embedded in the kernel) against their plain versions
-         on the real 1.0° GenCast and 0.25° edge sets; K2 timed in turns
-         with its products-only yardstick (17 GEMMs per node).
+         on the real 1.0° GenCast and 0.25° edge sets; each timed in turns
+         with its products-only yardstick (K1 3 GEMMs per edge, K2 17 per
+         node); K1's registers, spills and shared memory.
   embed_bwd  K4 and K5 in embed mode against torch.autograd.grad of the K1
-         and K2 embed twins on the real 1.0° GenCast edge sets (K5 also a
-         rerun bit-equal), each kernel alone on the 0.25° sets (K5 in turns
-         with its 40-GEMM products-only yardstick, and its own device
-         time), and the feature-gradient pass they share against its plain
-         version.
+         and K2 embed twins on the real 1.0° GenCast edge sets (each also a
+         rerun bit-equal), each kernel alone on the 0.25° sets (each in
+         turns with its products-only yardstick, K4 6 GEMMs per edge, K5 40
+         per node, and its own device time), and the feature-gradient pass
+         they share against its plain version.
   gencast  GenCast's sampling path: zoo.gencast_1p0deg() (1.0°, 13 levels,
          mesh-5, latent 512, 16-layer 4-head k-hop-16 transformer, 20 noise
          levels) at full width, random weights from a fixed generator with
@@ -142,10 +153,11 @@ Phases, each printing one line with its seconds and results:
   k1p    the pipelined edge kernel (K1p) against its plain version and
          against K1 on the same inputs: processor mode on the mesh-6
          multi-mesh, encoder mode on the 0.25° grid2mesh set, embed mode on
-         the 1.0° GenCast and the 0.25° grid2mesh sets; e' bit-identical to
-         K1's, the receiver sums to f32 reassociation; K1p ms beside K1 ms
-         (timed in turns), plain ms and the bound; then one K4 backward
-         behind a K1p forward through fused_edge against one behind K1.
+         the 1.0° GenCast and the 0.25° grid2mesh sets; e' and the receiver
+         sums against K1's at the kernel-vs-twin tolerance; K1p ms beside
+         K1 ms (timed in turns), plain ms and the bound; then one K4
+         backward behind a K1p forward through fused_edge against one
+         behind K1.
   main_pipelined  the main path of main with GC_PIPELINED_EDGE=1: the same
          weights, inputs and rollout_final, K1p 16 + 1 launches a step and
          K1 none; the final state against main's, per variable; s/step of
@@ -170,13 +182,15 @@ plain version the normalised ones), lse max-abs <= 1e-3. K1's embed-mode
 sums over the real GenCast edge sets may also differ by 2^-8 per summed
 edge (``_check_close``): at the poles hundreds of edges that share one raw
 feature row meet one mesh node, and a rounding flip in that row's bf16
-embedding moves all of them the same way. K1p against K1: e' equal bit for
-bit, the receiver sums within relative RMS K1P_AGG_RTOL (only runs that
-cross a tile boundary are summed in another f32 order); each gradient
-behind a K1p forward against the one behind K1: rms(K1p - K1) <= 2 rms(K1'
-- K1) + K1P_GRAD_RTOL rms(K1), K1' a second run of K1's path (K4's f32
-atomics add in a run-dependent order, and the bf16 gradients round their
-sums).
+embedding moves all of them the same way. K1p against K1: e' and the
+receiver sums at the kernel-vs-twin tolerance (the same rounding points;
+K1 sums its wgmma products over 64-deep weight boxes, K1p its wmma
+products in K order); each gradient behind a K1p forward against the one
+behind K1: rms(K1p - K1) <= 2 rms(K1' - K1) + K1P_GRAD_RTOL rms(K1), K1' a
+second run of K1's path (K4's receiver-run sums at tile ends add with
+atomics in a run-dependent order, and the bf16 gradients round their
+sums; the sender scatter's order is fixed for these runs by torch's
+deterministic mode).
 
 Each kernel's line in the JSON carries its bound: the least time the card
 could take for the same work, the larger of the bytes it must move (inputs
@@ -211,7 +225,7 @@ SMALL_EPS = 1e-4        # noise-floor slack, relative to rms(cpu f32)
 ROLLOUT_STEPS = 4
 TRAIN_STEPS = 3
 K5_NODES = 131_072
-TRAIN_SMALL_MP_STEPS = 4
+TRAIN_SMALL_MP_STEPS = 2
 LSE_ATOL = 1e-3         # max-abs error of the attention's logsumexp
 GENCAST_STEPS = 2
 SST_NAN_ROWS = 10       # latitude rows of NaN SST in the GenCast train data
@@ -220,7 +234,6 @@ ENSEMBLE_MEMBERS = 4    # GenCast ensemble members, the batch axis
 ENSEMBLE_STEPS = 2      # timed 12 h chunks of the ensemble rollout
 BATCH = 4               # GraphCast_small batch of the graphcast_batch phase
 BATCH_STEPS = 2         # its timed 6 h steps
-K1P_AGG_RTOL = 1e-6     # relative RMS, K1p's receiver sums vs K1's
 K1P_GRAD_RTOL = 1e-6    # slack over K4's run-to-run noise, relative to rms
 MAIN_PIPELINED_RTOL = 1e-2  # relative RMS per variable, vs main's final
 BENCH_STEPS = 4         # the bench phase's BENCH_NUM_STEPS
@@ -363,13 +376,17 @@ def _bound(flops, nbytes, peak_flops=PEAK_FLOPS):
 
 
 def _edge_cost(E, n_snd, n_rcv, C, mode, F=4):
-  """(FLOPs, bytes) of one K1 call: per edge row 2 (processor), 1 (encoder)
-  or 3 (embed, plus the F-deep first layer) C x C products."""
-  flops = {"processor": 4 * C * C, "encoder": 2 * C * C,
+  """(FLOPs, bytes) of one K1 call: per edge row 2 (processor, We without
+  e'), 1 (encoder, e' without We) or 3 (embed, plus the F-deep first layer)
+  C x C products; e read, e' written where the mode writes it."""
+  flops = {"processor": 4 * C * C, "we_nowrite": 4 * C * C,
+           "encoder": 2 * C * C, "nowe_write": 2 * C * C,
            "embed": 6 * C * C + 2 * F * C}[mode] * E
-  rows = {"processor": 2 * E * C * 2, "encoder": E * C * 2,
+  rows = {"processor": 2 * E * C * 2, "we_nowrite": E * C * 2,
+          "encoder": E * C * 2, "nowe_write": 2 * E * C * 2,
           "embed": E * F * 2}[mode]
-  mats = {"processor": 2, "encoder": 1, "embed": 3}[mode] * C * C * 2
+  mats = {"processor": 2, "we_nowrite": 2, "encoder": 1, "nowe_write": 1,
+          "embed": 3}[mode] * C * C * 2
   nbytes = (rows + 8 * E + (n_snd + n_rcv) * C * 2 + n_rcv * C * 4 + mats
             + (F * C * 2 if mode == "embed" else 0))
   return flops, nbytes
@@ -440,49 +457,71 @@ def _geometry(resolution, mesh_size):
   return artifact_lib.build_artifact(lat, lon, mesh_size)
 
 
+def _edge_products(mode, backward):
+  """(K, N, transposed) of each C x C product that K1 (or K4) runs per
+  edge row: K1 W1, after We (processor, and We without e') and Ew1 (embed);
+  K4 the same forward, then W1^T, We^T and Ew1^T."""
+  sq, sqt = (512, 512, False), (512, 512, True)
+  n = {"processor": 2, "we_nowrite": 2, "encoder": 1, "nowe_write": 1,
+       "embed": 3}[mode]
+  return [sq] * n + ([sqt] * n if backward else [])
+
+
 def phase_k1(torch, art, results):
+  """K1 against its plain version in every mode at C = 512 (processor and
+  the two other We / e' combinations on the mesh-6 multimesh, encoder on
+  the 0.25° grid2mesh set), each timed in turns with its products as bf16
+  cuBLAS GEMMs (gemm_ms)."""
   from graphcast_tpu_torch.ops.fused_edge import (
-      EdgeIndex, fused_edge, fused_edge_reference)
+      EdgeIndex, fused_edge, fused_edge_reference, smem_layout)
   t0 = time.perf_counter()
   gen = torch.Generator(device=DEVICE).manual_seed(1)
   C = 512
   g, m = art.num_grid_nodes, art.num_mesh_nodes
-  cases = {
-      "processor": (EdgeIndex(art.mesh.senders, art.mesh.receivers, m, m,
-                              DEVICE), False),
-      "encoder": (EdgeIndex(art.grid2mesh.senders, art.grid2mesh.receivers,
-                            g, m, DEVICE), True),
-  }
-  for mode, (edges, encoder) in cases.items():
-    args = _edge_case(torch, gen, edges, C, encoder)
-    write = not encoder
+  _print_usage("k1", "fused_edge_kernel", smem_layout(C)["total"])
+  mesh = EdgeIndex(art.mesh.senders, art.mesh.receivers, m, m, DEVICE)
+  # (mode, edge list, has We, writes e')
+  cases = [("processor", mesh, True, True),
+           ("encoder", EdgeIndex(art.grid2mesh.senders,
+                                 art.grid2mesh.receivers, g, m, DEVICE),
+            False, False),
+           ("we_nowrite", mesh, True, False),
+           ("nowe_write", mesh, False, True)]
+  for mode, edges, has_we, write in cases:
+    args = _edge_case(torch, gen, edges, C, encoder=not has_we)
     with torch.inference_mode():
       got = fused_edge(edges, write_edges=write, **args)
       want = fused_edge_reference(edges, write_edges=write, **args)
       torch.cuda.synchronize()
-      pairs = [("agg", got, want)] if encoder else [
+      pairs = [("agg", got, want)] if not write else [
           ("e_out", got[0], want[0]), ("agg", got[1], want[1])]
       errs = {}
       for name, a, b in pairs:
         errs[name] = _check_close(f"k1 {mode} {name}", a, b)
-      ms = _time_ms(torch, lambda: fused_edge(edges, write_edges=write,
-                                              **args))
+      del got, want
+      gemms = _gemm_yardstick(torch, gen, edges.num_edges,
+                              _edge_products(mode, backward=False))
+      ms, gemm_ms = _time_in_turns(torch, lambda: fused_edge(
+          edges, write_edges=write, **args), gemms)
+      del gemms
       plain_ms = _time_ms(torch, lambda: fused_edge_reference(
           edges, write_edges=write, **args))
-    key = "fused_edge" if mode == "processor" else "fused_edge_encoder"
+    key = {"processor": "fused_edge", "encoder": "fused_edge_encoder"}.get(
+        mode, "fused_edge_" + mode)
     results[key] = _entry(
-        key, "fused_edge.cu", "graphcast_tpu/ops/pallas_edge.py:116",
-        mode=mode, launches=None,
+        key, "fused_edge.cu" if has_we else "fused_edge_encoder.cu",
+        "graphcast_tpu/ops/pallas_edge.py:116", mode=mode, launches=None,
         max_abs_err=max(e[0] for e in errs.values()), ms=ms,
-        plain_ms=plain_ms, **_bound(*_edge_cost(
+        plain_ms=plain_ms, gemm_ms=gemm_ms, **_bound(*_edge_cost(
             edges.num_edges, edges.num_senders, edges.num_receivers, C,
             mode)))
     _log("k1", t0, mode=mode, edges=edges.num_edges,
          **{f"{n}_max_abs": f"{e[0]:.4g}" for n, e in errs.items()},
          **{f"{n}_rel_rms": f"{e[1]:.3g}" for n, e in errs.items()},
-         ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
+         ms=f"{ms:.3f}", gemm_ms=f"{gemm_ms:.3f}",
+         plain_ms=f"{plain_ms:.3f}",
          bound_ms=f"{results[key]['bound_ms']:.4f}")
-    del args, got, want
+    del args
     torch.cuda.empty_cache()
 
 
@@ -550,13 +589,27 @@ def _autograd(torch, fn, leaves: dict, cotangents, names):
   return dict(zip(names, grads)), ms
 
 
+def _k4_rerun_bit_equal(torch, phase, run, skip):
+  """Runs K4's whole backward twice: every output but those named in
+  ``skip`` (summed with atomics) must be bit-equal."""
+  first, again = run(), run()
+  for name, a in first.items():
+    if name not in skip and not torch.equal(a, again[name]):
+      raise AssertionError(
+          f"{phase}: two runs differ in {name} by "
+          f"{(a.float() - again[name].float()).abs().max().item():.3g}")
+
+
 def phase_k4(torch, art, results):
   from graphcast_tpu_torch.ops.fused_edge import (
-      EdgeIndex, fused_edge, fused_edge_backward, fused_edge_reference)
+      EdgeIndex, fused_edge, fused_edge_backward, fused_edge_reference,
+      smem_layout)
   t0 = time.perf_counter()
   gen = torch.Generator(device=DEVICE).manual_seed(4)
   C = 512
   g, m = art.num_grid_nodes, art.num_mesh_nodes
+  _print_usage("k4", "fused_edge_bwd_kernel",
+               smem_layout(C, backward=True)["total"])
   cases = {
       "processor": (EdgeIndex(art.mesh.senders, art.mesh.receivers, m, m,
                               DEVICE), False),
@@ -592,11 +645,30 @@ def phase_k4(torch, art, results):
     torch.cuda.empty_cache()
     det = {k: None if v is None else v.detach() for k, v in args.items()}
     det.pop("offset")
-    ms = _time_ms(torch, lambda: fused_edge_backward(
-        edges, d_eout=d_eout, d_agg=d_agg, **det))
+
+    def k4():
+      names = ("e", "sproj", "rproj", "we", "b0", "w1", "b1", "scale",
+               "offset")
+      out = fused_edge_backward(edges, d_eout=d_eout, d_agg=d_agg, **det)
+      return {k: v for k, v in zip(names, out) if v is not None}
+
+    # Fixed-order column sums and weight gradients: a rerun is bit-equal
+    # but for sproj's (the wrapper's index_add_) and rproj's (the receiver
+    # runs at tile ends, atomicAdd).
+    _k4_rerun_bit_equal(torch, f"k4 {mode}", k4, ("sproj", "rproj"))
+    # In turns with the kernel's products as bf16 cuBLAS GEMMs over the same
+    # rows (gemm_ms); the per-row kernel's own device time (kernel_ms).
+    gemms = _gemm_yardstick(torch, gen, edges.num_edges,
+                            _edge_products(mode, backward=True))
+    ms, gemm_ms = _time_in_turns(torch, k4, gemms)
+    del gemms
+    kernel_ms = _device_ms(torch, k4, ("fused_edge_bwd_kernel",),
+                           reps=3)["fused_edge_bwd_kernel"]
     suffix = "" if mode == "processor" else "_encoder"
     entry["ms" + suffix] = ms
     entry["plain_ms" + suffix] = plain_ms
+    entry["gemm_ms" + suffix] = gemm_ms
+    entry["kernel_ms" + suffix] = kernel_ms
     # The backward recomputes the forward (processor: 2 products, encoder:
     # 1) and takes 2 products per forward product; it reads the forward's
     # inputs and the cotangents, writes de (dgs), the node and weight grads.
@@ -606,8 +678,10 @@ def phase_k4(torch, art, results):
                    2 * fwd_bytes + 2 * edges.num_edges * C * 2)
     entry.update({k + suffix: v for k, v in bound.items()})
     _log("k4", t0, mode=mode, edges=edges.num_edges,
-         worst_rel_rms=f"{max(rels.values()):.3g}", ms=f"{ms:.3f}",
-         plain_ms=f"{plain_ms:.3f}")
+         worst_rel_rms=f"{max(rels.values()):.3g}", bit_equal_rerun=True,
+         ms=f"{ms:.3f}", kernel_ms=f"{kernel_ms:.3f}",
+         gemm_ms=f"{gemm_ms:.3f}", plain_ms=f"{plain_ms:.3f}",
+         bound_ms=f"{entry['bound_ms' + suffix]:.4f}")
     del args, leaves, got, det, d_agg, d_eout, cot
     torch.cuda.empty_cache()
   entry["max_abs_err"] = worst
@@ -1618,13 +1692,15 @@ def phase_embed(torch, art025, results):
   from graphcast_tpu_torch.ops.fused_decoder import (
       MATRICES, VECTORS, fused_decode, fused_decode_reference)
   from graphcast_tpu_torch.ops.fused_edge import (
-      EdgeIndex, fused_edge, fused_edge_reference)
+      EdgeIndex, fused_edge, fused_edge_reference, smem_layout)
   t0 = time.perf_counter()
   gen = torch.Generator(device=DEVICE).manual_seed(9)
   C, num_out, bf16 = 512, 84, torch.bfloat16
   w = 1.0 / np.sqrt(C)
   arts = {"1p0": _gencast_artifact(1.0, 5), "0p25": art025}
-  edge = _entry("fused_edge_embed", "fused_edge.cu",
+  _print_usage("embed", "fused_edge_kernelILb1ELb0ELb1E",
+               smem_layout(C)["total"])
+  edge = _entry("fused_edge_embed", "fused_edge_embed.cu",
                 "graphcast_tpu/ops/pallas_edge.py:116", mode="embed",
                 launches=None)
   dec = _entry("fused_decoder_embed", "fused_decoder.cu",
@@ -1650,10 +1726,14 @@ def phase_embed(torch, art025, results):
       e_abs, e_rel = _check_close(f"embed k1 {res}", got, want,
                                   shared=shared)
       del got, want
-      e_ms = _time_ms(torch, lambda: run(fused_edge))
+      gemms = _gemm_yardstick(torch, gen, edges.num_edges,
+                              _edge_products("embed", backward=False))
+      e_ms, e_gemm = _time_in_turns(torch, lambda: run(fused_edge), gemms)
+      del gemms
       e_plain = _time_ms(torch, lambda: run(fused_edge_reference), reps=1)
     worst["edge"] = max(worst["edge"], e_abs)
     edge.update({"ms" + suffix: e_ms, "plain_ms" + suffix: e_plain,
+                 "gemm_ms" + suffix: e_gemm,
                  **{k + suffix: v for k, v in _bound(*_edge_cost(
                      edges.num_edges, g, m, C, "embed")).items()}})
     del args, embed
@@ -1696,7 +1776,8 @@ def phase_embed(torch, art025, results):
     _log("embed", t0, grid=res, g2m_edges=art.grid2mesh.senders.size,
          k1_max_shared=int(shared.max().item()),
          k1_max_abs=f"{e_abs:.4g}", k1_rel_rms=f"{e_rel:.3g}",
-         k1_ms=f"{e_ms:.3f}", k1_plain_ms=f"{e_plain:.3f}",
+         k1_ms=f"{e_ms:.3f}", k1_gemm_ms=f"{e_gemm:.3f}",
+         k1_plain_ms=f"{e_plain:.3f}",
          grid_nodes=g, k2_max_abs=f"{d_abs:.4g}", k2_rel_rms=f"{d_rel:.3g}",
          k2_ms=f"{d_ms:.3f}", k2_gemm_ms=f"{d_gemm:.3f}",
          k2_plain_ms=f"{d_plain:.3f}")
@@ -1751,13 +1832,16 @@ def phase_embed_bwd(torch, art025, results):
       EMBED_KEYS, KEYS, fused_decode, fused_decode_backward,
       fused_decode_reference)
   from graphcast_tpu_torch.ops.fused_edge import (
-      EdgeIndex, fused_edge, fused_edge_embed_backward, fused_edge_reference)
+      EdgeIndex, fused_edge, fused_edge_embed_backward, fused_edge_reference,
+      smem_layout)
   from graphcast_tpu_torch.ops.weight_grad import (
       feature_grad, feature_grad_reference)
   t0 = time.perf_counter()
   gen = torch.Generator(device=DEVICE).manual_seed(14)
   C, num_out, F, bf16 = 512, 84, 4, torch.bfloat16
-  edge = _entry("fused_edge_bwd_embed", "fused_edge_bwd.cu",
+  _print_usage("embed_bwd", "fused_edge_bwd_kernelILb0ELb1E",
+               smem_layout(C, backward=True, embed=True)["total"])
+  edge = _entry("fused_edge_bwd_embed", "fused_edge_bwd_embed.cu",
                 "graphcast_tpu/ops/pallas_edge.py:299", mode="embed",
                 launches=None)
   dec = _entry("fused_decoder_bwd_embed", "fused_decoder_bwd.cu",
@@ -1798,11 +1882,30 @@ def phase_embed_bwd(torch, art025, results):
       del leaves, got, want
       torch.cuda.empty_cache()
     det = {k: v.detach() for k, v in args.items()}
-    e_ms = _time_ms(torch, lambda: fused_edge_embed_backward(
-        edges, det["e"], det["sproj"], det["rproj"], det["we"], det["b0"],
-        det["w1"], det["b1"], det["scale"],
-        tuple(v.detach() for v in embed.values()), d_agg))
-    edge.update({"ms" + suffix: e_ms, **{k + suffix: v for k, v in
+
+    def k4():
+      *grads, doff, dembed = fused_edge_embed_backward(
+          edges, det["e"], det["sproj"], det["rproj"], det["we"], det["b0"],
+          det["w1"], det["b1"], det["scale"],
+          tuple(v.detach() for v in embed.values()), d_agg)
+      names = ("e", "sproj", "rproj", "we", "b0", "w1", "b1", "scale",
+               "offset", "ew0", "eb0", "ew1", "eb1")
+      return dict(zip(names, (*grads, doff, *dembed)))
+
+    if res == "1p0":
+      # Fixed-order sums: a rerun is bit-equal but for the gradients summed
+      # with atomics: sproj's (index_add_), rproj's (the receiver runs at
+      # tile ends) and ew0's (feature_grad).
+      _k4_rerun_bit_equal(torch, "embed_bwd k4", k4, ("sproj", "rproj",
+                                                      "ew0"))
+    gemms = _gemm_yardstick(torch, gen, edges.num_edges,
+                            _edge_products("embed", backward=True))
+    e_ms, e_gemm = _time_in_turns(torch, k4, gemms)
+    del gemms
+    e_kernel = _device_ms(torch, k4, ("fused_edge_bwd_kernel",),
+                          reps=3)["fused_edge_bwd_kernel"]
+    edge.update({"ms" + suffix: e_ms, "gemm_ms" + suffix: e_gemm,
+                 "kernel_ms" + suffix: e_kernel, **{k + suffix: v for k, v in
                  _embed_bwd_bounds(edges.num_edges, "edge", C, F, M=g,
                                    N=m).items()}})
     n_g2m = edges.num_edges
@@ -1867,11 +1970,12 @@ def phase_embed_bwd(torch, art025, results):
                                   NO=num_out).items()}})
     _log("embed_bwd", t0, grid=res, g2m_edges=n_g2m, grid_nodes=g,
          **({"k4_worst_rel_rms": f"{max(e_rels.values()):.3g}",
-             "k4_plain_ms": f"{e_plain:.3f}",
+             "k4_plain_ms": f"{e_plain:.3f}", "k4_bit_equal_rerun": True,
              "k5_worst_rel_rms": f"{max(d_rels.values()):.3g}",
              "k5_bit_equal_rerun": True,
              "k5_plain_ms": f"{d_plain:.3f}"} if res == "1p0" else {}),
-         k4_ms=f"{e_ms:.3f}", k5_ms=f"{d_ms:.3f}",
+         k4_ms=f"{e_ms:.3f}", k4_kernel_ms=f"{e_kernel:.3f}",
+         k4_gemm_ms=f"{e_gemm:.3f}", k5_ms=f"{d_ms:.3f}",
          k5_kernel_ms=f"{d_kernel:.3f}", k5_gemm_ms=f"{d_gemm:.3f}",
          k4_bound_ms=f"{edge['bound_ms' + suffix]:.4f}",
          k5_bound_ms=f"{dec['bound_ms' + suffix]:.4f}")
@@ -2615,15 +2719,12 @@ def phase_k1p(torch, art025, results):
       got, k1, want = run["k1p"](), run["k1"](), run["plain"]()
       torch.cuda.synchronize()
       if mode == "processor":
-        if not torch.equal(got[0], k1[0]):
-          raise AssertionError("k1p processor e_out differs from K1's: "
-                               f"max_abs={_errors(got[0], k1[0])[0]:.3g}")
+        e_k1_abs, e_k1_rel = _check_close("k1p processor e_out vs K1",
+                                          got[0], k1[0])
         e_abs, e_rel = _check_close("k1p processor e_out", got[0], want[0])
         got, k1, want = got[1], k1[1], want[1]
-      k1_abs, k1_rel = _errors(got, k1)
-      if not k1_rel <= K1P_AGG_RTOL:
-        raise AssertionError(f"k1p {mode}{suffix} agg vs K1: rel_rms="
-                             f"{k1_rel:.3g} (tol {K1P_AGG_RTOL})")
+      k1_abs, k1_rel = _check_close(f"k1p {mode}{suffix} agg vs K1", got, k1,
+                                    shared=shared)
       max_abs, rel_rms = _check_close(f"k1p {mode}{suffix} agg", got, want,
                                       shared=shared)
       if mode == "processor":
@@ -2644,7 +2745,9 @@ def phase_k1p(torch, art025, results):
                       edges.num_receivers, C, mode)).items()}})
     _log("k1p", t0, mode=mode + suffix, edges=edges.num_edges,
          max_abs=f"{max_abs:.4g}", rel_rms=f"{rel_rms:.3g}",
-         **({"e_out_equal_k1": True} if mode == "processor" else {}),
+         **({"e_out_max_abs_vs_k1": f"{e_k1_abs:.3g}",
+             "e_out_rel_rms_vs_k1": f"{e_k1_rel:.3g}"}
+            if mode == "processor" else {}),
          agg_max_abs_vs_k1=f"{k1_abs:.3g}", agg_rel_rms_vs_k1=f"{k1_rel:.3g}",
          ms=f"{ms:.3f}", k1_ms=f"{k1_ms:.3f}", plain_ms=f"{plain_ms:.3f}",
          bound_ms=f"{entry['bound_ms' + suffix]:.4f}",
@@ -2654,22 +2757,30 @@ def phase_k1p(torch, art025, results):
 
   # K4 behind each forward, processor mode on the mesh-6 set, the same
   # seeded cotangents: under grad the forward is K1p or K1, the backward K4,
-  # whose f32 atomics add in a run-dependent order: K1's path twice gives
-  # the noise that K1p's may differ by.
+  # whose receiver runs at tile ends add with f32 atomics in a run-dependent
+  # order: K1's path twice gives the noise that K1p's may differ by. The
+  # wrapper's sender scatter (index_add_) also adds with atomics, and a flip
+  # in its order is too rare for one rerun to show the noise it makes:
+  # torch's deterministic mode fixes its order for these runs.
   edges = cases[0][2]
   args = _edge_case(torch, gen, edges, C, encoder=False)
   args["we"] = args["we"].to(bf16)
   cot = (_randn(torch, gen, (edges.num_edges, C), 1.0, bf16),
          _randn(torch, gen, (edges.num_receivers, C)))
   grads = {}
-  for run_name, pipelined in (("k1", False), ("k1_again", False),
-                              ("k1p", True)):
-    leaves = {k: v.detach().clone().requires_grad_() for k, v in args.items()}
-    grads[run_name], _ = _autograd(
-        torch, lambda **kw: fused_edge(edges, write_edges=True,
-                                       pipelined=pipelined, **kw),
-        leaves, cot, list(leaves))
-  torch.cuda.synchronize()
+  torch.use_deterministic_algorithms(True, warn_only=True)
+  try:
+    for run_name, pipelined in (("k1", False), ("k1_again", False),
+                                ("k1p", True)):
+      leaves = {k: v.detach().clone().requires_grad_()
+                for k, v in args.items()}
+      grads[run_name], _ = _autograd(
+          torch, lambda **kw: fused_edge(edges, write_edges=True,
+                                         pipelined=pipelined, **kw),
+          leaves, cot, list(leaves))
+    torch.cuda.synchronize()
+  finally:
+    torch.use_deterministic_algorithms(False)
   worst = 0.0
   for name, want in grads["k1"].items():
     noise = _rms(torch, grads["k1_again"][name] - want)

@@ -1,5 +1,8 @@
 // The pieces the fused decoder kernels share (fused_decoder.cu: K2;
-// fused_decoder_bwd.cu: K5), for Hopper (sm_90a).
+// fused_decoder_bwd.cu: K5), for Hopper (sm_90a). The fused edge kernels
+// (edge.cuh: K1, K4) take the width-independent ones: the cluster's
+// producer and ring (of any cluster size), the warpgroup products
+// dec_mma, the row exchange, the column sums and the launch.
 //
 // Both run chains of [64 grid nodes, K] x [K, N] products (K, N <= 512)
 // with elementwise and LayerNorm epilogues between them, and both are
@@ -62,18 +65,16 @@ constexpr int kDecSmemLimit = 232448;            // a block's dynamic maximum
 constexpr int kDecMaxStages = 16;                // ring depth cap
 constexpr int kDecAlign = 1008;                  // 16-byte base to 1024
 constexpr int kDecExchange = 2 * 2 * kDecRows * 8;  // row exchange, 2 KB
-constexpr int kDecRstd = 4 * kDecRows * 4;      // per-row f32 values, 1 KB
 constexpr int kDecBarSync = 1;                   // consumers' named barrier
 
 // The shared-memory layout of a block, in bytes from the 1024-aligned
 // base: A (a_cols / 64 boxes), G (C / 64 boxes), the ring, the row
-// exchange, K5's per-row LayerNorm rstd of each edge slot, its column sums
-// (`sums` floats) and their per-warp parts (4 warps x C floats), the
-// barriers (full and empty per stage, the G load's, the A load's). The
-// ring takes what is left, up to kDecMaxStages boxes.
+// exchange, K5's column sums (`sums` floats) and their per-warp parts (4
+// warps x C floats), the barriers (full and empty per stage, the G load's,
+// the A load's). The ring takes what is left, up to kDecMaxStages boxes.
 // ops/fused_decoder.py smem_layout mirrors it.
 struct DecLayout {
-  int a, g, ring, exchange, rstd, sums, colred, bars, stages, total;
+  int a, g, ring, exchange, sums, colred, bars, stages, total;
 };
 
 __host__ __device__ constexpr DecLayout dec_layout(int C, int a_cols,
@@ -84,12 +85,11 @@ __host__ __device__ constexpr DecLayout dec_layout(int C, int a_cols,
   L.ring = L.g + (C / 64) * kDecBox;
   const int colred = sums > 0 ? 4 * C * 4 : 0;
   const int bars = (2 * kDecMaxStages + 2) * 8;
-  const int tail = kDecExchange + kDecRstd + sums * 4 + colred + bars;
+  const int tail = kDecExchange + sums * 4 + colred + bars;
   const int st = (kDecSmemLimit - kDecAlign - L.ring - tail) / kDecBox;
   L.stages = st < kDecMaxStages ? st : kDecMaxStages;
   L.exchange = L.ring + L.stages * kDecBox;
-  L.rstd = L.exchange + kDecExchange;
-  L.sums = L.rstd + kDecRstd;
+  L.sums = L.exchange + kDecExchange;
   L.colred = L.sums + sums * 4;
   L.bars = L.colred + colred;
   L.total = L.bars + bars + kDecAlign;
@@ -101,7 +101,6 @@ struct DecSmem {
   unsigned char* g;
   unsigned char* ring;
   float2* exchange;   // [2 buffers][2 warpgroups][64 rows]
-  float* rstd;        // [4][64 rows]
   float* sums;        // K5's running column sums
   float* colred;      // [4 warps][C]
   uint64_t* full;     // [stages]
@@ -117,7 +116,6 @@ struct DecSmem {
     g = p + L.g;
     ring = p + L.ring;
     exchange = reinterpret_cast<float2*>(p + L.exchange);
-    rstd = reinterpret_cast<float*>(p + L.rstd);
     sums = reinterpret_cast<float*>(p + L.sums);
     colred = reinterpret_cast<float*>(p + L.colred);
     full = reinterpret_cast<uint64_t*>(p + L.bars);
@@ -144,8 +142,10 @@ struct DecSmem {
 // ---- the producer ---------------------------------------------------------
 
 // Lane 0 of the producer warp: stream position p goes to stage p % stages;
-// the block of cluster rank p % kDecCluster issues its multicast.
-struct DecProducer {
+// the block of cluster rank p % kCl issues its multicast to all kCl
+// blocks. Smem: any block plan with ring, full, empty and stages.
+template <int kCl>
+struct ClusterProducer {
   unsigned char* ring;
   uint64_t* full;
   uint64_t* empty;
@@ -153,7 +153,8 @@ struct DecProducer {
   uint32_t rank;
   int p = 0;
 
-  __device__ __forceinline__ DecProducer(const DecSmem& sh, uint32_t rank_)
+  template <typename Smem>
+  __device__ __forceinline__ ClusterProducer(const Smem& sh, uint32_t rank_)
       : ring(sh.ring), full(sh.full), empty(sh.empty), stages(sh.stages),
         rank(rank_) {}
 
@@ -163,9 +164,9 @@ struct DecProducer {
     const int s = p % stages;
     mbar_wait(&empty[s], ((p / stages) & 1) ^ 1);
     mbar_arrive_expect_tx(&full[s], kDecBox);
-    if (p % kDecCluster == (int)rank) {
+    if (p % kCl == (int)rank) {
       tma_load_2d_multicast(ring + s * kDecBox, map, &full[s], c0, c1,
-                            (1 << kDecCluster) - 1);
+                            (1 << kCl) - 1);
     }
     ++p;
   }
@@ -204,6 +205,8 @@ struct DecProducer {
   }
 };
 
+using DecProducer = ClusterProducer<kDecCluster>;
+
 // ---- the consumers --------------------------------------------------------
 
 // A consumer thread: warpgroup w (0, 1), warp wl of it, lane; this thread
@@ -219,14 +222,16 @@ struct DecThread {
 
 // A warpgroup's view of the ring: its i-th box sits at stream position
 // 2 i + w.
-struct DecRing {
+template <int kCl>
+struct ClusterRing {
   uint32_t ring;
   uint64_t* full;
   uint64_t* empty;
   int stages, w, lane;
   int i = 0;
 
-  __device__ __forceinline__ DecRing(const DecSmem& sh, const DecThread& th)
+  template <typename Smem>
+  __device__ __forceinline__ ClusterRing(const Smem& sh, const DecThread& th)
       : ring(smem_u32(sh.ring)), full(sh.full), empty(sh.empty),
         stages(sh.stages), w(th.w), lane(th.lane) {}
 
@@ -243,12 +248,12 @@ struct DecRing {
   __device__ __forceinline__ void release(int stage) const {
     if (lane == 0) {
 #pragma unroll
-      for (int c = 0; c < kDecCluster; ++c) {
-        mbar_arrive_cluster(&empty[stage], c);
-      }
+      for (int c = 0; c < kCl; ++c) mbar_arrive_cluster(&empty[stage], c);
     }
   }
 };
+
+using DecRing = ClusterRing<kDecCluster>;
 
 // acc (+)= A[64, 64 nk] @ B over nk slabs of 64, this warpgroup's NQ
 // chunks of B's columns from the ring (kTB = 1: boxes of W read MN-major,
@@ -257,10 +262,9 @@ struct DecRing {
 // acc. One wgmma group per box; a box's stage is released once the next
 // box's products are issued and its own are done. Returns with every
 // product done.
-template <int NQ, int kTB>
+template <int NQ, int kTB, typename Ring>
 __device__ __forceinline__ void dec_mma(float (&acc)[NQ][32], uint32_t a,
-                                        int nk, bool accumulate,
-                                        DecRing& ring) {
+                                        int nk, bool accumulate, Ring& ring) {
   int prev = -1;
   for (int kk = 0; kk < nk; ++kk) {
 #pragma unroll
@@ -292,8 +296,9 @@ __device__ __forceinline__ void dec_mma(float (&acc)[NQ][32], uint32_t a,
 
 // One pass of DecProducer::fwd_passes: acc = A @ W[:, this warpgroup's
 // chunk], nk slabs.
+template <typename Ring>
 __device__ __forceinline__ void dec_mma_pass(float (&acc)[32], uint32_t a,
-                                             int nk, DecRing& ring) {
+                                             int nk, Ring& ring) {
   int prev = -1;
   for (int kk = 0; kk < nk; ++kk) {
     int stage;
@@ -439,6 +444,17 @@ __device__ __forceinline__ float2 ldg_bf16x2(const bf16* p) {
   return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
 }
 
+// Columns c, c + 1 of row n of a [*, C] bf16 array, if the row is valid
+// and c < C (the layout's columns past the true width are not stored).
+__device__ __forceinline__ void put_pair(bf16* base, int n, int C, int c,
+                                         bool ok, float x, float y) {
+  if (ok && c < C) store_bf16x2(base + (size_t)n * C + c, x, y);
+}
+
+__device__ __forceinline__ float4 f4(float a, float b, float c, float d) {
+  return make_float4(a, b, c, d);
+}
+
 // A per-block f32 tile in device memory in the accumulator's layout:
 // chunk q, j of thread ctid is one float4 (elements 4 j .. 4 j + 3).
 template <int NQ>
@@ -540,10 +556,69 @@ __device__ __forceinline__ void dec_load_tile(unsigned char* dst,
   }
 }
 
-// The persistent grid of a cluster launch: as many clusters as fit at once
-// (cudaOccupancyMaxActiveClusters), at most `pairs`, at most max_blocks
-// blocks.
-template <typename Kernel>
+// The per-tile column sums of the backward kernels (K5, K4): each
+// thread's pair of rows, a shuffle tree over the warp's 8 row groups (K4:
+// edge.cuh edge_put8), the 4 warps of the warpgroup in order through
+// colred, added into the block's sums; a fixed order, so a rerun is
+// bit-equal. colred may hold several kinds ("slots", [slots][4 warps]
+// [kDecWidth]), so that one epilogue puts several before one fold.
+struct DecColSums {
+  float* colred;  // [slots][4 warps][kDecWidth]
+  float* sums;    // [kinds][C] (K5: then dbd1)
+  int C;
+
+  // (sx, sy): this thread's sums of columns col, col + 1 over its rows.
+  __device__ __forceinline__ void put(const DecThread& th, int col, float sx,
+                                      float sy) const {
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      sx += __shfl_xor_sync(0xffffffffu, sx, o);
+      sy += __shfl_xor_sync(0xffffffffu, sy, o);
+    }
+    if (th.lane < 4) {
+      colred[th.wl * kDecWidth + col] = sx;
+      colred[th.wl * kDecWidth + col + 1] = sy;
+    }
+  }
+
+  // After an epilogue's puts: sums[kind + s] += scale * (the 4 warps' parts
+  // of slot s), s < slots. Also publishes the epilogue's writes to A.
+  __device__ __forceinline__ void fold(const DecThread& th, int kind,
+                                       float scale = 1.f,
+                                       int slots = 1) const {
+    dec_publish();
+    for (int s = 0; s < slots; ++s) {
+      const float* cr = colred + s * 4 * kDecWidth;
+      for (int c = th.ctid; c < C; c += kDecConsumers) {
+        constexpr int W = kDecWidth;
+        sums[(kind + s) * C + c] +=
+            scale * (((cr[c] + cr[W + c]) + cr[2 * W + c]) + cr[3 * W + c]);
+      }
+    }
+    dec_sync();
+  }
+};
+
+namespace {
+
+// sums[i] += the blocks' partials[b][i], b in order (the second pass of
+// the backward kernels' fixed-order column sums).
+__global__ void decoder_sums_reduce(const float* __restrict__ partials,
+                                    int blocks, int n, float* sums) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int b = 0; b < blocks; ++b) s += partials[(size_t)b * n + i];
+    sums[i] += s;
+  }
+}
+
+}  // namespace
+
+// The persistent grid of a launch in clusters of kCl blocks: as many
+// clusters as fit at once (cudaOccupancyMaxActiveClusters), at most
+// `pairs` (the clusters' tile groups), at most max_blocks blocks.
+template <int kCl = kDecCluster, typename Kernel>
 cudaError_t dec_launch_config(Kernel kernel, int smem, int pairs,
                               int max_blocks, cudaStream_t stream,
                               cudaLaunchConfig_t& cfg,
@@ -556,19 +631,19 @@ cudaError_t dec_launch_config(Kernel kernel, int smem, int pairs,
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kDecCluster;
+  attr[0].val.clusterDim.x = kCl;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cfg.gridDim = dim3(kDecCluster * pairs);
+  cfg.gridDim = dim3(kCl * pairs);
   int clusters = 0;
   err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
   if (err != cudaSuccess) return err;
   if (clusters < 1) return cudaErrorInvalidConfiguration;
   if (clusters > pairs) clusters = pairs;
-  if (clusters * kDecCluster > max_blocks) clusters = max_blocks / kDecCluster;
-  cfg.gridDim = dim3(kDecCluster * clusters);
+  if (clusters * kCl > max_blocks) clusters = max_blocks / kCl;
+  cfg.gridDim = dim3(kCl * clusters);
   return cudaSuccess;
 }
 

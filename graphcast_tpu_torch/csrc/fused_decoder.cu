@@ -46,7 +46,7 @@
 //     128 KB scratch in device memory (L2-resident), written after slot 0,
 //     read and rewritten after slot 1, read after slot 2 straight into
 //     bf16(agg), the A operand of Wna. Shared memory: A 64 KB, G 64 KB,
-//     ring 88 KB, row exchange, rstd area and barriers 3.3 KB;
+//     ring 88 KB, row exchange and barriers 2.3 KB;
 //   * the sender rows mesh_proj[snd] and the const rows (embed mode: the
 //     raw features) are gathered by index in the epilogue that needs them;
 //     the [3, G, C] gathered rows never reach device memory;
@@ -415,12 +415,12 @@ extern "C" int gc_fused_decoder(
 
 // The decoder kernels' shared-memory layout (decoder.cuh dec_layout) for
 // latent width C, an A operand a_cols wide and `sums` column-sum floats:
-// out[10] = a, g, ring, exchange, rstd, sums, colred, bars, stages, total.
+// out[9] = a, g, ring, exchange, sums, colred, bars, stages, total.
 extern "C" void gc_decoder_layout(int C, int a_cols, int sums, int* out) {
   const gc::DecLayout L = gc::dec_layout(C, a_cols, sums);
-  const int v[10] = {L.a,    L.g,      L.ring, L.exchange, L.rstd,
-                     L.sums, L.colred, L.bars, L.stages,   L.total};
-  for (int i = 0; i < 10; ++i) out[i] = v[i];
+  const int v[9] = {L.a,      L.g,    L.ring,   L.exchange, L.sums,
+                    L.colred, L.bars, L.stages, L.total};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
 }
 
 #else  // GC_K2_EMBED_UNIT

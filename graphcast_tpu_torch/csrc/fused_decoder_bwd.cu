@@ -119,52 +119,11 @@ struct DecoderBwdArgs {
   int F;
 };
 
-// The per-tile column sums (decoder.cuh head): each thread's pair of rows,
-// a shuffle tree over the warp's 8 row groups, the 4 warps of the
-// warpgroup in order through colred, added into the block's sums.
-struct DecColSums {
-  float* colred;  // [4 warps][kDecWidth]
-  float* sums;    // [kinds][C], then dbd1
-  int C;
-
-  // (sx, sy): this thread's sums of columns col, col + 1 over its rows.
-  __device__ __forceinline__ void put(const DecThread& th, int col, float sx,
-                                      float sy) const {
-#pragma unroll
-    for (int o = 4; o < 32; o <<= 1) {
-      sx += __shfl_xor_sync(0xffffffffu, sx, o);
-      sy += __shfl_xor_sync(0xffffffffu, sy, o);
-    }
-    if (th.lane < 4) {
-      colred[th.wl * kDecWidth + col] = sx;
-      colred[th.wl * kDecWidth + col + 1] = sy;
-    }
-  }
-
-  // After an epilogue's puts: sums[kind] += scale * (the 4 warps' parts).
-  // Also publishes the epilogue's writes to A.
-  __device__ __forceinline__ void fold(const DecThread& th, int kind,
-                                       float scale = 1.f) const {
-    dec_publish();
-    for (int c = th.ctid; c < C; c += kDecConsumers) {
-      constexpr int W = kDecWidth;
-      sums[kind * C + c] += scale * (((colred[c] + colred[W + c]) +
-                                      colred[2 * W + c]) + colred[3 * W + c]);
-    }
-    dec_sync();
-  }
-};
-
-// Columns c, c + 1 of row n of a [*, C] bf16 array, if the row is valid
-// and c < C (the layout's columns past the true width are not stored).
-__device__ __forceinline__ void put_pair(bf16* base, int n, int C, int c,
-                                         bool ok, float x, float y) {
-  if (ok && c < C) store_bf16x2(base + (size_t)n * C + c, x, y);
-}
-
 // bf16(f @ ew0 + eb0)[c] for one raw feature row f (ew0 rows ldw apart):
-// common.cuh embed_pre_bf16's arithmetic, its loads through the
-// non-coherent path so that they need not wait for the epilogue's stores.
+// the embed's first-layer output before its swish (f32 fmas over the F
+// features, then the bias, rounded to bf16), the swish' point of the
+// embed's backward; its loads through the non-coherent path so that they
+// need not wait for the epilogue's stores.
 __device__ __forceinline__ float embed_pre_ldg(const bf16* __restrict__ f,
                                                int F,
                                                const bf16* __restrict__ ew0,
@@ -176,10 +135,6 @@ __device__ __forceinline__ float embed_pre_ldg(const bf16* __restrict__ f,
              __bfloat162float(__ldg(ew0 + (size_t)k * ldw + c)), x);
   }
   return round_bf16(x + __ldg(eb0 + c));
-}
-
-__device__ __forceinline__ float4 f4(float a, float b, float c, float d) {
-  return make_float4(a, b, c, d);
 }
 
 // The consumer warpgroups of pass kPass: 0, the node pass (the forward
@@ -907,21 +862,6 @@ __global__ void __launch_bounds__(kDecThreads, 1) fused_decoder_bwd_kernel(
   __syncwarp();
   cluster_sync();  // no block exits while its partner may still arrive
 }
-
-namespace {
-
-// sums[i] += the blocks' partials[b][i], b in order.
-__global__ void decoder_sums_reduce(const float* __restrict__ partials,
-                                    int blocks, int n, float* sums) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int b = 0; b < blocks; ++b) s += partials[(size_t)b * n + i];
-    sums[i] += s;
-  }
-}
-
-}  // namespace
 
 // One pass of K5 over a chunk, then its column sums into `sums`.
 template <bool kEmbed, int kPass>

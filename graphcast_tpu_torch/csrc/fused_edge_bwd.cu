@@ -26,324 +26,663 @@
 // with deb1 = sum dy0 and deb0 = sum dxe (f32). The rows en, hh, dy0d and
 // bf16(dxe) go to device memory for the reductions dWe' = en^T dxd, dEw1 =
 // hh^T dy0d, dEw0 = f^T bf16(dxe) and the raw-feature de = bf16(dxe) Ew0^T
-// (weight_grad.cu); yh0 goes there in f32 for the LN0 backward, since a
-// second f32 tile does not fit beside the others.
+// (weight_grad.cu).
 //
-// What bounds it on an H100: three (encoder: two) 512x512 products per edge
-// row, as in K1, and the weight gradients dW1 = h^T dyd and dWe = e^T dxd,
-// each a [512, 512] product over hundreds of thousands of rows. The TPU
-// kernel accumulates those in f32 output blocks across a grid that runs in
-// order; Hopper's blocks run in parallel and a 1 MB f32 accumulator does not
-// fit in shared memory. Design:
+// What bounds it on an H100: streaming the weights, as in K1: per 64-row
+// tile four (encoder two, embed six) products, each reading a whole 512 KB
+// weight matrix. The TPU kernel accumulates the weight gradients in f32
+// output blocks across a grid that runs in order; Hopper's blocks run in
+// parallel. Design (edge.cuh, as K1):
+//   * a cluster of kEdgeCluster blocks of 64 rows shares every weight box
+//     by TMA multicast (64 kEdgeCluster rows per weight byte from L2; the
+//     wmma kernel this replaces: 32); a producer thread per block streams
+//     the boxes of the tile's products through a ring of 16-17 boxes, two
+//     consumer warpgroups split each product by columns on wgmma m64n64k16;
+//   * the products by W1^T and We^T (and Ew1^T) read the same boxes of the
+//     same weights K-major: the wrapper makes no transposed copy;
+//   * A holds e (processor, encoder: by TMA tile load), then h, dyd, dxd
+//     (embed: hh, en before, dy0d after); swish'(xd) outlives two products
+//     and goes to a per-block bf16 scratch tile in device memory in the
+//     accumulator's layout (embed mode also LN0's output yh0, f32); dagg
+//     and d_e' are read in that layout once, dyn = dagg[rcv] + d_e' kept in
+//     the same scratch (f32) between the two LayerNorm passes;
 //   * this kernel writes the bf16 operands of the weight gradients (h, dyd;
-//     dxd is dGs) to device memory, and weight_grad.cu reduces them in a
+//     dxd is dGs; embed mode hh, en and dy0d) to device memory, each by TMA
+//     store from A while A holds it, and weight_grad.cu reduces them in a
 //     split-K pass; the wrapper runs both over row chunks to bound that
 //     memory;
-//   * a tile of 32 rows keeps h (then dyd, dxd), bf16(x0) and one f32
-//     product in shared memory (159 KB at C = 512); one resident block per
-//     SM walks the tiles (grid-stride), so the four column sums stay in
-//     shared memory and reach device memory once per block (atomicAdd);
-//   * the products by W1^T and We^T take transposed copies made by the
-//     wrapper, so block_mm streams every weight the same way;
-//   * dGr reuses K1's receiver-run sum: one f32 sum per run, a plain store
-//     inside the tile and atomicAdd for the runs at its two ends;
+//   * the column sums are summed over each warp's rows by a reduce-scatter
+//     (edge_put8), then over the 4 warps and the tiles through decoder.cuh
+//     DecColSums, in a fixed order; they leave as per-block partials that a
+//     second kernel sums over the blocks in order: a rerun at the same
+//     chunking is bit-equal;
+//   * dGr reuses K1's receiver-run sum over dxd in A: one f32 sum per run,
+//     a plain store inside the tile and atomicAdd for the runs at its two
+//     ends (the only order-dependent sums of the kernel);
 //   * dGs stays per edge: the wrapper scatters it to the sender nodes (as
 //     the JAX package scatters it outside its kernel, in the gather's VJP).
 // Rounding points follow the TPU kernel: dyd before dW1 and dh, dxd before
 // dGs, dGr, dWe and de; dyn, dx0 and the column sums in f32.
+//
+// Each mode is its own kernel and translation unit: this file processor
+// mode, fused_edge_bwd_encoder.cu (GC_K4_UNIT 1) encoder mode,
+// fused_edge_bwd_embed.cu (GC_K4_UNIT 2) embed mode.
 
-#include "common.cuh"
+#include "edge.cuh"
 
 namespace gc {
 
-constexpr int kEdgeBwdTM = 32;
-// Column sums: dscale, doff, db1, db0 (processor, embed), deb1, deb0 (embed).
-constexpr int kEdgeSums = 4;
-constexpr int kEdgeSumsEmbed = 6;
+// Column sums, [kinds, C]: processor mode the first 4, encoder mode the
+// first 3, embed mode all 6.
+enum { kSScale, kSOff, kSB1, kSB0, kSEb1, kSEb0, kEdgeSumsEmbed };
+constexpr int kEdgeSums = kSEb1;
 
-// The embed mode's operands and extra row outputs (null pointers and F = 0
-// otherwise). Row arrays start at the chunk's first row, [rows, C] unless
-// noted.
-struct EdgeBwdEmbed {
-  const bf16* feat;   // [rows, F] raw edge features
-  const bf16* ew0;    // [F, C]
-  const float* eb0;   // [C]
-  const bf16* ew1;    // [C, C]
-  const bf16* ew1t;   // [C, C], Ew1^T
-  const float* eb1;   // [C]
-  bf16* en;           // bf16(yh0), dWe' operand
-  float* en32;        // yh0 in f32, read back by the LN0 backward
-  bf16* hh;           // dEw1 operand
-  bf16* dy0;          // dEw1 operand
-  bf16* dxe;          // dEw0 and raw-feature de operand
-  int F;
+struct EdgeBwdMaps {
+  CUtensorMap e, we, w1, ew1;
+  CUtensorMap hbuf, dybuf, dgs, en, hh, dy0;  // rows stored from A
 };
 
-template <bool kProcessor, bool kEmbed>
-__global__ void __launch_bounds__(kThreads, 1) fused_edge_bwd_kernel(
-    const bf16* __restrict__ e, const bf16* __restrict__ sproj,
-    const int* __restrict__ senders, const bf16* __restrict__ rproj,
-    const int* __restrict__ receivers, const bf16* __restrict__ we,
-    const bf16* __restrict__ wet, const float* __restrict__ b0,
-    const bf16* __restrict__ w1, const bf16* __restrict__ w1t,
-    const float* __restrict__ b1, const float* __restrict__ scale,
-    const bf16* __restrict__ deout, const float* __restrict__ dagg,
-    bf16* __restrict__ hbuf, bf16* __restrict__ dybuf,
-    bf16* __restrict__ dgs, bf16* __restrict__ de, float* __restrict__ dgr,
-    float* __restrict__ sums, int num_rows, int C, EdgeBwdEmbed emb) {
-  static_assert(!(kProcessor && kEmbed), "embed mode writes no e'");
-  constexpr bool kHasWe = kProcessor || kEmbed;
-  constexpr int kSums = kEmbed ? kEdgeSumsEmbed : kEdgeSums;
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int TM = kEdgeBwdTM;
-  const int ldh = C + 8, ldx = C + 4;
-  bf16* H = reinterpret_cast<bf16*>(smem);                // [TM, ldh]
-  bf16* XD = H + TM * ldh;                                // [TM, ldh]
-  float* X = reinterpret_cast<float*>(XD + TM * ldh);     // [TM, ldx]
-  float* S = X + TM * ldx;                                // [kSums, C]
-  float* RS = S + kSums * C;                              // [TM]
-  float* M1 = RS + TM;                                    // [TM]
-  float* M2 = M1 + TM;                                    // [TM]
-  float* ERS = M2 + TM;                                   // [TM] LN0 rstd
-  int* snd = reinterpret_cast<int*>(ERS + TM);            // [TM]
-  int* rcv = snd + TM;                                    // [TM]
-  bf16* Wt = reinterpret_cast<bf16*>(rcv + TM);           // [kKT, kLdW]
+struct EdgeBwdArgs {
+  const bf16* e;           // [rows, C] (encoder: the const part); embed
+                           // mode: raw features [rows, F]
+  const bf16* sproj;       // [num_senders, C]
+  const int* senders;      // [rows]
+  const bf16* rproj;       // [num_receivers, C]
+  const int* receivers;    // [rows], sorted
+  const float *b0, *b1, *scale;  // [kDecWidth], zero-padded
+  const bf16* deout;       // [rows, C], processor mode
+  const float* dagg;       // [num_receivers, C]
+  bf16 *hbuf, *dybuf, *dgs, *de;  // [rows, C]
+  float* dgr;              // [num_receivers, C], zeroed
+  float* work;             // [max_blocks, kEdgeWork kDecWidth]
+  float* partials;         // [blocks, kinds C]
+  const bf16* ew0;         // embed mode: [F, kDecWidth], zero-padded
+  const float *eb0, *eb1;  // embed mode: [kDecWidth]
+  bf16 *en, *hh, *dy0, *dxe;  // embed mode: [rows, C]
+  int num_rows, C, F;
+};
 
-  for (int i = threadIdx.x; i < kSums * C; i += kThreads) S[i] = 0.f;
-  const int tiles = (num_rows + TM - 1) / TM;
-  const int c2n = C / 2;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int row0 = tile * TM;
-    const int rows = min(TM, num_rows - row0);
-    __syncthreads();  // the previous tile is done with snd/rcv/H
-    for (int r = threadIdx.x; r < TM; r += kThreads) {
-      snd[r] = r < rows ? senders[row0 + r] : 0;
-      rcv[r] = r < rows ? receivers[row0 + r] : -1;
-    }
-    if (kEmbed) {
-      embed_rows_keep<TM>(
-          H, ldh, X, ldx, Wt, emb.feat, emb.F, [&](int r) { return row0 + r; },
-          rows, C, emb.ew0, emb.eb0, emb.ew1, emb.eb1, ERS,
-          [&](int r, int c, float hx, float hy) {
-            store_bf16x2(emb.hh + (size_t)(row0 + r) * C + c, hx, hy);
-          },
-          [&](int r, int c, float y) {
-            const size_t o = (size_t)(row0 + r) * C + c;
-            emb.en32[o] = y;
-            emb.en[o] = __float2bfloat16(y);
-          });
-      block_mm<TM>(H, ldh, we, C, C, X, ldx, Wt, false);
-    } else if (kProcessor) {
-      load_tile<TM>(H, ldh, e, row0, rows, C);
-      block_mm<TM>(H, ldh, we, C, C, X, ldx, Wt, false);
-    } else {
-      __syncthreads();
-    }
-
-    // Forward recompute: XD <- bf16(x0), H <- h (also to hbuf).
-    for (int i = threadIdx.x; i < TM * c2n; i += kThreads) {
-      const int r = i / c2n, c = (i % c2n) * 2;
-      float2 x = make_float2(0.f, 0.f);
-      if (r < rows) {
-        x = kHasWe ? *reinterpret_cast<const float2*>(X + r * ldx + c)
-                   : load_bf16x2(e + (size_t)(row0 + r) * C + c);
-        const float2 s = load_bf16x2(sproj + (size_t)snd[r] * C + c);
-        const float2 g = load_bf16x2(rproj + (size_t)rcv[r] * C + c);
-        x.x += s.x;
-        x.y += s.y;
-        x.x += g.x;
-        x.y += g.y;
-        if (kHasWe) {
-          x.x += b0[c];
-          x.y += b0[c + 1];
-        }
-      }
-      store_bf16x2(XD + r * ldh + c, x.x, x.y);
-      const float hx = r < rows ? swish_of_bf16(x.x) : 0.f;
-      const float hy = r < rows ? swish_of_bf16(x.y) : 0.f;
-      store_bf16x2(H + r * ldh + c, hx, hy);
-      if (r < rows) store_bf16x2(hbuf + (size_t)(row0 + r) * C + c, hx, hy);
-    }
-    block_mm<TM>(H, ldh, w1, C, C, X, ldx, Wt, false);
-
-    // LayerNorm backward: X <- yh, then dy per row; dyd to H and dybuf.
-    auto dyn_of = [&](int r, int c) {
-      float d = dagg[(size_t)rcv[r] * C + c];
-      if (kProcessor) d += __bfloat162float(deout[(size_t)(row0 + r) * C + c]);
-      return d;
-    };
-    ln_rows_normalize(X, ldx, rows, C, b1, RS);
-    ln_bwd_moments(X, ldx, rows, C,
-                   [&](int r, int c) { return dyn_of(r, c) * scale[c]; }, M1,
-                   M2);
-    for (int c = threadIdx.x; c < C; c += kThreads) {
-      float s_scale = 0.f, s_off = 0.f, s_b1 = 0.f;
-      for (int r = 0; r < rows; ++r) {
-        const float yh = X[r * ldx + c];
-        const float dyn = dyn_of(r, c);
-        s_scale += dyn * yh;
-        s_off += dyn;
-        const float dy = RS[r] * (dyn * scale[c] - M1[r] - yh * M2[r]);
-        s_b1 += dy;
-        const bf16 dyd = __float2bfloat16(dy);
-        H[r * ldh + c] = dyd;
-        dybuf[(size_t)(row0 + r) * C + c] = dyd;
-      }
-      S[0 * C + c] += s_scale;
-      S[1 * C + c] += s_off;
-      S[2 * C + c] += s_b1;
-    }
-    block_mm<TM>(H, ldh, w1t, C, C, X, ldx, Wt, false);  // dh
-
-    // dx0 = dh * swish'(xd); H <- dxd (also dGs); db0; dGr over receiver runs.
-    for (int c = threadIdx.x; c < C; c += kThreads) {
-      float s_b0 = 0.f;
-      int r = 0;
-      while (r < rows) {
-        const int node = rcv[r];
-        float run = 0.f;
-        int r1 = r;
-        do {
-          const float dx0 = X[r1 * ldx + c] *
-                            swish_grad_bf16(__bfloat162float(XD[r1 * ldh + c]));
-          s_b0 += dx0;
-          const bf16 dxd = __float2bfloat16(dx0);
-          H[r1 * ldh + c] = dxd;
-          dgs[(size_t)(row0 + r1) * C + c] = dxd;
-          run += __bfloat162float(dxd);
-          ++r1;
-        } while (r1 < rows && rcv[r1] == node);
-        float* dst = dgr + (size_t)node * C + c;
-        if (r == 0 || r1 == rows) {
-          atomicAdd(dst, run);
-        } else {
-          *dst = run;
-        }
-        r = r1;
-      }
-      if (kHasWe) S[3 * C + c] += s_b0;
-    }
-    if (kProcessor) {
-      block_mm<TM>(H, ldh, wet, C, C, X, ldx, Wt, false);  // dxd @ We^T
-      for (int i = threadIdx.x; i < rows * c2n; i += kThreads) {
-        const int r = i / c2n, c = (i % c2n) * 2;
-        const size_t o = (size_t)(row0 + r) * C + c;
-        const float2 d = load_bf16x2(deout + o);
-        store_bf16x2(de + o, X[r * ldx + c] + d.x, X[r * ldx + c + 1] + d.y);
-      }
-    }
-    if (kEmbed) {
-      block_mm<TM>(H, ldh, wet, C, C, X, ldx, Wt, false);  // de, f32
-      // LN0 backward: dy0 = rstd0 * (de - mean(de) - yh0 * mean(de * yh0)).
-      const float* yh0 = emb.en32 + (size_t)row0 * C;
-      ln_bwd_moments(yh0, C, rows, C,
-                     [&](int r, int c) { return X[r * ldx + c]; }, M1, M2);
-      for (int c = threadIdx.x; c < C; c += kThreads) {
-        float s_eb1 = 0.f;
-        for (int r = 0; r < rows; ++r) {
-          const float dy0 = ERS[r] * (X[r * ldx + c] - M1[r] -
-                                      yh0[(size_t)r * C + c] * M2[r]);
-          s_eb1 += dy0;
-          const bf16 d = __float2bfloat16(dy0);
-          H[r * ldh + c] = d;
-          emb.dy0[(size_t)(row0 + r) * C + c] = d;
-        }
-        S[4 * C + c] += s_eb1;
-      }
-      block_mm<TM>(H, ldh, emb.ew1t, C, C, X, ldx, Wt, false);  // dhh
-      for (int c = threadIdx.x; c < C; c += kThreads) {
-        float s_eb0 = 0.f;
-        for (int r = 0; r < rows; ++r) {
-          const float xe = embed_pre_bf16(
-              emb.feat + (size_t)(row0 + r) * emb.F, emb.F, emb.ew0, emb.eb0,
-              C, c);
-          const float dxe = X[r * ldx + c] * swish_grad_bf16(xe);
-          s_eb0 += dxe;
-          emb.dxe[(size_t)(row0 + r) * C + c] = __float2bfloat16(dxe);
-        }
-        S[5 * C + c] += s_eb0;
+// dyn = dagg[rcv] (+ d_e') at half `half` of chunk q of this thread: v[i][h]
+// the pair of columns j = 4 half + i of row r0 + 8 h, zeros past the tile's
+// rows and past C (half a chunk at a time, beside the 128 accumulators;
+// the loads unconditional, as edge_gather's, the zeros applied at use).
+template <int NQ, bool kProcessor>
+__device__ __forceinline__ void edge_dyn(float2 (&v)[4][2],
+                                         const DecThread& th, int q, int half,
+                                         int C, const EdgeTile& t,
+                                         const EdgeBwdArgs& a) {
+  uint32_t dv[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = dec_col<NQ>(th, q, 4 * half + i);
+    const int cc = c < C ? c : 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      v[i][h] = ldg2(a.dagg + (size_t)t.rcv[h] * C + cc);
+      if (kProcessor) {
+        dv[i][h] = ldg_raw2(a.deout + (size_t)(t.ok[h] ? t.er[h] : 0) * C +
+                            cc);
       }
     }
   }
-  flush_sums(sums, S, (kHasWe ? kSums : 3) * C);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const bool inc = dec_col<NQ>(th, q, 4 * half + i) < C;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bool in = t.ok[h] && inc;
+      if (kProcessor) {
+        const float2 d = bf2(dv[i][h]);
+        v[i][h].x += d.x;
+        v[i][h].y += d.y;
+      }
+      v[i][h] = in ? v[i][h] : make_float2(0.f, 0.f);
+    }
+  }
 }
 
-template <bool kProcessor, bool kEmbed = false>
-cudaError_t launch_fused_edge_bwd(
-    const void* e, const void* sproj, const int* senders, const void* rproj,
-    const int* receivers, const void* we, const void* wet, const float* b0,
-    const void* w1, const void* w1t, const float* b1, const float* scale,
-    const void* deout, const float* dagg, void* hbuf, void* dybuf, void* dgs,
-    void* de, float* dgr, float* sums, int num_rows, int C,
-    cudaStream_t stream, EdgeBwdEmbed emb = EdgeBwdEmbed{}) {
-  constexpr int TM = kEdgeBwdTM;
+// The consumer warpgroups' walk over the cluster's tiles (the head note).
+template <bool kProcessor, bool kEmbed>
+__device__ __forceinline__ void edge_bwd_consumer(const EdgeBwdMaps& maps,
+                                                  const EdgeBwdArgs& a,
+                                                  const EdgeSmem& sh,
+                                                  uint32_t rank, int groups,
+                                                  int cluster, int clusters) {
+  constexpr bool kHasWe = kProcessor || kEmbed;
+  constexpr int kSums = kEmbed ? kEdgeSumsEmbed : kHasWe ? kEdgeSums : kSB0;
+  constexpr int NQ = kDecNQ;
+  constexpr int W = NQ * 128;
+  constexpr int kK = W / 64;
+  const int C = a.C;
+  const DecThread th(threadIdx.x);
+  EdgeRing ring(sh, th);
+  DecRows rsum{sh.exchange};
+  const DecColSums cs{sh.colred, sh.sums, C};
+  const uint32_t a_addr = smem_u32(sh.a);
+  float* work = a.work + (size_t)blockIdx.x * kEdgeWork * W;
+  const DecScratch<NQ> yh0s{work};  // LN0's output (embed mode)
+  const DecScratch<NQ> dyns{work + 64 * W};  // dyn, between two passes
+  const DecScratch16<NQ> sxs{reinterpret_cast<bf16*>(work + 128 * W)};
+  bf16* const sxe = reinterpret_cast<bf16*>(work + 160 * W);  // embed mode
+  for (int i = th.ctid; i < kSums * C; i += kDecConsumers) sh.sums[i] = 0.f;
+  float acc[NQ][32];
+  int it = 0;
+  for (int grp = cluster; grp < groups; grp += clusters, ++it) {
+    const EdgeTile t(grp, rank, a.num_rows, th, a.senders, a.receivers);
+    if (th.ctid == 0) tma_store_wait_read();  // the last tile's dGs
+    dec_sync();  // the previous tile is done with A, idx and the sums
+    edge_load_idx(sh.idx, t, a.receivers, th.ctid);
+    float rs0[2] = {0.f, 0.f};  // LN0's rstd of this thread's rows (embed)
+    if (kEmbed) {
+      // A <- hh (also to its rows); acc = hh @ Ew1; yh0 = LN0(acc + eb1)
+      // to the scratch, A <- en = bf16(yh0) (also to its rows).
+      edge_embed_hh<NQ>(sh.a, th.ctid, t, C, a.F, a.e, a.ew0, a.eb0, nullptr,
+                        sxe);
+      dec_publish();
+      if (th.ctid == 0) edge_store_tile(&maps.hh, sh.a, t.row0, C);
+      dec_mma<NQ, 1>(acc, a_addr, kK, false, ring);
+      if (th.ctid == 0) tma_store_wait_read();
+      const float4 st = dec_ln_stats<NQ>(acc, a.eb1, th, rsum, C);
+      rs0[0] = st.y;
+      rs0[1] = st.w;
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = dec_col<NQ>(th, q, j);
+          const float2 b = ldg2(a.eb1 + c);
+          float y[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            y[k] = c < C ? dec_ln(st, acc[q][4 * j + k] + (k % 2 ? b.y : b.x),
+                                  k / 2)
+                         : 0.f;
+          }
+          *yh0s.at(q, j, th.ctid) = f4(y[0], y[1], y[2], y[3]);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            st_pair(sh.a, th.r0 + 8 * h, c, y[2 * h], y[2 * h + 1]);
+          }
+        }
+      }
+      dec_publish();
+      if (th.ctid == 0) edge_store_tile(&maps.en, sh.a, t.row0, C);
+      dec_mma<NQ, 1>(acc, a_addr, kK, false, ring);  // en @ We
+      if (th.ctid == 0) tma_store_wait_read();
+      dec_sync();
+    } else {
+      if (th.ctid == 0) {
+        dec_load_tile(sh.a, &maps.e, sh.a_bar, kDecWidth, t.row0);
+      }
+      mbar_wait(sh.a_bar, it & 1);  // A <- e (zeros past the rows and C)
+      if (kProcessor) {
+        dec_mma<NQ, 1>(acc, a_addr, kK, false, ring);  // e @ We
+        dec_sync();
+      }
+    }
+
+    // Forward recompute: A <- h (also to hbuf), swish'(xd) to the scratch.
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      uint32_t sv[8][2], gv[8][2];
+      edge_gather<NQ>(sv, gv, th, q, C, t, a.sproj, a.rproj);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = dec_col<NQ>(th, q, j);
+        const float2 b = kHasWe ? ldg2(a.b0 + c) : make_float2(0.f, 0.f);
+        float hv[4], gd[4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = th.r0 + 8 * h;
+          float2 x = kHasWe ? make_float2(acc[q][4 * j + 2 * h],
+                                          acc[q][4 * j + 2 * h + 1])
+                            : ld_pair(sh.a, r, c);
+          const float2 s = bf2(sv[j][h]), g = bf2(gv[j][h]);
+          x.x += s.x;
+          x.y += s.y;
+          x.x += g.x;
+          x.y += g.y;
+          if (kHasWe) {
+            x.x += b.x;
+            x.y += b.y;
+          }
+          const bool in = t.ok[h] && c < C;
+          hv[2 * h] = in ? swish_of_bf16(x.x) : 0.f;
+          hv[2 * h + 1] = in ? swish_of_bf16(x.y) : 0.f;
+          gd[2 * h] = in ? swish_grad_bf16(round_bf16(x.x)) : 0.f;
+          gd[2 * h + 1] = in ? swish_grad_bf16(round_bf16(x.y)) : 0.f;
+          st_pair(sh.a, r, c, hv[2 * h], hv[2 * h + 1]);
+        }
+        *sxs.at(q, j, th.ctid) = pack4_bf16(gd[0], gd[1], gd[2], gd[3]);
+      }
+    }
+    dec_publish();
+    if (th.ctid == 0) edge_store_tile(&maps.hbuf, sh.a, t.row0, C);
+    dec_mma<NQ, 1>(acc, a_addr, kK, false, ring);  // h @ W1
+    if (th.ctid == 0) tma_store_wait_read();
+    const float4 st = dec_ln_stats<NQ>(acc, a.b1, th, rsum, C);
+
+    // LayerNorm backward. Row moments of dyn * scale against yh; dscale and
+    // doff; dyn to the scratch for the second pass.
+    float mm1[2], mm2[2];
+    {
+      float m[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float2 dyn[4][2];
+          edge_dyn<NQ, kProcessor>(dyn, th, q, half, C, t, a);
+          float vs[8], vo[8];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int j = 4 * half + i;
+            const int c = dec_col<NQ>(th, q, j);
+            const float2 b = ldg2(a.b1 + c), sc = ldg2(a.scale + c);
+            *dyns.at(q, j, th.ctid) = f4(dyn[i][0].x, dyn[i][0].y,
+                                         dyn[i][1].x, dyn[i][1].y);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float yx = dec_ln(st, acc[q][4 * j + 2 * h] + b.x, h);
+              const float yy =
+                  dec_ln(st, acc[q][4 * j + 2 * h + 1] + b.y, h);
+              const float dx = dyn[i][h].x * sc.x, dy = dyn[i][h].y * sc.y;
+              m[h] += dx + dy;
+              m[2 + h] += dx * yx + dy * yy;
+            }
+            vs[2 * i] = dyn[i][0].x * dec_ln(st, acc[q][4 * j] + b.x, 0) +
+                        dyn[i][1].x * dec_ln(st, acc[q][4 * j + 2] + b.x, 1);
+            vs[2 * i + 1] =
+                dyn[i][0].y * dec_ln(st, acc[q][4 * j + 1] + b.y, 0) +
+                dyn[i][1].y * dec_ln(st, acc[q][4 * j + 3] + b.y, 1);
+            vo[2 * i] = dyn[i][0].x + dyn[i][1].x;
+            vo[2 * i + 1] = dyn[i][0].y + dyn[i][1].y;
+          }
+          edge_put8<NQ>(cs, th, q, half, vs, 0);
+          edge_put8<NQ>(cs, th, q, half, vo, 1);
+        }
+      }
+      const float4 s = rsum.sum(f4(m[0], m[1], m[2], m[3]), th);
+      mm1[0] = s.x / C;
+      mm1[1] = s.y / C;
+      mm2[0] = s.z / C;
+      mm2[1] = s.w / C;
+      cs.fold(th, kSScale, 1.f, 2);
+    }
+    // dy = rstd (dyn scale - m1 - yh m2): A <- dyd (also to dybuf); db1.
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      float4 dv[8];
+      dec_load_chunk<NQ>(dv, dyns, q, th.ctid);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float vb[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = 4 * half + i;
+          const int c = dec_col<NQ>(th, q, j);
+          const float2 b = ldg2(a.b1 + c), sc = ldg2(a.scale + c);
+          const float2 dyn[2] = {make_float2(dv[j].x, dv[j].y),
+                                 make_float2(dv[j].z, dv[j].w)};
+          float d[4];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float rstd = h == 0 ? st.y : st.w;
+            const bool in = t.ok[h] && c < C;
+            const float yx = dec_ln(st, acc[q][4 * j + 2 * h] + b.x, h);
+            const float yy = dec_ln(st, acc[q][4 * j + 2 * h + 1] + b.y, h);
+            d[2 * h] =
+                in ? rstd * (dyn[h].x * sc.x - mm1[h] - yx * mm2[h]) : 0.f;
+            d[2 * h + 1] =
+                in ? rstd * (dyn[h].y * sc.y - mm1[h] - yy * mm2[h]) : 0.f;
+            st_pair(sh.a, th.r0 + 8 * h, c, d[2 * h], d[2 * h + 1]);
+          }
+          vb[2 * i] = d[0] + d[2];
+          vb[2 * i + 1] = d[1] + d[3];
+        }
+        edge_put8<NQ>(cs, th, q, half, vb, 0);
+      }
+    }
+    cs.fold(th, kSB1);  // also publishes A
+    if (th.ctid == 0) edge_store_tile(&maps.dybuf, sh.a, t.row0, C);
+    dec_mma<NQ, 0>(acc, a_addr, kK, false, ring);  // dh = dyd @ W1^T
+    if (th.ctid == 0) tma_store_wait_read();
+    dec_sync();  // both warpgroups are done reading A
+
+    // dx0 = dh swish'(xd): A <- dxd (also dGs); db0.
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      float4 gd[8];
+      dec_load_chunk<NQ>(gd, sxs, q, th.ctid);
+      float cv[2][8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = dec_col<NQ>(th, q, j);
+        const float4 v = f4(acc[q][4 * j] * gd[j].x, acc[q][4 * j + 1] * gd[j].y,
+                            acc[q][4 * j + 2] * gd[j].z,
+                            acc[q][4 * j + 3] * gd[j].w);
+        st_pair(sh.a, th.r0, c, v.x, v.y);
+        st_pair(sh.a, th.r0 + 8, c, v.z, v.w);
+        cv[j / 4][2 * (j % 4)] = v.x + v.z;
+        cv[j / 4][2 * (j % 4) + 1] = v.y + v.w;
+      }
+      if (kHasWe) {
+        edge_put8<NQ>(cs, th, q, 0, cv[0], 0);
+        edge_put8<NQ>(cs, th, q, 1, cv[1], 0);
+      }
+    }
+    if (kHasWe) {
+      cs.fold(th, kSB0);
+    } else {
+      dec_publish();
+    }
+    if (th.ctid == 0) edge_store_tile(&maps.dgs, sh.a, t.row0, C);
+    // dGr: sums of dxd over the receiver runs.
+    edge_run_sums(sh.a, sh.idx, t.rows, C, a.dgr, th.ctid);
+
+    if (kProcessor) {
+      dec_mma<NQ, 0>(acc, a_addr, kK, false, ring);  // dxd @ We^T
+      // de = bf16(. + d_e').
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        uint32_t dv[8][2];
+        edge_rows<NQ>(dv, th, q, C, t, a.deout);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = dec_col<NQ>(th, q, j);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float2 d = bf2(dv[j][h]);
+            put_pair(a.de, t.er[h], C, c, t.ok[h],
+                     acc[q][4 * j + 2 * h] + d.x,
+                     acc[q][4 * j + 2 * h + 1] + d.y);
+          }
+        }
+      }
+    }
+    if (kEmbed) {
+      dec_mma<NQ, 0>(acc, a_addr, kK, false, ring);  // de = dxd @ We'^T
+      if (th.ctid == 0) tma_store_wait_read();  // dGs, before A <- dy0d
+      // LN0 backward: dy0 = rstd0 (de - mean(de) - yh0 mean(de yh0)).
+      float m[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        float4 yv[8];
+        dec_load_chunk<NQ>(yv, yh0s, q, th.ctid);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float d0 = acc[q][4 * j], d1 = acc[q][4 * j + 1];
+          const float d2 = acc[q][4 * j + 2], d3 = acc[q][4 * j + 3];
+          m[0] += d0 + d1;
+          m[1] += d2 + d3;
+          m[2] += d0 * yv[j].x + d1 * yv[j].y;
+          m[3] += d2 * yv[j].z + d3 * yv[j].w;
+        }
+      }
+      // Past rsum's barrier both warpgroups are done with the product.
+      const float4 s = rsum.sum(f4(m[0], m[1], m[2], m[3]), th);
+      const float m10 = s.x / C, m11 = s.y / C, m20 = s.z / C,
+                  m21 = s.w / C;
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        float4 yv[8];
+        dec_load_chunk<NQ>(yv, yh0s, q, th.ctid);
+        float cv[2][8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = dec_col<NQ>(th, q, j);
+          const bool in0 = t.ok[0] && c < C, in1 = t.ok[1] && c < C;
+          const float4 v = f4(
+              in0 ? rs0[0] * (acc[q][4 * j] - m10 - yv[j].x * m20) : 0.f,
+              in0 ? rs0[0] * (acc[q][4 * j + 1] - m10 - yv[j].y * m20) : 0.f,
+              in1 ? rs0[1] * (acc[q][4 * j + 2] - m11 - yv[j].z * m21) : 0.f,
+              in1 ? rs0[1] * (acc[q][4 * j + 3] - m11 - yv[j].w * m21) : 0.f);
+          st_pair(sh.a, th.r0, c, v.x, v.y);
+          st_pair(sh.a, th.r0 + 8, c, v.z, v.w);
+          cv[j / 4][2 * (j % 4)] = v.x + v.z;
+          cv[j / 4][2 * (j % 4) + 1] = v.y + v.w;
+        }
+        edge_put8<NQ>(cs, th, q, 0, cv[0], 0);
+        edge_put8<NQ>(cs, th, q, 1, cv[1], 0);
+      }
+      cs.fold(th, kSEb1);
+      if (th.ctid == 0) edge_store_tile(&maps.dy0, sh.a, t.row0, C);
+      dec_mma<NQ, 0>(acc, a_addr, kK, false, ring);  // dhh = dy0d @ Ew1^T
+      // dxe = dhh swish'(xe), swish'(xe) from the scratch.
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        float4 gv[8];
+        dec_load_chunk<NQ>(gv, DecScratch16<NQ>{sxe}, q, th.ctid);
+        float cv[2][8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = dec_col<NQ>(th, q, j);
+          const float4 v = f4(acc[q][4 * j] * gv[j].x,
+                              acc[q][4 * j + 1] * gv[j].y,
+                              acc[q][4 * j + 2] * gv[j].z,
+                              acc[q][4 * j + 3] * gv[j].w);
+          put_pair(a.dxe, t.er[0], C, c, t.ok[0], v.x, v.y);
+          put_pair(a.dxe, t.er[1], C, c, t.ok[1], v.z, v.w);
+          cv[j / 4][2 * (j % 4)] = v.x + v.z;
+          cv[j / 4][2 * (j % 4) + 1] = v.y + v.w;
+        }
+        edge_put8<NQ>(cs, th, q, 0, cv[0], 0);
+        edge_put8<NQ>(cs, th, q, 1, cv[1], 0);
+      }
+      cs.fold(th, kSEb0);
+    }
+  }
+  if (th.ctid == 0) tma_store_wait_all();
+  dec_sync();
+  float* part = a.partials + (size_t)blockIdx.x * (kSums * C);
+  for (int i = th.ctid; i < kSums * C; i += kDecConsumers) {
+    part[i] = sh.sums[i];
+  }
+}
+
+template <bool kProcessor, bool kEmbed>
+__global__ void __launch_bounds__(kDecThreads, 1) fused_edge_bwd_kernel(
+    const __grid_constant__ EdgeBwdMaps maps, const EdgeBwdArgs a) {
+  constexpr int W = kDecWidth;
   constexpr int kSums = kEmbed ? kEdgeSumsEmbed : kEdgeSums;
-  const size_t smem = sizeof(bf16) * 2 * TM * (C + 8) +
-                      sizeof(float) * TM * (C + 4) +
-                      sizeof(float) * (kSums * C + 4 * TM) +
-                      sizeof(int) * 2 * TM + sizeof(bf16) * kKT * kLdW;
-  auto kernel = fused_edge_bwd_kernel<kProcessor, kEmbed>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const EdgeSmem sh(smem_raw, edge_layout(kSums * W, false));
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  const uint32_t rank = cluster_ctarank();
+  const int tiles = (a.num_rows + kEdgeRows - 1) / kEdgeRows;
+  const int groups = (tiles + kEdgeCluster - 1) / kEdgeCluster;
+  const int cluster = blockIdx.x / kEdgeCluster;
+  const int clusters = gridDim.x / kEdgeCluster;
+  if (threadIdx.x == 0) sh.init();
+  __syncthreads();
+  cluster_sync();  // the partners' barriers are initialised
+
+  if (warp >= kDecConsumers / 32) {  // the producer warpgroup
+    setmaxnreg_dec<kDecProducerRegs>();
+    if (threadIdx.x == kDecConsumers) {
+      EdgeProducer pr(sh, rank);
+      for (int grp = cluster; grp < groups; grp += clusters) {
+        if (kEmbed) pr.fwd(&maps.ew1, W, W);
+        if (kProcessor || kEmbed) pr.fwd(&maps.we, W, W);
+        pr.fwd(&maps.w1, W, W);
+        pr.bwd(&maps.w1, W, W);
+        if (kProcessor || kEmbed) pr.bwd(&maps.we, W, W);
+        if (kEmbed) pr.bwd(&maps.ew1, W, W);
+      }
+    }
+  } else {
+    setmaxnreg_inc<kDecConsumerRegs>();
+    edge_bwd_consumer<kProcessor, kEmbed>(maps, a, sh, rank, groups, cluster,
+                                          clusters);
+  }
+  __syncwarp();
+  cluster_sync();  // no block exits while a partner may still arrive
+}
+
+// One chunk of K4, then its column sums into `sums` (kinds x C, added to).
+template <bool kProcessor, bool kEmbed>
+int fused_edge_bwd(const void* we, const void* w1, const void* ew1,
+                   const EdgeBwdArgs& a, float* sums, int max_blocks,
+                   cudaStream_t stream) {
+  if (a.num_rows <= 0) return 0;
+  const int C = a.C;
+  if (C % 128 || C < 128 || C > kDecWidth || max_blocks < kEdgeCluster) {
+    return cudaErrorInvalidValue;
+  }
+  // Tensor maps of the true width C: boxes past it arrive as zeros.
+  EdgeBwdMaps maps;
+  cudaError_t err = bf16_tile_map(&maps.w1, w1, C, C, C, 64);
+  maps.e = maps.we = maps.ew1 = maps.w1;
+  if (!kEmbed && err == cudaSuccess) {
+    err = bf16_tile_map(&maps.e, a.e, a.num_rows, C, C, 64);
+  }
+  if ((kProcessor || kEmbed) && err == cudaSuccess) {
+    err = bf16_tile_map(&maps.we, we, C, C, C, 64);
+  }
+  if (kEmbed && err == cudaSuccess) {
+    err = bf16_tile_map(&maps.ew1, ew1, C, C, C, 64);
+  }
+  // The bf16 rows the kernel stores from A, [num_rows, C] each.
+  const void* rows[6] = {a.hbuf, a.dybuf, a.dgs, a.en, a.hh, a.dy0};
+  CUtensorMap* rmaps[6] = {&maps.hbuf, &maps.dybuf, &maps.dgs, &maps.en,
+                           &maps.hh, &maps.dy0};
+  for (int i = 0; i < 6 && err == cudaSuccess; ++i) {
+    *rmaps[i] = maps.w1;
+    if (rows[i] != nullptr) {
+      err = bf16_tile_map(rmaps[i], rows[i], a.num_rows, C, C, 64);
+    }
+  }
   if (err != cudaSuccess) return err;
-  const int blocks = persistent_blocks((num_rows + TM - 1) / TM);
-  kernel<<<blocks, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(e), static_cast<const bf16*>(sproj), senders,
-      static_cast<const bf16*>(rproj), receivers,
-      static_cast<const bf16*>(we), static_cast<const bf16*>(wet), b0,
-      static_cast<const bf16*>(w1), static_cast<const bf16*>(w1t), b1, scale,
-      static_cast<const bf16*>(deout), dagg, static_cast<bf16*>(hbuf),
-      static_cast<bf16*>(dybuf), static_cast<bf16*>(dgs),
-      static_cast<bf16*>(de), dgr, sums, num_rows, C, emb);
+  constexpr int kSums =
+      kEmbed ? kEdgeSumsEmbed : kProcessor ? kEdgeSums : kSB0;
+  const int tiles = (a.num_rows + kEdgeRows - 1) / kEdgeRows;
+  int blocks = 0;
+  err = edge_launch(fused_edge_bwd_kernel<kProcessor, kEmbed>,
+                    edge_layout((kEmbed ? kEdgeSumsEmbed : kEdgeSums) *
+                                    kDecWidth,
+                                false).total,
+                    tiles, max_blocks, stream, maps, a, &blocks);
+  if (err != cudaSuccess) return err;
+  const int n = kSums * C;
+  decoder_sums_reduce<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      a.partials, blocks, n, sums);
   return cudaGetLastError();
+}
+
+inline EdgeBwdArgs edge_bwd_args(const void* e, const void* sproj,
+                                 const int* senders, const void* rproj,
+                                 const int* receivers, const float* b0,
+                                 const float* b1, const float* scale,
+                                 const float* dagg, void* hbuf, void* dybuf,
+                                 void* dgs, float* dgr, float* work,
+                                 float* partials, int num_rows, int C) {
+  EdgeBwdArgs a{};
+  a.e = static_cast<const bf16*>(e);
+  a.sproj = static_cast<const bf16*>(sproj);
+  a.senders = senders;
+  a.rproj = static_cast<const bf16*>(rproj);
+  a.receivers = receivers;
+  a.b0 = b0; a.b1 = b1; a.scale = scale;
+  a.dagg = dagg;
+  a.hbuf = static_cast<bf16*>(hbuf);
+  a.dybuf = static_cast<bf16*>(dybuf);
+  a.dgs = static_cast<bf16*>(dgs);
+  a.dgr = dgr;
+  a.work = work;
+  a.partials = partials;
+  a.num_rows = num_rows; a.C = C;
+  return a;
 }
 
 }  // namespace gc
 
-// One row chunk of K4. Row arrays (e, senders, receivers, deout, hbuf, dybuf,
-// dgs, de) start at the chunk's first row; sproj, rproj, dagg and dgr are
-// indexed by node. sums: [4, C] f32 (dscale, doff, db1, db0), accumulated.
-// processor = 0 is the encoder mode (we, wet, b0, deout and de unused).
-extern "C" int gc_fused_edge_bwd(
+#ifndef GC_K4_UNIT
+#define GC_K4_UNIT 0
+#endif
+
+#if GC_K4_UNIT == 1
+// K4 in encoder mode (no We, aggregation only); gc_fused_edge_bwd
+// dispatches here.
+extern "C" int gc_fused_edge_bwd_encoder(
     const void* e, const void* sproj, const int* senders, const void* rproj,
-    const int* receivers, const void* we, const void* wet, const float* b0,
-    const void* w1, const void* w1t, const float* b1, const float* scale,
-    const void* deout, const float* dagg, void* hbuf, void* dybuf, void* dgs,
-    void* de, float* dgr, float* sums, int num_rows, int C, int processor,
-    void* stream) {
-  if (num_rows <= 0) return 0;
-  auto s = static_cast<cudaStream_t>(stream);
-  if (processor) {
-    return gc::launch_fused_edge_bwd<true>(
-        e, sproj, senders, rproj, receivers, we, wet, b0, w1, w1t, b1, scale,
-        deout, dagg, hbuf, dybuf, dgs, de, dgr, sums, num_rows, C, s);
-  }
-  return gc::launch_fused_edge_bwd<false>(
-      e, sproj, senders, rproj, receivers, we, wet, b0, w1, w1t, b1, scale,
-      deout, dagg, hbuf, dybuf, dgs, de, dgr, sums, num_rows, C, s);
+    const int* receivers, const void* w1, const float* b1,
+    const float* scale, const float* dagg, void* hbuf, void* dybuf,
+    void* dgs, float* dgr, float* work, float* partials, float* sums,
+    int num_rows, int C, int max_blocks, void* stream) {
+  const gc::EdgeBwdArgs a = gc::edge_bwd_args(
+      e, sproj, senders, rproj, receivers, nullptr, b1, scale, dagg, hbuf,
+      dybuf, dgs, dgr, work, partials, num_rows, C);
+  return gc::fused_edge_bwd<false, false>(nullptr, w1, nullptr, a, sums,
+                                          max_blocks,
+                                          static_cast<cudaStream_t>(stream));
 }
 
+#elif GC_K4_UNIT == 2
 // One row chunk of K4 in embed mode (aggregation only). feat [rows, F] and
-// the row outputs (hbuf, dybuf, dgs, en, en32, hh, dy0, dxe) start at the
-// chunk's first row; sums: [6, C] f32 (dscale, doff, db1, db0, deb1, deb0),
-// accumulated.
+// the row outputs (hbuf, dybuf, dgs, en, hh, dy0, dxe) start at the chunk's
+// first row; ew0 [F, kDecWidth] bf16 zero-padded, vectors f32 zero-padded
+// to kDecWidth; work: max_blocks * kEdgeWork * kDecWidth f32; partials:
+// max_blocks * 6 C f32; sums: [6, C] f32 (dscale, doff, db1, db0, deb1,
+// deb0), added to.
 extern "C" int gc_fused_edge_bwd_embed(
     const void* feat, const void* ew0, const float* eb0, const void* ew1,
-    const void* ew1t, const float* eb1, const void* sproj, const int* senders,
-    const void* rproj, const int* receivers, const void* we, const void* wet,
-    const float* b0, const void* w1, const void* w1t, const float* b1,
-    const float* scale, const float* dagg, void* hbuf, void* dybuf,
-    void* dgs, float* dgr, float* sums, void* en, float* en32, void* hh,
-    void* dy0, void* dxe, int num_rows, int F, int C, void* stream) {
+    const float* eb1, const void* sproj, const int* senders,
+    const void* rproj, const int* receivers, const void* we, const float* b0,
+    const void* w1, const float* b1, const float* scale, const float* dagg,
+    void* hbuf, void* dybuf, void* dgs, float* dgr, void* en, void* hh,
+    void* dy0, void* dxe, float* work, float* partials, float* sums,
+    int num_rows, int F, int C, int max_blocks, void* stream) {
   using gc::bf16;
-  if (num_rows <= 0) return 0;
-  const gc::EdgeBwdEmbed emb{
-      static_cast<const bf16*>(feat), static_cast<const bf16*>(ew0), eb0,
-      static_cast<const bf16*>(ew1), static_cast<const bf16*>(ew1t), eb1,
-      static_cast<bf16*>(en), en32, static_cast<bf16*>(hh),
-      static_cast<bf16*>(dy0), static_cast<bf16*>(dxe), F};
-  return gc::launch_fused_edge_bwd<false, true>(
-      nullptr, sproj, senders, rproj, receivers, we, wet, b0, w1, w1t, b1,
-      scale, nullptr, dagg, hbuf, dybuf, dgs, nullptr, dgr, sums, num_rows, C,
-      static_cast<cudaStream_t>(stream), emb);
+  gc::EdgeBwdArgs a = gc::edge_bwd_args(
+      feat, sproj, senders, rproj, receivers, b0, b1, scale, dagg, hbuf,
+      dybuf, dgs, dgr, work, partials, num_rows, C);
+  a.ew0 = static_cast<const bf16*>(ew0);
+  a.eb0 = eb0;
+  a.eb1 = eb1;
+  a.en = static_cast<bf16*>(en);
+  a.hh = static_cast<bf16*>(hh);
+  a.dy0 = static_cast<bf16*>(dy0);
+  a.dxe = static_cast<bf16*>(dxe);
+  a.F = F;
+  return gc::fused_edge_bwd<false, true>(we, w1, ew1, a, sums, max_blocks,
+                                         static_cast<cudaStream_t>(stream));
 }
+
+#else
+extern "C" int gc_fused_edge_bwd_encoder(
+    const void* e, const void* sproj, const int* senders, const void* rproj,
+    const int* receivers, const void* w1, const float* b1,
+    const float* scale, const float* dagg, void* hbuf, void* dybuf,
+    void* dgs, float* dgr, float* work, float* partials, float* sums,
+    int num_rows, int C, int max_blocks, void* stream);
+
+// One row chunk of K4. Row arrays (e, senders, receivers, deout, hbuf,
+// dybuf, dgs, de) start at the chunk's first row; sproj, rproj, dagg and
+// dgr are indexed by node. Weights [C, C] bf16, vectors f32 zero-padded to
+// kDecWidth; work: max_blocks * kEdgeWork * kDecWidth f32; partials:
+// max_blocks * 4 C f32; sums: [4, C] f32 (dscale, doff, db1, db0), added
+// to. processor = 0 is the encoder mode (we, b0, deout and de unused;
+// three sums).
+extern "C" int gc_fused_edge_bwd(
+    const void* e, const void* sproj, const int* senders, const void* rproj,
+    const int* receivers, const void* we, const float* b0, const void* w1,
+    const float* b1, const float* scale, const void* deout,
+    const float* dagg, void* hbuf, void* dybuf, void* dgs, void* de,
+    float* dgr, float* work, float* partials, float* sums, int num_rows,
+    int C, int processor, int max_blocks, void* stream) {
+  if (!processor) {
+    return gc_fused_edge_bwd_encoder(e, sproj, senders, rproj, receivers, w1,
+                                     b1, scale, dagg, hbuf, dybuf, dgs, dgr,
+                                     work, partials, sums, num_rows, C,
+                                     max_blocks, stream);
+  }
+  gc::EdgeBwdArgs a = gc::edge_bwd_args(
+      e, sproj, senders, rproj, receivers, b0, b1, scale, dagg, hbuf, dybuf,
+      dgs, dgr, work, partials, num_rows, C);
+  a.deout = static_cast<const gc::bf16*>(deout);
+  a.de = static_cast<gc::bf16*>(de);
+  return gc::fused_edge_bwd<true, false>(we, w1, nullptr, a, sums,
+                                         max_blocks,
+                                         static_cast<cudaStream_t>(stream));
+}
+#endif  // GC_K4_UNIT

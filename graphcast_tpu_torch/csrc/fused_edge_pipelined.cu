@@ -34,15 +34,15 @@
 //     registers, and e' = e + y is written in a pass of 16-byte loads, all
 //     of a thread's started before the first is used: K1 reads its operands
 //     one or two elements at a time, each load waiting on the one before;
-//   * the products use K1's wmma bf16 fragments (common.cuh block_mm) in
-//     the same K order, so x0, y and e' are bit-identical to K1's; the run
-//     sums are K1's (atomicAdd only for a tile's first and last run) on
-//     32-row tiles, so only runs that cross a tile boundary are summed in
-//     another f32 order;
+//   * the products use wmma bf16 fragments with f32 accumulation, K in
+//     order; K1 (wgmma over 64-deep weight boxes) sums its products in
+//     another order, so x0, y and e' agree with K1's up to f32 rounding;
+//     the run sums are K1's (atomicAdd only for a tile's first and last
+//     run) on 32-row tiles;
 //   * embed mode (GenCast's grid2mesh) embeds the tile's raw features in
 //     its head (the F-deep layer on the CUDA cores, then the ew1 product and
-//     the parameter-free LayerNorm, as common.cuh embed_rows) before the We
-//     product; its 8 bytes of raw features a row are read with plain loads.
+//     the parameter-free LayerNorm) before the We product; its 8 bytes of
+//     raw features a row are read with plain loads.
 // Shared memory at C = 512: X f32 [32, 516] 66 KB, the carry A [32, 520]
 // 33 KB, the staged e, s and r rows 99 KB (no e in embed mode), the
 // weight ring 33 KB: 232,320 of the 232,448 bytes a block may have. Widths
@@ -50,6 +50,8 @@
 // What bounds it on an H100: the two (embed mode: three) 512 x 512 products
 // per edge row, as K1; the 32-row tile reads each weight matrix from L2
 // twice as often per row as K1's 64-row tile does.
+
+#include <mma.h>
 
 #include "common.cuh"
 
@@ -81,13 +83,14 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// X[0:TM, 0:N] = A[0:TM, 0:K] @ W[0:K, 0:N], with block_mm's operands and
-// fragments, W streamed through `ring` (kPipeStages tiles of [kPipeKT,
-// kPipeNC], leading dim kPipeLdW): the (column pass, K tile) pairs run as
-// one sequence, and tile t + kPipeStages - 1 is copied while tile t is
-// multiplied. Only warps 0-3 start and wait on these copies. Each output is
-// summed in block_mm's K order, so X is bit-identical to block_mm's. Every
-// thread of the block calls it; it begins and ends with a barrier.
+// X[0:TM, 0:N] = A[0:TM, 0:K] @ W[0:K, 0:N] (A shared bf16, leading dim
+// lda; X shared f32, leading dim ldx) in wmma bf16 16x16x16 fragments with
+// f32 accumulation, W streamed through `ring` (kPipeStages tiles of
+// [kPipeKT, kPipeNC], leading dim kPipeLdW): the (column pass, K tile)
+// pairs run as one sequence, and tile t + kPipeStages - 1 is copied while
+// tile t is multiplied. Only warps 0-3 start and wait on these copies. Each
+// output is summed in K order. Every thread of the block calls it; it
+// begins and ends with a barrier.
 template <int TM>
 __device__ void block_mm_pipe(const bf16* A, int lda,
                               const bf16* __restrict__ W, int K, int N,
@@ -154,9 +157,11 @@ __device__ void block_mm_pipe(const bf16* A, int lda,
   __syncthreads();
 }
 
-// common.cuh layer_norm_rows for C <= 512 (a multiple of 32): the same sums
-// in the same order, hence the same bits, with each lane's columns
-// c = lane + 32 k held in registers: its bias, scale and offset loaded once
+// LayerNorm of the first `rows` rows of X (+bias) over C <= 512 columns (a
+// multiple of 32), one warp per row, statistics in f32 (a warp_sum of each
+// lane's columns, for the mean, then for the mean square deviation), with
+// each lane's columns c = lane + 32 k held in registers: its bias, scale
+// and offset loaded once
 // a call and its row values once a row, every load of a row started before
 // the first is used. Hands each normalised value to fn(r, c, value); ends
 // with a barrier.

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
 // (weight_grad.cu, splash_fwd.cu, splash_bwd.cu, fused_decoder.cu,
-// fused_decoder_bwd.cu): mbarriers, TMA tile loads, thread block clusters
+// fused_decoder_bwd.cu, fused_edge.cu, fused_edge_bwd.cu): mbarriers, TMA
+// tile loads and stores, thread block clusters
 // (multicast loads, arrivals on a partner block's barriers), wgmma
 // shared-memory descriptors for the 128-byte swizzle, the wgmma issue and
 // wait instructions and the bf16 -> f32 products the kernels use, and the
@@ -119,6 +120,36 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// The box at (c0 = column, c1 = row) of the 2-D tensor map, from shared
+// memory at `src` (the same swizzled layout as a load), as a bulk
+// async-group store; rows and columns past the map are not written.
+// Issue after every writer's fence_proxy_async and a barrier.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}],"
+      " [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits (in the issuing thread) until this thread's committed stores have
+// read their shared memory, which may then be overwritten.
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Waits (in the issuing thread) until this thread's committed stores are
+// complete (before the block exits).
+__device__ __forceinline__ void tma_store_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {

@@ -96,7 +96,7 @@ def _declare(lib: ctypes.CDLL):
   lib.gc_fused_decoder.restype = i
   lib.gc_fused_decoder.argtypes = [p] * 22 + [i] * 5 + [p]
   lib.gc_fused_edge_bwd.restype = i
-  lib.gc_fused_edge_bwd.argtypes = [p] * 20 + [i] * 3 + [p]
+  lib.gc_fused_edge_bwd.argtypes = [p] * 20 + [i] * 4 + [p]
   for name in ("gc_fused_decoder_bwd_nodes", "gc_fused_decoder_bwd_edges"):
     getattr(lib, name).restype = i
     getattr(lib, name).argtypes = [p] * 28 + [i] * 5 + [p]
@@ -121,7 +121,9 @@ def _declare(lib: ctypes.CDLL):
   lib.gc_decoder_layout.restype = None
   lib.gc_decoder_layout.argtypes = [i, i, i, p]
   lib.gc_fused_edge_bwd_embed.restype = i
-  lib.gc_fused_edge_bwd_embed.argtypes = [p] * 28 + [i] * 3 + [p]
+  lib.gc_fused_edge_bwd_embed.argtypes = [p] * 26 + [i] * 4 + [p]
+  lib.gc_edge_layout.restype = None
+  lib.gc_edge_layout.argtypes = [i, i, p]
   lib.gc_feature_grad.restype = i
   lib.gc_feature_grad.argtypes = [p, i, p, i, p, p, p, i, i, p]
   lib.gc_splash_dq.restype = i

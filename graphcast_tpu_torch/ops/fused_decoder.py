@@ -48,14 +48,12 @@ under plain autograd.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from graphcast_tpu_torch.native import build
 from graphcast_tpu_torch.ops.fused_edge import (
     MAX_EMBED_FEATURES, EdgeIndex, _check_cuda, embed_edges_reference,
-    layer_norm_f32, swish_of)
+    layer_norm_f32, max_blocks, swish_of)
 from graphcast_tpu_torch.ops.weight_grad import feature_grad, weight_grad
 
 MATRICES = ("wr", "w1", "wng", "wna", "wn1", "wd0", "wd1")
@@ -79,8 +77,7 @@ _SLABS = {"agg": 0, "hn": 1, "res": 2, "ho": 3, "dxo": 4, "dyn": 5,
 # The kernels' block plan (csrc/decoder.cuh): the latent width they are
 # built for (a narrower one runs in the same layout, zero-padded), grid
 # nodes per block, blocks per cluster, the weight box, the shared memory a
-# block may have, the ring's cap, the alignment slack, the row exchange and
-# rstd areas.
+# block may have, the ring's cap, the alignment slack, the row exchange.
 WIDTH = 512
 ROWS = 64
 CLUSTER = 2
@@ -89,7 +86,6 @@ SMEM_LIMIT = 232448
 MAX_STAGES = 16
 ALIGN = 1008
 EXCHANGE = 2 * 2 * ROWS * 8
-RSTD = 4 * ROWS * 4
 # K5's per-block work scratch in f32 per latent column (csrc kDecWork): an
 # f32 tile of ROWS rows and two bf16 ones.
 BWD_WORK = ROWS + 2 * ROWS // 2
@@ -102,7 +98,7 @@ def smem_layout(C: int, outputs: int, embed: bool = False,
   dec_layout lays it out. Every width runs in the layout of WIDTH: the
   operand A (K5: wide enough for the padded outputs), the grid latents G,
   the weight ring (``stages`` boxes of BOX bytes, what is left up to
-  MAX_STAGES), the row exchange, the rstd area, K5's column sums and their
+  MAX_STAGES), the row exchange, K5's column sums and their
   per-warp parts, the barriers; ``total`` is the dynamic shared memory the
   launch asks for (with ALIGN bytes of slack)."""
   if C % 128 or not 128 <= C <= WIDTH or not 1 <= outputs <= 512:
@@ -115,23 +111,15 @@ def smem_layout(C: int, outputs: int, embed: bool = False,
   lay["ring"] = lay["g"] + WIDTH // 64 * BOX
   colred = 4 * WIDTH * 4 if sums else 0
   bars = (2 * MAX_STAGES + 2) * 8
-  tail = EXCHANGE + RSTD + sums * 4 + colred + bars
+  tail = EXCHANGE + sums * 4 + colred + bars
   lay["stages"] = min(MAX_STAGES, (SMEM_LIMIT - ALIGN - lay["ring"] - tail)
                       // BOX)
   lay["exchange"] = lay["ring"] + lay["stages"] * BOX
-  lay["rstd"] = lay["exchange"] + EXCHANGE
-  lay["sums"] = lay["rstd"] + RSTD
+  lay["sums"] = lay["exchange"] + EXCHANGE
   lay["colred"] = lay["sums"] + sums * 4
   lay["bars"] = lay["colred"] + colred
   lay["total"] = lay["bars"] + bars + ALIGN
   return lay
-
-
-@functools.lru_cache(maxsize=8)
-def _max_blocks(device) -> int:
-  """Blocks a decoder launch may use (its scratch is sized for them): one
-  per SM."""
-  return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def fused_decode_reference(edges: EdgeIndex, grid, mesh_proj, const,
@@ -235,7 +223,7 @@ def _launch_fused_decode(edges: EdgeIndex, grid, mesh_proj, const,
   G = grid.shape[0]
   lib = build.load_library()
   out = torch.empty(G, num_out, dtype=torch.bfloat16, device=grid.device)
-  blocks = _max_blocks(grid.device)
+  blocks = max_blocks(grid.device)
   agg = torch.empty(blocks, ROWS * WIDTH, dtype=torch.float32,
                     device=grid.device)
   stream = torch.cuda.current_stream(grid.device).cuda_stream
@@ -307,7 +295,7 @@ def fused_decode_backward(edges: EdgeIndex, grid, mesh_proj, const,
   dmesh = torch.zeros(edges.num_senders, C, dtype=f32, device=dev)
   sum_keys = _BWD_SUMS + (_BWD_SUMS_EMBED if embed else ())
   sums = torch.zeros(len(sum_keys) * C + no_pad, dtype=f32, device=dev)
-  blocks = _max_blocks(dev)
+  blocks = max_blocks(dev)
   work = torch.empty(blocks, BWD_WORK * WIDTH, dtype=f32, device=dev)
   partials = torch.empty(blocks, sums.numel(), dtype=f32, device=dev)
   slab_rows = min(G, BWD_CHUNK_NODES)

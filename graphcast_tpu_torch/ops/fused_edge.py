@@ -27,6 +27,12 @@ into We', b0' and the step's LayerNorm scale/offset by the caller. On the
 card it runs aggregation-only (``write_edges=False``), as the denoiser
 calls it.
 
+K1 and K4 (csrc/edge.cuh) run clusters of 64-row blocks that share every
+weight box by TMA multicast, on wgmma; ``smem_layout`` is their shared
+memory plan, made here so that the CPU tests can check it. They are built
+for latent width ``WIDTH`` (512); a narrower width runs in that layout with
+its vectors (and the embed's ``ew0``) zero-padded here.
+
 Gradients: on CUDA tensors that require grad, ``fused_edge`` runs K1 inside
 a ``torch.autograd.Function`` whose backward is K4
 (``fused_edge_backward``; csrc/fused_edge_bwd.cu + csrc/weight_grad.cu),
@@ -52,6 +58,7 @@ it once, at their first call.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -71,6 +78,68 @@ MAX_EMBED_FEATURES = 16
 # K1p's latent widths are multiples of this (csrc/fused_edge_pipelined.cu
 # kPipeNC).
 PIPELINED_WIDTH_STEP = 256
+# K1's and K4's block plan (csrc/edge.cuh, on csrc/decoder.cuh): the latent
+# width they are built for (a narrower one runs in the same layout,
+# zero-padded), edge rows per block, blocks per cluster (each weight byte
+# read from L2 serves ROWS * CLUSTER rows), the weight box, the shared
+# memory a block may have, the ring's cap, the alignment slack, the row
+# exchange, the tile's receivers, the column-sum kinds put before a fold.
+WIDTH = 512
+ROWS = 64
+CLUSTER = 2
+BOX = 64 * 64 * 2
+SMEM_LIMIT = 232448
+MAX_STAGES = 24
+ALIGN = 1008
+EXCHANGE = 2 * 2 * 64 * 8
+IDX = ROWS * 4
+SLOTS = 2
+# K4's column sums by mode, in the kernel's order (csrc/fused_edge_bwd.cu):
+# dscale, doff, db1, db0, deb1, deb0.
+BWD_SUMS = {"processor": 4, "encoder": 3, "embed": 6}
+# K4's per-block work scratch in f32 per latent column (csrc kEdgeWork): two
+# f32 tiles of ROWS rows and two bf16 ones.
+BWD_WORK = 2 * ROWS + 2 * (ROWS // 2)
+
+
+def smem_layout(C: int, backward: bool = False, embed: bool = False,
+                write_edges: bool = False) -> dict:
+  """Shared memory of one block of K1 (``backward`` False) or K4 at latent
+  width C, in bytes from its 1024-aligned base, as csrc/edge.cuh
+  edge_layout lays it out. Every width and mode runs in the layout of
+  WIDTH: the operand A, in K1's modes that write e' (``write_edges``) the
+  edge tile E, the weight ring (``stages`` boxes of BOX bytes, what is left
+  up to MAX_STAGES), the row exchange, the tile's receivers, K4's column
+  sums (room for embed mode's 6 kinds, or 4) and their per-warp parts, the
+  barriers; ``total`` is the dynamic shared memory the launch asks for
+  (with ALIGN bytes of slack)."""
+  if C % 128 or not 128 <= C <= WIDTH:
+    raise ValueError(f"latent width {C} not taken")
+  if backward and write_edges:
+    raise ValueError("K4 writes no e'")
+  sums = (BWD_SUMS["embed" if embed else "processor"] * WIDTH if backward
+          else 0)
+  tile = WIDTH // 64 * BOX
+  lay = {"a": 0, "e": tile, "ring": tile * (2 if write_edges else 1)}
+  colred = SLOTS * 4 * WIDTH * 4 if sums else 0
+  bars = (2 * MAX_STAGES + 1) * 8
+  tail = EXCHANGE + IDX + sums * 4 + colred + bars
+  lay["stages"] = min(MAX_STAGES,
+                      (SMEM_LIMIT - ALIGN - lay["ring"] - tail) // BOX)
+  lay["exchange"] = lay["ring"] + lay["stages"] * BOX
+  lay["idx"] = lay["exchange"] + EXCHANGE
+  lay["sums"] = lay["idx"] + IDX
+  lay["colred"] = lay["sums"] + sums * 4
+  lay["bars"] = lay["colred"] + colred
+  lay["total"] = lay["bars"] + bars + ALIGN
+  return lay
+
+
+@functools.lru_cache(maxsize=8)
+def max_blocks(device) -> int:
+  """Blocks a K4, K2 or K5 launch may use (their per-block scratch is
+  sized for them): one per SM."""
+  return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 class EdgeIndex:
@@ -187,6 +256,12 @@ def _vectors_f32(**vecs):
   return {k: v.float().contiguous() for k, v in vecs.items() if v is not None}
 
 
+def _padded(t, C: int):
+  """t's last axis (C columns) zero-padded to WIDTH: the operand K1 and K4
+  read for a narrower latent width."""
+  return torch.nn.functional.pad(t, (0, WIDTH - C)).contiguous()
+
+
 def _check_vectors(vecs: dict, dev, C: int):
   _check_cuda(vecs, dev, torch.float32)
   for name, v in vecs.items():
@@ -240,6 +315,8 @@ def _launch_fused_edge(edges: EdgeIndex, e, sproj, rproj, we, b0, w1, b1,
                **({"we": we} if we is not None else {})}, dev, torch.bfloat16)
   _check_vectors(vecs, dev, C)
 
+  if not pipelined:
+    vecs = {k: _padded(v, C) for k, v in vecs.items()}
   lib = build.load_library()
   agg = torch.zeros(edges.num_receivers, C, dtype=torch.float32, device=dev)
   eout = torch.empty_like(e) if write_edges else None
@@ -294,15 +371,14 @@ def fused_edge_backward(edges: EdgeIndex, e, sproj, rproj, we, b0, w1, b1,
   dev = e.device
   bf16, f32 = torch.bfloat16, torch.float32
   w1b = _matrix_bf16(w1, C, "w1")
-  mats = {"e": e, "sproj": sproj, "rproj": rproj, "w1": w1b,
-          "w1t": w1b.t().contiguous()}
+  mats = {"e": e, "sproj": sproj, "rproj": rproj, "w1": w1b}
   if processor:
-    web = _matrix_bf16(we, C, "we")
-    mats.update(we=web, wet=web.t().contiguous(),
+    mats.update(we=_matrix_bf16(we, C, "we"),
                 deout=d_eout.to(bf16).contiguous())
   vecs = _vectors_f32(b0=b0, b1=b1, scale=scale)
   _check_cuda(mats, dev, bf16)
   _check_vectors(vecs, dev, C)
+  vecs = {k: _padded(v, C) for k, v in vecs.items()}
   d_agg = d_agg.to(f32).contiguous()
   if d_agg.shape != (edges.num_receivers, C):
     raise ValueError(f"d_agg must have shape ({edges.num_receivers}, {C})")
@@ -318,6 +394,9 @@ def fused_edge_backward(edges: EdgeIndex, e, sproj, rproj, we, b0, w1, b1,
   rows = min(E, BWD_CHUNK_ROWS)
   hbuf = torch.empty(rows, C, dtype=bf16, device=dev)
   dybuf = torch.empty(rows, C, dtype=bf16, device=dev)
+  blocks = max_blocks(dev)
+  work = torch.empty(blocks, BWD_WORK * WIDTH, dtype=f32, device=dev)
+  partials = torch.empty(blocks, 4 * C, dtype=f32, device=dev)
   ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
   stream = torch.cuda.current_stream(dev).cuda_stream
   for r0 in range(0, E, BWD_CHUNK_ROWS):
@@ -326,13 +405,13 @@ def fused_edge_backward(edges: EdgeIndex, e, sproj, rproj, we, b0, w1, b1,
     code = lib.gc_fused_edge_bwd(
         e[part].data_ptr(), sproj.data_ptr(), edges.senders[part].data_ptr(),
         rproj.data_ptr(), edges.receivers[part].data_ptr(),
-        ptr(mats.get("we")), ptr(mats.get("wet")), ptr(vecs.get("b0")),
-        w1b.data_ptr(), mats["w1t"].data_ptr(), vecs["b1"].data_ptr(),
-        vecs["scale"].data_ptr(),
+        ptr(mats.get("we")), ptr(vecs.get("b0")), w1b.data_ptr(),
+        vecs["b1"].data_ptr(), vecs["scale"].data_ptr(),
         mats["deout"][part].data_ptr() if processor else None,
         d_agg.data_ptr(), hbuf.data_ptr(), dybuf.data_ptr(),
         dgs[part].data_ptr(), de[part].data_ptr(), dgr.data_ptr(),
-        sums.data_ptr(), n, C, int(processor), stream)
+        work.data_ptr(), partials.data_ptr(), sums.data_ptr(), n, C,
+        int(processor), blocks, stream)
     build.check(lib, code, "fused_edge_bwd kernel launch")
     fused_edge_backward.launches += 1
     weight_grad(hbuf[:n], dybuf[:n], dw1)
@@ -385,6 +464,9 @@ def _launch_fused_edge_embed(edges: EdgeIndex, features, sproj, rproj, we,
   if pipelined:
     _check_pipelined_width(C)
   dev = sproj.device
+  if not pipelined:
+    mats["ew0"] = _padded(mats["ew0"], C)
+    vecs = {k: _padded(v, C) for k, v in vecs.items()}
   lib = build.load_library()
   agg = torch.zeros(edges.num_receivers, C, dtype=torch.float32, device=dev)
   launch = (lib.gc_fused_edge_embed_pipelined if pipelined
@@ -448,7 +530,8 @@ def fused_edge_embed_backward(edges: EdgeIndex, features, sproj, rproj, we,
   C = sproj.shape[1]
   dev = sproj.device
   bf16, f32 = torch.bfloat16, torch.float32
-  tr = {k: mats[k].t().contiguous() for k in ("ew1", "we", "w1")}
+  ew0_pad = _padded(mats["ew0"], C)
+  vecs = {k: _padded(v, C) for k, v in vecs.items()}
   d_agg = d_agg.to(f32).contiguous()
   if d_agg.shape != (edges.num_receivers, C):
     raise ValueError(f"d_agg must have shape ({edges.num_receivers}, {C})")
@@ -465,25 +548,25 @@ def fused_edge_embed_backward(edges: EdgeIndex, features, sproj, rproj, we,
   rows = min(E, BWD_CHUNK_ROWS)
   buf = {k: torch.empty(rows, C, dtype=bf16, device=dev)
          for k in ("h", "dy", "en", "hh", "dy0", "dxe")}
-  en32 = torch.empty(rows, C, dtype=f32, device=dev)
+  blocks = max_blocks(dev)
+  work = torch.empty(blocks, BWD_WORK * WIDTH, dtype=f32, device=dev)
+  partials = torch.empty(blocks, 6 * C, dtype=f32, device=dev)
   stream = torch.cuda.current_stream(dev).cuda_stream
   feats = mats["features"]
   for r0 in range(0, E, BWD_CHUNK_ROWS):
     n = min(BWD_CHUNK_ROWS, E - r0)
     part = slice(r0, r0 + n)
     code = lib.gc_fused_edge_bwd_embed(
-        feats[part].data_ptr(), mats["ew0"].data_ptr(),
-        vecs["eb0"].data_ptr(), mats["ew1"].data_ptr(),
-        tr["ew1"].data_ptr(), vecs["eb1"].data_ptr(), sproj.data_ptr(),
+        feats[part].data_ptr(), ew0_pad.data_ptr(), vecs["eb0"].data_ptr(),
+        mats["ew1"].data_ptr(), vecs["eb1"].data_ptr(), sproj.data_ptr(),
         edges.senders[part].data_ptr(), rproj.data_ptr(),
         edges.receivers[part].data_ptr(), mats["we"].data_ptr(),
-        tr["we"].data_ptr(), vecs["b0"].data_ptr(), mats["w1"].data_ptr(),
-        tr["w1"].data_ptr(), vecs["b1"].data_ptr(),
+        vecs["b0"].data_ptr(), mats["w1"].data_ptr(), vecs["b1"].data_ptr(),
         vecs["scale"].data_ptr(), d_agg.data_ptr(), buf["h"].data_ptr(),
         buf["dy"].data_ptr(), dgs[part].data_ptr(), dgr.data_ptr(),
-        sums.data_ptr(), buf["en"].data_ptr(), en32.data_ptr(),
-        buf["hh"].data_ptr(), buf["dy0"].data_ptr(), buf["dxe"].data_ptr(),
-        n, F, C, stream)
+        buf["en"].data_ptr(), buf["hh"].data_ptr(), buf["dy0"].data_ptr(),
+        buf["dxe"].data_ptr(), work.data_ptr(), partials.data_ptr(),
+        sums.data_ptr(), n, F, C, blocks, stream)
     build.check(lib, code, "fused_edge_bwd embed kernel launch")
     fused_edge_backward.launches += 1
     fused_edge_backward.embed_launches += 1

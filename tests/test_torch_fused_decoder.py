@@ -281,11 +281,11 @@ def test_layout_constants_match_kernels():
   k = _kernel_constants()
   assert (k["kDecWidth"], k["kDecRows"], k["kDecCluster"], k["kDecBox"],
           k["kDecSmemLimit"], k["kDecMaxStages"], k["kDecAlign"],
-          k["kDecExchange"], k["kDecRstd"]) == (
+          k["kDecExchange"]) == (
               fused_decoder.WIDTH, fused_decoder.ROWS, fused_decoder.CLUSTER,
               fused_decoder.BOX, fused_decoder.SMEM_LIMIT,
               fused_decoder.MAX_STAGES, fused_decoder.ALIGN,
-              fused_decoder.EXCHANGE, fused_decoder.RSTD)
+              fused_decoder.EXCHANGE)
   assert k["kDecWork"] == fused_decoder.BWD_WORK
   assert k["kDecSums"] == len(fused_decoder._BWD_SUMS)
   assert (k["kDecSumsEmbed"] - k["kDecSums"]
@@ -318,8 +318,8 @@ def test_smem_layout_fits_every_width_the_wrapper_takes(C, embed, backward):
         len(fused_decoder._BWD_SUMS_EMBED) if embed else 0)
     assert lay["colred"] - lay["sums"] == (
         4 * (kinds * W + no_pad) if backward else 0)
-    order = [lay[k] for k in ("a", "g", "ring", "exchange", "rstd", "sums",
-                              "colred", "bars")]
+    order = [lay[k] for k in ("a", "g", "ring", "exchange", "sums", "colred",
+                              "bars")]
     assert order == sorted(order)
     assert lay["bars"] % 8 == 0
     assert lay["total"] == (lay["bars"] + (2 * fused_decoder.MAX_STAGES + 2)

@@ -294,15 +294,16 @@ def test_gencast_train_step_runs_without_jax():
 
 
 def test_port_sources_name_no_jax_package():
-  """No module of the port, nor chip_smoke.py or k1p_study.py, imports jax
-  or graphcast_tpu (the subprocess tests above prove the imports; this
-  finds a lazy import inside a function too)."""
+  """No module of the port, nor chip_smoke.py, k1p_study.py or
+  edge_study.py, imports jax or graphcast_tpu (the subprocess tests above
+  prove the imports; this finds a lazy import inside a function too)."""
   import re
   pattern = re.compile(
       r"^\s*(import\s+(jax|graphcast_tpu)([.\s,]|$)"
       r"|from\s+(jax|graphcast_tpu)(\.\w+)*\s+import\b)", re.MULTILINE)
   files = sorted((REPO / "graphcast_tpu_torch").rglob("*.py"))
-  files += [REPO / "chip_smoke.py", REPO / "k1p_study.py"]
+  files += [REPO / "chip_smoke.py", REPO / "k1p_study.py",
+            REPO / "edge_study.py"]
   offenders = [str(f) for f in files if pattern.search(f.read_text())]
   assert not offenders, offenders
 
