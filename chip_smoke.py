@@ -34,16 +34,17 @@ Phases, each printing one line with its seconds and results:
   k4     the edge step's backward kernel against torch.autograd.grad of the
          K1 twin, seeded random cotangents: processor mode on the mesh-6
          edge set, encoder mode on the 0.25° grid2mesh edge set; a rerun
-         bit-equal (fixed-order column sums and weight gradients) but for
-         the gradients of sproj and rproj (atomics); registers, spills and
+         bit-equal in every gradient (fixed-order column sums, weight
+         gradients, receiver runs and sender sums); registers, spills and
          shared memory from the build log; the whole backward timed in
          turns with its products as cuBLAS GEMMs (gemm_ms), the per-row
          kernel's own device time from the profiler (kernel_ms).
   k5     the decoder's backward kernel against autograd of the K2 twin on
          the first 131,072 grid nodes of the 0.25° mesh2grid list with all
          mesh-6 nodes (the twin's f32 autograd at all 1,038,240 nodes would
-         hold several 6.4 GB tensors); a rerun bit-equal (fixed-order
-         sums); the kernel in uneven node chunks against one chunk; then
+         hold several 6.4 GB tensors); a rerun bit-equal in every
+         gradient (fixed-order sums, the sender sums by K3's sender mode);
+         the kernel in uneven node chunks against one chunk; then
          the kernel alone at all nodes. Its registers, spills, shared memory
          and ptxas advisories; the whole backward timed in turns with its
          products-only yardstick (25 GEMMs per node, gemm_ms), the per-node
@@ -87,10 +88,12 @@ Phases, each printing one line with its seconds and results:
          node); K1's registers, spills and shared memory.
   embed_bwd  K4 and K5 in embed mode against torch.autograd.grad of the K1
          and K2 embed twins on the real 1.0° GenCast edge sets (each also a
-         rerun bit-equal), each kernel alone on the 0.25° sets (each in
-         turns with its products-only yardstick, K4 6 GEMMs per edge, K5 40
-         per node, and its own device time), and the feature-gradient pass
-         they share against its plain version.
+         rerun bit-equal in every gradient), each kernel alone on the 0.25°
+         sets (each in turns with its products-only yardstick, K4 6 GEMMs
+         per edge, K5 40 per node, and its own device time), and the
+         feature-gradient pass they share against its plain version, a
+         rerun bit-equal, timed in turns with its two products as bf16
+         cuBLAS calls (x.t() @ d, d @ w0.t(): the library yardstick).
   gencast  GenCast's sampling path: zoo.gencast_1p0deg() (1.0°, 13 levels,
          mesh-5, latent 512, 16-layer 4-head k-hop-16 transformer, 20 noise
          levels) at full width, random weights from a fixed generator with
@@ -128,7 +131,12 @@ Phases, each printing one line with its seconds and results:
          C = 4 x 512 (the batch-4 paths) and on the 0.25 deg grid2mesh set
          at C = 2 x 512 (in-degrees up to 3,753), with
          torch.segment_reduce over the CSR offsets as the library
-         yardstick.
+         yardstick; then its sender mode (the backward's per-edge sender
+         gradients into the sender nodes, bf16 in, f32 out, through the
+         edge list's sender-sorted permutation) at the 0.25° train step's
+         three calls (mesh-6 multimesh, grid2mesh, mesh2grid, C = 512)
+         against its plain version, a rerun bit-equal, timed in turns with
+         the f32 index_add_ it replaced (the library yardstick).
   ensemble  the main path of the batch > 1 slice, GenCast's ensemble
          forecast: rollout.chunked_ensemble_prediction over NaNCleaner(
          InputsAndResiduals(GenCast)) at zoo.gencast_1p0deg(), random
@@ -154,14 +162,17 @@ Phases, each printing one line with its seconds and results:
          against K1 on the same inputs: processor mode on the mesh-6
          multi-mesh, encoder mode on the 0.25° grid2mesh set, embed mode on
          the 1.0° GenCast and the 0.25° grid2mesh sets; e' and the receiver
-         sums against K1's at the kernel-vs-twin tolerance; K1p ms beside
-         K1 ms (timed in turns), plain ms and the bound; then one K4
-         backward behind a K1p forward through fused_edge against one
-         behind K1.
+         sums equal to K1's bit for bit; K1p's registers, spills and shared
+         memory; K1p ms beside K1 ms and its products as bf16 cuBLAS GEMMs
+         (timed in turns: K1p, K1, GEMMs, GEMMs, K1, K1p), plain ms and the
+         bound; then one K4 backward behind a K1p forward through
+         fused_edge, every gradient equal to the one behind K1.
   main_pipelined  the main path of main with GC_PIPELINED_EDGE=1: the same
          weights, inputs and rollout_final, K1p 16 + 1 launches a step and
-         K1 none; the final state against main's, per variable; s/step of
-         both runs and the peak memory.
+         K1 none; the final state against main's, per variable (relative
+         RMS within 1e-2; its max-abs difference printed, 0 expected, as
+         K1p equals K1 bit for bit); s/step of both runs and the peak
+         memory.
   bench  the benchmark mirror's main() (python3 -m graphcast_tpu_torch.bench)
          with BENCH_FALLBACK_ONLY=1, BENCH_NUM_STEPS=BENCH_STEPS and
          GC_PIPELINED_EDGE=1: the GenCast 1.0° 12 h step (K1p in embed mode,
@@ -183,14 +194,10 @@ sums over the real GenCast edge sets may also differ by 2^-8 per summed
 edge (``_check_close``): at the poles hundreds of edges that share one raw
 feature row meet one mesh node, and a rounding flip in that row's bf16
 embedding moves all of them the same way. K1p against K1: e' and the
-receiver sums at the kernel-vs-twin tolerance (the same rounding points;
-K1 sums its wgmma products over 64-deep weight boxes, K1p its wmma
-products in K order); each gradient behind a K1p forward against the one
-behind K1: rms(K1p - K1) <= 2 rms(K1' - K1) + K1P_GRAD_RTOL rms(K1), K1' a
-second run of K1's path (K4's receiver-run sums at tile ends add with
-atomics in a run-dependent order, and the bf16 gradients round their
-sums; the sender scatter's order is fixed for these runs by torch's
-deterministic mode).
+receiver sums bit-equal (the same wgmma sequence per 64-column chunk, the
+same LayerNorm sums, the same fixed-order run sums); each gradient behind
+a K1p forward equal to the one behind K1. No kernel sums with atomics:
+every rerun check is bit-equal in every output.
 
 Each kernel's line in the JSON carries its bound: the least time the card
 could take for the same work, the larger of the bytes it must move (inputs
@@ -234,7 +241,6 @@ ENSEMBLE_MEMBERS = 4    # GenCast ensemble members, the batch axis
 ENSEMBLE_STEPS = 2      # timed 12 h chunks of the ensemble rollout
 BATCH = 4               # GraphCast_small batch of the graphcast_batch phase
 BATCH_STEPS = 2         # its timed 6 h steps
-K1P_GRAD_RTOL = 1e-6    # slack over K4's run-to-run noise, relative to rms
 MAIN_PIPELINED_RTOL = 1e-2  # relative RMS per variable, vs main's final
 BENCH_STEPS = 4         # the bench phase's BENCH_NUM_STEPS
 PEAK_FLOPS = 989e12     # H100 SXM, dense bf16 tensor cores
@@ -589,12 +595,12 @@ def _autograd(torch, fn, leaves: dict, cotangents, names):
   return dict(zip(names, grads)), ms
 
 
-def _k4_rerun_bit_equal(torch, phase, run, skip):
-  """Runs K4's whole backward twice: every output but those named in
-  ``skip`` (summed with atomics) must be bit-equal."""
+def _k4_rerun_bit_equal(torch, phase, run):
+  """Runs a backward twice ({name: gradient} each): every output must be
+  bit-equal."""
   first, again = run(), run()
   for name, a in first.items():
-    if name not in skip and not torch.equal(a, again[name]):
+    if not torch.equal(a, again[name]):
       raise AssertionError(
           f"{phase}: two runs differ in {name} by "
           f"{(a.float() - again[name].float()).abs().max().item():.3g}")
@@ -652,10 +658,8 @@ def phase_k4(torch, art, results):
       out = fused_edge_backward(edges, d_eout=d_eout, d_agg=d_agg, **det)
       return {k: v for k, v in zip(names, out) if v is not None}
 
-    # Fixed-order column sums and weight gradients: a rerun is bit-equal
-    # but for sproj's (the wrapper's index_add_) and rproj's (the receiver
-    # runs at tile ends, atomicAdd).
-    _k4_rerun_bit_equal(torch, f"k4 {mode}", k4, ("sproj", "rproj"))
+    # Every sum in a fixed order: a rerun is bit-equal in every gradient.
+    _k4_rerun_bit_equal(torch, f"k4 {mode}", k4)
     # In turns with the kernel's products as bf16 cuBLAS GEMMs over the same
     # rows (gemm_ms); the per-row kernel's own device time (kernel_ms).
     gemms = _gemm_yardstick(torch, gen, edges.num_edges,
@@ -751,13 +755,12 @@ def phase_k5(torch, art, results):
   del gemms
   kernel_ms = _device_ms(torch, k5, ("fused_decoder_bwd_kernel",),
                          reps=3)["fused_decoder_bwd_kernel"]
-  # K5's outputs and the weight gradients are summed in a fixed order: a
-  # rerun at the same chunking is bit-equal. (mesh_proj's gradient is the
-  # wrapper's index_add_ scatter of dgs, summed with atomics.)
+  # Every sum in a fixed order (mesh_proj's by K3's sender mode): a rerun
+  # at the same chunking is bit-equal in every gradient.
   one_chunk = k5()
   again = k5()
   for k in one_chunk:
-    if k != "mesh_proj" and not torch.equal(one_chunk[k], again[k]):
+    if not torch.equal(one_chunk[k], again[k]):
       raise AssertionError(f"k5: two runs differ in {k} by "
                            f"{(one_chunk[k] - again[k]).abs().max().item():.3g}")
   del again
@@ -1065,8 +1068,8 @@ def phase_main(torch, results, profile_dir=None):
   t0 = time.perf_counter()
   preset, predictor, final, times, counts = _main_rollout(torch, "main",
                                                           profile_dir)
-  # The same rollout again: K1's atomics add the sums of runs that cross a
-  # tile boundary in a run-dependent order, so two runs differ this much.
+  # The same rollout again: the kernels sum in a fixed order, so this is
+  # the run-to-run noise of the rest of the path (0 expected).
   noise = _worst_rel_rms(predictor.rollout_final(*_main_data(torch)), final)
   del predictor
   _MAIN_FINAL.update(final=final, noise=noise,
@@ -1121,6 +1124,9 @@ def phase_main_pipelined(torch, results, profile_dir=None):
   if not (np.isfinite(worst) and worst <= MAIN_PIPELINED_RTOL):
     raise AssertionError(f"main_pipelined: relative RMS {worst:.3g} against "
                          f"main's final state (tol {MAIN_PIPELINED_RTOL})")
+  # K1p equals K1 bit for bit: 0 expected.
+  max_abs = max(_errors(final.data(n), _MAIN_FINAL["final"].data(n))[0]
+                for n in final.var_names)
   k1p = counts["fused_edge_pipelined_all"]
   k1p_encoder = counts["fused_edge_pipelined_encoder"]
   for name, n in (("fused_edge_pipelined", k1p - k1p_encoder),
@@ -1135,7 +1141,7 @@ def phase_main_pipelined(torch, results, profile_dir=None):
        k1p_per_step=k1p // ROLLOUT_STEPS,
        k1p_encoder_per_step=k1p_encoder // ROLLOUT_STEPS,
        k1_per_step=counts["fused_edge"] // ROLLOUT_STEPS,
-       worst_rel_rms_vs_main=f"{worst:.3g}",
+       worst_rel_rms_vs_main=f"{worst:.3g}", max_abs_vs_main=f"{max_abs:.3g}",
        main_rerun_worst_rel_rms=f"{_MAIN_FINAL['noise']:.3g}", finite=True)
 
 
@@ -1211,7 +1217,8 @@ def _counters():
       fused_decode, fused_decode_backward)
   from graphcast_tpu_torch.ops.fused_edge import (
       fused_edge, fused_edge_backward)
-  from graphcast_tpu_torch.ops.segment_sum import sorted_segment_sum
+  from graphcast_tpu_torch.ops.segment_sum import (
+      sender_segment_sum, sorted_segment_sum)
   from graphcast_tpu_torch.ops.splash import (
       block_sparse_attention, splash_dkv, splash_dq)
   from graphcast_tpu_torch.ops.weight_grad import feature_grad, weight_grad
@@ -1220,7 +1227,8 @@ def _counters():
           "fused_decoder_bwd": fused_decode_backward,
           "weight_grad": weight_grad, "feature_grad": feature_grad,
           "splash_fwd": block_sparse_attention, "splash_dq": splash_dq,
-          "splash_dkv": splash_dkv, "segment_sum": sorted_segment_sum}
+          "splash_dkv": splash_dkv, "segment_sum": sorted_segment_sum,
+          "segment_sum_sender": sender_segment_sum}
 
 
 def _mode_counts():
@@ -1257,14 +1265,16 @@ def _train_launches_per_step(art, mp_steps):
   once per ``BWD_CHUNK_ROWS`` edges of each of its calls (mp_steps on the
   mesh, one on grid2mesh), K5 once per ``BWD_CHUNK_NODES`` grid nodes. The
   reduction runs per chunk: twice per processor K4 chunk (dW1, dWe), once
-  per encoder chunk (dW1), 7 times per K5 chunk."""
+  per encoder chunk (dW1), 7 times per K5 chunk. K3's sender mode once per
+  K4 and K5 call."""
   from graphcast_tpu_torch.ops import fused_decoder, fused_edge
   proc = -(-art.mesh.senders.size // fused_edge.BWD_CHUNK_ROWS)
   enc = -(-art.grid2mesh.senders.size // fused_edge.BWD_CHUNK_ROWS)
   dec = -(-art.num_grid_nodes // fused_decoder.BWD_CHUNK_NODES)
   return {"fused_edge": 1 + mp_steps, "fused_decoder": 1,
           "fused_edge_bwd": mp_steps * proc + enc, "fused_decoder_bwd": dec,
-          "weight_grad": 2 * mp_steps * proc + enc + 7 * dec}
+          "weight_grad": 2 * mp_steps * proc + enc + 7 * dec,
+          "segment_sum_sender": mp_steps + 2}
 
 
 def phase_train(torch, results, profile_dir=None):
@@ -1316,7 +1326,8 @@ def phase_train(torch, results, profile_dir=None):
     _profile_step(torch, lambda: step(*data), profile_dir, "train_step")
   for name, n in counts.items():
     results.setdefault(name, {"name": name})["train_launches"] = n
-  for name in ("fused_edge_bwd", "fused_decoder_bwd", "weight_grad"):
+  for name in ("fused_edge_bwd", "fused_decoder_bwd", "weight_grad",
+               "segment_sum_sender"):
     results[name].update(launches=counts[name],
                          launches_per_step=counts[name] / TRAIN_STEPS)
   _log("train", t0, config=_label(preset) + "/AR1", steps=TRAIN_STEPS,
@@ -1893,11 +1904,8 @@ def phase_embed_bwd(torch, art025, results):
       return dict(zip(names, (*grads, doff, *dembed)))
 
     if res == "1p0":
-      # Fixed-order sums: a rerun is bit-equal but for the gradients summed
-      # with atomics: sproj's (index_add_), rproj's (the receiver runs at
-      # tile ends) and ew0's (feature_grad).
-      _k4_rerun_bit_equal(torch, "embed_bwd k4", k4, ("sproj", "rproj",
-                                                      "ew0"))
+      # Every sum in a fixed order: a rerun is bit-equal in every gradient.
+      _k4_rerun_bit_equal(torch, "embed_bwd k4", k4)
     gemms = _gemm_yardstick(torch, gen, edges.num_edges,
                             _edge_products("embed", backward=True))
     e_ms, e_gemm = _time_in_turns(torch, k4, gemms)
@@ -1945,16 +1953,10 @@ def phase_embed_bwd(torch, art025, results):
                                    acts["const"], det, dout)
 
     if res == "1p0":
-      # Fixed-order sums: a rerun is bit-equal, but for the two gradients
-      # summed with atomics outside K5, mesh_proj's (index_add_) and ew0's
-      # (feature_grad).
-      first, again = k5(), k5()
-      pairs = [("grid", first[0], again[0]), ("const", first[2], again[2])]
-      pairs += [(k, v, again[3][k]) for k, v in first[3].items() if k != "ew0"]
-      for name, a, b in pairs:
-        if not torch.equal(a, b):
-          raise AssertionError(f"embed_bwd k5: two runs differ in {name}")
-      del first, again, pairs
+      # Every sum in a fixed order: a rerun is bit-equal in every gradient.
+      _k4_rerun_bit_equal(torch, "embed_bwd k5", lambda: (
+          lambda out: {"grid": out[0], "mesh_proj": out[1], "const": out[2],
+                       **out[3]})(k5()))
     # Products-only yardstick (40 GEMMs per node) in turns with the whole
     # backward; the kernel's own device time from the profiler.
     gemms = _gemm_yardstick(torch, gen, g, _decoder_products(
@@ -1997,9 +1999,18 @@ def phase_embed_bwd(torch, art025, results):
                                  {"dw0": got_w, "dx": got_x},
                                  {"dw0": want_w, "dx": want_x}, WGRAD_RTOL)
     worst["fg"] = max(worst["fg"], f_abs)
+    # The block partials are added in a fixed order: a rerun is bit-equal.
+    again_w = torch.zeros(F, C, device=DEVICE)
+    if not (torch.equal(feature_grad(x, dxe, w0, again_w), got_x)
+            and torch.equal(again_w, got_w)):
+      raise AssertionError(f"embed_bwd feature_grad {name}: two runs differ")
+    # In turns with its two products as bf16 cuBLAS calls (the library
+    # yardstick), 20 calls a turn.
+    ms, library_ms = _time_in_turns(
+        torch, lambda: feature_grad(x, dxe, w0, got_w),
+        lambda: (x.t() @ dxe, dxe @ w0.t()), reps=20)
     suffix = "" if name == "k4" else "_k5"
-    fg.update({"ms" + suffix: _time_ms(torch, lambda: feature_grad(
-                   x, dxe, w0, got_w)),
+    fg.update({"ms" + suffix: ms, "library_ms" + suffix: library_ms,
                "plain_ms" + suffix: _time_ms(torch, lambda: (
                    feature_grad_reference(x, dxe, w0, want_w))),
                **{k + suffix: v for k, v in _bound(
@@ -2007,11 +2018,12 @@ def phase_embed_bwd(torch, art025, results):
                    rows * (C + F) * 2 + F * C * 2 + 2 * F * C * 4
                    + rows * F * 4).items()}})
     _log("embed_bwd", t0, feature_grad=name, rows=rows,
-         worst_rel_rms=f"{max(f_rels.values()):.3g}",
-         ms=f"{fg['ms' + suffix]:.3f}",
+         worst_rel_rms=f"{max(f_rels.values()):.3g}", bit_equal_rerun=True,
+         ms=f"{fg['ms' + suffix]:.4f}",
+         library_ms=f"{fg['library_ms' + suffix]:.4f}",
          plain_ms=f"{fg['plain_ms' + suffix]:.3f}",
          bound_ms=f"{fg['bound_ms' + suffix]:.4f}")
-    del x, dxe, w0, got_w, want_w, got_x, want_x
+    del x, dxe, w0, got_w, want_w, got_x, want_x, again_w
   edge["max_abs_err"] = worst["edge"]
   dec["max_abs_err"] = worst["dec"]
   fg["max_abs_err"] = worst["fg"]
@@ -2240,8 +2252,8 @@ def _gencast_train_launches_per_step(preset, art):
   embed mode once per BWD_CHUNK_ROWS grid2mesh edges, K5 once per
   BWD_CHUNK_NODES grid nodes; per chunk the weight-gradient reduction 3
   times for K4 (dW1, dWe', dEw1) and 9 for K5 (its 7, dWe', dEw1), and the
-  feature pass once). Every launch of K1, K2, K4 and K5 is an embed-mode
-  one."""
+  feature pass once; K3's sender mode once per K4 and K5 call). Every
+  launch of K1, K2, K4 and K5 is an embed-mode one."""
   from graphcast_tpu_torch.ops import fused_decoder, fused_edge
   layers = preset.denoiser_architecture_config.sparse_transformer_config
   enc = -(-art.grid2mesh.senders.size // fused_edge.BWD_CHUNK_ROWS)
@@ -2254,7 +2266,8 @@ def _gencast_train_launches_per_step(preset, art):
           "fused_decoder_bwd": dec, "fused_decoder_bwd_embed": dec,
           "weight_grad": 3 * enc + 9 * dec, "feature_grad": enc + dec,
           "splash_fwd": layers.num_layers, "splash_dq": layers.num_layers,
-          "splash_dkv": layers.num_layers, "segment_sum": 0}
+          "splash_dkv": layers.num_layers, "segment_sum": 0,
+          "segment_sum_sender": 2}
 
 
 def phase_gencast_train(torch, results, profile_dir=None):
@@ -2305,7 +2318,7 @@ def phase_gencast_train(torch, results, profile_dir=None):
     results[name].update(launches=counts[name],
                          launches_per_step=counts[name] / TRAIN_STEPS)
   for name in ("splash_fwd", "fused_edge_embed", "fused_decoder_embed",
-               "weight_grad"):
+               "weight_grad", "segment_sum_sender"):
     results[name]["gencast_train_launches"] = counts[name]
   _log("gencast_train", t0, config=_gencast_label(preset),
        steps=TRAIN_STEPS, sst_nan_rows=SST_NAN_ROWS,
@@ -2464,6 +2477,70 @@ def phase_k3(torch, art025, results):
   entry["library"] = library
   entry["max_abs_err"] = worst
   results["segment_sum"] = entry
+  _sender_sums(torch, art025, gen, results)
+
+
+def _sender_sums(torch, art025, gen, results):
+  """K3's sender mode against its plain version at the 0.25° AR-1 train
+  step's three calls (K4 processor on the mesh-6 multimesh, K4 encoder on
+  grid2mesh, K5 on mesh2grid; C = 512): f32 sums of bf16 per-edge
+  gradients into the senders, a rerun bit-equal, timed in turns with the
+  f32 index_add_ it replaced."""
+  from graphcast_tpu_torch.ops.fused_edge import EdgeIndex
+  from graphcast_tpu_torch.ops.segment_sum import (
+      sender_segment_sum, sender_sum_reference)
+  t0 = time.perf_counter()
+  g, m, C = art025.num_grid_nodes, art025.num_mesh_nodes, 512
+  cases = {"": (art025.mesh, m, m), "_g2m": (art025.grid2mesh, g, m),
+           "_m2g": (art025.mesh2grid, m, g)}
+  entry = _entry("segment_sum_sender", "segment_sum.cu",
+                 "graphcast_tpu/ops/pallas_mp.py:39", launches=None,
+                 mode="sender", library="index_add_ (f32)")
+  worst = 0.0
+  for suffix, (es, num_snd, num_rcv) in cases.items():
+    edges = EdgeIndex(es.senders, es.receivers, num_snd, num_rcv, DEVICE)
+    t1 = time.perf_counter()
+    edges.sender_plan()
+    plan_s = time.perf_counter() - t1
+    msgs = _randn(torch, gen, (edges.num_edges, C), 1.0, torch.bfloat16)
+    senders = edges.senders.long()
+    with torch.inference_mode():
+      got = sender_segment_sum(edges, msgs)
+      want = sender_sum_reference(edges, msgs)
+      again = sender_segment_sum(edges, msgs)
+      torch.cuda.synchronize()
+      max_abs, rel_rms = _check_close(f"k3 sender{suffix or '_mesh'}", got,
+                                      want)
+      if not torch.equal(got, again):
+        raise AssertionError(f"k3 sender{suffix}: two runs differ")
+      worst = max(worst, max_abs)
+      ms, library_ms = _time_in_turns(
+          torch, lambda: sender_segment_sum(edges, msgs),
+          lambda: torch.zeros(num_snd, C, device=DEVICE).index_add_(
+              0, senders, msgs.float()), reps=10)
+      plain_ms = _time_ms(torch, lambda: sender_sum_reference(edges, msgs))
+    # Each message read once, each f32 sender row written once, the
+    # permutation and the plan's offsets read once; E C f32 adds.
+    bound = _bound(edges.num_edges * C,
+                   edges.num_edges * (C * 2 + 4) + num_snd * (C * 4 + 4),
+                   peak_flops=PEAK_F32)
+    entry.update({"ms" + suffix: ms, "plain_ms" + suffix: plain_ms,
+                  "library_ms" + suffix: library_ms,
+                  **{k + suffix: v for k, v in bound.items()}})
+    degrees = np.bincount(es.senders, minlength=num_snd)
+    _log("k3", t0, sender_set=(suffix or "_mesh")[1:],
+         edges=edges.num_edges, senders=num_snd, channels=C,
+         max_out_degree=int(degrees.max()), host_plan_s=f"{plan_s:.2f}",
+         max_abs=f"{max_abs:.4g}", rel_rms=f"{rel_rms:.3g}",
+         bit_equal_rerun=True, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+         library_ms=f"{library_ms:.4f}",
+         bound_ms=f"{bound['bound_ms']:.4f}",
+         bound_share=f"{bound['bound_ms'] / ms:.3f}")
+    del msgs, got, want, again, edges, senders
+    torch.cuda.empty_cache()
+  entry["max_abs_err"] = worst
+  results["segment_sum_sender"] = {
+      **results.get("segment_sum_sender", {}), **entry}
 
 
 def _check_fieldset(torch, name, fs, template):
@@ -2682,12 +2759,14 @@ def phase_k1p(torch, art025, results):
   """K1p against its plain version and K1 on the real edge sets (module
   doc), then K4 behind a K1p forward against K4 behind K1."""
   from graphcast_tpu_torch.ops.fused_edge import (
-      EdgeIndex, fused_edge, fused_edge_reference)
+      EdgeIndex, fused_edge, fused_edge_reference, pipelined_smem_layout)
   t0 = time.perf_counter()
   gen = torch.Generator(device=DEVICE).manual_seed(22)
   C, bf16 = 512, torch.bfloat16
   g, m = art025.num_grid_nodes, art025.num_mesh_nodes
   art1 = _gencast_artifact(1.0, 5)
+  _print_usage("k1p", "fused_edge_pipelined_kernel",
+               pipelined_smem_layout()["total"])
   # (mode, key suffix, edge list)
   cases = [
       ("processor", "", EdgeIndex(art025.mesh.senders, art025.mesh.receivers,
@@ -2718,38 +2797,41 @@ def phase_k1p(torch, art025, results):
     with torch.inference_mode():
       got, k1, want = run["k1p"](), run["k1"](), run["plain"]()
       torch.cuda.synchronize()
-      if mode == "processor":
-        e_k1_abs, e_k1_rel = _check_close("k1p processor e_out vs K1",
-                                          got[0], k1[0])
-        e_abs, e_rel = _check_close("k1p processor e_out", got[0], want[0])
-        got, k1, want = got[1], k1[1], want[1]
-      k1_abs, k1_rel = _check_close(f"k1p {mode}{suffix} agg vs K1", got, k1,
-                                    shared=shared)
-      max_abs, rel_rms = _check_close(f"k1p {mode}{suffix} agg", got, want,
-                                      shared=shared)
-      if mode == "processor":
-        max_abs = max(max_abs, e_abs)
-      del got, k1, want
-      # In turns (K1p, K1, K1, K1p), 10 launches each.
+      outs = ([("e_out", got[0], k1[0], want[0]), ("agg", got[1], k1[1],
+                                                    want[1])]
+              if mode == "processor" else [("agg", got, k1, want)])
+      max_abs = 0.0
+      for name, a, b, w in outs:
+        # K1p equals K1 bit for bit (module doc).
+        if not torch.equal(a, b):
+          raise AssertionError(
+              f"k1p {mode}{suffix} {name}: differs from K1 by "
+              f"{(a.float() - b.float()).abs().max().item():.3g}")
+        err, rel_rms = _check_close(f"k1p {mode}{suffix} {name}", a, w,
+                                    shared=shared if name == "agg" else None)
+        max_abs = max(max_abs, err)
+      del got, k1, want, outs
+      # In turns with K1 and its products as bf16 cuBLAS GEMMs (K1p, K1,
+      # GEMMs, GEMMs, K1, K1p), 10 launches each.
+      run["gemm"] = _gemm_yardstick(torch, gen, edges.num_edges,
+                                    _edge_products(mode, backward=False))
       turns = [_time_ms(torch, run[k], reps=10)
-               for k in ("k1p", "k1", "k1", "k1p")]
-      ms, k1_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+               for k in ("k1p", "k1", "gemm", "gemm", "k1", "k1p")]
+      ms, k1_ms, gemm_ms = ((turns[0] + turns[5]) / 2,
+                            (turns[1] + turns[4]) / 2,
+                            (turns[2] + turns[3]) / 2)
       plain_ms = _time_ms(torch, run["plain"], reps=1)
     entry["max_abs_err"] = max(entry.get("max_abs_err", 0.0), max_abs)
     entry.update({"ms" + suffix: ms, "k1_ms" + suffix: k1_ms,
-                  "plain_ms" + suffix: plain_ms,
-                  "max_abs_vs_k1" + suffix: k1_abs,
-                  "rel_rms_vs_k1" + suffix: k1_rel,
+                  "gemm_ms" + suffix: gemm_ms, "plain_ms" + suffix: plain_ms,
+                  "bit_equal_to_k1" + suffix: True,
                   **{k + suffix: v for k, v in _bound(*_edge_cost(
                       edges.num_edges, edges.num_senders,
                       edges.num_receivers, C, mode)).items()}})
     _log("k1p", t0, mode=mode + suffix, edges=edges.num_edges,
-         max_abs=f"{max_abs:.4g}", rel_rms=f"{rel_rms:.3g}",
-         **({"e_out_max_abs_vs_k1": f"{e_k1_abs:.3g}",
-             "e_out_rel_rms_vs_k1": f"{e_k1_rel:.3g}"}
-            if mode == "processor" else {}),
-         agg_max_abs_vs_k1=f"{k1_abs:.3g}", agg_rel_rms_vs_k1=f"{k1_rel:.3g}",
-         ms=f"{ms:.3f}", k1_ms=f"{k1_ms:.3f}", plain_ms=f"{plain_ms:.3f}",
+         max_abs=f"{max_abs:.4g}", bit_equal_to_k1=True, ms=f"{ms:.3f}",
+         k1_ms=f"{k1_ms:.3f}", gemm_ms=f"{gemm_ms:.3f}",
+         plain_ms=f"{plain_ms:.3f}",
          bound_ms=f"{entry['bound_ms' + suffix]:.4f}",
          turns_ms="/".join(f"{t:.3f}" for t in turns))
     del args, run
@@ -2757,41 +2839,28 @@ def phase_k1p(torch, art025, results):
 
   # K4 behind each forward, processor mode on the mesh-6 set, the same
   # seeded cotangents: under grad the forward is K1p or K1, the backward K4,
-  # whose receiver runs at tile ends add with f32 atomics in a run-dependent
-  # order: K1's path twice gives the noise that K1p's may differ by. The
-  # wrapper's sender scatter (index_add_) also adds with atomics, and a flip
-  # in its order is too rare for one rerun to show the noise it makes:
-  # torch's deterministic mode fixes its order for these runs.
+  # which keeps only the inputs and sums in a fixed order, so every
+  # gradient is the same bit for bit.
   edges = cases[0][2]
   args = _edge_case(torch, gen, edges, C, encoder=False)
   args["we"] = args["we"].to(bf16)
   cot = (_randn(torch, gen, (edges.num_edges, C), 1.0, bf16),
          _randn(torch, gen, (edges.num_receivers, C)))
   grads = {}
-  torch.use_deterministic_algorithms(True, warn_only=True)
-  try:
-    for run_name, pipelined in (("k1", False), ("k1_again", False),
-                                ("k1p", True)):
-      leaves = {k: v.detach().clone().requires_grad_()
-                for k, v in args.items()}
-      grads[run_name], _ = _autograd(
-          torch, lambda **kw: fused_edge(edges, write_edges=True,
-                                         pipelined=pipelined, **kw),
-          leaves, cot, list(leaves))
-    torch.cuda.synchronize()
-  finally:
-    torch.use_deterministic_algorithms(False)
-  worst = 0.0
+  for run_name, pipelined in (("k1", False), ("k1p", True)):
+    leaves = {k: v.detach().clone().requires_grad_()
+              for k, v in args.items()}
+    grads[run_name], _ = _autograd(
+        torch, lambda **kw: fused_edge(edges, write_edges=True,
+                                       pipelined=pipelined, **kw),
+        leaves, cot, list(leaves))
+  torch.cuda.synchronize()
   for name, want in grads["k1"].items():
-    noise = _rms(torch, grads["k1_again"][name] - want)
-    err = _rms(torch, grads["k1p"][name] - want)
-    bound = 2 * noise + K1P_GRAD_RTOL * _rms(torch, want)
-    if not (np.isfinite(err) and err <= bound):
-      raise AssertionError(f"k1p: grad {name} behind K1p vs behind K1 "
-                           f"{err:.4g} > 2*noise+eps={bound:.4g}")
-    worst = max(worst, err / bound)
-  _log("k1p", t0, k4_behind_k1p="processor",
-       worst_grad_err_over_bound=f"{worst:.3f}")
+    if not torch.equal(grads["k1p"][name], want):
+      raise AssertionError(
+          f"k1p: grad {name} behind K1p differs from behind K1 by "
+          f"{(grads['k1p'][name] - want).abs().max().item():.3g}")
+  _log("k1p", t0, k4_behind_k1p="processor", grads_bit_equal_to_k1=True)
   del args, cot, grads
   torch.cuda.empty_cache()
   for entry in entries.values():
@@ -2948,7 +3017,8 @@ def main(argv=None) -> int:
   if "gencast_train" in phases:
     for name in ("splash_fwd", "splash_dq", "splash_dkv", "fused_edge_embed",
                  "fused_decoder_embed", "fused_edge_bwd_embed",
-                 "fused_decoder_bwd_embed", "weight_grad", "feature_grad"):
+                 "fused_decoder_bwd_embed", "weight_grad", "feature_grad",
+                 "segment_sum_sender"):
       results.setdefault(name, {"name": name})
     phase_gencast_train(torch, results, args.profile)
   if "gencast_train_small" in phases:

@@ -1,27 +1,28 @@
-"""Where K1's and K4's time goes on one GPU (graphcast_tpu_torch/csrc/
-fused_edge*.cu on edge.cuh), by building variants of their sources and
-timing each against the unmodified kernels in turns, in one process.
+"""Where K1's, K1p's and K4's time goes on one GPU (graphcast_tpu_torch/
+csrc/fused_edge*.cu on edge.cuh), by building variants of their sources
+and timing each against the unmodified kernels in turns, in one process.
 
 Usage: python3 edge_study.py            (needs one CUDA device and nvcc)
 
-Variants, each its own library of the edge kernels' units and
-weight_grad.cu, built in parallel:
+Variants, each its own library of the edge kernels' units, weight_grad.cu
+and segment_sum.cu (K4's sender sums), built in parallel:
   cluster4     clusters of 4 blocks (kEdgeCluster = 4: 256 edge rows per
                weight byte read from L2) instead of 2;
   no_gather    the sproj[snd] and rproj[rcv] rows not gathered;
   no_dagg      K4's dagg[rcv] rows not gathered;
-  no_walk      no receiver-run sums (K1's agg, K4's dGr);
+  no_walk      no receiver-run sums by the consumers (K1's agg, K1p's in
+               encoder mode, K4's dGr);
   no_colsums   K4's column sums not summed (puts and folds empty);
   no_products  the ring streams every weight box, no wgmma is issued.
 
 The variants with parts compiled out compute wrong results; only their
 times are read (cluster4 is checked against the twin). Cases at latent 512,
-bf16, operands as chip_smoke.py draws them: K1 and K4 in processor mode on
-the 0.25° mesh-6 multi-mesh and in encoder mode on the 0.25° grid2mesh
-set. Prints the card's name and power limit, then one line per case and
-variant: mean ms (K1: 5 launches, K4: its per-row kernel's device time
-from the profiler over 2 calls), each variant timed twice, in the order
-base, variants, variants reversed, base.
+bf16, operands as chip_smoke.py draws them: K1, K1p and K4 in processor
+mode on the 0.25° mesh-6 multi-mesh and in encoder mode on the 0.25°
+grid2mesh set. Prints the card's name and power limit, then one line per
+case and variant: mean ms (K1 and K1p: 5 launches, K4: its per-row
+kernel's device time from the profiler over 2 calls), each variant timed
+twice, in the order base, variants, variants reversed, base.
 """
 
 from __future__ import annotations
@@ -35,8 +36,9 @@ import sys
 
 import numpy as np
 
-UNITS = ("fused_edge.cu", "fused_edge_encoder.cu", "fused_edge_bwd.cu",
-         "fused_edge_bwd_encoder.cu", "weight_grad.cu")
+UNITS = ("fused_edge.cu", "fused_edge_encoder.cu", "fused_edge_pipelined.cu",
+         "fused_edge_pipelined_encoder.cu", "fused_edge_bwd.cu",
+         "fused_edge_bwd_encoder.cu", "weight_grad.cu", "segment_sum.cu")
 
 
 def _mma_issue(decoder: str) -> str:
@@ -69,11 +71,14 @@ def _substitutions(csrc: pathlib.Path) -> dict:
                    "ldg2(a.dagg + (size_t)t.rcv[h] * C + cc)",
                    "make_float2(0.f, 0.f)")],
       "no_walk": [
-          ("fused_edge.cu",
-           "    edge_run_sums(sh.a, sh.idx, t.rows, C, a.agg, th.ctid);\n", ""),
+          ("edge.cuh",
+           "      edge_run_sums(sh.a, idx, t.rows, C, a.agg,\n"
+           "                    a.bnd + (size_t)(t.row0 / kEdgeRows) * 2 * C,\n"
+           "                    2 * th.ctid);\n", ""),
           ("fused_edge_bwd.cu",
-           "    edge_run_sums(sh.a, sh.idx, t.rows, C, a.dgr, th.ctid);\n",
-           "")],
+           "    edge_run_sums(sh.a, sh.idx, t.rows, C, a.dgr,\n"
+           "                  a.bnd + (size_t)(t.row0 / kEdgeRows) * 2 * C,"
+           " 2 * th.ctid);\n", "")],
       "no_colsums": _colsums(dec) + [
           ("edge.cuh", edge[p0:p1], "  const float y = 0.f;\n  const int col = 0;\n"),
           ("edge.cuh", "  cs.colred[(slot * 4 + th.wl) * kDecWidth + col] = y;\n}",
@@ -168,26 +173,34 @@ def main() -> int:
       with torch.inference_mode():
         want = fused_edge_reference(edges, write_edges=write, **args)
         build._lib = libs["cluster4"]
-        got = fused_edge(edges, write_edges=write, **args)
-        torch.cuda.synchronize()
-        for a, b in ((got, want),) if not write else zip(got, want):
-          cs._check_close(f"cluster4 {mode}", a, b)
-        del got, want
-      k1, k4 = {}, {}
+        for pipelined in (False, True):
+          got = fused_edge(edges, write_edges=write, pipelined=pipelined,
+                           **args)
+          torch.cuda.synchronize()
+          for a, b in ((got, want),) if not write else zip(got, want):
+            cs._check_close(f"cluster4 {mode} pipelined={pipelined}", a, b)
+          del got
+        del want
+      k1, k1p, k4 = {}, {}, {}
       for name in order:
         build._lib = libs[name]
         with torch.inference_mode():
           k1.setdefault(name, []).append(cs._time_ms(
-              torch, lambda: fused_edge(edges, write_edges=write, **args),
-              reps=5))
+              torch, lambda: fused_edge(edges, write_edges=write,
+                                        pipelined=False, **args), reps=5))
+          k1p.setdefault(name, []).append(cs._time_ms(
+              torch, lambda: fused_edge(edges, write_edges=write,
+                                        pipelined=True, **args), reps=5))
         k4.setdefault(name, []).append(cs._device_ms(
             torch, lambda: fused_edge_backward(edges, d_eout=d_eout,
                                                d_agg=d_agg, **det),
             ("fused_edge_bwd_kernel",), reps=2)["fused_edge_bwd_kernel"])
       for name in libs:
         print(f"[{mode}] {name}: k1_ms={np.mean(k1[name]):.3f} "
+              f"k1p_ms={np.mean(k1p[name]):.3f} "
               f"k4_kernel_ms={np.mean(k4[name]):.3f} (turns "
               f"{'/'.join(f'{x:.3f}' for x in k1[name])}; "
+              f"{'/'.join(f'{x:.3f}' for x in k1p[name])}; "
               f"{'/'.join(f'{x:.3f}' for x in k4[name])})", flush=True)
       del args, det, d_agg, d_eout
       torch.cuda.empty_cache()

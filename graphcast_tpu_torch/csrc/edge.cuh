@@ -31,7 +31,10 @@
 //     layout in the epilogue that needs them (TMA has no row gather);
 //   * the receiver-run sums (K1's agg, K4's dGr) are taken from a bf16 tile
 //     in A, two columns a thread, one f32 sum per run: a plain store for a
-//     run inside the tile, atomicAdd for the runs at its two ends;
+//     run inside the tile; the runs at its two ends, which may continue into
+//     a neighbouring tile, leave as f32 partials in a per-tile boundary
+//     buffer that a second pass (edge_bounds) adds in tile order: no
+//     atomics, so a rerun is bit-equal;
 //   * built for a latent width of kDecWidth = 512 only (one instantiation
 //     per mode); a narrower width C runs in the same layout through tensor
 //     maps of the true width whose boxes arrive zero-filled past it, its
@@ -53,6 +56,19 @@ constexpr int kEdgeCluster = 2;      // blocks sharing each weight box
 constexpr int kEdgeMaxStages = 24;   // ring depth cap
 constexpr int kEdgeIdx = kEdgeRows * 4;  // the tile's receivers, 256 B
 constexpr int kEdgeSlots = 2;        // column-sum kinds put before a fold
+// K1p: its epilogue warps (the producer warpgroup's last three), and the
+// named barriers between them and the consumers: bf16(y) and idx ready, A
+// free again (each counting the consumers and the epilogue warps); the
+// staged sender rows read (the consumers and the staging warp). A staged
+// row's stride in shared memory (16 bytes past kDecWidth bf16, so that the
+// 8 rows a warp reads at once fall in different banks).
+constexpr int kEdgeWalkers = 96;
+constexpr int kEdgePipeSync = kDecConsumers + kEdgeWalkers;
+constexpr int kEdgeBarReady = 2;
+constexpr int kEdgeBarFree = 3;
+constexpr int kEdgeStageSync = kDecConsumers + 32;
+constexpr int kEdgeBarStaged = 4;
+constexpr int kEdgeStageStride = 2 * kDecWidth + 16;
 // K4's per-block scratch in floats per column of kDecWidth: two f32 tiles
 // (LN0's output, embed mode; the cotangent dyn) and two bf16 tiles (swish'
 // of the first layer; of the embed's first layer, embed mode).
@@ -156,6 +172,13 @@ struct EdgeTile {
   }
 };
 
+// Signals named barrier `id` over `threads` threads without waiting (the
+// other side waits in named_sync); this thread's prior shared-memory writes
+// are visible to the threads that pass the barrier.
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // The tile's receivers into idx (-1 past its rows), by the first 64
 // consumer threads; read after a later consumer barrier.
 __device__ __forceinline__ void edge_load_idx(int* idx, const EdgeTile& t,
@@ -203,6 +226,28 @@ __device__ __forceinline__ void edge_gather(uint32_t (&sv)[8][2],
   }
 }
 
+// edge_gather with the sender rows staged in shared memory (K1p's encoder
+// mode): sv from S (row r at r kEdgeStageStride; its values past the
+// tile's rows and past C are stale and discarded by the caller), gv from
+// rproj as edge_gather loads it.
+template <int NQ>
+__device__ __forceinline__ void edge_gather_staged(
+    uint32_t (&sv)[8][2], uint32_t (&gv)[8][2], const DecThread& th, int q,
+    int C, const EdgeTile& t, const unsigned char* S,
+    const bf16* __restrict__ rproj) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = dec_col<NQ>(th, q, j);
+    const int cc = c < C ? c : 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sv[j][h] = *reinterpret_cast<const uint32_t*>(
+          S + (th.r0 + 8 * h) * kEdgeStageStride + 2 * c);
+      gv[j][h] = ldg_raw2(rproj + cc + (size_t)t.rcv[h] * C);
+    }
+  }
+}
+
 // The tile's own rows of a [*, C] bf16 array (d_e') at chunk q of this
 // thread, raw, as edge_gather (row 0's values past the tile's rows and C).
 template <int NQ>
@@ -227,8 +272,8 @@ __device__ __forceinline__ void edge_rows(uint32_t (&v)[8][2],
 // row); with `hh` non-null also to that [*, C] array (K4's dEw1 operand),
 // with `sxe` non-null swish' of the bf16 pre-activation to that per-block
 // scratch tile in the accumulator's layout (K4's dxe epilogue reads it
-// there, past a consumer barrier).
-template <int NQ>
+// there, past a consumer barrier). kThr threads take part, ctid < kThr.
+template <int NQ, int kThr = kDecConsumers>
 __device__ __forceinline__ void edge_embed_hh(unsigned char* A, int ctid,
                                              const EdgeTile& t, int C, int F,
                                              const bf16* __restrict__ feat,
@@ -236,7 +281,7 @@ __device__ __forceinline__ void edge_embed_hh(unsigned char* A, int ctid,
                                              const float* __restrict__ eb0,
                                              bf16* hh, bf16* sxe) {
   constexpr int W = NQ * 128;
-  for (int i = ctid; i < kEdgeRows * W / 2; i += kDecConsumers) {
+  for (int i = ctid; i < kEdgeRows * W / 2; i += kThr) {
     const int r = i / (W / 2), c = (i % (W / 2)) * 2;
     float hx = 0.f, hy = 0.f, gx = 0.f, gy = 0.f;
     if (r < t.rows && c < C) {
@@ -317,16 +362,18 @@ __device__ __forceinline__ void edge_store_tile(const CUtensorMap* map,
 }
 
 // Sums of the bf16 tile in A over the tile's receiver runs (idx), columns
-// c, c + 1 = 2 ctid of this thread, into dst [N, C] (f32, zeroed by the
-// caller): one f32 sum per run in row order; a plain store for a run inside
-// the tile, atomicAdd for the runs at its two ends, which may continue into
-// a neighbouring tile (only those are order-dependent). Call past a
-// consumer barrier that follows the tile's writes.
+// c, c + 1 (c even) of this thread, one f32 sum per run in row order: a
+// plain store into dst [N, C] for a run inside the tile; the runs that touch
+// the tile's first or last row, which may continue into a neighbouring
+// tile, go to this tile's boundary partials bnd [2][C] (slot 0: the run at
+// the first row, slot 1: the one at the last row when it is another run),
+// which edge_bounds adds into dst in tile order. Call past a consumer
+// barrier that follows the tile's writes.
 __device__ __forceinline__ void edge_run_sums(const unsigned char* A,
                                               const int* idx, int rows,
                                               int C, float* __restrict__ dst,
-                                              int ctid) {
-  const int c = 2 * ctid;
+                                              float* __restrict__ bnd,
+                                              int c) {
   if (c >= C) return;
   int r = 0;
   while (r < rows) {
@@ -339,15 +386,271 @@ __device__ __forceinline__ void edge_run_sums(const unsigned char* A,
       sy += v.y;
       ++r1;
     } while (r1 < rows && idx[r1] == node);
-    float* p = dst + (size_t)node * C + c;
-    if (r == 0 || r1 == rows) {
-      atomicAdd(p, sx);
-      atomicAdd(p + 1, sy);
-    } else {
-      *reinterpret_cast<float2*>(p) = make_float2(sx, sy);
-    }
+    float* p = r == 0 ? bnd + c
+                      : (r1 == rows ? bnd + C + c : dst + (size_t)node * C + c);
+    *reinterpret_cast<float2*>(p) = make_float2(sx, sy);
     r = r1;
   }
+}
+
+namespace {
+
+// The second pass of the receiver-run sums: per boundary partial that
+// starts a node's span of tile ends (entry 2 t + s of tile t, slot s), the
+// partials of that node in tile order, added into dst[node] (f32, 4
+// columns a thread). A node's span: its run at tile t's last row (or first,
+// when the tile is one run), then the first-row runs of the tiles after
+// while they hold it; a node whose edges cross no tile end has no partial
+// or one. rcv: the launch's receivers [num_edges], sorted.
+__global__ void __launch_bounds__(256) edge_bounds_kernel(
+    const int* __restrict__ rcv, int num_edges, int C,
+    const float* __restrict__ bnd, float* __restrict__ dst) {
+  const int tiles = (num_edges + kEdgeRows - 1) / kEdgeRows;
+  const int entry = blockIdx.x * blockDim.y + threadIdx.y;
+  if (entry >= 2 * tiles) return;
+  const int t = entry / 2;
+  const int row0 = t * kEdgeRows;
+  const int first = __ldg(rcv + row0);
+  const int last = __ldg(rcv + min(num_edges, row0 + kEdgeRows) - 1);
+  int node;
+  if (entry % 2 == 0) {
+    node = first;
+    if (t > 0 && __ldg(rcv + row0 - 1) == node) return;  // not its start
+  } else {
+    if (last == first) return;  // one run: slot 0 holds it
+    node = last;
+  }
+  for (int c = 4 * threadIdx.x; c < C; c += 4 * blockDim.x) {
+    float4 s = *reinterpret_cast<const float4*>(bnd + (size_t)entry * C + c);
+    for (int u = t + 1; u < tiles; ++u) {
+      const int u0 = u * kEdgeRows;
+      if (__ldg(rcv + u0) != node) break;
+      const float4 p =
+          *reinterpret_cast<const float4*>(bnd + (size_t)2 * u * C + c);
+      s.x += p.x;
+      s.y += p.y;
+      s.z += p.z;
+      s.w += p.w;
+      if (__ldg(rcv + min(num_edges, u0 + kEdgeRows) - 1) != node) break;
+    }
+    float4* d = reinterpret_cast<float4*>(dst + (size_t)node * C + c);
+    const float4 o = *d;
+    *d = make_float4(o.x + s.x, o.y + s.y, o.z + s.z, o.w + s.w);
+  }
+}
+
+}  // namespace
+
+// edge_bounds_kernel over a launch's ceil(num_edges / 64) tiles, bnd [tiles,
+// 2, C] as the edge kernel left it, dst [N, C] (C a multiple of 4).
+inline cudaError_t edge_bounds(const int* rcv, int num_edges, int C,
+                               const float* bnd, float* dst,
+                               cudaStream_t stream) {
+  if (num_edges <= 0) return cudaSuccess;
+  const int tiles = (num_edges + kEdgeRows - 1) / kEdgeRows;
+  const dim3 block(128, 2);
+  edge_bounds_kernel<<<tiles, block, 0, stream>>>(rcv, num_edges, C, bnd,
+                                                  dst);
+  return cudaGetLastError();
+}
+
+// K1's and K1p's operands (fused_edge.cu, fused_edge_pipelined.cu).
+struct EdgeFwdMaps {
+  CUtensorMap e, eout, we, w1, ew1;
+};
+
+struct EdgeFwdArgs {
+  const bf16* e;          // [E, C]; embed mode: raw features [E, F]
+  const bf16* sproj;      // [num_senders, C]
+  const int* senders;     // [E]
+  const bf16* rproj;      // [num_receivers, C]
+  const int* receivers;   // [E], sorted
+  const float *b0, *b1, *scale, *offset;  // [kDecWidth], zero-padded
+  bf16* eout;             // [E, C] (e' written)
+  float* agg;             // [num_receivers, C], zeroed
+  float* bnd;             // [tiles, 2, C]: the tile-end run partials
+  const bf16* ew0;        // embed mode: [F, kDecWidth], zero-padded
+  const float *eb0, *eb1;  // embed mode: [kDecWidth]
+  int num_edges, C, F;
+};
+
+inline EdgeFwdArgs edge_fwd_args(const void* e, const void* sproj,
+                                 const int* senders, const void* rproj,
+                                 const int* receivers, const float* b0,
+                                 const float* b1, const float* scale,
+                                 const float* offset, void* eout, float* agg,
+                                 float* bnd, int num_edges, int C) {
+  EdgeFwdArgs a{};
+  a.e = static_cast<const bf16*>(e);
+  a.sproj = static_cast<const bf16*>(sproj);
+  a.senders = senders;
+  a.rproj = static_cast<const bf16*>(rproj);
+  a.receivers = receivers;
+  a.b0 = b0; a.b1 = b1; a.scale = scale; a.offset = offset;
+  a.eout = static_cast<bf16*>(eout);
+  a.agg = agg;
+  a.bnd = bnd;
+  a.num_edges = num_edges; a.C = C;
+  return a;
+}
+
+// K1's consumer warpgroups' walk over the cluster's tiles (fused_edge.cu's
+// head note). With kPipe, K1p's (fused_edge_pipelined.cu). In the modes
+// with We or e' and in embed mode (kWalk): e, hh and en sit in the tile E,
+// so that A holds only h and bf16(y); the tile's receivers alternate
+// between two idx buffers; the receiver-run sums are left to K1p's
+// epilogue warps, which take A and idx after the barrier kEdgeBarReady and
+// hand A back at kEdgeBarFree, waited for just before the next tile's
+// first write to A. Without We and e' (encoder mode, kStage): the tile's
+// sender rows arrive staged in the tile S (sh.e) by bulk copies completing
+// on the mbarrier at sh.sums, the first epilogue reads them there, and
+// hands S back at kEdgeBarStaged; e stays in A and the consumers keep the
+// run sums. Every value is computed as in K1, in the same order.
+template <bool kHasWe, bool kWriteE, bool kEmbed, bool kPipe>
+__device__ __forceinline__ void edge_fwd_consumer(const EdgeFwdMaps& maps,
+                                                  const EdgeFwdArgs& a,
+                                                  const EdgeSmem& sh,
+                                                  uint32_t rank, int groups,
+                                                  int cluster, int clusters) {
+  constexpr int NQ = kDecNQ;
+  constexpr int kK = 2 * NQ;  // 64-deep slabs of a product
+  const int C = a.C;
+  const DecThread th(threadIdx.x);
+  EdgeRing ring(sh, th);
+  DecRows rsum{sh.exchange};
+  // e's tile: E where e' is written (and in K1p with We), else A; the
+  // embed's operand tile for hh and en: E in K1p, else A.
+  constexpr bool kEInE = kWriteE || (kPipe && kHasWe);
+  constexpr bool kWalk = kPipe && (kWriteE || kHasWe);
+  constexpr bool kStage = kPipe && !kWalk;
+  unsigned char* const e_tile = kEInE ? sh.e : sh.a;
+  unsigned char* const x_tile = kPipe ? sh.e : sh.a;
+  const uint32_t a_addr = smem_u32(sh.a), e_addr = smem_u32(e_tile);
+  const uint32_t x_addr = smem_u32(x_tile);
+  float acc[NQ][32];
+  int it = 0;
+  for (int grp = cluster; grp < groups; grp += clusters, ++it) {
+    const EdgeTile t(grp, rank, a.num_edges, th, a.senders, a.receivers);
+    int* const idx = sh.idx + (kWalk ? (it & 1) * kEdgeRows : 0);
+    if (kWriteE && th.ctid == 0) tma_store_wait_read();  // the last e'
+    dec_sync();  // the previous tile is done with A, E and idx
+    edge_load_idx(idx, t, a.receivers, th.ctid);
+    if (kEmbed) {
+      // X <- hh; acc = hh @ Ew1; X <- en = bf16(LN0(acc + eb1)).
+      edge_embed_hh<NQ>(x_tile, th.ctid, t, C, a.F, a.e, a.ew0, a.eb0,
+                        nullptr, nullptr);
+      dec_publish();
+      dec_mma<NQ, 1>(acc, x_addr, kK, false, ring);
+      const float4 st = dec_ln_stats<NQ>(acc, a.eb1, th, rsum, C);
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = dec_col<NQ>(th, q, j);
+          const float2 b = ldg2(a.eb1 + c);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const bool in = c < C;
+            st_pair(x_tile, th.r0 + 8 * h, c,
+                    in ? dec_ln(st, acc[q][4 * j + 2 * h] + b.x, h) : 0.f,
+                    in ? dec_ln(st, acc[q][4 * j + 2 * h + 1] + b.y, h) : 0.f);
+          }
+        }
+      }
+      dec_publish();
+      dec_mma<NQ, 1>(acc, x_addr, kK, false, ring);  // en @ We
+      dec_sync();  // both warpgroups are done reading X
+    } else {
+      if (th.ctid == 0) {
+        dec_load_tile(e_tile, &maps.e, sh.a_bar, kDecWidth, t.row0);
+      }
+      mbar_wait(sh.a_bar, it & 1);  // e (zeros past the rows and C)
+      if (kHasWe) {
+        dec_mma<NQ, 1>(acc, e_addr, kK, false, ring);  // e @ We
+        dec_sync();
+      }
+    }
+
+    if (kWalk && it > 0) {
+      named_sync(kEdgeBarFree, kEdgePipeSync);  // A is the consumers' again
+    }
+    // A <- h = bf16(swish(bf16(x0))), x0 = ((e @ We or e) + Gs) + Gr (+ b0).
+    if (kStage) mbar_wait(reinterpret_cast<uint64_t*>(sh.sums), it & 1);
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      uint32_t sv[8][2], gv[8][2];
+      if (kStage) {
+        edge_gather_staged<NQ>(sv, gv, th, q, C, t, sh.e, a.rproj);
+      } else {
+        edge_gather<NQ>(sv, gv, th, q, C, t, a.sproj, a.rproj);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = dec_col<NQ>(th, q, j);
+        const float2 b = kHasWe ? ldg2(a.b0 + c) : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = th.r0 + 8 * h;
+          float2 x = kHasWe ? make_float2(acc[q][4 * j + 2 * h],
+                                          acc[q][4 * j + 2 * h + 1])
+                            : ld_pair(e_tile, r, c);
+          const float2 s = bf2(sv[j][h]), g = bf2(gv[j][h]);
+          x.x += s.x;
+          x.y += s.y;
+          x.x += g.x;
+          x.y += g.y;
+          if (kHasWe) {
+            x.x += b.x;
+            x.y += b.y;
+          }
+          const bool in = t.ok[h] && c < C;
+          st_pair(sh.a, r, c, in ? swish_of_bf16(x.x) : 0.f,
+                  in ? swish_of_bf16(x.y) : 0.f);
+        }
+      }
+    }
+    if (kStage) named_arrive(kEdgeBarStaged, kEdgeStageSync);  // S read
+    dec_publish();
+    dec_mma<NQ, 1>(acc, a_addr, kK, false, ring);  // h @ W1
+    const float4 st = dec_ln_stats<NQ>(acc, a.b1, th, rsum, C);
+    // y = LN(.) * scale + offset; E <- e' = bf16(e + y); A <- bf16(y).
+    // Both warpgroups are past the product (dec_ln_stats' barrier).
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = dec_col<NQ>(th, q, j);
+        const float2 b = ldg2(a.b1 + c), sc = ldg2(a.scale + c),
+                     of = ldg2(a.offset + c);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float y0 = dec_ln(st, acc[q][4 * j + 2 * h] + b.x, h) * sc.x +
+                           of.x;
+          const float y1 =
+              dec_ln(st, acc[q][4 * j + 2 * h + 1] + b.y, h) * sc.y + of.y;
+          if (kWriteE) {
+            const float2 e = ld_pair(sh.e, th.r0 + 8 * h, c);
+            st_pair(sh.e, th.r0 + 8 * h, c, e.x + y0, e.y + y1);
+          }
+          st_pair(sh.a, th.r0 + 8 * h, c, y0, y1);
+        }
+      }
+    }
+    if (kWriteE) {
+      dec_publish();
+      if (th.ctid == 0) edge_store_tile(&maps.eout, sh.e, t.row0, C);
+    } else if (!kWalk) {
+      dec_sync();
+    }
+    if (kWalk) {
+      named_arrive(kEdgeBarReady, kEdgePipeSync);  // A and idx to the walk
+    } else {
+      edge_run_sums(sh.a, idx, t.rows, C, a.agg,
+                    a.bnd + (size_t)(t.row0 / kEdgeRows) * 2 * C,
+                    2 * th.ctid);
+    }
+  }
+  if (kWalk && it > 0) named_sync(kEdgeBarFree, kEdgePipeSync);
 }
 
 // A cluster launch of an edge kernel over `tiles` 64-row tiles: as many

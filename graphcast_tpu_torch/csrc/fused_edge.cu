@@ -36,9 +36,11 @@
 //     pre-gathered [E, C] array;
 //   * aggregation: the rows are receiver-sorted, so the tile walks its
 //     receiver runs over bf16(y) in A, one f32 sum per run and column: a
-//     plain store for runs inside the tile, atomicAdd for the (at most two)
-//     runs that may continue into a neighbouring tile. The output starts
-//     zeroed. Only those boundary runs are order-dependent in f32;
+//     plain store for runs inside the tile, a per-tile boundary partial for
+//     the (at most two) runs that may continue into a neighbouring tile,
+//     added in tile order by a second pass (edge.cuh edge_bounds). The
+//     output starts zeroed; every sum has a fixed order, so a rerun is
+//     bit-equal;
 //   * embed mode adds a third product per row (ew1) and reads 8 bytes of
 //     raw features per row (F = 4) instead of a 1 KB edge latent: the
 //     [E, C] embedded edges never exist in device memory.
@@ -51,149 +53,6 @@
 #include "edge.cuh"
 
 namespace gc {
-
-struct EdgeFwdMaps {
-  CUtensorMap e, eout, we, w1, ew1;
-};
-
-struct EdgeFwdArgs {
-  const bf16* e;          // [E, C]; embed mode: raw features [E, F]
-  const bf16* sproj;      // [num_senders, C]
-  const int* senders;     // [E]
-  const bf16* rproj;      // [num_receivers, C]
-  const int* receivers;   // [E], sorted
-  const float *b0, *b1, *scale, *offset;  // [kDecWidth], zero-padded
-  bf16* eout;             // [E, C] (e' written)
-  float* agg;             // [num_receivers, C], zeroed
-  const bf16* ew0;        // embed mode: [F, kDecWidth], zero-padded
-  const float *eb0, *eb1;  // embed mode: [kDecWidth]
-  int num_edges, C, F;
-};
-
-// The consumer warpgroups' walk over the cluster's tiles (the head note).
-template <bool kHasWe, bool kWriteE, bool kEmbed>
-__device__ __forceinline__ void edge_fwd_consumer(const EdgeFwdMaps& maps,
-                                                  const EdgeFwdArgs& a,
-                                                  const EdgeSmem& sh,
-                                                  uint32_t rank, int groups,
-                                                  int cluster, int clusters) {
-  constexpr int NQ = kDecNQ;
-  constexpr int kK = 2 * NQ;  // 64-deep slabs of a product
-  const int C = a.C;
-  const DecThread th(threadIdx.x);
-  EdgeRing ring(sh, th);
-  DecRows rsum{sh.exchange};
-  // e's tile: E where e' is written, else A.
-  unsigned char* const e_tile = kWriteE ? sh.e : sh.a;
-  const uint32_t a_addr = smem_u32(sh.a), e_addr = smem_u32(e_tile);
-  float acc[NQ][32];
-  int it = 0;
-  for (int grp = cluster; grp < groups; grp += clusters, ++it) {
-    const EdgeTile t(grp, rank, a.num_edges, th, a.senders, a.receivers);
-    if (kWriteE && th.ctid == 0) tma_store_wait_read();  // the last e'
-    dec_sync();  // the previous tile is done with A, E and idx
-    edge_load_idx(sh.idx, t, a.receivers, th.ctid);
-    if (kEmbed) {
-      // A <- hh; acc = hh @ Ew1; A <- en = bf16(LN0(acc + eb1)).
-      edge_embed_hh<NQ>(sh.a, th.ctid, t, C, a.F, a.e, a.ew0, a.eb0, nullptr,
-                        nullptr);
-      dec_publish();
-      dec_mma<NQ, 1>(acc, a_addr, kK, false, ring);
-      const float4 st = dec_ln_stats<NQ>(acc, a.eb1, th, rsum, C);
-#pragma unroll
-      for (int q = 0; q < NQ; ++q) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int c = dec_col<NQ>(th, q, j);
-          const float2 b = ldg2(a.eb1 + c);
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const bool in = c < C;
-            st_pair(sh.a, th.r0 + 8 * h, c,
-                    in ? dec_ln(st, acc[q][4 * j + 2 * h] + b.x, h) : 0.f,
-                    in ? dec_ln(st, acc[q][4 * j + 2 * h + 1] + b.y, h) : 0.f);
-          }
-        }
-      }
-      dec_publish();
-      dec_mma<NQ, 1>(acc, a_addr, kK, false, ring);  // en @ We
-      dec_sync();  // both warpgroups are done reading A
-    } else {
-      if (th.ctid == 0) {
-        dec_load_tile(e_tile, &maps.e, sh.a_bar, kDecWidth, t.row0);
-      }
-      mbar_wait(sh.a_bar, it & 1);  // e (zeros past the rows and C)
-      if (kHasWe) {
-        dec_mma<NQ, 1>(acc, e_addr, kK, false, ring);  // e @ We
-        dec_sync();
-      }
-    }
-
-    // A <- h = bf16(swish(bf16(x0))), x0 = ((e @ We or e) + Gs) + Gr (+ b0).
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      uint32_t sv[8][2], gv[8][2];
-      edge_gather<NQ>(sv, gv, th, q, C, t, a.sproj, a.rproj);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = dec_col<NQ>(th, q, j);
-        const float2 b = kHasWe ? ldg2(a.b0 + c) : make_float2(0.f, 0.f);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = th.r0 + 8 * h;
-          float2 x = kHasWe ? make_float2(acc[q][4 * j + 2 * h],
-                                          acc[q][4 * j + 2 * h + 1])
-                            : ld_pair(e_tile, r, c);
-          const float2 s = bf2(sv[j][h]), g = bf2(gv[j][h]);
-          x.x += s.x;
-          x.y += s.y;
-          x.x += g.x;
-          x.y += g.y;
-          if (kHasWe) {
-            x.x += b.x;
-            x.y += b.y;
-          }
-          const bool in = t.ok[h] && c < C;
-          st_pair(sh.a, r, c, in ? swish_of_bf16(x.x) : 0.f,
-                  in ? swish_of_bf16(x.y) : 0.f);
-        }
-      }
-    }
-    dec_publish();
-    dec_mma<NQ, 1>(acc, a_addr, kK, false, ring);  // h @ W1
-    const float4 st = dec_ln_stats<NQ>(acc, a.b1, th, rsum, C);
-    // y = LN(.) * scale + offset; E <- e' = bf16(e + y); A <- bf16(y).
-    // Both warpgroups are past the product (dec_ln_stats' barrier).
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = dec_col<NQ>(th, q, j);
-        const float2 b = ldg2(a.b1 + c), sc = ldg2(a.scale + c),
-                     of = ldg2(a.offset + c);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float y0 = dec_ln(st, acc[q][4 * j + 2 * h] + b.x, h) * sc.x +
-                           of.x;
-          const float y1 =
-              dec_ln(st, acc[q][4 * j + 2 * h + 1] + b.y, h) * sc.y + of.y;
-          if (kWriteE) {
-            const float2 e = ld_pair(sh.e, th.r0 + 8 * h, c);
-            st_pair(sh.e, th.r0 + 8 * h, c, e.x + y0, e.y + y1);
-          }
-          st_pair(sh.a, th.r0 + 8 * h, c, y0, y1);
-        }
-      }
-    }
-    if (kWriteE) {
-      dec_publish();
-      if (th.ctid == 0) edge_store_tile(&maps.eout, sh.e, t.row0, C);
-    } else {
-      dec_sync();
-    }
-    edge_run_sums(sh.a, sh.idx, t.rows, C, a.agg, th.ctid);
-  }
-}
 
 template <bool kHasWe, bool kWriteE, bool kEmbed>
 __global__ void __launch_bounds__(kDecThreads, 1) fused_edge_kernel(
@@ -223,8 +82,9 @@ __global__ void __launch_bounds__(kDecThreads, 1) fused_edge_kernel(
     }
   } else {
     setmaxnreg_inc<kDecConsumerRegs>();
-    edge_fwd_consumer<kHasWe, kWriteE, kEmbed>(maps, a, sh, rank, groups,
-                                               cluster, clusters);
+    edge_fwd_consumer<kHasWe, kWriteE, kEmbed, false>(maps, a, sh, rank,
+                                                      groups, cluster,
+                                                      clusters);
   }
   if (kWriteE && threadIdx.x == 0) tma_store_wait_all();
   __syncwarp();
@@ -255,28 +115,11 @@ int fused_edge(const void* we, const void* w1, const void* ew1,
   }
   if (err != cudaSuccess) return err;
   const int tiles = (a.num_edges + kEdgeRows - 1) / kEdgeRows;
-  return edge_launch(fused_edge_kernel<kHasWe, kWriteE, kEmbed>,
-                     edge_layout(0, kWriteE).total, tiles, 1 << 30, stream,
-                     maps, a);
-}
-
-inline EdgeFwdArgs edge_fwd_args(const void* e, const void* sproj,
-                                 const int* senders, const void* rproj,
-                                 const int* receivers, const float* b0,
-                                 const float* b1, const float* scale,
-                                 const float* offset, void* eout, float* agg,
-                                 int num_edges, int C) {
-  EdgeFwdArgs a{};
-  a.e = static_cast<const bf16*>(e);
-  a.sproj = static_cast<const bf16*>(sproj);
-  a.senders = senders;
-  a.rproj = static_cast<const bf16*>(rproj);
-  a.receivers = receivers;
-  a.b0 = b0; a.b1 = b1; a.scale = scale; a.offset = offset;
-  a.eout = static_cast<bf16*>(eout);
-  a.agg = agg;
-  a.num_edges = num_edges; a.C = C;
-  return a;
+  err = edge_launch(fused_edge_kernel<kHasWe, kWriteE, kEmbed>,
+                    edge_layout(0, kWriteE).total, tiles, 1 << 30, stream,
+                    maps, a);
+  if (err != cudaSuccess) return err;
+  return edge_bounds(a.receivers, a.num_edges, C, a.bnd, a.agg, stream);
 }
 
 }  // namespace gc
@@ -293,11 +136,11 @@ extern "C" int gc_fused_edge_nowe(const void* e, const void* sproj,
                                   const int* receivers, const void* w1,
                                   const float* b1, const float* scale,
                                   const float* offset, void* eout,
-                                  float* agg, int num_edges, int C,
-                                  int write_e, void* stream) {
+                                  float* agg, float* bnd, int num_edges,
+                                  int C, int write_e, void* stream) {
   const gc::EdgeFwdArgs a =
       gc::edge_fwd_args(e, sproj, senders, rproj, receivers, nullptr, b1,
-                        scale, offset, eout, agg, num_edges, C);
+                        scale, offset, eout, agg, bnd, num_edges, C);
   auto s = static_cast<cudaStream_t>(stream);
   return write_e ? gc::fused_edge<false, true, false>(nullptr, w1, nullptr,
                                                       a, s)
@@ -313,10 +156,10 @@ extern "C" int gc_fused_edge_embed(
     const float* eb1, const void* sproj, const int* senders,
     const void* rproj, const int* receivers, const void* we, const float* b0,
     const void* w1, const float* b1, const float* scale, const float* offset,
-    float* agg, int num_edges, int F, int C, void* stream) {
+    float* agg, float* bnd, int num_edges, int F, int C, void* stream) {
   gc::EdgeFwdArgs a =
       gc::edge_fwd_args(features, sproj, senders, rproj, receivers, b0, b1,
-                        scale, offset, nullptr, agg, num_edges, C);
+                        scale, offset, nullptr, agg, bnd, num_edges, C);
   a.ew0 = static_cast<const gc::bf16*>(ew0);
   a.eb0 = eb0;
   a.eb1 = eb1;
@@ -331,27 +174,29 @@ extern "C" int gc_fused_edge_nowe(const void* e, const void* sproj,
                                   const int* receivers, const void* w1,
                                   const float* b1, const float* scale,
                                   const float* offset, void* eout,
-                                  float* agg, int num_edges, int C,
-                                  int write_e, void* stream);
+                                  float* agg, float* bnd, int num_edges,
+                                  int C, int write_e, void* stream);
 
 // e [E, C] bf16 (encoder mode: the hoisted first-layer part), sproj/rproj
 // bf16 by node, weights [C, C] bf16, vectors f32 zero-padded to kDecWidth,
-// eout [E, C] bf16 (with write_e), agg [num_receivers, C] f32 zeroed.
+// eout [E, C] bf16 (with write_e), agg [num_receivers, C] f32 zeroed, bnd
+// [ceil(E / 64), 2, C] f32 scratch.
 extern "C" int gc_fused_edge(const void* e, const void* sproj,
                              const int* senders, const void* rproj,
                              const int* receivers, const void* we,
                              const float* b0, const void* w1, const float* b1,
                              const float* scale, const float* offset,
-                             void* eout, float* agg, int num_edges, int C,
-                             int has_we, int write_e, void* stream) {
+                             void* eout, float* agg, float* bnd,
+                             int num_edges, int C, int has_we, int write_e,
+                             void* stream) {
   if (!has_we) {
     return gc_fused_edge_nowe(e, sproj, senders, rproj, receivers, w1, b1,
-                              scale, offset, eout, agg, num_edges, C,
+                              scale, offset, eout, agg, bnd, num_edges, C,
                               write_e, stream);
   }
   const gc::EdgeFwdArgs a =
       gc::edge_fwd_args(e, sproj, senders, rproj, receivers, b0, b1, scale,
-                        offset, eout, agg, num_edges, C);
+                        offset, eout, agg, bnd, num_edges, C);
   auto s = static_cast<cudaStream_t>(stream);
   return write_e ? gc::fused_edge<true, true, false>(we, w1, nullptr, a, s)
                  : gc::fused_edge<true, false, false>(we, w1, nullptr, a, s);

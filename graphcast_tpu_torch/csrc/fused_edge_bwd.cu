@@ -57,10 +57,13 @@
 //     second kernel sums over the blocks in order: a rerun at the same
 //     chunking is bit-equal;
 //   * dGr reuses K1's receiver-run sum over dxd in A: one f32 sum per run,
-//     a plain store inside the tile and atomicAdd for the runs at its two
-//     ends (the only order-dependent sums of the kernel);
-//   * dGs stays per edge: the wrapper scatters it to the sender nodes (as
-//     the JAX package scatters it outside its kernel, in the gather's VJP).
+//     a plain store inside the tile and boundary partials for the runs at
+//     its two ends, added in tile order by edge.cuh edge_bounds;
+//   * dGs stays per edge: the wrapper sums it into the sender nodes with
+//     K3's sender mode (segment_sum.cu), in a fixed order, as the JAX
+//     package scatters it outside its kernel, in the gather's VJP.
+// No sum of K4 uses atomics: a rerun at the same chunking is bit-equal in
+// every output.
 // Rounding points follow the TPU kernel: dyd before dW1 and dh, dxd before
 // dGs, dGr, dWe and de; dyn, dx0 and the column sums in f32.
 //
@@ -94,6 +97,7 @@ struct EdgeBwdArgs {
   const float* dagg;       // [num_receivers, C]
   bf16 *hbuf, *dybuf, *dgs, *de;  // [rows, C]
   float* dgr;              // [num_receivers, C], zeroed
+  float* bnd;              // [tiles, 2, C]: the tile-end run partials
   float* work;             // [max_blocks, kEdgeWork kDecWidth]
   float* partials;         // [blocks, kinds C]
   const bf16* ew0;         // embed mode: [F, kDecWidth], zero-padded
@@ -378,7 +382,8 @@ __device__ __forceinline__ void edge_bwd_consumer(const EdgeBwdMaps& maps,
     }
     if (th.ctid == 0) edge_store_tile(&maps.dgs, sh.a, t.row0, C);
     // dGr: sums of dxd over the receiver runs.
-    edge_run_sums(sh.a, sh.idx, t.rows, C, a.dgr, th.ctid);
+    edge_run_sums(sh.a, sh.idx, t.rows, C, a.dgr,
+                  a.bnd + (size_t)(t.row0 / kEdgeRows) * 2 * C, 2 * th.ctid);
 
     if (kProcessor) {
       dec_mma<NQ, 0>(acc, a_addr, kK, false, ring);  // dxd @ We^T
@@ -563,6 +568,8 @@ int fused_edge_bwd(const void* we, const void* w1, const void* ew1,
                                 false).total,
                     tiles, max_blocks, stream, maps, a, &blocks);
   if (err != cudaSuccess) return err;
+  err = edge_bounds(a.receivers, a.num_rows, C, a.bnd, a.dgr, stream);
+  if (err != cudaSuccess) return err;
   const int n = kSums * C;
   decoder_sums_reduce<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
       a.partials, blocks, n, sums);
@@ -574,8 +581,9 @@ inline EdgeBwdArgs edge_bwd_args(const void* e, const void* sproj,
                                  const int* receivers, const float* b0,
                                  const float* b1, const float* scale,
                                  const float* dagg, void* hbuf, void* dybuf,
-                                 void* dgs, float* dgr, float* work,
-                                 float* partials, int num_rows, int C) {
+                                 void* dgs, float* dgr, float* bnd,
+                                 float* work, float* partials, int num_rows,
+                                 int C) {
   EdgeBwdArgs a{};
   a.e = static_cast<const bf16*>(e);
   a.sproj = static_cast<const bf16*>(sproj);
@@ -588,6 +596,7 @@ inline EdgeBwdArgs edge_bwd_args(const void* e, const void* sproj,
   a.dybuf = static_cast<bf16*>(dybuf);
   a.dgs = static_cast<bf16*>(dgs);
   a.dgr = dgr;
+  a.bnd = bnd;
   a.work = work;
   a.partials = partials;
   a.num_rows = num_rows; a.C = C;
@@ -607,11 +616,11 @@ extern "C" int gc_fused_edge_bwd_encoder(
     const void* e, const void* sproj, const int* senders, const void* rproj,
     const int* receivers, const void* w1, const float* b1,
     const float* scale, const float* dagg, void* hbuf, void* dybuf,
-    void* dgs, float* dgr, float* work, float* partials, float* sums,
-    int num_rows, int C, int max_blocks, void* stream) {
+    void* dgs, float* dgr, float* bnd, float* work, float* partials,
+    float* sums, int num_rows, int C, int max_blocks, void* stream) {
   const gc::EdgeBwdArgs a = gc::edge_bwd_args(
       e, sproj, senders, rproj, receivers, nullptr, b1, scale, dagg, hbuf,
-      dybuf, dgs, dgr, work, partials, num_rows, C);
+      dybuf, dgs, dgr, bnd, work, partials, num_rows, C);
   return gc::fused_edge_bwd<false, false>(nullptr, w1, nullptr, a, sums,
                                           max_blocks,
                                           static_cast<cudaStream_t>(stream));
@@ -629,13 +638,13 @@ extern "C" int gc_fused_edge_bwd_embed(
     const float* eb1, const void* sproj, const int* senders,
     const void* rproj, const int* receivers, const void* we, const float* b0,
     const void* w1, const float* b1, const float* scale, const float* dagg,
-    void* hbuf, void* dybuf, void* dgs, float* dgr, void* en, void* hh,
-    void* dy0, void* dxe, float* work, float* partials, float* sums,
-    int num_rows, int F, int C, int max_blocks, void* stream) {
+    void* hbuf, void* dybuf, void* dgs, float* dgr, float* bnd, void* en,
+    void* hh, void* dy0, void* dxe, float* work, float* partials,
+    float* sums, int num_rows, int F, int C, int max_blocks, void* stream) {
   using gc::bf16;
   gc::EdgeBwdArgs a = gc::edge_bwd_args(
       feat, sproj, senders, rproj, receivers, b0, b1, scale, dagg, hbuf,
-      dybuf, dgs, dgr, work, partials, num_rows, C);
+      dybuf, dgs, dgr, bnd, work, partials, num_rows, C);
   a.ew0 = static_cast<const bf16*>(ew0);
   a.eb0 = eb0;
   a.eb1 = eb1;
@@ -653,12 +662,12 @@ extern "C" int gc_fused_edge_bwd_encoder(
     const void* e, const void* sproj, const int* senders, const void* rproj,
     const int* receivers, const void* w1, const float* b1,
     const float* scale, const float* dagg, void* hbuf, void* dybuf,
-    void* dgs, float* dgr, float* work, float* partials, float* sums,
-    int num_rows, int C, int max_blocks, void* stream);
+    void* dgs, float* dgr, float* bnd, float* work, float* partials,
+    float* sums, int num_rows, int C, int max_blocks, void* stream);
 
 // One row chunk of K4. Row arrays (e, senders, receivers, deout, hbuf,
 // dybuf, dgs, de) start at the chunk's first row; sproj, rproj, dagg and
-// dgr are indexed by node. Weights [C, C] bf16, vectors f32 zero-padded to
+// dgr are indexed by node; bnd: [ceil(num_rows / 64), 2, C] f32 scratch. Weights [C, C] bf16, vectors f32 zero-padded to
 // kDecWidth; work: max_blocks * kEdgeWork * kDecWidth f32; partials:
 // max_blocks * 4 C f32; sums: [4, C] f32 (dscale, doff, db1, db0), added
 // to. processor = 0 is the encoder mode (we, b0, deout and de unused;
@@ -668,17 +677,17 @@ extern "C" int gc_fused_edge_bwd(
     const int* receivers, const void* we, const float* b0, const void* w1,
     const float* b1, const float* scale, const void* deout,
     const float* dagg, void* hbuf, void* dybuf, void* dgs, void* de,
-    float* dgr, float* work, float* partials, float* sums, int num_rows,
-    int C, int processor, int max_blocks, void* stream) {
+    float* dgr, float* bnd, float* work, float* partials, float* sums,
+    int num_rows, int C, int processor, int max_blocks, void* stream) {
   if (!processor) {
     return gc_fused_edge_bwd_encoder(e, sproj, senders, rproj, receivers, w1,
                                      b1, scale, dagg, hbuf, dybuf, dgs, dgr,
-                                     work, partials, sums, num_rows, C,
+                                     bnd, work, partials, sums, num_rows, C,
                                      max_blocks, stream);
   }
   gc::EdgeBwdArgs a = gc::edge_bwd_args(
       e, sproj, senders, rproj, receivers, b0, b1, scale, dagg, hbuf, dybuf,
-      dgs, dgr, work, partials, num_rows, C);
+      dgs, dgr, bnd, work, partials, num_rows, C);
   a.deout = static_cast<const gc::bf16*>(deout);
   a.de = static_cast<gc::bf16*>(de);
   return gc::fused_edge_bwd<true, false>(we, w1, nullptr, a, sums,

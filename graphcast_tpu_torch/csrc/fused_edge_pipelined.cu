@@ -3,526 +3,303 @@
 //
 // Replaces graphcast_tpu/ops/pallas_edge.py::_fused_edge_pipelined_kernel
 // (FusedEdgeStep(pipelined=True), or GC_PIPELINED_EDGE=1). It computes K1's
-// function (fused_edge.cu) in K1's three modes, with K1's rounding points:
-// x0 rounded to bf16 before swish, f32 LayerNorm statistics, y rounded to
-// bf16 before the receiver sum, f32 run sums.
+// function (fused_edge.cu) in K1's modes (processor, encoder, embed, and the
+// two other We / e' combinations) at K1's widths (every multiple of 128 up
+// to 512), and its e' and receiver sums are bit-equal to K1's, as the JAX
+// pair is (pallas_edge.py:211-213): it runs K1's consumer code (edge.cuh
+// edge_fwd_consumer, kPipe) with K1's box order, rounding points and
+// fixed-order run sums.
 //
-// The TPU kernel's grid step g runs chunk g-1's tail (swish, w1, LayerNorm,
-// residual, aggregation) and chunk g's head (the first factored linear),
-// which share no data, so that one's matrix work overlaps the other's
-// vector work. What K1 serialises on this card is memory behind compute:
-// it loads a tile's edge rows, gathers its sender and receiver projection
-// rows by index with plain loads, and stages each weight tile
-// synchronously, and the tensor cores wait on each of them. Design:
-//   * a persistent kernel: one 256-thread block per SM walks a contiguous
-//     range of 32-row tiles in order;
-//   * while the block runs tile g's tail (the W1 product, LayerNorm, e' and
-//     the run sums), warps 4-7 have cp.async copies of tile g+1's e rows
-//     and of its gathered sproj/rproj rows in flight into a staging area;
-//     tile g+1's head (the We product, x0 = . + s + r + b0 and its swish,
-//     carried to the tail in bf16 as the TPU kernel carries x0 in the
-//     activation dtype) starts as soon as those rows have landed;
-//   * both products stream their weights through a 2-deep ring of
-//     [32, 256] tiles by cp.async, started and waited on by warps 0-3 only
-//     (so their commit groups never wait on the prefetch of warps 4-7): the
-//     tensor cores work on one weight tile while the next is in flight.
-//     256 columns a pass give each warp 8 products between two barriers:
-//     on the card the number of barriers per row, more than the depth of
-//     the ring, set the products' time (PERF.md);
-//   * the vector work runs 8 columns a thread (16-byte shared loads), the
-//     LayerNorms hold each lane's columns, bias, scale and offset in
-//     registers, and e' = e + y is written in a pass of 16-byte loads, all
-//     of a thread's started before the first is used: K1 reads its operands
-//     one or two elements at a time, each load waiting on the one before;
-//   * the products use wmma bf16 fragments with f32 accumulation, K in
-//     order; K1 (wgmma over 64-deep weight boxes) sums its products in
-//     another order, so x0, y and e' agree with K1's up to f32 rounding;
-//     the run sums are K1's (atomicAdd only for a tile's first and last
-//     run) on 32-row tiles;
-//   * embed mode (GenCast's grid2mesh) embeds the tile's raw features in
-//     its head (the F-deep layer on the CUDA cores, then the ew1 product and
-//     the parameter-free LayerNorm) before the We product; its 8 bytes of
-//     raw features a row are read with plain loads.
-// Shared memory at C = 512: X f32 [32, 516] 66 KB, the carry A [32, 520]
-// 33 KB, the staged e, s and r rows 99 KB (no e in embed mode), the
-// weight ring 33 KB: 232,320 of the 232,448 bytes a block may have. Widths
-// are multiples of 256 (256, 512); the wrapper refuses others.
-// What bounds it on an H100: the two (embed mode: three) 512 x 512 products
-// per edge row, as K1; the 32-row tile reads each weight matrix from L2
-// twice as often per row as K1's 64-row tile does.
+// The TPU kernel exists to run one chunk's vector tail (swish, the second
+// layer's LayerNorm, the residual, the aggregation) beside the next chunk's
+// matrix head. What K1 serialises on this card (PERF.md §5): a tile's two
+// consumer warpgroups run a product, then its epilogue, then the run sums,
+// then the next tile's load and product; and the gathered node rows are
+// read in the accumulator's layout, 4 bytes a thread (on an H100, without
+// its gathers K1's encoder keeps 11.1 of its 18.1 ms). Design, on K1's
+// cluster, ring and wgmma, two ways by mode:
+//   * with We or e' (processor, embed, and the two other combinations):
+//     epilogue warps. The producer warpgroup's three idle warps take the
+//     receiver-run sums (edge.cuh edge_run_sums over bf16(y) in A, two
+//     columns a thread) off the consumers. The consumers hand A and the
+//     tile's receivers over at a named barrier and go on to the next
+//     tile's edge rows (TMA) and first product (e @ We, or the embed's
+//     hh @ Ew1, LN0 and en @ We), which read the tile E, not A; the
+//     epilogue warps hand A back at a second barrier, waited for just
+//     before the next tile's first write to A. The receivers alternate
+//     between two buffers. Shared memory: A, E and a ring of 11 boxes,
+//     K1's plan in the modes that write e';
+//   * without (encoder mode, where the sender rows come from the 1 GB grid
+//     table): the next tile's gathered sender rows staged ahead. While the
+//     consumers run tile g's products and epilogues, one epilogue warp
+//     copies tile g + 1's sproj[snd] rows into the tile S by per-row bulk
+//     copies (cp.async.bulk, 1 KB rows, 16-byte aligned, one mbarrier for
+//     the tile), once the consumers have read tile g's; the first epilogue
+//     reads them from S (rows 16 bytes apart beyond their width, so that a
+//     warp's 8 rows fall in different banks) instead of gathering them
+//     from device memory. e stays in A as in K1, S takes E's place, the
+//     ring keeps 11 boxes (K1's encoder mode: 19); the consumers keep the
+//     run sums (the next tile's first step, e's load into A, leaves
+//     nothing to overlap them with). The receiver rows repeat along the
+//     sorted receivers and stay direct loads;
+//   * registers: a consumer warpgroup holds 128 f32 accumulators a thread
+//     (64 x 256 of a tile), so no warpgroup can hold a second tile's
+//     products while it runs an epilogue; only the accumulator-free parts
+//     of the epilogue (the run sums, the gathers) move to other warps. A
+//     ping-pong of two warpgroups each owning a whole tile (its 512 columns
+//     in two passes, the first parked in an L2 scratch) was built and
+//     measured first: bit-equal, but 7.2 ms against K1's 4.0 on an H100 in
+//     processor mode (PERF.md §6), its epilogues on 128 threads a tile the
+//     limit. Prefetching the next tile's gathered rows into L2
+//     (cp.async.bulk.prefetch) made K1p slower in both modes measured
+//     (encoder 18.7 against 17.6 ms without it): the gathers cost
+//     transactions, not latency.
+// What bounds it on an H100: as K1, the weight stream from L2 and the
+// epilogues; the two products per row (three in embed mode) at 989
+// TFLOP/s are the operations bound.
+//
+// Each mode is its own kernel: this file builds the modes with We
+// (processor, and We without e'), fused_edge_pipelined_encoder.cu the two
+// without We (GC_K1P_UNIT 1), fused_edge_pipelined_embed.cu embed mode
+// (GC_K1P_UNIT 2), so that nvcc builds them in parallel.
 
-#include <mma.h>
-
-#include "common.cuh"
+#include "edge.cuh"
 
 namespace gc {
-namespace {
 
-constexpr int kPipeTM = 32;      // edge rows per tile
-constexpr int kPipeNC = 256;     // output columns per product pass
-constexpr int kPipeKT = 32;      // K rows per weight-ring tile
-constexpr int kPipeStages = 2;   // weight-ring depth
-constexpr int kPipeLdW = kPipeNC + 8;        // padded weight-tile row
-constexpr int kHalfThreads = kThreads / 2;   // warps 0-3 | warps 4-7
-// e' loads a thread keeps in flight: 8 columns each, all of a tile at C 512.
-constexpr int kEdgeLoads = kPipeTM * 512 / 8 / kThreads;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
+// K1p's shared-memory layout: K1's (edge.cuh edge_layout) with a second
+// tile, E or (`staged`) the staged sender rows S (64 rows of
+// kEdgeStageStride bytes), two receiver buffers and S's mbarrier.
+// ops/fused_edge.py pipelined_smem_layout mirrors it.
+__host__ __device__ constexpr EdgeLayout pipe_layout(bool staged) {
+  EdgeLayout L{};
+  L.a = 0;
+  L.e = (kDecWidth / 64) * kDecBox;
+  L.ring = L.e + (staged ? kEdgeRows * kEdgeStageStride : L.e);
+  const int bars = (2 * kEdgeMaxStages + 1) * 8;
+  const int tail = kDecExchange + 2 * kEdgeIdx + 16 + bars;
+  const int st = (kDecSmemLimit - kDecAlign - L.ring - tail) / kDecBox;
+  L.stages = st < kEdgeMaxStages ? st : kEdgeMaxStages;
+  L.exchange = L.ring + L.stages * kDecBox;
+  L.idx = L.exchange + kDecExchange;
+  L.sums = L.idx + 2 * kEdgeIdx;  // S's mbarrier
+  L.colred = L.bars = L.sums + 16;
+  L.total = L.bars + bars + kDecAlign;
+  return L;
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// X[0:TM, 0:N] = A[0:TM, 0:K] @ W[0:K, 0:N] (A shared bf16, leading dim
-// lda; X shared f32, leading dim ldx) in wmma bf16 16x16x16 fragments with
-// f32 accumulation, W streamed through `ring` (kPipeStages tiles of
-// [kPipeKT, kPipeNC], leading dim kPipeLdW): the (column pass, K tile)
-// pairs run as one sequence, and tile t + kPipeStages - 1 is copied while
-// tile t is multiplied. Only warps 0-3 start and wait on these copies. Each
-// output is summed in K order. Every thread of the block calls it; it
-// begins and ends with a barrier.
-template <int TM>
-__device__ void block_mm_pipe(const bf16* A, int lda,
-                              const bf16* __restrict__ W, int K, int N,
-                              float* X, int ldx, bf16* ring) {
-  using namespace nvcuda;
-  constexpr int kWR = TM / 16;            // warps along rows
-  constexpr int kWC = kWarps / kWR;       // warps along columns
-  constexpr int kFN = kPipeNC / 16 / kWC;  // fragments per warp per pass
-  static_assert(kWR * kWC == kWarps && kFN >= 1, "tile shape");
-  const int warp = threadIdx.x / 32;
-  const int wr = warp / kWC, wc = warp % kWC;
-  const bool copier = threadIdx.x < kHalfThreads;
-  const int nk = K / kPipeKT;
-  const int total = (N / kPipeNC) * nk;
-  auto fetch = [&](int t) {
-    if (!copier) return;
-    if (t < total) {
-      const int n0 = (t / nk) * kPipeNC, k0 = (t % nk) * kPipeKT;
-      bf16* dst = ring + (t % kPipeStages) * (kPipeKT * kPipeLdW);
-      for (int i = threadIdx.x; i < kPipeKT * kPipeNC / 8;
-           i += kHalfThreads) {
-        const int r = i / (kPipeNC / 8), c = (i % (kPipeNC / 8)) * 8;
-        cp_async16(dst + r * kPipeLdW + c,
-                   W + (size_t)(k0 + r) * N + n0 + c);
-      }
+// The epilogue warps (kEdgeWalkers threads, w their index) in the modes
+// with We or e': per tile of the walk, once the consumers have written
+// bf16(y), the receiver-run sums over it, then A back to the consumers.
+__device__ __forceinline__ void pipe_walker(const EdgeFwdArgs& a,
+                                            const EdgeSmem& sh, int w,
+                                            uint32_t rank, int groups,
+                                            int cluster, int clusters) {
+  const int C = a.C;
+  int it = 0;
+  for (int grp = cluster; grp < groups; grp += clusters, ++it) {
+    const int row0 = (grp * kEdgeCluster + (int)rank) * kEdgeRows;
+    const int rows = max(0, min(kEdgeRows, a.num_edges - row0));
+    float* const bnd = a.bnd + (size_t)(row0 / kEdgeRows) * 2 * C;
+    const int* const idx = sh.idx + (it & 1) * kEdgeRows;
+    named_sync(kEdgeBarReady, kEdgePipeSync);
+    for (int c = 2 * w; c < C; c += 2 * kEdgeWalkers) {
+      edge_run_sums(sh.a, idx, rows, C, a.agg, bnd, c);
     }
-    cp_async_commit();  // empty past the end: keeps the group count even
-  };
-  __syncthreads();
-  for (int t = 0; t < kPipeStages - 1; ++t) fetch(t);
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kFN];
-  for (int t = 0; t < total; ++t) {
-    if (copier) cp_async_wait<kPipeStages - 2>();  // tile t has landed
-    __syncthreads();  // ... for every thread; slot (t - 1) is free
-    fetch(t + kPipeStages - 1);
-    const int n0 = (t / nk) * kPipeNC, k0 = (t % nk) * kPipeKT;
-    if (k0 == 0) {
-#pragma unroll
-      for (int f = 0; f < kFN; ++f) wmma::fill_fragment(acc[f], 0.0f);
-    }
-    const bf16* wt = ring + (t % kPipeStages) * (kPipeKT * kPipeLdW);
-#pragma unroll
-    for (int kk = 0; kk < kPipeKT; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, A + wr * 16 * lda + k0 + kk, lda);
-#pragma unroll
-      for (int f = 0; f < kFN; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, wt + kk * kPipeLdW + (wc * kFN + f) * 16,
-                               kPipeLdW);
-        wmma::mma_sync(acc[f], a, b, acc[f]);
-      }
-    }
-    if (k0 + kPipeKT == K) {
-      float* xblk = X + wr * 16 * ldx + n0 + wc * kFN * 16;
-#pragma unroll
-      for (int f = 0; f < kFN; ++f) {
-        wmma::store_matrix_sync(xblk + f * 16, acc[f], ldx,
-                                wmma::mem_row_major);
-      }
-    }
+    named_arrive(kEdgeBarFree, kEdgePipeSync);
   }
-  if (copier) cp_async_wait<0>();
-  __syncthreads();
 }
 
-// LayerNorm of the first `rows` rows of X (+bias) over C <= 512 columns (a
-// multiple of 32), one warp per row, statistics in f32 (a warp_sum of each
-// lane's columns, for the mean, then for the mean square deviation), with
-// each lane's columns c = lane + 32 k held in registers: its bias, scale
-// and offset loaded once
-// a call and its row values once a row, every load of a row started before
-// the first is used. Hands each normalised value to fn(r, c, value); ends
-// with a barrier.
-template <bool kAffine, typename Fn>
-__device__ __forceinline__ void ln_rows_pipe(const float* X, int ldx,
-                                             int rows, int C,
-                                             const float* __restrict__ bias,
-                                             const float* __restrict__ scale,
-                                             const float* __restrict__ offset,
-                                             Fn fn) {
-  constexpr int kK = 512 / 32;  // columns a lane holds at most
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nk = C / 32;
-  float bv[kK], sv[kK], ov[kK];
-#pragma unroll
-  for (int k = 0; k < kK; ++k) {
-    if (k < nk) {
-      bv[k] = bias[lane + 32 * k];
-      if (kAffine) {
-        sv[k] = scale[lane + 32 * k];
-        ov[k] = offset[lane + 32 * k];
-      }
-    }
+// The staging warp in encoder mode: the sender rows of this block's tile
+// at `grp` into S, one bulk copy of 2 C bytes a row, completing on S's
+// mbarrier (armed with the tile's bytes by lane 0).
+__device__ __forceinline__ void pipe_stage(const EdgeFwdArgs& a,
+                                           const EdgeSmem& sh, int grp,
+                                           uint32_t rank, int lane) {
+  const int row0 = (grp * kEdgeCluster + (int)rank) * kEdgeRows;
+  const int rows = max(0, min(kEdgeRows, a.num_edges - row0));
+  const uint32_t bytes = 2u * a.C;
+  uint64_t* const full = reinterpret_cast<uint64_t*>(sh.sums);
+  if (lane == 0) mbar_arrive_expect_tx(full, bytes * rows);
+  for (int r = lane; r < rows; r += 32) {
+    const int snd = __ldg(a.senders + row0 + r);
+    bulk_load(sh.e + r * kEdgeStageStride, a.sproj + (size_t)snd * a.C,
+              bytes, full);
   }
-  for (int r = warp; r < rows; r += kWarps) {
-    const float* xr = X + r * ldx;
-    float v[kK];
-    float s = 0.f;
-#pragma unroll
-    for (int k = 0; k < kK; ++k) {
-      if (k < nk) {
-        v[k] = xr[lane + 32 * k] + bv[k];
-        s += v[k];
-      }
-    }
-    const float mean = warp_sum(s) / C;
-    float q = 0.f;
-#pragma unroll
-    for (int k = 0; k < kK; ++k) {
-      if (k < nk) {
-        const float d = v[k] - mean;
-        q += d * d;
-      }
-    }
-    const float rstd = rsqrtf(warp_sum(q) / C + kLnEps);
-#pragma unroll
-    for (int k = 0; k < kK; ++k) {
-      if (k < nk) {
-        float y = (v[k] - mean) * rstd;
-        if (kAffine) y = y * sv[k] + ov[k];
-        fn(r, lane + 32 * k, y);
-      }
-    }
-  }
-  __syncthreads();
 }
 
-// Eight bf16 values packed in a uint4, as f32 (exact: a bf16 is the high
-// half of its f32).
-__device__ __forceinline__ void unpack8(const uint4& w, float* out) {
-  const unsigned words[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    out[2 * k] = __uint_as_float(words[k] << 16);
-    out[2 * k + 1] = __uint_as_float(words[k] & 0xffff0000u);
+// Per tile of the walk: the next tile's sender rows, once the consumers
+// have read this tile's (the first tile's before the walk).
+__device__ __forceinline__ void pipe_stager(const EdgeFwdArgs& a,
+                                            const EdgeSmem& sh, int lane,
+                                            uint32_t rank, int groups,
+                                            int cluster, int clusters) {
+  pipe_stage(a, sh, cluster, rank, lane);
+  for (int grp = cluster; grp < groups; grp += clusters) {
+    __syncwarp();
+    named_sync(kEdgeBarStaged, kEdgeStageSync);
+    if (grp + clusters < groups) pipe_stage(a, sh, grp + clusters, rank, lane);
   }
 }
 
 template <bool kHasWe, bool kWriteE, bool kEmbed>
-__global__ void __launch_bounds__(kThreads, 1) fused_edge_pipelined_kernel(
-    const bf16* __restrict__ e, const bf16* __restrict__ sproj,
-    const int* __restrict__ senders, const bf16* __restrict__ rproj,
-    const int* __restrict__ receivers, const bf16* __restrict__ we,
-    const float* __restrict__ b0, const bf16* __restrict__ w1,
-    const float* __restrict__ b1, const float* __restrict__ scale,
-    const float* __restrict__ offset, bf16* __restrict__ eout,
-    float* __restrict__ agg, int num_edges, int C,
-    const bf16* __restrict__ ew0, const float* __restrict__ eb0,
-    const bf16* __restrict__ ew1, const float* __restrict__ eb1, int F) {
-  static_assert(!kEmbed || (kHasWe && !kWriteE),
-                "embed mode runs the edge matmul, aggregation only");
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int lda = C + 8, ldx = C + 4;
-  float* X = reinterpret_cast<float*>(smem);              // [TM, ldx]
-  bf16* A = reinterpret_cast<bf16*>(X + kPipeTM * ldx);   // [TM, lda]
-  bf16* Es = A + kPipeTM * lda;                           // [TM, lda]
-  bf16* Ss = Es + (kEmbed ? 0 : kPipeTM * lda);           // [TM, C]
-  bf16* Rs = Ss + kPipeTM * C;                            // [TM, C]
-  bf16* ring = Rs + kPipeTM * C;        // [stages, kPipeKT, kPipeLdW]
-  int* snd_next =
-      reinterpret_cast<int*>(ring + kPipeStages * kPipeKT * kPipeLdW);
-  int* rcv_next = snd_next + kPipeTM;
-  int* rcv_cur = rcv_next + kPipeTM;
-
-  const int tiles = (num_edges + kPipeTM - 1) / kPipeTM;
-  const int t_begin = (int)((long long)blockIdx.x * tiles / gridDim.x);
-  const int t_end = (int)((long long)(blockIdx.x + 1) * tiles / gridDim.x);
-  if (t_begin >= t_end) return;
-  const bool prefetcher = threadIdx.x >= kHalfThreads;
-  const int c2n = C / 2, c8n = C / 8;
-
-  // Warps 4-7: tile `tile`'s e rows and gathered projection rows into the
-  // staging area (its indices already in snd_next / rcv_next), one group.
-  auto prefetch = [&](int tile) {
-    const int row0 = tile * kPipeTM;
-    const int rows = min(kPipeTM, num_edges - row0);
-    const int t = threadIdx.x - kHalfThreads;
-    if (!kEmbed) {
-      for (int i = t; i < kPipeTM * c8n; i += kHalfThreads) {
-        const int r = i / c8n, c = (i % c8n) * 8;
-        if (r < rows) {
-          cp_async16(Es + r * lda + c, e + (size_t)(row0 + r) * C + c);
-        } else {
-          *reinterpret_cast<uint4*>(Es + r * lda + c) =
-              make_uint4(0, 0, 0, 0);
-        }
-      }
-    }
-    for (int i = t; i < rows * c8n; i += kHalfThreads) {
-      const int r = i / c8n, c = (i % c8n) * 8;
-      cp_async16(Ss + r * C + c, sproj + (size_t)snd_next[r] * C + c);
-      cp_async16(Rs + r * C + c, rproj + (size_t)rcv_next[r] * C + c);
-    }
-    cp_async_commit();
-  };
-
-  for (int r = threadIdx.x; r < kPipeTM; r += kThreads) {
-    const int row = t_begin * kPipeTM + r;
-    snd_next[r] = row < num_edges ? senders[row] : 0;
-    rcv_next[r] = row < num_edges ? receivers[row] : 0;
+__global__ void __launch_bounds__(kDecThreads, 1) fused_edge_pipelined_kernel(
+    const __grid_constant__ EdgeFwdMaps maps, const EdgeFwdArgs a) {
+  constexpr int W = kDecWidth;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr bool kWalk = kWriteE || kHasWe;  // else the staged encoder
+  const EdgeSmem sh(smem_raw, pipe_layout(!kWalk));
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  const uint32_t rank = cluster_ctarank();
+  const int tiles = (a.num_edges + kEdgeRows - 1) / kEdgeRows;
+  const int groups = (tiles + kEdgeCluster - 1) / kEdgeCluster;
+  const int cluster = blockIdx.x / kEdgeCluster;
+  const int clusters = gridDim.x / kEdgeCluster;
+  if (threadIdx.x == 0) {
+    mbar_init(reinterpret_cast<uint64_t*>(sh.sums), 1);  // S (encoder mode)
+    sh.init();
   }
   __syncthreads();
-  if (prefetcher) prefetch(t_begin);
+  cluster_sync();  // the partners' barriers are initialised
 
-  for (int g = t_begin; g < t_end; ++g) {
-    const int row0 = g * kPipeTM;
-    const int rows = min(kPipeTM, num_edges - row0);
-    if (prefetcher) cp_async_wait<0>();
-    __syncthreads();  // tile g's staged rows are visible to every thread
-    // Tile g's receivers for its run sums; tile g+1's indices for its
-    // prefetch (the same thread reads and rewrites each slot).
-    for (int r = threadIdx.x; r < kPipeTM; r += kThreads) {
-      rcv_cur[r] = r < rows ? rcv_next[r] : -1;
-      const int row = row0 + kPipeTM + r;
-      if (g + 1 < t_end && row < num_edges) {
-        snd_next[r] = senders[row];
-        rcv_next[r] = receivers[row];
+  if (warp >= kDecConsumers / 32) {  // the producer warpgroup
+    setmaxnreg_dec<kDecProducerRegs>();
+    if (threadIdx.x == kDecConsumers) {
+      EdgeProducer pr(sh, rank);
+      for (int grp = cluster; grp < groups; grp += clusters) {
+        if (kEmbed) pr.fwd(&maps.ew1, W, W);
+        if (kHasWe) pr.fwd(&maps.we, W, W);
+        pr.fwd(&maps.w1, W, W);
+      }
+    } else if (warp > kDecConsumers / 32) {  // the epilogue warps
+      const int w = threadIdx.x - kDecConsumers - 32;
+      if (kWalk) {
+        pipe_walker(a, sh, w, rank, groups, cluster, clusters);
+      } else if (w < 32) {
+        pipe_stager(a, sh, w, rank, groups, cluster, clusters);
       }
     }
-
-    // ---- head of tile g: the first layer, A <- bf16(swish(bf16(x0))) ----
-    if (kEmbed) {
-      for (int i = threadIdx.x; i < kPipeTM * c2n; i += kThreads) {
-        const int r = i / c2n, c = (i % c2n) * 2;
-        float hx = 0.f, hy = 0.f;
-        if (r < rows) {
-          const bf16* f = e + (size_t)(row0 + r) * F;
-          float x0 = 0.f, x1 = 0.f;
-          for (int k = 0; k < F; ++k) {
-            const float fk = __bfloat162float(f[k]);
-            const float2 w = load_bf16x2(ew0 + (size_t)k * C + c);
-            x0 = fmaf(fk, w.x, x0);
-            x1 = fmaf(fk, w.y, x1);
-          }
-          hx = swish_of_bf16(x0 + eb0[c]);
-          hy = swish_of_bf16(x1 + eb0[c + 1]);
-        }
-        store_bf16x2(A + r * lda + c, hx, hy);
-      }
-      block_mm_pipe<kPipeTM>(A, lda, ew1, C, C, X, ldx, ring);
-      ln_rows_pipe<false>(X, ldx, rows, C, eb1, nullptr, nullptr,
-                          [&](int r, int c, float yn) {
-                            A[r * lda + c] = __float2bfloat16(yn);
-                          });
-      block_mm_pipe<kPipeTM>(A, lda, we, C, C, X, ldx, ring);
-    } else if (kHasWe) {
-      block_mm_pipe<kPipeTM>(Es, lda, we, C, C, X, ldx, ring);
-    }
-    // x0 = . + s + r (+ b0), then A <- bf16(swish(bf16(x0))), 8 columns a
-    // thread; its columns are the same in every row (c8n divides kThreads).
-    {
-      const int c = (threadIdx.x % c8n) * 8;
-      float bias[8] = {};
-      if (kHasWe) {
-        const float4 lo = *reinterpret_cast<const float4*>(b0 + c);
-        const float4 hi = *reinterpret_cast<const float4*>(b0 + c + 4);
-        bias[0] = lo.x, bias[1] = lo.y, bias[2] = lo.z, bias[3] = lo.w;
-        bias[4] = hi.x, bias[5] = hi.y, bias[6] = hi.z, bias[7] = hi.w;
-      }
-      for (int r = threadIdx.x / c8n; r < kPipeTM; r += kThreads / c8n) {
-        unsigned h[4] = {0u, 0u, 0u, 0u};
-        if (r < rows) {
-          float x[8], sv[8], rv[8];
-          if (kHasWe) {
-            const float4 lo = *reinterpret_cast<const float4*>(X + r * ldx + c);
-            const float4 hi =
-                *reinterpret_cast<const float4*>(X + r * ldx + c + 4);
-            x[0] = lo.x, x[1] = lo.y, x[2] = lo.z, x[3] = lo.w;
-            x[4] = hi.x, x[5] = hi.y, x[6] = hi.z, x[7] = hi.w;
-          } else {
-            unpack8(*reinterpret_cast<const uint4*>(Es + r * lda + c), x);
-          }
-          unpack8(*reinterpret_cast<const uint4*>(Ss + r * C + c), sv);
-          unpack8(*reinterpret_cast<const uint4*>(Rs + r * C + c), rv);
-#pragma unroll
-          for (int k = 0; k < 8; ++k) {
-            x[k] += sv[k];
-            x[k] += rv[k];
-            if (kHasWe) x[k] += bias[k];
-          }
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            h[k] = pack_bf16x2(swish_of_bf16(x[2 * k]),
-                               swish_of_bf16(x[2 * k + 1]));
-          }
-        }
-        *reinterpret_cast<uint4*>(A + r * lda + c) =
-            make_uint4(h[0], h[1], h[2], h[3]);
-      }
-    }
-    __syncthreads();  // A holds h; the staging area is free
-    if (prefetcher && g + 1 < t_end) prefetch(g + 1);
-
-    // ---- tail of tile g, while tile g+1's rows are in flight ----
-    block_mm_pipe<kPipeTM>(A, lda, w1, C, C, X, ldx, ring);
-    ln_rows_pipe<true>(X, ldx, rows, C, b1, scale, offset,
-                       [&](int r, int c, float yn) {
-                         X[r * ldx + c] = kWriteE ? yn : round_bf16(yn);
-                       });
-    if (kWriteE) {
-      // e' = bf16(e + yn), K1's arithmetic, 8 columns a load with all of a
-      // thread's loads started before the first is used; then X <- bf16(yn).
-      uint4 ev[kEdgeLoads];
-#pragma unroll
-      for (int j = 0; j < kEdgeLoads; ++j) {
-        const int i = threadIdx.x + j * kThreads;
-        if (i < rows * c8n) {
-          ev[j] = *reinterpret_cast<const uint4*>(
-              e + (size_t)(row0 + i / c8n) * C + (i % c8n) * 8);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kEdgeLoads; ++j) {
-        const int i = threadIdx.x + j * kThreads;
-        if (i < rows * c8n) {
-          const int r = i / c8n, c = (i % c8n) * 8;
-          float ef[8];
-          unpack8(ev[j], ef);
-          unsigned out[4];
-          float* xr = X + r * ldx + c;
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            out[k] = pack_bf16x2(ef[2 * k] + xr[2 * k],
-                                 ef[2 * k + 1] + xr[2 * k + 1]);
-            xr[2 * k] = round_bf16(xr[2 * k]);
-            xr[2 * k + 1] = round_bf16(xr[2 * k + 1]);
-          }
-          *reinterpret_cast<uint4*>(eout + (size_t)(row0 + r) * C + c) =
-              make_uint4(out[0], out[1], out[2], out[3]);
-        }
-      }
-      __syncthreads();
-    }
-    for (int c = threadIdx.x; c < C; c += kThreads) {
-      int r = 0;
-      while (r < rows) {
-        const int node = rcv_cur[r];
-        float s = 0.f;
-        int r1 = r;
-        do {
-          s += X[r1 * ldx + c];
-          ++r1;
-        } while (r1 < rows && rcv_cur[r1] == node);
-        float* dst = agg + (size_t)node * C + c;
-        if (r == 0 || r1 == rows) {
-          atomicAdd(dst, s);
-        } else {
-          *dst = s;
-        }
-        r = r1;
-      }
-    }
+  } else {
+    setmaxnreg_inc<kDecConsumerRegs>();
+    edge_fwd_consumer<kHasWe, kWriteE, kEmbed, true>(maps, a, sh, rank,
+                                                     groups, cluster,
+                                                     clusters);
   }
+  if (kWriteE && threadIdx.x == 0) tma_store_wait_all();
+  __syncwarp();
+  cluster_sync();  // no block exits while a partner may still arrive
 }
 
-template <bool kHasWe, bool kWriteE, bool kEmbed = false>
-cudaError_t launch_pipelined(const void* e, const void* sproj,
-                             const int* senders, const void* rproj,
-                             const int* receivers, const void* we,
-                             const float* b0, const void* w1, const float* b1,
-                             const float* scale, const float* offset,
-                             void* eout, float* agg, int num_edges, int C,
-                             cudaStream_t stream, const void* ew0 = nullptr,
-                             const float* eb0 = nullptr,
-                             const void* ew1 = nullptr,
-                             const float* eb1 = nullptr, int F = 0) {
-  if (C % kPipeNC) return cudaErrorInvalidValue;  // the wrapper refuses it
-  const size_t smem = sizeof(float) * kPipeTM * (C + 4) +
-                      sizeof(bf16) * kPipeTM * (C + 8) * (kEmbed ? 1 : 2) +
-                      sizeof(bf16) * 2 * kPipeTM * C +
-                      sizeof(bf16) * kPipeStages * kPipeKT * kPipeLdW +
-                      sizeof(int) * 3 * kPipeTM;
-  auto kernel = fused_edge_pipelined_kernel<kHasWe, kWriteE, kEmbed>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <bool kHasWe, bool kWriteE, bool kEmbed>
+int fused_edge_pipelined(const void* we, const void* w1, const void* ew1,
+                         const EdgeFwdArgs& a, cudaStream_t stream) {
+  if (a.num_edges <= 0) return 0;
+  const int C = a.C;
+  if (C % 128 || C < 128 || C > kDecWidth) return cudaErrorInvalidValue;
+  // Tensor maps of the true width C: boxes past it arrive as zeros.
+  EdgeFwdMaps maps;
+  cudaError_t err = bf16_tile_map(&maps.w1, w1, C, C, C, 64);
+  maps.e = maps.eout = maps.we = maps.ew1 = maps.w1;
+  if (!kEmbed && err == cudaSuccess) {
+    err = bf16_tile_map(&maps.e, a.e, a.num_edges, C, C, 64);
+  }
+  if (kWriteE && err == cudaSuccess) {
+    err = bf16_tile_map(&maps.eout, a.eout, a.num_edges, C, C, 64);
+  }
+  if (kHasWe && err == cudaSuccess) {
+    err = bf16_tile_map(&maps.we, we, C, C, C, 64);
+  }
+  if (kEmbed && err == cudaSuccess) {
+    err = bf16_tile_map(&maps.ew1, ew1, C, C, C, 64);
+  }
   if (err != cudaSuccess) return err;
-  const int tiles = (num_edges + kPipeTM - 1) / kPipeTM;
-  kernel<<<persistent_blocks(tiles), kThreads, smem, stream>>>(
-      static_cast<const bf16*>(e), static_cast<const bf16*>(sproj), senders,
-      static_cast<const bf16*>(rproj), receivers,
-      static_cast<const bf16*>(we), b0, static_cast<const bf16*>(w1), b1,
-      scale, offset, static_cast<bf16*>(eout), agg, num_edges, C,
-      static_cast<const bf16*>(ew0), eb0, static_cast<const bf16*>(ew1), eb1,
-      F);
-  return cudaGetLastError();
+  const int tiles = (a.num_edges + kEdgeRows - 1) / kEdgeRows;
+  err = edge_launch(fused_edge_pipelined_kernel<kHasWe, kWriteE, kEmbed>,
+                    pipe_layout(!(kWriteE || kHasWe)).total, tiles, 1 << 30,
+                    stream, maps, a);
+  if (err != cudaSuccess) return err;
+  return edge_bounds(a.receivers, a.num_edges, C, a.bnd, a.agg, stream);
 }
 
-}  // namespace
 }  // namespace gc
 
-extern "C" int gc_fused_edge_pipelined(
+#ifndef GC_K1P_UNIT
+#define GC_K1P_UNIT 0
+#endif
+
+#if GC_K1P_UNIT == 1
+// The two modes without We (encoder mode: e is the hoisted first-layer
+// part), with and without e'; gc_fused_edge_pipelined dispatches here.
+extern "C" int gc_fused_edge_pipelined_nowe(
     const void* e, const void* sproj, const int* senders, const void* rproj,
-    const int* receivers, const void* we, const float* b0, const void* w1,
-    const float* b1, const float* scale, const float* offset, void* eout,
-    float* agg, int num_edges, int C, int has_we, int write_e, void* stream) {
-  if (num_edges <= 0) return 0;
+    const int* receivers, const void* w1, const float* b1,
+    const float* scale, const float* offset, void* eout, float* agg,
+    float* bnd, int num_edges, int C, int write_e, void* stream) {
+  const gc::EdgeFwdArgs a =
+      gc::edge_fwd_args(e, sproj, senders, rproj, receivers, nullptr, b1,
+                        scale, offset, eout, agg, bnd, num_edges, C);
   auto s = static_cast<cudaStream_t>(stream);
-  if (has_we && write_e) {
-    return gc::launch_pipelined<true, true>(e, sproj, senders, rproj,
-                                            receivers, we, b0, w1, b1, scale,
-                                            offset, eout, agg, num_edges, C,
-                                            s);
-  }
-  if (has_we) {
-    return gc::launch_pipelined<true, false>(e, sproj, senders, rproj,
-                                             receivers, we, b0, w1, b1, scale,
-                                             offset, eout, agg, num_edges, C,
-                                             s);
-  }
-  if (write_e) {
-    return gc::launch_pipelined<false, true>(e, sproj, senders, rproj,
-                                             receivers, we, b0, w1, b1, scale,
-                                             offset, eout, agg, num_edges, C,
-                                             s);
-  }
-  return gc::launch_pipelined<false, false>(e, sproj, senders, rproj,
-                                            receivers, we, b0, w1, b1, scale,
-                                            offset, eout, agg, num_edges, C,
-                                            s);
+  return write_e ? gc::fused_edge_pipelined<false, true, false>(
+                       nullptr, w1, nullptr, a, s)
+                 : gc::fused_edge_pipelined<false, false, false>(
+                       nullptr, w1, nullptr, a, s);
 }
 
-// Embed mode: features [E, F] raw edge features; aggregation only.
+#elif GC_K1P_UNIT == 2
+// Embed mode: features [E, F] raw edge features (bf16), ew0 [F, kDecWidth]
+// bf16 zero-padded, ew1 [C, C]; aggregation only.
 extern "C" int gc_fused_edge_embed_pipelined(
     const void* features, const void* ew0, const float* eb0, const void* ew1,
     const float* eb1, const void* sproj, const int* senders,
     const void* rproj, const int* receivers, const void* we, const float* b0,
     const void* w1, const float* b1, const float* scale, const float* offset,
-    float* agg, int num_edges, int F, int C, void* stream) {
-  if (num_edges <= 0) return 0;
-  return gc::launch_pipelined<true, false, true>(
-      features, sproj, senders, rproj, receivers, we, b0, w1, b1, scale,
-      offset, nullptr, agg, num_edges, C, static_cast<cudaStream_t>(stream),
-      ew0, eb0, ew1, eb1, F);
+    float* agg, float* bnd, int num_edges, int F, int C, void* stream) {
+  gc::EdgeFwdArgs a =
+      gc::edge_fwd_args(features, sproj, senders, rproj, receivers, b0, b1,
+                        scale, offset, nullptr, agg, bnd, num_edges, C);
+  a.ew0 = static_cast<const gc::bf16*>(ew0);
+  a.eb0 = eb0;
+  a.eb1 = eb1;
+  a.F = F;
+  return gc::fused_edge_pipelined<true, false, true>(
+      we, w1, ew1, a, static_cast<cudaStream_t>(stream));
 }
+
+#else
+extern "C" int gc_fused_edge_pipelined_nowe(
+    const void* e, const void* sproj, const int* senders, const void* rproj,
+    const int* receivers, const void* w1, const float* b1,
+    const float* scale, const float* offset, void* eout, float* agg,
+    float* bnd, int num_edges, int C, int write_e, void* stream);
+
+// K1p: K1's arguments (gc_fused_edge).
+extern "C" int gc_fused_edge_pipelined(
+    const void* e, const void* sproj, const int* senders, const void* rproj,
+    const int* receivers, const void* we, const float* b0, const void* w1,
+    const float* b1, const float* scale, const float* offset, void* eout,
+    float* agg, float* bnd, int num_edges, int C, int has_we, int write_e,
+    void* stream) {
+  if (!has_we) {
+    return gc_fused_edge_pipelined_nowe(e, sproj, senders, rproj, receivers,
+                                        w1, b1, scale, offset, eout, agg, bnd,
+                                        num_edges, C, write_e, stream);
+  }
+  const gc::EdgeFwdArgs a =
+      gc::edge_fwd_args(e, sproj, senders, rproj, receivers, b0, b1, scale,
+                        offset, eout, agg, bnd, num_edges, C);
+  auto s = static_cast<cudaStream_t>(stream);
+  return write_e ? gc::fused_edge_pipelined<true, true, false>(we, w1,
+                                                               nullptr, a, s)
+                 : gc::fused_edge_pipelined<true, false, false>(we, w1,
+                                                                nullptr, a, s);
+}
+
+// K1p's shared-memory layout (pipe_layout) with E or with the staged
+// sender rows: out[10] as gc_edge_layout's.
+extern "C" void gc_pipelined_layout(int staged, int* out) {
+  const gc::EdgeLayout L = gc::pipe_layout(staged != 0);
+  const int v[10] = {L.a,    L.e,      L.ring, L.exchange, L.idx,
+                     L.sums, L.colred, L.bars, L.stages,   L.total};
+  for (int i = 0; i < 10; ++i) out[i] = v[i];
+}
+#endif  // GC_K1P_UNIT

@@ -33,6 +33,15 @@
 // So a skewed in-degree (594 at 1.0 deg grid2mesh, 3,753 at 0.25 deg) costs
 // no thread more than 64 serial loads, no atomics are used, and the order of
 // every sum is fixed by the plan: the result is the same in every run.
+//
+// The sender mode (``perm`` non-null) is the backward kernels' scatter of
+// per-edge sender gradients to their sender nodes (K4's dGs, K5's
+// dmesh_proj; pallas_edge.py and pallas_decoder.py sum them over the TPU
+// grid in order). The edges stay in their receiver-sorted rows: the plan
+// runs over the senders' CSR offsets of a stable sender-sorted permutation,
+// and each work item reads its rows through ``perm`` (one 4-byte index a
+// row, the same for every thread of the row), so no [E, C] copy in sender
+// order is made. The sums leave in f32, as the f32 scatter they replace.
 
 #include "common.cuh"
 
@@ -97,11 +106,24 @@ __device__ __forceinline__ void store_f32(float* p, const float* acc) {
   for (int i = 0; i < V; i += 4) store_vec(p + i, acc + i);
 }
 
-// items[i] = (receiver, first edge, end edge, scratch row or -1).
-template <typename T>
+// V sums to the output: in the messages' dtype, or in f32.
+template <int V>
+__device__ __forceinline__ void store_out(bf16* p, const float* acc) {
+  store_vec(p, acc);
+}
+
+template <int V>
+__device__ __forceinline__ void store_out(float* p, const float* acc) {
+  store_f32<V>(p, acc);
+}
+
+// items[i] = (receiver, first edge, end edge, scratch row or -1); with
+// kPerm the item's rows are perm[first edge .. end edge).
+template <typename T, typename TO, bool kPerm>
 __global__ void __launch_bounds__(kSegThreads) segment_sum_kernel(
-    const T* __restrict__ msgs, const int4* __restrict__ items, int num_items,
-    float* __restrict__ scratch, T* __restrict__ out, int C) {
+    const T* __restrict__ msgs, const int* __restrict__ perm,
+    const int4* __restrict__ items, int num_items,
+    float* __restrict__ scratch, TO* __restrict__ out, int C) {
   constexpr int V = SegVec<T>::n;
   const int item = blockIdx.x * blockDim.y + threadIdx.y;
   const int c = (blockIdx.y * blockDim.x + threadIdx.x) * V;
@@ -110,22 +132,28 @@ __global__ void __launch_bounds__(kSegThreads) segment_sum_kernel(
   float acc[V];
 #pragma unroll
   for (int i = 0; i < V; ++i) acc[i] = 0.f;
-  const T* p = msgs + (size_t)it.y * C + c;
+  if (kPerm) {
 #pragma unroll 4
-  for (int e = it.y; e < it.z; ++e, p += C) add_vec(acc, p);
+    for (int e = it.y; e < it.z; ++e) {
+      add_vec(acc, msgs + (size_t)__ldg(perm + e) * C + c);
+    }
+  } else {
+    const T* p = msgs + (size_t)it.y * C + c;
+#pragma unroll 4
+    for (int e = it.y; e < it.z; ++e, p += C) add_vec(acc, p);
+  }
   if (it.w < 0) {
-    store_vec(out + (size_t)it.x * C + c, acc);
+    store_out<V>(out + (size_t)it.x * C + c, acc);
   } else {
     store_f32<V>(scratch + (size_t)it.w * C + c, acc);
   }
 }
 
 // splits[s] = (receiver, first scratch row, end scratch row, unused).
-template <typename T>
+template <int V, typename TO>
 __global__ void __launch_bounds__(kSegThreads) segment_sum_combine_kernel(
     const int4* __restrict__ splits, int num_splits,
-    const float* __restrict__ scratch, T* __restrict__ out, int C) {
-  constexpr int V = SegVec<T>::n;
+    const float* __restrict__ scratch, TO* __restrict__ out, int C) {
   const int s = blockIdx.x * blockDim.y + threadIdx.y;
   const int c = (blockIdx.y * blockDim.x + threadIdx.x) * V;
   if (s >= num_splits || c >= C) return;
@@ -134,7 +162,7 @@ __global__ void __launch_bounds__(kSegThreads) segment_sum_combine_kernel(
 #pragma unroll
   for (int i = 0; i < V; ++i) acc[i] = 0.f;
   for (int r = sp.y; r < sp.z; ++r) add_f32<V>(acc, scratch + (size_t)r * C + c);
-  store_vec(out + (size_t)sp.x * C + c, acc);
+  store_out<V>(out + (size_t)sp.x * C + c, acc);
 }
 
 // Blocks of kSegThreads threads: x across a row's 16-byte lanes (whole
@@ -148,23 +176,24 @@ inline void segment_grid(int rows, int C, int V, dim3* grid, dim3* block) {
   *grid = dim3((rows + by - 1) / by, (lanes + bx - 1) / bx);
 }
 
-template <typename T>
-int launch_segment_sum(const void* msgs, const int* items, int num_items,
-                       const int* splits, int num_splits, float* scratch,
-                       void* out, int C, cudaStream_t stream) {
+template <typename T, typename TO, bool kPerm>
+int launch_segment_sum(const void* msgs, const int* perm, const int* items,
+                       int num_items, const int* splits, int num_splits,
+                       float* scratch, void* out, int C, cudaStream_t stream) {
   constexpr int V = SegVec<T>::n;
   if (C <= 0 || C % V) return cudaErrorInvalidValue;
   dim3 grid, block;
   segment_grid(num_items, C, V, &grid, &block);
-  segment_sum_kernel<T><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(msgs), reinterpret_cast<const int4*>(items),
-      num_items, scratch, static_cast<T*>(out), C);
+  segment_sum_kernel<T, TO, kPerm><<<grid, block, 0, stream>>>(
+      static_cast<const T*>(msgs), perm,
+      reinterpret_cast<const int4*>(items), num_items, scratch,
+      static_cast<TO*>(out), C);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || num_splits == 0) return err;
   segment_grid(num_splits, C, V, &grid, &block);
-  segment_sum_combine_kernel<T><<<grid, block, 0, stream>>>(
+  segment_sum_combine_kernel<V, TO><<<grid, block, 0, stream>>>(
       reinterpret_cast<const int4*>(splits), num_splits, scratch,
-      static_cast<T*>(out), C);
+      static_cast<TO*>(out), C);
   return cudaGetLastError();
 }
 
@@ -173,17 +202,28 @@ int launch_segment_sum(const void* msgs, const int* items, int num_items,
 // out[N, C] = segment sums of msgs[E, C] (bf16 if is_bf16, else f32; 16-byte
 // aligned, C a multiple of 8) over the work items [num_items, 4] and splits
 // [num_splits, 4] (int32) that ops/segment_sum.py plans; scratch holds one
-// f32 row of C per split chunk (null when num_splits is 0).
-extern "C" int gc_segment_sum(const void* msgs, const int* items,
-                              int num_items, const int* splits,
-                              int num_splits, float* scratch, void* out,
-                              int C, int is_bf16, void* stream) {
+// f32 row of C per split chunk (null when num_splits is 0); out in the
+// messages' dtype. With perm ([E] int32, non-null) the sender mode: the
+// items' edge ranges index perm, whose entries are the message rows, the
+// messages are bf16 and out is f32.
+extern "C" int gc_segment_sum(const void* msgs, const int* perm,
+                              const int* items, int num_items,
+                              const int* splits, int num_splits,
+                              float* scratch, void* out, int C, int is_bf16,
+                              void* stream) {
+  using gc::bf16;
+  using gc::launch_segment_sum;
   if (num_items <= 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return gc::launch_segment_sum<gc::bf16>(msgs, items, num_items, splits,
-                                            num_splits, scratch, out, C, s);
+  if (perm != nullptr) {
+    if (!is_bf16) return cudaErrorInvalidValue;
+    return launch_segment_sum<bf16, float, true>(
+        msgs, perm, items, num_items, splits, num_splits, scratch, out, C, s);
   }
-  return gc::launch_segment_sum<float>(msgs, items, num_items, splits,
-                                       num_splits, scratch, out, C, s);
+  if (is_bf16) {
+    return launch_segment_sum<bf16, bf16, false>(
+        msgs, perm, items, num_items, splits, num_splits, scratch, out, C, s);
+  }
+  return launch_segment_sum<float, float, false>(
+      msgs, perm, items, num_items, splits, num_splits, scratch, out, C, s);
 }

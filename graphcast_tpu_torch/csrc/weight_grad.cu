@@ -38,10 +38,20 @@
 // layer, whose depth is the F raw edge features (4 in GenCast, too narrow
 // for a 128-wide tile): dEw0[F, C] += X[R, F]^T D[R, C], and the raw-feature
 // gradient dX[R, F] = D Ew0^T (pallas_edge.py:463-470, pallas_decoder.py:
-// 394-400). A block owns a slice of rows: one thread per column sums its F
-// products over the slice in registers and adds them into dEw0 (atomicAdd),
-// then one warp per row reduces the row's F dot products. Bytes bound it
-// (2 R C bytes of D read once against 4 R F C FLOPs).
+// 394-400). Bytes bound it: 2 R C bytes of D read once against 4 R F C
+// FLOPs (8 FLOPs a byte at F = 4). Design: one pass over D, 16-byte loads:
+//   * a block owns a range of rows (the host's plan: one block per SM, as
+//     many as its ~200 registers a thread let run at once), a warp every
+//     8th row of it, 4 rows in flight; a lane holds
+//     columns 8 v .. 8 v + 7 of D for v = lane, lane + 32 (C <= 512), with
+//     Ew0's F values of those columns in registers;
+//   * per row the lane's F dot products with Ew0 are summed over the warp
+//     by shuffles (dX), and x[r, k] d[r, c] is added into the lane's f32
+//     dEw0 partial, in row order;
+//   * the 8 warps' partials are added in warp order in shared memory and
+//     leave as the block's partial; a second kernel adds the blocks'
+//     partials into dEw0 in a fixed tree over the blocks, as weight_grad's
+//     second pass does: no atomics, so a rerun is bit-equal.
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -217,43 +227,144 @@ __global__ void __launch_bounds__(kThreads) weight_grad_reduce_kernel(
   }
 }
 
-constexpr int kFgRows = 256;  // rows per block
 constexpr int kFgMaxF = 16;   // raw features the kernel takes
+constexpr int kFgWarps = 8;    // warps a block
+constexpr int kFgUnroll = 4;   // rows a warp keeps in flight
+constexpr int kFgNV = 2;       // 16-byte column vectors a lane (C <= 512)
 
+// Rows [blockIdx.x rpb, + rpb) of X and D: dX of each row, and the block's
+// dEw0 partial [F, C] into ws[blockIdx.x]. FM >= F bounds the registers.
+template <int FM>
 __global__ void __launch_bounds__(kThreads) feature_grad_kernel(
     const bf16* __restrict__ X, int F, const bf16* __restrict__ D, int ldd,
-    const bf16* __restrict__ W0, float* __restrict__ dW0,
-    float* __restrict__ dX, int R, int C) {
-  const int r_begin = blockIdx.x * kFgRows;
-  const int r_end = min(R, r_begin + kFgRows);
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    float acc[kFgMaxF];
+    const bf16* __restrict__ W0, float* __restrict__ dX,
+    float* __restrict__ ws, int R, int C, int rpb) {
+  __shared__ float part[FM * 512];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r_begin = blockIdx.x * rpb;
+  const int r_end = min(R, r_begin + rpb);
+  const int nvec = C / 8;
+  float w[kFgNV][8][FM], acc[kFgNV][8][FM];
 #pragma unroll
-    for (int k = 0; k < kFgMaxF; ++k) acc[k] = 0.f;
-    for (int r = r_begin; r < r_end; ++r) {
-      const float d = __bfloat162float(D[(size_t)r * ldd + c]);
-      const bf16* x = X + (size_t)r * F;
+  for (int i = 0; i < kFgNV; ++i) {
+    const int v = lane + 32 * i;
 #pragma unroll
-      for (int k = 0; k < kFgMaxF; ++k) {
-        if (k < F) acc[k] = fmaf(__bfloat162float(x[k]), d, acc[k]);
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int k = 0; k < FM; ++k) {
+        w[i][j][k] = v < nvec && k < F
+                         ? __bfloat162float(W0[(size_t)k * C + 8 * v + j])
+                         : 0.f;
+        acc[i][j][k] = 0.f;
       }
-    }
-#pragma unroll
-    for (int k = 0; k < kFgMaxF; ++k) {
-      if (k < F) atomicAdd(dW0 + (size_t)k * C + c, acc[k]);
     }
   }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = r_begin + warp; r < r_end; r += kWarps) {
-    for (int k = 0; k < F; ++k) {
-      float s = 0.f;
-      for (int c = lane; c < C; c += 32) {
-        s = fmaf(__bfloat162float(D[(size_t)r * ldd + c]),
-                 __bfloat162float(W0[(size_t)k * C + c]), s);
+  for (int r0 = r_begin + warp; r0 < r_end; r0 += kFgWarps * kFgUnroll) {
+    // Every load of the rows in flight issued before any is used, from
+    // clamped addresses (a row past the range reads row r_begin, a vector
+    // past C vector 0; both are discarded).
+    uint4 raw[kFgUnroll][kFgNV];
+    float x[kFgUnroll][FM];
+#pragma unroll
+    for (int u = 0; u < kFgUnroll; ++u) {
+      const int r = r0 + u * kFgWarps;
+      const int rr = r < r_end ? r : r_begin;
+#pragma unroll
+      for (int i = 0; i < kFgNV; ++i) {
+        const int v = lane + 32 * i;
+        raw[u][i] = __ldg(reinterpret_cast<const uint4*>(
+            D + (size_t)rr * ldd + 8 * (v < nvec ? v : 0)));
       }
-      s = warp_sum(s);
-      if (lane == 0) dX[(size_t)r * F + k] = s;
+#pragma unroll
+      for (int k = 0; k < FM; ++k) {
+        x[u][k] = k < F ? __bfloat162float(__ldg(X + (size_t)rr * F + k))
+                        : 0.f;
+      }
     }
+#pragma unroll
+    for (int u = 0; u < kFgUnroll; ++u) {
+      const int r = r0 + u * kFgWarps;
+      if (r >= r_end) break;
+      float d[kFgNV][8];
+#pragma unroll
+      for (int i = 0; i < kFgNV; ++i) {
+        const unsigned words[4] = {raw[u][i].x, raw[u][i].y, raw[u][i].z,
+                                   raw[u][i].w};
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          d[i][2 * h] = __uint_as_float(words[h] << 16);
+          d[i][2 * h + 1] = __uint_as_float(words[h] & 0xffff0000u);
+        }
+      }
+      float s[FM];
+#pragma unroll
+      for (int k = 0; k < FM; ++k) s[k] = 0.f;
+#pragma unroll
+      for (int i = 0; i < kFgNV; ++i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int k = 0; k < FM; ++k) {
+            s[k] = fmaf(d[i][j], w[i][j][k], s[k]);
+            acc[i][j][k] = fmaf(x[u][k], d[i][j], acc[i][j][k]);
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < FM; ++k) {
+        if (k < F) s[k] = warp_sum(s[k]);
+      }
+      if (lane == 0) {
+#pragma unroll
+        for (int k = 0; k < FM; ++k) {
+          if (k < F) dX[(size_t)r * F + k] = s[k];
+        }
+      }
+    }
+  }
+  // The warps' partials in warp order, then the block's to ws.
+  for (int wp = 0; wp < kFgWarps; ++wp) {
+    __syncthreads();
+    if (warp == wp) {
+#pragma unroll
+      for (int i = 0; i < kFgNV; ++i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = 8 * (lane + 32 * i) + j;
+#pragma unroll
+          for (int k = 0; k < FM; ++k) {
+            if (k < F && c < C) {
+              float* p = part + k * C + c;
+              *p = wp == 0 ? acc[i][j][k] : *p + acc[i][j][k];
+            }
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+  float* dst = ws + (size_t)blockIdx.x * F * C;
+  for (int i = threadIdx.x; i < F * C; i += kThreads) dst[i] = part[i];
+}
+
+// dW0[i] += the blocks' partials ws[b][i] (n = F C values each): per value,
+// 8 strided runs over the blocks, then those 8 in order; a fixed order.
+__global__ void __launch_bounds__(kThreads) feature_grad_reduce_kernel(
+    const float* __restrict__ ws, int blocks, int n, float* __restrict__ dW0) {
+  __shared__ float red[8][33];
+  const int i = blockIdx.x * 32 + threadIdx.x;
+  float s = 0.f;
+  if (i < n) {
+#pragma unroll 4
+    for (int b = threadIdx.y; b < blocks; b += 8) s += ws[(size_t)b * n + i];
+  }
+  red[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && i < n) {
+    float t = red[0][threadIdx.x];
+#pragma unroll
+    for (int y = 1; y < 8; ++y) t += red[y][threadIdx.x];
+    dW0[i] += t;
   }
 }
 
@@ -311,17 +422,36 @@ extern "C" int gc_weight_grad_smem(int bn) {
 }
 
 // dEw0[F, C] (f32) += X[R, F]^T D[R, C] and dX[R, F] (f32) = D Ew0^T; X, Ew0
-// bf16 row-major, D bf16 with leading dim ldd; F <= 16.
+// bf16 row-major, D bf16 with leading dim ldd (a multiple of 8, 16-byte
+// aligned rows); F <= 16, C a multiple of 8 up to 512. The host's plan:
+// `blocks` blocks of rpb rows (a multiple of 32); ws: blocks F C f32.
 extern "C" int gc_feature_grad(const void* X, int F, const void* D, int ldd,
-                               const void* W0, float* dW0, float* dX, int R,
-                               int C, void* stream) {
+                               const void* W0, float* dW0, float* dX,
+                               float* ws, int R, int C, int rpb, int blocks,
+                               void* stream) {
   using gc::bf16;
   if (R <= 0) return 0;
-  if (F < 1 || F > gc::kFgMaxF) return cudaErrorInvalidValue;
-  const int blocks = (R + gc::kFgRows - 1) / gc::kFgRows;
-  gc::feature_grad_kernel<<<blocks, gc::kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(X), F, static_cast<const bf16*>(D), ldd,
-      static_cast<const bf16*>(W0), dW0, dX, R, C);
+  if (F < 1 || F > gc::kFgMaxF || C % 8 || C > 512 || ldd % 8 ||
+      rpb % (gc::kFgWarps * gc::kFgUnroll) || (long long)rpb * blocks < R) {
+    return cudaErrorInvalidValue;
+  }
+  const auto st = static_cast<cudaStream_t>(stream);
+  const bf16 *x = static_cast<const bf16*>(X), *d = static_cast<const bf16*>(D),
+             *w0 = static_cast<const bf16*>(W0);
+  if (F <= 4) {
+    gc::feature_grad_kernel<4><<<blocks, gc::kThreads, 0, st>>>(
+        x, F, d, ldd, w0, dX, ws, R, C, rpb);
+  } else if (F <= 8) {
+    gc::feature_grad_kernel<8><<<blocks, gc::kThreads, 0, st>>>(
+        x, F, d, ldd, w0, dX, ws, R, C, rpb);
+  } else {
+    gc::feature_grad_kernel<16><<<blocks, gc::kThreads, 0, st>>>(
+        x, F, d, ldd, w0, dX, ws, R, C, rpb);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int n = F * C;
+  gc::feature_grad_reduce_kernel<<<(n + 31) / 32, dim3(32, 8), 0, st>>>(
+      ws, blocks, n, dW0);
   return cudaGetLastError();
 }

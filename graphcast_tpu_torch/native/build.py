@@ -90,13 +90,13 @@ def _compile(nvcc: str) -> pathlib.Path:
 def _declare(lib: ctypes.CDLL):
   p, i = ctypes.c_void_p, ctypes.c_int
   lib.gc_fused_edge.restype = i
-  lib.gc_fused_edge.argtypes = [p] * 13 + [i] * 4 + [p]
+  lib.gc_fused_edge.argtypes = [p] * 14 + [i] * 4 + [p]
   lib.gc_fused_edge_pipelined.restype = i
-  lib.gc_fused_edge_pipelined.argtypes = [p] * 13 + [i] * 4 + [p]
+  lib.gc_fused_edge_pipelined.argtypes = [p] * 14 + [i] * 4 + [p]
   lib.gc_fused_decoder.restype = i
   lib.gc_fused_decoder.argtypes = [p] * 22 + [i] * 5 + [p]
   lib.gc_fused_edge_bwd.restype = i
-  lib.gc_fused_edge_bwd.argtypes = [p] * 20 + [i] * 4 + [p]
+  lib.gc_fused_edge_bwd.argtypes = [p] * 21 + [i] * 4 + [p]
   for name in ("gc_fused_decoder_bwd_nodes", "gc_fused_decoder_bwd_edges"):
     getattr(lib, name).restype = i
     getattr(lib, name).argtypes = [p] * 28 + [i] * 5 + [p]
@@ -105,9 +105,9 @@ def _declare(lib: ctypes.CDLL):
   lib.gc_weight_grad_smem.restype = i
   lib.gc_weight_grad_smem.argtypes = [i]
   lib.gc_fused_edge_embed.restype = i
-  lib.gc_fused_edge_embed.argtypes = [p] * 16 + [i] * 3 + [p]
+  lib.gc_fused_edge_embed.argtypes = [p] * 17 + [i] * 3 + [p]
   lib.gc_fused_edge_embed_pipelined.restype = i
-  lib.gc_fused_edge_embed_pipelined.argtypes = [p] * 16 + [i] * 3 + [p]
+  lib.gc_fused_edge_embed_pipelined.argtypes = [p] * 17 + [i] * 3 + [p]
   lib.gc_fused_decoder_embed.restype = i
   lib.gc_fused_decoder_embed.argtypes = [p] * 28 + [i] * 6 + [p]
   lib.gc_splash_fwd.restype = i
@@ -121,11 +121,13 @@ def _declare(lib: ctypes.CDLL):
   lib.gc_decoder_layout.restype = None
   lib.gc_decoder_layout.argtypes = [i, i, i, p]
   lib.gc_fused_edge_bwd_embed.restype = i
-  lib.gc_fused_edge_bwd_embed.argtypes = [p] * 26 + [i] * 4 + [p]
+  lib.gc_fused_edge_bwd_embed.argtypes = [p] * 27 + [i] * 4 + [p]
   lib.gc_edge_layout.restype = None
   lib.gc_edge_layout.argtypes = [i, i, p]
+  lib.gc_pipelined_layout.restype = None
+  lib.gc_pipelined_layout.argtypes = [i, p]
   lib.gc_feature_grad.restype = i
-  lib.gc_feature_grad.argtypes = [p, i, p, i, p, p, p, i, i, p]
+  lib.gc_feature_grad.argtypes = [p, i, p, i, p, p, p, p, i, i, i, i, p]
   lib.gc_splash_dq.restype = i
   lib.gc_splash_dq.argtypes = [p] * 13 + [ctypes.c_float] + [i] * 4 + [p]
   lib.gc_splash_dkv.restype = i
@@ -134,7 +136,7 @@ def _declare(lib: ctypes.CDLL):
     getattr(lib, name).restype = i
     getattr(lib, name).argtypes = []
   lib.gc_segment_sum.restype = i
-  lib.gc_segment_sum.argtypes = [p, p, i, p, i, p, p, i, i, p]
+  lib.gc_segment_sum.argtypes = [p, p, p, i, p, i, p, p, i, i, p]
   lib.gc_error_string.restype = ctypes.c_char_p
   lib.gc_error_string.argtypes = [i]
 

@@ -51,6 +51,7 @@ from __future__ import annotations
 import torch
 
 from graphcast_tpu_torch.native import build
+from graphcast_tpu_torch.ops import segment_sum
 from graphcast_tpu_torch.ops.fused_edge import (
     MAX_EMBED_FEATURES, EdgeIndex, _check_cuda, embed_edges_reference,
     layer_norm_f32, max_blocks, swish_of)
@@ -267,7 +268,7 @@ def fused_decode_backward(edges: EdgeIndex, grid, mesh_proj, const,
   """K5: the gradients of the fused decoder on CUDA tensors.
 
   Returns (dgrid, dmesh_proj, dconst, {key: dweight}): dgrid in the
-  activation dtype, dmesh_proj in mesh_proj's dtype (an f32 scatter of the
+  activation dtype, dmesh_proj in mesh_proj's dtype (an f32 sum of the
   per-edge sender gradients, as the JAX package does outside its kernel),
   dconst in the activation dtype (embed mode: the raw features' gradient in
   their dtype), each weight gradient in f32, then cast to its weight's
@@ -275,7 +276,9 @@ def fused_decode_backward(edges: EdgeIndex, grid, mesh_proj, const,
   kernel (one launch, counted in ``fused_decode_backward.launches``, and
   ``.embed_launches`` in embed mode), the 7 matrix-gradient reductions
   (ops/weight_grad.py; embed mode adds We', Ew1 and ``feature_grad`` for Ew0
-  and the raw features) and the scatter.
+  and the raw features); then one fixed-order f32 sum of the per-edge sender
+  gradients into the mesh nodes (K3's sender mode, ops/segment_sum.py).
+  Every sum has a fixed order: a rerun at the same chunking is bit-equal.
   """
   embed = "ew0" in weights
   if embed:
@@ -292,7 +295,6 @@ def fused_decode_backward(edges: EdgeIndex, grid, mesh_proj, const,
   lib = build.load_library()
   dgrid = torch.empty(G, C, dtype=bf16, device=dev)
   dgs = torch.empty(3 * G, C, dtype=bf16, device=dev)
-  dmesh = torch.zeros(edges.num_senders, C, dtype=f32, device=dev)
   sum_keys = _BWD_SUMS + (_BWD_SUMS_EMBED if embed else ())
   sums = torch.zeros(len(sum_keys) * C + no_pad, dtype=f32, device=dev)
   blocks = max_blocks(dev)
@@ -370,7 +372,7 @@ def fused_decode_backward(edges: EdgeIndex, grid, mesh_proj, const,
       weight_grad(slab("hh", 3), slab("dy0", 3), dw["ew1"])
       dconst[rows] = feature_grad(const[rows], slab("dxe", 3), mats["ew0"],
                                   dw["ew0"])
-    dmesh.index_add_(0, edges.senders[rows].long(), dgs[rows].float())
+  dmesh = segment_sum.sender_segment_sum(edges, dgs)
   grads = dict(dw)
   grads["wd1"] = dw["wd1"][:, :num_out]
   grads.update({k: sums[i * C:(i + 1) * C] for i, k in enumerate(sum_keys)})

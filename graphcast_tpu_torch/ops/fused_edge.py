@@ -4,8 +4,8 @@ the plain-PyTorch twin.
 K1 replaces graphcast_tpu/ops/pallas_edge.py::_fused_edge_kernel (ground
 truth: ``FusedEdgeStep._reference_math``), K1p its software-pipelined
 variant ``_fused_edge_pipelined_kernel`` (csrc/fused_edge_pipelined.cu),
-which computes the same function. One call computes, over a receiver-sorted
-edge list,
+which computes the same function, bit-equal to K1 on the card. One call
+computes, over a receiver-sorted edge list,
 
     x0  = e @ We + sproj[senders] + rproj[receivers] + b0
     y   = LN(swish(bf16(x0)) @ W1 + b1) * scale + offset
@@ -27,11 +27,17 @@ into We', b0' and the step's LayerNorm scale/offset by the caller. On the
 card it runs aggregation-only (``write_edges=False``), as the denoiser
 calls it.
 
-K1 and K4 (csrc/edge.cuh) run clusters of 64-row blocks that share every
-weight box by TMA multicast, on wgmma; ``smem_layout`` is their shared
-memory plan, made here so that the CPU tests can check it. They are built
-for latent width ``WIDTH`` (512); a narrower width runs in that layout with
-its vectors (and the embed's ``ew0``) zero-padded here.
+K1, K1p and K4 (csrc/edge.cuh) run clusters of 64-row blocks that share
+every weight box by TMA multicast, on wgmma; K1p is K1's consumer code with
+the receiver-run sums on epilogue warps, and in encoder mode the next
+tile's sender rows staged in shared memory by bulk copies. ``smem_layout``
+(K1, K4) and ``pipelined_smem_layout`` (K1p) are their shared memory plans,
+made here so that the CPU tests can check them. They are built for latent
+width ``WIDTH`` (512) and take every multiple of 128 up to it: a narrower
+width runs in that layout with its vectors (and the embed's ``ew0``)
+zero-padded here. The receiver sums at tile ends go through a per-tile
+boundary buffer and a fixed-order second pass, so every sum is
+reproducible.
 
 Gradients: on CUDA tensors that require grad, ``fused_edge`` runs K1 inside
 a ``torch.autograd.Function`` whose backward is K4
@@ -49,9 +55,9 @@ are Mosaic-specific and not ported.
 
 ``fused_edge`` runs the CUDA kernels for CUDA tensors and the twin for CPU
 tensors; nothing else selects between them. ``pipelined`` picks K1p over K1
-on the card, in all three modes; the backward stays K4, which recomputes
-from the inputs alone, so the gradients are those of the K1 path. On the
-CPU both run the same twin. Unset, it reads ``GC_PIPELINED_EDGE``
+on the card, in every mode and width K1 takes; the backward stays K4, which
+recomputes from the inputs alone, so the gradients equal those of the K1
+path. On the CPU both run the same twin. Unset, it reads ``GC_PIPELINED_EDGE``
 (env_flags.py), as the JAX package's ``FusedEdgeStep`` does; the models read
 it once, at their first call.
 """
@@ -75,9 +81,6 @@ LN_EPS = 1e-5
 BWD_CHUNK_ROWS = 1 << 18
 # Raw edge features the embed-mode kernel takes (GenCast: 4).
 MAX_EMBED_FEATURES = 16
-# K1p's latent widths are multiples of this (csrc/fused_edge_pipelined.cu
-# kPipeNC).
-PIPELINED_WIDTH_STEP = 256
 # K1's and K4's block plan (csrc/edge.cuh, on csrc/decoder.cuh): the latent
 # width they are built for (a narrower one runs in the same layout,
 # zero-padded), edge rows per block, blocks per cluster (each weight byte
@@ -94,6 +97,9 @@ ALIGN = 1008
 EXCHANGE = 2 * 2 * 64 * 8
 IDX = ROWS * 4
 SLOTS = 2
+# K1p's staged sender row in shared memory: WIDTH bf16 and 16 bytes of pad
+# (csrc/edge.cuh kEdgeStageStride).
+STAGE_STRIDE = 2 * WIDTH + 16
 # K4's column sums by mode, in the kernel's order (csrc/fused_edge_bwd.cu):
 # dscale, doff, db1, db0, deb1, deb0.
 BWD_SUMS = {"processor": 4, "encoder": 3, "embed": 6}
@@ -135,6 +141,27 @@ def smem_layout(C: int, backward: bool = False, embed: bool = False,
   return lay
 
 
+def pipelined_smem_layout(staged: bool = False) -> dict:
+  """Shared memory of one block of K1p, in bytes from its 1024-aligned
+  base, as csrc/fused_edge_pipelined.cu pipe_layout lays it out: K1's plan
+  with a second tile (the edge tile E, or with ``staged``, K1p's encoder
+  mode, ROWS staged sender rows of STAGE_STRIDE bytes), two receiver
+  buffers instead of one and, in place of the column sums, the staged
+  rows' mbarrier (16 bytes)."""
+  tile = WIDTH // 64 * BOX
+  bars = (2 * MAX_STAGES + 1) * 8
+  lay = {"a": 0, "e": tile}
+  lay["ring"] = tile + (ROWS * STAGE_STRIDE if staged else tile)
+  lay["stages"] = min(MAX_STAGES, (SMEM_LIMIT - ALIGN - lay["ring"] - EXCHANGE
+                                   - 2 * IDX - 16 - bars) // BOX)
+  lay["exchange"] = lay["ring"] + lay["stages"] * BOX
+  lay["idx"] = lay["exchange"] + EXCHANGE
+  lay["sums"] = lay["idx"] + 2 * IDX
+  lay["colred"] = lay["bars"] = lay["sums"] + 16
+  lay["total"] = lay["bars"] + bars + ALIGN
+  return lay
+
+
 @functools.lru_cache(maxsize=8)
 def max_blocks(device) -> int:
   """Blocks a K4, K2 or K5 launch may use (their per-block scratch is
@@ -169,7 +196,8 @@ class EdgeIndex:
         self.num_edges == 3 * self.num_receivers
         and np.array_equal(receivers,
                            np.repeat(np.arange(num_receivers), 3)))
-    self.senders = torch.as_tensor(senders.astype(np.int32), device=device)
+    self._senders_host = senders.astype(np.int32)
+    self.senders = torch.as_tensor(self._senders_host, device=device)
     self.receivers = torch.as_tensor(receivers.astype(np.int32),
                                      device=device)
     # CSR row offsets [num_receivers + 1] of the sorted receivers (host).
@@ -177,6 +205,7 @@ class EdgeIndex:
         [[0], np.cumsum(np.bincount(receivers, minlength=num_receivers))]
     ).astype(np.int32)
     self._segment_plan = None
+    self._sender_plan = None
 
   @property
   def device(self) -> torch.device:
@@ -189,6 +218,15 @@ class EdgeIndex:
       self._segment_plan = segment_sum.plan_segments(self.row_offsets,
                                                      self.device)
     return self._segment_plan
+
+  def sender_plan(self) -> segment_sum.SenderPlan:
+    """K3's sender mode for this edge list on its device: the stable
+    sender-sorted permutation and the plan over the senders (built at first
+    use; ops/segment_sum.py)."""
+    if self._sender_plan is None:
+      self._sender_plan = segment_sum.plan_senders(
+          self._senders_host, self.num_senders, self.device)
+    return self._sender_plan
 
 
 def swish_of(x: torch.Tensor, dtype) -> torch.Tensor:
@@ -283,12 +321,10 @@ def _check_edge_shapes(edges: EdgeIndex, E: int, C: int, sproj, rproj,
     raise ValueError(f"edge list is on {edges.device}, tensors on {device}")
 
 
-def _check_pipelined_width(C: int):
-  """K1p streams its weights in 256-column passes: it takes K1's widths
-  that are multiples of 256."""
-  if C % PIPELINED_WIDTH_STEP:
-    raise ValueError(f"K1p (pipelined=True) takes latent widths 256 and 512, "
-                     f"not {C}")
+def _bounds_buffer(rows: int, C: int, dev) -> torch.Tensor:
+  """The f32 scratch [ceil(rows / ROWS), 2, C] of the receiver runs at tile
+  ends (csrc/edge.cuh edge_run_sums, edge_bounds)."""
+  return torch.empty(-(-rows // ROWS), 2, C, dtype=torch.float32, device=dev)
 
 
 def _matrix_bf16(w, C: int, name: str):
@@ -304,8 +340,6 @@ def _launch_fused_edge(edges: EdgeIndex, e, sproj, rproj, we, b0, w1, b1,
   launch)."""
   _check_edge_shapes(edges, *e.shape, sproj, rproj, e.device)
   C = e.shape[1]
-  if pipelined:
-    _check_pipelined_width(C)
   dev = e.device
   w1 = _matrix_bf16(w1, C, "w1")
   if we is not None:
@@ -314,21 +348,21 @@ def _launch_fused_edge(edges: EdgeIndex, e, sproj, rproj, we, b0, w1, b1,
   _check_cuda({"e": e, "sproj": sproj, "rproj": rproj, "w1": w1,
                **({"we": we} if we is not None else {})}, dev, torch.bfloat16)
   _check_vectors(vecs, dev, C)
-
-  if not pipelined:
-    vecs = {k: _padded(v, C) for k, v in vecs.items()}
+  vecs = {k: _padded(v, C) for k, v in vecs.items()}
   lib = build.load_library()
   agg = torch.zeros(edges.num_receivers, C, dtype=torch.float32, device=dev)
+  bnd = _bounds_buffer(edges.num_edges, C, dev)
   eout = torch.empty_like(e) if write_edges else None
   ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+  stream = torch.cuda.current_stream(dev).cuda_stream
+  head = (e.data_ptr(), sproj.data_ptr(), edges.senders.data_ptr(),
+          rproj.data_ptr(), edges.receivers.data_ptr(), ptr(we),
+          ptr(vecs.get("b0")), w1.data_ptr(), vecs["b1"].data_ptr(),
+          vecs["scale"].data_ptr(), vecs["offset"].data_ptr(), ptr(eout),
+          agg.data_ptr(), bnd.data_ptr())
   launch = lib.gc_fused_edge_pipelined if pipelined else lib.gc_fused_edge
-  code = launch(
-      e.data_ptr(), sproj.data_ptr(), edges.senders.data_ptr(),
-      rproj.data_ptr(), edges.receivers.data_ptr(), ptr(we),
-      ptr(vecs.get("b0")), w1.data_ptr(), vecs["b1"].data_ptr(),
-      vecs["scale"].data_ptr(), vecs["offset"].data_ptr(), ptr(eout),
-      agg.data_ptr(), edges.num_edges, C, int(we is not None),
-      int(write_edges), torch.cuda.current_stream(dev).cuda_stream)
+  code = launch(*head, edges.num_edges, C, int(we is not None),
+                int(write_edges), stream)
   build.check(lib, code, "fused_edge_pipelined kernel launch" if pipelined
               else "fused_edge kernel launch")
   _count_launch(pipelined, "encoder" if we is None else None)
@@ -357,9 +391,11 @@ def fused_edge_backward(edges: EdgeIndex, e, sproj, rproj, we, b0, w1, b1,
   doff), each in its input's dtype, as the JAX package returns them; dwe
   and db0 are None in encoder mode, where de = dsproj's per-edge rows.
   Row chunks of ``BWD_CHUNK_ROWS`` edges: each runs the per-row kernel (one
-  launch, counted in ``fused_edge_backward.launches``), the weight-gradient
-  reductions (ops/weight_grad.py) and the f32 scatter of the per-edge
-  sender gradients to the sender nodes.
+  launch, counted in ``fused_edge_backward.launches``) and the
+  weight-gradient reductions (ops/weight_grad.py); then one fixed-order f32
+  sum of all the per-edge sender gradients into the sender nodes (K3's
+  sender mode, ops/segment_sum.py). Every sum has a fixed order: a rerun
+  is bit-equal.
   """
   processor = we is not None
   if processor != (d_eout is not None):
@@ -387,13 +423,13 @@ def fused_edge_backward(edges: EdgeIndex, e, sproj, rproj, we, b0, w1, b1,
   dgs = torch.empty(E, C, dtype=bf16, device=dev)
   de = torch.empty(E, C, dtype=bf16, device=dev) if processor else dgs
   dgr = torch.zeros(edges.num_receivers, C, dtype=f32, device=dev)
-  dsproj = torch.zeros(edges.num_senders, C, dtype=f32, device=dev)
   sums = torch.zeros(4, C, dtype=f32, device=dev)
   dw1 = torch.zeros(C, C, dtype=f32, device=dev)
   dwe = torch.zeros(C, C, dtype=f32, device=dev) if processor else None
   rows = min(E, BWD_CHUNK_ROWS)
   hbuf = torch.empty(rows, C, dtype=bf16, device=dev)
   dybuf = torch.empty(rows, C, dtype=bf16, device=dev)
+  bnd = _bounds_buffer(rows, C, dev)
   blocks = max_blocks(dev)
   work = torch.empty(blocks, BWD_WORK * WIDTH, dtype=f32, device=dev)
   partials = torch.empty(blocks, 4 * C, dtype=f32, device=dev)
@@ -410,14 +446,14 @@ def fused_edge_backward(edges: EdgeIndex, e, sproj, rproj, we, b0, w1, b1,
         mats["deout"][part].data_ptr() if processor else None,
         d_agg.data_ptr(), hbuf.data_ptr(), dybuf.data_ptr(),
         dgs[part].data_ptr(), de[part].data_ptr(), dgr.data_ptr(),
-        work.data_ptr(), partials.data_ptr(), sums.data_ptr(), n, C,
-        int(processor), blocks, stream)
+        bnd.data_ptr(), work.data_ptr(), partials.data_ptr(),
+        sums.data_ptr(), n, C, int(processor), blocks, stream)
     build.check(lib, code, "fused_edge_bwd kernel launch")
     fused_edge_backward.launches += 1
     weight_grad(hbuf[:n], dybuf[:n], dw1)
     if processor:
       weight_grad(e[part], dgs[part], dwe)
-    dsproj.index_add_(0, edges.senders[part].long(), dgs[part].float())
+  dsproj = segment_sum.sender_segment_sum(edges, dgs)
   return (de, dsproj.to(sproj.dtype), dgr.to(rproj.dtype),
           dwe.to(we.dtype) if processor else None,
           sums[3].to(b0.dtype) if processor else None, dw1.to(w1.dtype),
@@ -461,24 +497,23 @@ def _launch_fused_edge_embed(edges: EdgeIndex, features, sproj, rproj, we,
                                scale, offset, embed_weights)
   E, F = features.shape
   C = sproj.shape[1]
-  if pipelined:
-    _check_pipelined_width(C)
   dev = sproj.device
-  if not pipelined:
-    mats["ew0"] = _padded(mats["ew0"], C)
-    vecs = {k: _padded(v, C) for k, v in vecs.items()}
+  mats["ew0"] = _padded(mats["ew0"], C)
+  vecs = {k: _padded(v, C) for k, v in vecs.items()}
   lib = build.load_library()
   agg = torch.zeros(edges.num_receivers, C, dtype=torch.float32, device=dev)
+  bnd = _bounds_buffer(E, C, dev)
+  stream = torch.cuda.current_stream(dev).cuda_stream
+  head = (mats["features"].data_ptr(), mats["ew0"].data_ptr(),
+          vecs["eb0"].data_ptr(), mats["ew1"].data_ptr(),
+          vecs["eb1"].data_ptr(), sproj.data_ptr(), edges.senders.data_ptr(),
+          rproj.data_ptr(), edges.receivers.data_ptr(), mats["we"].data_ptr(),
+          vecs["b0"].data_ptr(), mats["w1"].data_ptr(), vecs["b1"].data_ptr(),
+          vecs["scale"].data_ptr(), vecs["offset"].data_ptr(), agg.data_ptr(),
+          bnd.data_ptr())
   launch = (lib.gc_fused_edge_embed_pipelined if pipelined
             else lib.gc_fused_edge_embed)
-  code = launch(
-      mats["features"].data_ptr(), mats["ew0"].data_ptr(),
-      vecs["eb0"].data_ptr(), mats["ew1"].data_ptr(), vecs["eb1"].data_ptr(),
-      sproj.data_ptr(), edges.senders.data_ptr(), rproj.data_ptr(),
-      edges.receivers.data_ptr(), mats["we"].data_ptr(),
-      vecs["b0"].data_ptr(), mats["w1"].data_ptr(), vecs["b1"].data_ptr(),
-      vecs["scale"].data_ptr(), vecs["offset"].data_ptr(), agg.data_ptr(),
-      E, F, C, torch.cuda.current_stream(dev).cuda_stream)
+  code = launch(*head, E, F, C, stream)
   build.check(lib, code, "fused_edge_pipelined embed kernel launch"
               if pipelined else "fused_edge embed kernel launch")
   _count_launch(pipelined, "embed")
@@ -522,7 +557,8 @@ def fused_edge_embed_backward(edges: EdgeIndex, features, sproj, rproj, we,
   launch, counted in ``fused_edge_backward.launches`` and
   ``.embed_launches``), the reductions dW1 = hᵀ·dy, dWe' = enᵀ·dx0 and dEw1
   = hhᵀ·dy0 (ops/weight_grad.py), dEw0 and the raw-feature gradient
-  (``feature_grad``), and the f32 scatter of the sender gradients.
+  (``feature_grad``); then the fixed-order f32 sum of the sender gradients
+  (K3's sender mode).
   """
   mats, vecs = _embed_operands(edges, features, sproj, rproj, we, b0, w1, b1,
                                scale, None, embed_weights)
@@ -539,7 +575,6 @@ def fused_edge_embed_backward(edges: EdgeIndex, features, sproj, rproj, we,
   lib = build.load_library()
   dgs = torch.empty(E, C, dtype=bf16, device=dev)
   dgr = torch.zeros(edges.num_receivers, C, dtype=f32, device=dev)
-  dsproj = torch.zeros(edges.num_senders, C, dtype=f32, device=dev)
   sums = torch.zeros(6, C, dtype=f32, device=dev)
   dw = {k: torch.zeros(C, C, dtype=f32, device=dev)
         for k in ("w1", "we", "ew1")}
@@ -548,6 +583,7 @@ def fused_edge_embed_backward(edges: EdgeIndex, features, sproj, rproj, we,
   rows = min(E, BWD_CHUNK_ROWS)
   buf = {k: torch.empty(rows, C, dtype=bf16, device=dev)
          for k in ("h", "dy", "en", "hh", "dy0", "dxe")}
+  bnd = _bounds_buffer(rows, C, dev)
   blocks = max_blocks(dev)
   work = torch.empty(blocks, BWD_WORK * WIDTH, dtype=f32, device=dev)
   partials = torch.empty(blocks, 6 * C, dtype=f32, device=dev)
@@ -564,7 +600,7 @@ def fused_edge_embed_backward(edges: EdgeIndex, features, sproj, rproj, we,
         vecs["b0"].data_ptr(), mats["w1"].data_ptr(), vecs["b1"].data_ptr(),
         vecs["scale"].data_ptr(), d_agg.data_ptr(), buf["h"].data_ptr(),
         buf["dy"].data_ptr(), dgs[part].data_ptr(), dgr.data_ptr(),
-        buf["en"].data_ptr(), buf["hh"].data_ptr(), buf["dy0"].data_ptr(),
+        bnd.data_ptr(), buf["en"].data_ptr(), buf["hh"].data_ptr(), buf["dy0"].data_ptr(),
         buf["dxe"].data_ptr(), work.data_ptr(), partials.data_ptr(),
         sums.data_ptr(), n, F, C, blocks, stream)
     build.check(lib, code, "fused_edge_bwd embed kernel launch")
@@ -575,7 +611,7 @@ def fused_edge_embed_backward(edges: EdgeIndex, features, sproj, rproj, we,
     weight_grad(buf["hh"][:n], buf["dy0"][:n], dw["ew1"])
     dfeat[part] = feature_grad(feats[part], buf["dxe"][:n], mats["ew0"],
                                dew0)
-    dsproj.index_add_(0, edges.senders[part].long(), dgs[part].float())
+  dsproj = segment_sum.sender_segment_sum(edges, dgs)
   ew0, eb0, ew1, eb1 = embed_weights
   dembed = (dew0.to(ew0.dtype), sums[5].to(eb0.dtype),
             dw["ew1"].to(ew1.dtype), sums[4].to(eb1.dtype))

@@ -25,6 +25,15 @@ order. It is built on the host once per edge list and kept on the
 ``EdgeIndex`` (``EdgeIndex.segment_plan``). The TPU's chunk-aligned padded
 layout and one-hot masks are Mosaic layouts and are not ported: the same
 node values come out without them.
+
+``sender_segment_sum`` is K3's sender mode: the backward kernels' sum of
+per-edge sender gradients into their sender nodes (K4's dGs, K5's
+dmesh_proj), in f32, in a fixed order. ``plan_senders`` makes, once per
+edge list on the host, a stable sender-sorted permutation of the
+receiver-sorted edges and K3's plan over the senders' CSR offsets; the
+kernel reads each message row through the permutation, so no [E, C] copy
+in sender order exists. Its plain version (``sender_sum_reference``) is
+``index_add_`` in the sender-sorted order.
 """
 
 from __future__ import annotations
@@ -72,6 +81,24 @@ def plan_segments(row_offsets: np.ndarray, device) -> SegmentPlan:
   return SegmentPlan(tensor(items), tensor(splits), int(split.sum()))
 
 
+class SenderPlan(NamedTuple):
+  """K3's sender mode on the edge list's device: the message rows in
+  stable sender-sorted order and the work plan over the senders."""
+  perm: torch.Tensor    # [E] int32: edge rows, sender-sorted, stable
+  plan: SegmentPlan
+
+
+def plan_senders(senders: np.ndarray, num_senders: int, device) -> SenderPlan:
+  """The stable sender-sorted permutation of an edge list and K3's plan
+  over the senders' CSR offsets."""
+  senders = np.asarray(senders)
+  perm = np.argsort(senders, kind="stable").astype(np.int32)
+  offsets = np.concatenate(
+      [[0], np.cumsum(np.bincount(senders, minlength=num_senders))])
+  return SenderPlan(torch.as_tensor(perm, device=device),
+                    plan_segments(offsets, device))
+
+
 def segment_sum_reference(edges, messages: torch.Tensor) -> torch.Tensor:
   """Plain version: ``index_add_`` of [E, C] messages into f32, then a
   cast to the messages' dtype."""
@@ -102,7 +129,7 @@ def _launch_segment_sum(edges, messages: torch.Tensor) -> torch.Tensor:
   scratch = (torch.empty(plan.num_scratch_rows, C, dtype=torch.float32,
                          device=dev) if plan.num_scratch_rows else None)
   code = lib.gc_segment_sum(
-      messages.data_ptr(), plan.items.data_ptr(), plan.items.shape[0],
+      messages.data_ptr(), None, plan.items.data_ptr(), plan.items.shape[0],
       plan.splits.data_ptr() if plan.splits.shape[0] else None,
       plan.splits.shape[0], None if scratch is None else scratch.data_ptr(),
       out.data_ptr(), C, int(messages.dtype == torch.bfloat16),
@@ -150,3 +177,55 @@ def sorted_segment_sum(edges, messages: torch.Tensor) -> torch.Tensor:
 
 
 sorted_segment_sum.launches = 0  # every K3 launch
+
+
+def sender_sum_reference(edges, messages: torch.Tensor) -> torch.Tensor:
+  """Plain version of the sender mode: ``index_add_`` of the [E, C]
+  messages into f32 sender rows, in the sender-sorted order."""
+  perm = edges.sender_plan().perm.long()
+  out = torch.zeros(edges.num_senders, messages.shape[1],
+                    dtype=torch.float32, device=messages.device)
+  out.index_add_(0, edges.senders.long()[perm], messages[perm].float())
+  return out
+
+
+def sender_segment_sum(edges, messages: torch.Tensor) -> torch.Tensor:
+  """out[s] = sum over the edges e sent by s of messages[e], f32 [num_senders,
+  C] (module doc): K3's sender mode on a CUDA bf16 [E, C] tensor (unit
+  column stride, 16-byte aligned rows, C a multiple of 8), the plain
+  version on a CPU tensor."""
+  E, C = messages.shape
+  if E != edges.num_edges:
+    raise ValueError(f"messages have {E} rows, edge list has "
+                     f"{edges.num_edges}")
+  dev = messages.device
+  if dev.type == "cpu":
+    return sender_sum_reference(edges, messages)
+  if dev.type != "cuda":
+    raise ValueError(f"unsupported device {dev}")
+  if messages.dtype != torch.bfloat16:
+    raise TypeError(f"messages must be bf16, got {messages.dtype}")
+  if C % 8:
+    raise ValueError(f"channels {C} must be a multiple of 8")
+  if edges.device != dev:
+    raise ValueError(f"edge list is on {edges.device}, messages on {dev}")
+  if not messages.is_contiguous() or messages.data_ptr() % 16:
+    raise ValueError("messages must be contiguous and 16-byte aligned")
+  senders = edges.sender_plan()
+  plan = senders.plan
+  lib = build.load_library()
+  out = torch.empty(edges.num_senders, C, dtype=torch.float32, device=dev)
+  scratch = (torch.empty(plan.num_scratch_rows, C, dtype=torch.float32,
+                         device=dev) if plan.num_scratch_rows else None)
+  code = lib.gc_segment_sum(
+      messages.data_ptr(), senders.perm.data_ptr(), plan.items.data_ptr(),
+      plan.items.shape[0],
+      plan.splits.data_ptr() if plan.splits.shape[0] else None,
+      plan.splits.shape[0], None if scratch is None else scratch.data_ptr(),
+      out.data_ptr(), C, 1, torch.cuda.current_stream(dev).cuda_stream)
+  build.check(lib, code, "segment_sum sender-mode kernel launch")
+  sender_segment_sum.launches += 1
+  return out
+
+
+sender_segment_sum.launches = 0  # every K3 sender-mode launch

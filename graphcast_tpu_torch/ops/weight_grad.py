@@ -14,7 +14,8 @@ product.
 and the raw-feature gradient ``d @ w0^T`` (csrc/weight_grad.cu,
 feature_grad_kernel), the port of the dew0 / de lines of
 pallas_edge.py::_fused_edge_bwd_kernel and pallas_decoder.py::
-_decoder_bwd_kernel.
+_decoder_bwd_kernel: one pass over d, per-block dw0 partials added in a
+fixed order (``feature_plan`` is its row split).
 
 Each runs its kernel for CUDA tensors and its plain version
 (``*_reference``) for CPU tensors.
@@ -147,6 +148,18 @@ weight_grad.launches = 0
 
 
 MAX_FEATURES = 16  # raw features feature_grad takes (csrc kFgMaxF)
+FEATURE_ROWS = 32  # feature_grad's rows per block are a multiple of this
+                   # (csrc kFgWarps x kFgUnroll)
+
+
+def feature_plan(R: int, num_sms: int) -> tuple[int, int]:
+  """(rows per block, blocks) of ``feature_grad``'s kernel: at most one
+  block per SM (one is all its registers let an SM hold, so more would run
+  in a second wave), each a whole number of FEATURE_ROWS rows, covering the
+  R rows once in order."""
+  blocks = max(1, min(-(-R // FEATURE_ROWS), num_sms))
+  rpb = -(-(-(-R // blocks)) // FEATURE_ROWS) * FEATURE_ROWS
+  return rpb, max(1, -(-R // rpb))
 
 
 def feature_grad_reference(x: torch.Tensor, d: torch.Tensor,
@@ -164,7 +177,8 @@ def feature_grad(x: torch.Tensor, d: torch.Tensor, w0: torch.Tensor,
 
   Args:
     x: bf16 raw features, contiguous [R, F], F <= MAX_FEATURES.
-    d: bf16 [R, C] with unit column stride and 16-byte aligned rows.
+    d: bf16 [R, C] with unit column stride and 16-byte aligned rows, C a
+      multiple of 8 up to 512.
     w0: bf16 [F, C], contiguous.
     dw0: [F, C] f32, contiguous, added to.
   """
@@ -186,15 +200,21 @@ def feature_grad(x: torch.Tensor, d: torch.Tensor, w0: torch.Tensor,
   if not (x.is_contiguous() and w0.is_contiguous()) or d.stride(1) != 1:
     raise ValueError("x and w0 must be contiguous, d have unit column "
                      "stride")
+  if d.stride(0) % 8 or d.data_ptr() % 16 or C % 8 or C > 512:
+    raise ValueError("d needs 16-byte aligned rows and C a multiple of 8 "
+                     "up to 512")
   if dw0.dtype != torch.float32 or not dw0.is_contiguous():
     raise TypeError("dw0 must be contiguous f32")
   dx = torch.empty(R, F, dtype=torch.float32, device=dw0.device)
   if R == 0:
     return dx
+  rpb, blocks = feature_plan(
+      R, torch.cuda.get_device_properties(dw0.device).multi_processor_count)
+  ws = torch.empty(blocks, F, C, dtype=torch.float32, device=dw0.device)
   lib = build.load_library()
   code = lib.gc_feature_grad(
       x.data_ptr(), F, d.data_ptr(), d.stride(0), w0.data_ptr(),
-      dw0.data_ptr(), dx.data_ptr(), R, C,
+      dw0.data_ptr(), dx.data_ptr(), ws.data_ptr(), R, C, rpb, blocks,
       torch.cuda.current_stream(dw0.device).cuda_stream)
   build.check(lib, code, "feature_grad kernel launch")
   feature_grad.launches += 1

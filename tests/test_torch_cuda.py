@@ -19,7 +19,10 @@ backward) against the plain backward on the kernel's own o and lse:
 relative RMS <= 1e-2 per gradient (both round p and ds to bf16 at the same
 points; __expf and the summation order flip an occasional rounding). The
 embed modes' backwards (K4, K5) against autograd of their twins: the
-backward tolerance.
+backward tolerance. No sum of any kernel uses atomics: K1's receiver sums,
+every gradient of K4 and K5 (K3's sender mode sums the per-edge sender
+gradients) and feature_grad's rerun bit-equal, and K1p's e' and sums equal
+K1's bit for bit.
 """
 
 import numpy as np
@@ -522,6 +525,10 @@ def test_fused_edge_embed_backward_matches_twin_autograd(cuda_device):
   for name, g in got.items():
     assert g.dtype == leaves[name].dtype and g.shape == leaves[name].shape
   _assert_grads_close(got, want)
+  # Every sum in a fixed order: a rerun is bit-equal in every gradient.
+  again = _grads(run(fused_edge), leaves, (d_agg,))
+  for name, g in got.items():
+    assert torch.equal(g, again[name]), name
 
 
 @pytest.mark.cuda
@@ -567,6 +574,10 @@ def test_fused_decoder_embed_backward_matches_twin_autograd(cuda_device):
   for name, g in got.items():
     assert g.dtype == leaves[name].dtype and g.shape == leaves[name].shape
   _assert_grads_close(got, want)
+  # Every sum in a fixed order: a rerun is bit-equal in every gradient.
+  again = _grads(run(fused_decode), leaves, (dout,))
+  for name, g in got.items():
+    assert torch.equal(g, again[name]), name
 
 
 @pytest.mark.cuda
@@ -583,6 +594,10 @@ def test_feature_grad_kernel_matches_plain(cuda_device):
   dx_want = feature_grad_reference(x, d, w0, want)
   torch.cuda.synchronize()
   _assert_grads_close({"dw0": got, "dx": dx}, {"dw0": want, "dx": dx_want})
+  # The block partials are added in a fixed order: a rerun is bit-equal.
+  again = init.clone()
+  assert torch.equal(feature_grad(x, d, w0, again), dx)
+  assert torch.equal(again, got)
 
 
 @pytest.mark.cuda
@@ -632,29 +647,32 @@ def test_segment_sum_kernel_matches_plain(dtype, cuda_device):
   torch.testing.assert_close(leaf.grad, g[edges.receivers.long()])
 
 
-def _pipelined_case(mode, seed, device):
+def _pipelined_case(mode, seed, device, width=C):
   """(edge list, fused_edge keyword arguments) of a small K1/K1p case:
-  5,000 edges (a partial last tile), receiver runs across tile bounds."""
+  5,000 edges (a partial last tile), receiver runs across tile bounds, a
+  360-edge run over several tiles, latent ``width``."""
   rng = np.random.RandomState(seed)
   n, e, F = 700, 5000, 4
   ns = 700 if mode == "processor" else 2000
-  edges = EdgeIndex(rng.randint(0, ns, e), np.sort(rng.randint(0, n, e)),
-                    ns, n, device=device)
+  receivers = np.sort(rng.randint(0, n, e))
+  receivers[100:460] = receivers[100]  # still sorted
+  edges = EdgeIndex(rng.randint(0, ns, e), receivers, ns, n, device=device)
   gen = torch.Generator().manual_seed(seed)
   bf16 = torch.bfloat16
+  W, s = width, width ** -0.5
   args = dict(
-      e=_rand(gen, e, F) if mode == "embed" else _rand(gen, e, C, dtype=bf16),
-      sproj=_rand(gen, ns, C, dtype=bf16), rproj=_rand(gen, n, C, dtype=bf16),
-      we=None if mode == "encoder" else _rand(gen, C, C, scale=C ** -0.5,
+      e=_rand(gen, e, F) if mode == "embed" else _rand(gen, e, W, dtype=bf16),
+      sproj=_rand(gen, ns, W, dtype=bf16), rproj=_rand(gen, n, W, dtype=bf16),
+      we=None if mode == "encoder" else _rand(gen, W, W, scale=s,
                                               dtype=bf16),
-      b0=None if mode == "encoder" else _rand(gen, C, scale=0.1),
-      w1=_rand(gen, C, C, scale=C ** -0.5), b1=_rand(gen, C, scale=0.1),
-      scale=_rand(gen, C, scale=0.1, offset=1.0),
-      offset=_rand(gen, C, scale=0.1), write_edges=mode == "processor")
+      b0=None if mode == "encoder" else _rand(gen, W, scale=0.1),
+      w1=_rand(gen, W, W, scale=s), b1=_rand(gen, W, scale=0.1),
+      scale=_rand(gen, W, scale=0.1, offset=1.0),
+      offset=_rand(gen, W, scale=0.1), write_edges=mode == "processor")
   if mode == "embed":
     args["embed_weights"] = (
-        _rand(gen, F, C), _rand(gen, C, scale=0.1),
-        _rand(gen, C, C, scale=C ** -0.5), _rand(gen, C, scale=0.1))
+        _rand(gen, F, W), _rand(gen, W, scale=0.1),
+        _rand(gen, W, W, scale=s), _rand(gen, W, scale=0.1))
   move = lambda v: v.to(device) if torch.is_tensor(v) else v  # noqa: E731
   args = {k: tuple(map(move, v)) if isinstance(v, tuple) else move(v)
           for k, v in args.items()}
@@ -662,14 +680,15 @@ def _pipelined_case(mode, seed, device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 256, 384, 512])
 @pytest.mark.parametrize("mode", ["processor", "encoder", "embed"])
-def test_pipelined_kernel_matches_k1_and_twin(mode, cuda_device):
-  """K1p against K1 on the same inputs, e' and the receiver sums at the
-  kernel-vs-twin forward tolerance (the same rounding points; K1 sums its
-  wgmma products over 64-deep weight boxes, K1p its wmma products in K
-  order, so an occasional bf16 rounding flips); against the twin at the
-  forward tolerance. Each launch counts on its own kernel's counters."""
-  edges, args = _pipelined_case(mode, 31, cuda_device)
+def test_pipelined_kernel_matches_k1_and_twin(mode, width, cuda_device):
+  """K1p against K1 on the same inputs: e' and the receiver sums equal bit
+  for bit (the same wgmma sequence per 64-column chunk, the same LayerNorm
+  sums and fixed-order run sums), at every latent width K1 takes; against
+  the twin at the forward tolerance; a rerun of each bit-equal. Each launch
+  counts on its own kernel's counters."""
+  edges, args = _pipelined_case(mode, 31, cuda_device, width)
   counts = lambda: (fused_edge.launches, fused_edge.pipelined_launches,  # noqa
                     fused_edge.pipelined_encoder_launches,
                     fused_edge.pipelined_embed_launches)
@@ -678,59 +697,94 @@ def test_pipelined_kernel_matches_k1_and_twin(mode, cuda_device):
     k1p = fused_edge(edges, pipelined=True, **args)
     after_k1p = counts()
     k1 = fused_edge(edges, pipelined=False, **args)
+    k1p_again = fused_edge(edges, pipelined=True, **args)
+    k1_again = fused_edge(edges, pipelined=False, **args)
     want = fused_edge_reference(edges, **args)
   torch.cuda.synchronize()
   assert after_k1p == (before[0], before[1] + 1,
                        before[2] + (mode == "encoder"),
                        before[3] + (mode == "embed"))
-  assert counts()[0] == before[0] + 1
+  assert counts()[:2] == (before[0] + 2, before[1] + 2)
+  outs = [(k1p, k1, k1p_again, k1_again, want)]
   if mode == "processor":
-    _assert_close(k1p[0], k1[0])
-    _assert_close(k1p[0], want[0])
-    k1p, k1, want = k1p[1], k1[1], want[1]
-  _assert_close(k1p, k1)
-  _assert_close(k1p, want)
+    outs = [tuple(o[i] for o in outs[0]) for i in (0, 1)]
+  for got, ref, got2, ref2, plain in outs:
+    assert torch.equal(got, ref), (got.float() - ref.float()).abs().max()
+    assert torch.equal(got, got2) and torch.equal(ref, ref2)
+    _assert_close(got, plain)
 
 
 @pytest.mark.cuda
 def test_k4_behind_pipelined_forward_gives_k1_path_gradients(cuda_device):
   """Under grad the forward is K1p and the backward still K4, which keeps
-  only the inputs: the gradients are those behind K1, up to the order of
-  K4's f32 atomics (two runs of K1's path give that noise)."""
+  only the inputs and sums in a fixed order: every gradient equals the one
+  behind K1, bit for bit."""
   edges, args = _pipelined_case("processor", 32, cuda_device)
   gen = torch.Generator().manual_seed(33)
   cot = (_rand(gen, edges.num_edges, C, dtype=torch.bfloat16).to(cuda_device),
          _rand(gen, edges.num_receivers, C).to(cuda_device))
   names = ["e", "sproj", "rproj", "we", "b0", "w1", "b1", "scale", "offset"]
   grads = {}
-  for run, pipelined in (("k1", False), ("k1_again", False), ("k1p", True)):
+  for run, pipelined in (("k1", False), ("k1p", True)):
     leaves = {k: args[k].detach().clone().requires_grad_() for k in names}
     out = fused_edge(edges, write_edges=True, pipelined=pipelined, **leaves)
     grads[run] = torch.autograd.grad(out, list(leaves.values()), cot)
   torch.cuda.synchronize()
-  rms = lambda x: x.double().square().mean().sqrt().item()  # noqa: E731
-  for name, want, again, got in zip(names, grads["k1"], grads["k1_again"],
-                                    grads["k1p"]):
-    assert rms(got - want) <= 2 * rms(again - want) + 1e-6 * rms(want), name
+  for name, want, got in zip(names, grads["k1"], grads["k1p"]):
+    assert torch.equal(got, want), name
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width", [128, 384, 640])
+@pytest.mark.parametrize("width", [192, 640])
 def test_pipelined_kernel_refuses_widths_it_does_not_take(width,
                                                           cuda_device):
-  """K1p takes latent widths 256 and 512 (K1 also takes 128 and 384) and
-  raises before launching on any other, on the card as well: no fallback
-  to K1 or the twin."""
+  """K1p takes K1's latent widths, the multiples of 128 up to 512, and
+  raises before launching on any other, as K1 does, on the card as well:
+  no fallback to K1 or the twin."""
   edges = EdgeIndex(np.zeros(4, np.int32), np.arange(4, dtype=np.int32), 2,
                     4, device=cuda_device)
   z = lambda *s: torch.zeros(*s, dtype=torch.bfloat16,  # noqa: E731
                              device=cuda_device)
   v = torch.zeros(width, device=cuda_device)
   before = fused_edge.pipelined_launches, fused_edge.launches
-  with pytest.raises(ValueError, match="latent width"):
-    fused_edge(edges, z(4, width), z(2, width), z(4, width), z(width, width),
-               v, z(width, width), v, v, v, pipelined=True)
+  for pipelined in (True, False):
+    with pytest.raises(ValueError, match="latent width"):
+      fused_edge(edges, z(4, width), z(2, width), z(4, width),
+                 z(width, width), v, z(width, width), v, v, v,
+                 pipelined=pipelined)
   assert (fused_edge.pipelined_launches, fused_edge.launches) == before
+
+
+@pytest.mark.cuda
+def test_sender_segment_sum_kernel_matches_plain(cuda_device):
+  """K3's sender mode against its plain version on a receiver-sorted list
+  whose senders are skewed (one sender feeds 3,000 receivers, many send
+  nothing), [E, 1024] bf16 messages: f32 sums within 1e-5 relative RMS of
+  index_add_ in the sender-sorted order (chunk sums added in another
+  order), zeros for senders of no edge; a rerun bit-equal; one launch."""
+  from graphcast_tpu_torch.ops.segment_sum import (
+      sender_segment_sum, sender_sum_reference)
+  rng = np.random.RandomState(3)
+  E, N, S = 20_000, 2000, 5000
+  receivers = np.sort(rng.randint(0, N, E)).astype(np.int32)
+  senders = rng.randint(0, S // 2, E)
+  senders[rng.rand(E) < 0.15] = 4321
+  edges = EdgeIndex(senders, receivers, S, N, cuda_device)
+  gen = torch.Generator(device=cuda_device).manual_seed(4)
+  msgs = torch.randn(E, 2 * C, generator=gen, device=cuda_device).to(
+      torch.bfloat16)
+  before = sender_segment_sum.launches
+  got = sender_segment_sum(edges, msgs)
+  again = sender_segment_sum(edges, msgs)
+  torch.cuda.synchronize()
+  assert sender_segment_sum.launches == before + 2
+  want = sender_sum_reference(edges, msgs)
+  assert got.dtype == torch.float32 and got.shape == (S, 2 * C)
+  d = (got - want).square().mean().sqrt() / want.square().mean().sqrt()
+  assert d.item() <= 1e-5
+  assert torch.equal(got, again)
+  empty = torch.from_numpy(np.bincount(senders, minlength=S) == 0)
+  assert not got[empty.to(cuda_device)].any()
 
 
 # K2 and K5 at the shapes their block plan must handle: a grid-node count
@@ -809,19 +863,17 @@ def test_fused_decoder_backward_at_edge_shapes_matches_twin_and_reruns_bit_equal
   want = _grads(run(fused_decode_reference), leaves, (dout,))
   torch.cuda.synchronize()
   _assert_grads_close(got, want)
-  # Fixed-order sums: a rerun at the same chunking is bit-equal, but for
-  # the gradients summed with atomics outside K5: mesh_proj's (index_add_)
-  # and ew0's (feature_grad).
+  # Fixed-order sums: a rerun at the same chunking is bit-equal in every
+  # gradient.
   det = {k: v.detach() for k, v in leaves.items()}
   weights = {k: det[k] for k in w}
   runs = [fused_decode_backward(edges, det["grid"], det["mesh_proj"],
                                 det["const"], weights, dout)
           for _ in range(2)]
-  assert torch.equal(runs[0][0], runs[1][0])  # dgrid
-  assert torch.equal(runs[0][2], runs[1][2])  # dconst
+  for i in range(3):  # dgrid, dmesh_proj, dconst
+    assert torch.equal(runs[0][i], runs[1][i]), i
   for k in runs[0][3]:
-    if k != "ew0":
-      assert torch.equal(runs[0][3][k], runs[1][3][k]), k
+    assert torch.equal(runs[0][3][k], runs[1][3][k]), k
 
 
 @pytest.mark.cuda
@@ -912,9 +964,14 @@ def test_fused_edge_kernel_at_edge_shapes_matches_twin(E, width, mode,
   with torch.inference_mode():
     got = fused_edge(edges, pipelined=False, **args)
     want = fused_edge_reference(edges, **args)
+    again = fused_edge(edges, pipelined=False, **args)
   torch.cuda.synchronize()
   assert (fused_edge.launches - before[0],
-          fused_edge.embed_launches - before[1]) == (1, int(mode == "embed"))
+          fused_edge.embed_launches - before[1]) == (2, 2 * (mode == "embed"))
+  # The receiver sums at tile ends add in a fixed order: bit-equal reruns.
+  for a, b in zip(*((got, again) if args["write_edges"]
+                    else ((got,), (again,)))):
+    assert torch.equal(a, b)
   if args["write_edges"]:
     assert got[0].shape == (E, width) and got[0].dtype == torch.bfloat16
     _assert_close(got[0], want[0])
@@ -947,9 +1004,8 @@ def _edge_backward(edges, args, d_eout, d_agg):
 def test_fused_edge_backward_at_edge_shapes_matches_twin_and_reruns_bit_equal(
     E, width, mode, cuda_device):
   """K4 against autograd of the twin; then a rerun bit-equal in every
-  gradient but those summed with atomics: sproj's (the wrapper's
-  index_add_ scatter), rproj's (the receiver runs at tile ends) and, in
-  embed mode, ew0's (feature_grad)."""
+  gradient (the receiver runs at tile ends, the sender sums and
+  feature_grad all sum in a fixed order)."""
   idx, args, d_eout, d_agg = _edge_shape_case(22, E, width, mode)
   edges = EdgeIndex(*idx, device=cuda_device)
   args = {k: _to(cuda_device, v) for k, v in args.items()}
@@ -986,8 +1042,7 @@ def test_fused_edge_backward_at_edge_shapes_matches_twin_and_reruns_bit_equal(
                                                        "eb1"))
   runs = [_edge_backward(edges, det_args, d_eout, d_agg) for _ in range(2)]
   for k in runs[0]:
-    if k not in ("sproj", "rproj", "ew0"):
-      assert torch.equal(runs[0][k], runs[1][k]), k
+    assert torch.equal(runs[0][k], runs[1][k]), k
 
 
 @pytest.mark.cuda
@@ -1008,3 +1063,7 @@ def test_edge_smem_layout_matches_kernels(cuda_device):
       buf = (ctypes.c_int * len(keys))()
       lib.gc_edge_layout(kinds * fe.WIDTH if backward else 0, int(write), buf)
       assert dict(zip(keys, buf)) == want
+  for staged in (False, True):
+    buf = (ctypes.c_int * len(keys))()
+    lib.gc_pipelined_layout(int(staged), buf)
+    assert dict(zip(keys, buf)) == fe.pipelined_smem_layout(staged)

@@ -102,3 +102,36 @@ def test_smem_layout_refuses_widths_the_kernels_do_not_take(C):
       fused_edge.smem_layout(C, backward=backward)
   with pytest.raises(ValueError):
     fused_edge.smem_layout(512, backward=True, write_edges=True)
+
+
+@pytest.mark.parametrize("staged", [False, True])
+def test_pipelined_layout_matches_kernel_and_fits(staged):
+  """K1p's plan (ops/fused_edge.py pipelined_smem_layout): K1's plan with
+  the edge tile E (a ring as deep as K1's in the modes that write e') or,
+  in encoder mode, the staged sender rows in its place (1024-aligned ring
+  after it, at least as deep), two receiver buffers and an mbarrier,
+  within a block's shared memory; the epilogue warps and the consumers
+  fill the block's threads (the headers' constants)."""
+  k = _kernel_constants()
+  lay = fused_edge.pipelined_smem_layout(staged)
+  k1 = fused_edge.smem_layout(fused_edge.WIDTH, write_edges=True)
+  assert k["kEdgeStageStride"] == fused_edge.STAGE_STRIDE
+  assert fused_edge.STAGE_STRIDE % 16 == 0
+  assert (fused_edge.STAGE_STRIDE // 4) % 32 == 4  # 8 rows, 8 bank groups
+  assert lay["ring"] % 1024 == 0 and lay["sums"] % 8 == 0
+  if staged:
+    assert lay["ring"] == k1["e"] + fused_edge.ROWS * fused_edge.STAGE_STRIDE
+    assert lay["stages"] == k1["stages"]
+  else:
+    assert {n: lay[n] for n in ("a", "e", "ring", "stages", "exchange",
+                                "idx")} == {
+        n: k1[n] for n in ("a", "e", "ring", "stages", "exchange", "idx")}
+  assert lay["sums"] == lay["idx"] + 2 * fused_edge.IDX
+  assert lay["bars"] == lay["sums"] + 16
+  assert lay["total"] <= fused_edge.SMEM_LIMIT
+  assert lay["stages"] >= 8
+  assert k["kEdgePipeSync"] == k["kDecConsumers"] + k["kEdgeWalkers"]
+  assert k["kEdgeWalkers"] == 3 * 32  # the producer warpgroup's last 3
+  assert k["kEdgeStageSync"] == k["kDecConsumers"] + 32
+  bars = {k["kEdgeBarReady"], k["kEdgeBarFree"], k["kEdgeBarStaged"]}
+  assert len(bars) == 3 and all(1 < b < 16 for b in bars)

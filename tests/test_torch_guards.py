@@ -294,16 +294,15 @@ def test_gencast_train_step_runs_without_jax():
 
 
 def test_port_sources_name_no_jax_package():
-  """No module of the port, nor chip_smoke.py, k1p_study.py or
-  edge_study.py, imports jax or graphcast_tpu (the subprocess tests above
-  prove the imports; this finds a lazy import inside a function too)."""
+  """No module of the port, nor chip_smoke.py or edge_study.py, imports
+  jax or graphcast_tpu (the subprocess tests above prove the imports; this
+  finds a lazy import inside a function too)."""
   import re
   pattern = re.compile(
       r"^\s*(import\s+(jax|graphcast_tpu)([.\s,]|$)"
       r"|from\s+(jax|graphcast_tpu)(\.\w+)*\s+import\b)", re.MULTILINE)
   files = sorted((REPO / "graphcast_tpu_torch").rglob("*.py"))
-  files += [REPO / "chip_smoke.py", REPO / "k1p_study.py",
-            REPO / "edge_study.py"]
+  files += [REPO / "chip_smoke.py", REPO / "edge_study.py"]
   offenders = [str(f) for f in files if pattern.search(f.read_text())]
   assert not offenders, offenders
 
@@ -365,9 +364,9 @@ def test_new_kernel_wrappers_refuse_inputs_before_launching(case,
   if case == "edge_pipelined_width":
     edges = fused_edge.EdgeIndex(np.zeros(4, np.int32),
                                  np.arange(4, dtype=np.int32), 2, 4)
-    W = 384  # K1 takes it, K1p only 256 and 512
+    W = 192  # K1p takes K1's widths, the multiples of 128 up to 512
     mw = lambda *s: torch.zeros(*s, dtype=bf16)  # noqa: E731
-    with pytest.raises(ValueError, match="K1p .* takes latent widths"):
+    with pytest.raises(ValueError, match="latent width 192"):
       fused_edge._launch_fused_edge(
           edges, mw(4, W), mw(2, W), mw(4, W), mw(W, W), torch.zeros(W),
           mw(W, W), torch.zeros(W), torch.zeros(W), torch.zeros(W), True,

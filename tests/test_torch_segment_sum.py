@@ -25,7 +25,8 @@ from graphcast_tpu.ops import segment as jax_segment
 from graphcast_tpu_torch.ops import segment
 from graphcast_tpu_torch.ops.fused_edge import EdgeIndex
 from graphcast_tpu_torch.ops.segment_sum import (
-    CHUNK_EDGES, segment_sum_reference, sorted_segment_sum)
+    CHUNK_EDGES, segment_sum_reference, sender_segment_sum,
+    sender_sum_reference, sorted_segment_sum)
 
 NUM_NODES = 200
 
@@ -99,11 +100,13 @@ def test_gradient_matches_jax_vjp(shape):
   np.testing.assert_array_equal(tmsgs.grad.numpy(), np.asarray(want))
 
 
-def _emulate_kernel(plan, msgs: np.ndarray) -> np.ndarray:
-  """The two passes of csrc/segment_sum.cu in numpy (f32 sums)."""
+def _emulate_kernel(plan, msgs: np.ndarray, rows: int = NUM_NODES
+                    ) -> np.ndarray:
+  """The two passes of csrc/segment_sum.cu in numpy (f32 sums) into
+  ``rows`` output rows; msgs in the plan's edge order."""
   items = plan.items.numpy()
   splits = plan.splits.numpy()
-  out = np.full((NUM_NODES, msgs.shape[1]), np.nan, np.float32)
+  out = np.full((rows, msgs.shape[1]), np.nan, np.float32)
   scratch = np.full((plan.num_scratch_rows, msgs.shape[1]), np.nan,
                     np.float32)
   for row, e0, e1, slot in items:
@@ -135,6 +138,81 @@ def test_kernel_plan_covers_each_edge_once(case):
   want = segment_sum_reference(edges, torch.from_numpy(msgs)).numpy()
   np.testing.assert_allclose(_emulate_kernel(plan, msgs), want, rtol=1e-5,
                              atol=1e-5)
+
+
+def _skewed_senders(case: str, num_edges: int) -> np.ndarray:
+  """Senders of a receiver-sorted edge list: random over 50 nodes, or with
+  sender 7 feeding hundreds of receivers ("skewed"), or with senders
+  20-39 feeding none ("empty")."""
+  rng = np.random.RandomState({"random": 5, "skewed": 6, "empty": 7}[case])
+  senders = rng.randint(0, 50, size=num_edges)
+  if case == "skewed":
+    senders[rng.rand(num_edges) < 0.4] = 7
+  if case == "empty":
+    senders[(senders >= 20) & (senders < 40)] = 3
+  return senders.astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["random", "skewed", "empty"])
+def test_sender_plan_is_a_stable_sender_sort_covered_once(case):
+  """EdgeIndex's sender plan (K3's sender mode): a stable sender-sorted
+  permutation of the receiver-sorted edges, built once, and K3's plan over
+  the senders' CSR offsets, each permuted edge in one chunk of at most
+  CHUNK_EDGES, every sender one or more items; run as the kernel runs it
+  (numpy, through the permutation), it gives the sender sums."""
+  receivers = _receivers("random")
+  senders = _skewed_senders(case, receivers.size)
+  edges = EdgeIndex(senders, receivers, 50, NUM_NODES)
+  sp = edges.sender_plan()
+  assert sp is edges.sender_plan()  # built once
+  perm = sp.perm.numpy()
+  np.testing.assert_array_equal(np.sort(perm), np.arange(receivers.size))
+  key = senders[perm].astype(np.int64) * receivers.size + perm
+  assert (np.diff(key) > 0).all()  # sorted by sender, stable within one
+  items = sp.plan.items.numpy()
+  assert (items[:, 2] - items[:, 1] <= CHUNK_EDGES).all()
+  covered = np.concatenate([np.arange(e0, e1) for _, e0, e1, _ in items])
+  np.testing.assert_array_equal(covered, np.arange(receivers.size))
+  assert set(items[:, 0]) == set(range(50))
+  for row, e0, e1, _ in items:
+    assert (senders[perm[e0:e1]] == row).all()
+  degrees = np.bincount(senders, minlength=50)
+  if case == "skewed":
+    assert degrees[7] > 200  # one sender feeds hundreds of receivers
+  split_rows = set(sp.plan.splits.numpy()[:, 0])
+  assert split_rows == set(np.nonzero(degrees > CHUNK_EDGES)[0])
+  msgs = _messages(receivers.size, (8,))
+  want = np.zeros((50, 8), np.float32)
+  np.add.at(want, senders, msgs)
+  got = _emulate_kernel(sp.plan, msgs[perm], rows=50)
+  np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+  if case == "empty":
+    assert not got[20:40].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["random", "skewed"])
+def test_sender_sum_plain_version_matches_index_add(case, dtype):
+  """The sender mode's plain version (what a CPU tensor takes): f32 sums of
+  the messages into their senders, equal to index_add_ in the
+  sender-sorted order and, within f32 reordering, in the edge order."""
+  receivers = _receivers("skewed")
+  senders = _skewed_senders(case, receivers.size)
+  edges = EdgeIndex(senders, receivers, 50, NUM_NODES)
+  msgs = torch.from_numpy(_messages(receivers.size, (16,))).to(dtype)
+  got = sender_segment_sum(edges, msgs)
+  assert got.dtype == torch.float32 and got.shape == (50, 16)
+  torch.testing.assert_close(got, sender_sum_reference(edges, msgs),
+                             rtol=0, atol=0)
+  perm = edges.sender_plan().perm.long()
+  ordered = torch.zeros(50, 16).index_add_(
+      0, torch.from_numpy(senders).long()[perm], msgs.float()[perm])
+  assert torch.equal(got, ordered)
+  plain = torch.zeros(50, 16).index_add_(
+      0, torch.from_numpy(senders).long(), msgs.float())
+  torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)
+  with pytest.raises(ValueError, match="rows"):
+    sender_segment_sum(edges, msgs[1:])
 
 
 def test_wrapper_takes_cpu_tensors_by_the_plain_version_only():

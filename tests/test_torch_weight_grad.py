@@ -9,7 +9,9 @@ of the f32 sums differs: rtol 1e-5, atol 1e-5 of the sums' scale.
 
 Also the kernel's host-side work plan (``plan``): its row ranges cover each
 row once per dW tile, and run with the plain product (``run_plan_reference``)
-it gives the plain version's sums, to the same tolerance.
+it gives the plain version's sums, to the same tolerance. And
+``feature_grad``'s row split (``feature_plan``) and its kernel's fixed
+summation order, emulated, against the plain version.
 """
 
 import jax
@@ -101,3 +103,62 @@ def test_plan_run_with_the_plain_product_equals_the_reference(rows, k, n):
   scale = want.square().mean().sqrt().item()
   np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
                              atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("num_sms", [1, 16, 132])
+@pytest.mark.parametrize("rows", [1, 31, 33, 3001, 101_892, 195_480])
+def test_feature_plan_covers_every_row_once(rows, num_sms):
+  """feature_grad's split: blocks of a whole number of FEATURE_ROWS rows,
+  in order, covering the rows once, at most one block per SM."""
+  rpb, blocks = wg.feature_plan(rows, num_sms)
+  assert rpb % wg.FEATURE_ROWS == 0 and rpb > 0
+  assert blocks <= num_sms
+  assert (blocks - 1) * rpb < rows <= blocks * rpb
+
+
+def _feature_grad_in_kernel_order(x, d, rpb, blocks):
+  """dw0's sum as csrc/weight_grad.cu feature_grad_kernel orders it, in
+  numpy f32: per block, each of 8 warps sums its rows (every 8th) in
+  order, the warps added in order; then per value 8 runs over the blocks
+  (b = y, y + 8, ...) added in order."""
+  R, F = x.shape
+  parts = []
+  for b in range(blocks):
+    rows = np.arange(b * rpb, min(R, (b + 1) * rpb))
+    part = None
+    for w in range(8):
+      acc = np.zeros((F, d.shape[1]), np.float32)
+      for r in rows[w::8]:
+        acc += np.outer(x[r], d[r]).astype(np.float32)
+      part = acc if part is None else part + acc
+    parts.append(part)
+  runs = []
+  for y in range(8):
+    s = np.zeros_like(parts[0])
+    for p in parts[y::8]:
+      s = s + p
+    runs.append(s)
+  total = runs[0]
+  for s in runs[1:]:
+    total = total + s
+  return total
+
+
+@pytest.mark.parametrize("rows", [5, 700])
+def test_feature_grad_kernel_order_equals_the_plain_version(rows):
+  """The kernel's fixed summation order of dEw0 (emulated) against the
+  plain version's bf16 x^T d in f32, to f32 reassociation; the plain
+  version's dx is d w0^T."""
+  rng = np.random.RandomState(rows)
+  F, C = 4, 256
+  x, d, w0 = (torch.tensor(rng.randn(*s), dtype=torch.bfloat16)
+              for s in ((rows, F), (rows, C), (F, C)))
+  dw0 = torch.zeros(F, C)
+  dx = wg.feature_grad(x, d, w0, dw0)  # CPU: the plain version
+  rpb, blocks = wg.feature_plan(rows, 4)
+  got = _feature_grad_in_kernel_order(x.float().numpy(), d.float().numpy(),
+                                      rpb, blocks)
+  scale = float(np.sqrt(np.mean(dw0.numpy() ** 2)))
+  np.testing.assert_allclose(got, dw0.numpy(), rtol=1e-5, atol=1e-5 * scale)
+  np.testing.assert_allclose(dx.numpy(), d.float().numpy()
+                             @ w0.float().numpy().T, rtol=1e-5, atol=1e-4)
