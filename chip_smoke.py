@@ -158,6 +158,41 @@ Phases, each printing one line with its seconds and results:
          phase's CPU f32 run, each within the small phase's noise floor;
          then rollout_final over BATCH_STEPS timed steps: s per step, peak
          memory, K3 once per aggregation (17 a step), K1 and K2 none.
+  forecast  the GraphCast demo's path (examples/graphcast_demo.py) at
+         zoo.graphcast() (0.25°, 37 levels, mesh-6, latent 512, 16 steps):
+         the port's random weights written as a reference-format bundle
+         (compat/haiku_checkpoint.py) and loaded back, every tensor
+         bit-equal; an ERA5-shaped dataset from a seed on the card (2 input
+         frames and FORECAST_STEPS targets, 37 levels); the progress
+         features and TISR on the card (data/era5.py,
+         data/solar_radiation.py), TISR held against the CPU for one
+         timestamp (max-abs within 1e-4 of the field's maximum; the points
+         that are 0 on one side only, at the terminator, counted) and the
+         progress features bit-equal; extraction, a
+         FORECAST_STEPS-step forecast (K1 17 and K2 1 a step) and its
+         latitude-weighted RMSE and ACC (evaluation.py). Prints the
+         seconds of each part and the peak memory.
+  gencast_0p25  one 12 h step of zoo.gencast_0p25deg() (0.25°, mesh-6,
+         latent 512, 16-layer k-hop-16 transformer, one member, bf16, batch
+         1, the fused path) from an ERA5-shaped dataset through data/era5:
+         one denoiser evaluation and the SHT basis as the warm-up (the
+         host's graph, mask and basis builds), then GENCAST_0P25_STEPS
+         timed: s per step, peak memory, launches per step (K1 embed 39,
+         K2 embed 39, K6 624).
+         Then the card against the CPU at a lower resolution (the
+         preset's denoiser on a 1.0° grid, mesh-6, its transformer cut to
+         GENCAST_0P25_CHECK_LAYERS layer: a 0.25° evaluation on the CPU
+         takes minutes): one preconditioned evaluation at σ = 1 in f32 and
+         bf16 on the CPU, then the same module moved to the card, with the
+         small phase's noise-floor rule per variable.
+  triblock  triblockdiag_mha (models/sparse_transformer.py; plain torch,
+         as it is plain XLA in the JAX package) at the GenCast 1.0° shape
+         (the mesh-5 k-hop-16 mask in patch order, x [1, 10242, 512], 4
+         heads), f32: output and the gradients of x and the attention's
+         weights for a random cotangent on the card against the CPU, max-abs
+         within 5e-4 of each one's largest element; then the ensemble
+         phase's members scored with evaluation.crps_ensemble on the card
+         against the CPU (relative 1e-5).
   k1p    the pipelined edge kernel (K1p) against its plain version and
          against K1 on the same inputs: processor mode on the mesh-6
          multi-mesh, encoder mode on the 0.25° grid2mesh set, embed mode on
@@ -250,8 +285,8 @@ DEVICE = "cuda"
 PHASES = ("build", "k1", "k2", "k4", "k5", "wgrad", "k6", "k7k8", "embed",
           "embed_bwd", "k3", "main", "small", "train", "train_small",
           "gencast", "gencast_small", "gencast_train", "gencast_train_small",
-          "ensemble", "ensemble_small", "graphcast_batch", "k1p",
-          "main_pipelined", "bench")
+          "ensemble", "ensemble_small", "graphcast_batch", "forecast",
+          "gencast_0p25", "triblock", "k1p", "main_pipelined", "bench")
 
 
 def _log(phase, t0, **fields):
@@ -457,10 +492,12 @@ def phase_build(torch):
 
 
 def _geometry(resolution, mesh_size):
+  """GraphCast's multimesh artifact, the one its models take (built once
+  per run: artifact_lib.cached_artifact)."""
   from graphcast_tpu_torch.data import synthetic
   from graphcast_tpu_torch.geometry import artifact as artifact_lib
   lat, lon = synthetic.grid_coords(resolution)
-  return artifact_lib.build_artifact(lat, lon, mesh_size)
+  return artifact_lib.cached_artifact(lat, lon, mesh_size)
 
 
 def _edge_products(mode, backward):
@@ -1685,12 +1722,14 @@ def phase_k7k8(torch, results):
 
 @functools.lru_cache(maxsize=None)
 def _gencast_artifact(resolution, mesh_size):
+  """GenCast's banded artifact, the one its models take (built once per
+  run: artifact_lib.cached_artifact)."""
   from graphcast_tpu_torch.data import synthetic
   from graphcast_tpu_torch.geometry import artifact as artifact_lib
   lat, lon = synthetic.grid_coords(resolution)
-  return artifact_lib.build_artifact(lat, lon, mesh_size, multimesh=False,
-                                     permute_banded=True,
-                                     banded_patch_size=512)
+  return artifact_lib.cached_artifact(lat, lon, mesh_size, multimesh=False,
+                                      permute_banded=True,
+                                      banded_patch_size=512)
 
 
 def _embed_weights(torch, gen, C, F=4):
@@ -2608,6 +2647,7 @@ def phase_ensemble(torch, results, profile_dir=None):
     _profile_step(torch, lambda: run(7, 1), profile_dir, "ensemble_step")
   for name in ("segment_sum", "splash_fwd"):
     results[name]["ensemble_launches"] = counts[name]
+  _ENSEMBLE_OUT.update(preds=preds, targets=targets)
   results["segment_sum"].update(
       launches=counts["segment_sum"],
       launches_per_step=counts["segment_sum"] / ENSEMBLE_STEPS)
@@ -2744,6 +2784,355 @@ def phase_graphcast_batch(torch, results, profile_dir=None):
        member0_vs_cpu_over_bound=f"{worst_cpu:.3f}", finite=True)
   del card, step, single, final
   torch.cuda.empty_cache()
+
+
+FORECAST_STEPS = 2          # 6 h steps of the forecast phase
+FORECAST_SEED = 5           # its ERA5-shaped dataset
+TISR_ATOL = 1e-4            # TISR card vs CPU, relative to the field's max
+GENCAST_0P25_STEPS = 1      # timed 12 h steps of the 0.25° GenCast step
+TRIBLOCK_ATOL = 5e-4        # triblockdiag_mha card vs CPU, f32, of the max
+CRPS_RTOL = 1e-5            # crps_ensemble card vs CPU, relative
+
+
+def phase_forecast(torch, results):
+  """The GraphCast demo's path at full width (module doc)."""
+  import io
+  from graphcast_tpu_torch import evaluation
+  from graphcast_tpu_torch.compat import haiku_checkpoint
+  from graphcast_tpu_torch.data import era5, solar_radiation, synthetic
+  from graphcast_tpu_torch.fields import Field, FieldSet
+  from graphcast_tpu_torch.models import zoo
+  from graphcast_tpu_torch.models.graphcast import GraphCast
+  from graphcast_tpu_torch.params import flat_params
+  t0 = time.perf_counter()
+  torch.cuda.reset_peak_memory_stats()
+  preset = zoo.graphcast()
+  mc, tc = preset.model_config, preset.task_config
+  parts = {}
+
+  def part(name, t):
+    torch.cuda.synchronize()
+    parts[name] = time.perf_counter() - t
+
+  # 1. The port's random weights through a reference-format bundle.
+  model = GraphCast(mc, tc, generator=torch.Generator().manual_seed(0),
+                    device=DEVICE)
+  t = time.perf_counter()
+  bundle = io.BytesIO()
+  haiku_checkpoint.save_graphcast_checkpoint(
+      bundle, model, mc, tc, description="GraphCast, random weights")
+  part("bundle_write_s", t)
+  bundle_mb = bundle.tell() / 1e6
+  bundle.seek(0)
+  t = time.perf_counter()
+  loaded, mc2, tc2, _, _ = haiku_checkpoint.load_graphcast_checkpoint(
+      bundle, device=DEVICE)
+  part("bundle_load_s", t)
+  if (mc2, tc2) != (mc, tc):
+    raise AssertionError(f"bundle configs differ: {mc2} {tc2}")
+  written, read = flat_params(model), flat_params(loaded)
+  if set(written) != set(read) or not all(
+      torch.equal(written[k], read[k]) for k in written):
+    raise AssertionError("the loaded bundle's weights differ from the "
+                         "written ones")
+  del model
+
+  # 2. An ERA5-shaped dataset on the card: 2 input frames, the targets.
+  t = time.perf_counter()
+  dataset = synthetic.make_era5_dataset(
+      tc, mc.resolution, num_times=2 + FORECAST_STEPS, seed=FORECAST_SEED,
+      device=DEVICE)
+  part("dataset_s", t)
+
+  # 3. Derived variables and TISR on the card, held against the CPU.
+  t = time.perf_counter()
+  dataset = era5.add_derived_vars(dataset)
+  part("derived_s", t)
+  t = time.perf_counter()
+  dataset = era5.add_tisr_var(dataset)
+  part("tisr_s", t)
+  coords = dataset.coords
+  t = time.perf_counter()
+  tisr_cpu = solar_radiation.get_toa_incident_solar_radiation(
+      coords["datetime"][0, :1], coords["lat"], coords["lon"],
+      device="cpu")[0]
+  tisr_cpu_s = time.perf_counter() - t
+  tisr_card = dataset.data(era5.TISR)[0, 0].cpu()
+  tisr_err = float((tisr_card - tisr_cpu).abs().max() / tisr_cpu.max())
+  # Where the window ends at the terminator, one side's last samples may
+  # round to just above 0 and the other's to 0: such points are counted,
+  # and held to the tolerance with the rest.
+  zeros_differ = int(((tisr_card == 0) != (tisr_cpu == 0)).sum())
+  if not tisr_err <= TISR_ATOL:
+    raise AssertionError(f"forecast: TISR card vs CPU max-abs {tisr_err:.3g}"
+                         f" of the max (tol {TISR_ATOL})")
+  probe = FieldSet({"x": Field(torch.zeros(1), ("batch",))},
+                   coords={"datetime": coords["datetime"],
+                           "lon": coords["lon"]})
+  derived_cpu = era5.add_derived_vars(probe)
+  for name in era5.DERIVED_VARS:
+    if not torch.equal(dataset.data(name).cpu(), derived_cpu.data(name)):
+      raise AssertionError(f"forecast: {name} card != CPU")
+
+  # 4. Extract, forecast, score.
+  t = time.perf_counter()
+  inputs, targets, forcings = era5.extract_inputs_targets_forcings(
+      dataset, input_variables=tc.input_variables,
+      target_variables=tc.target_variables,
+      forcing_variables=tc.forcing_variables,
+      pressure_levels=tc.pressure_levels, input_duration=tc.input_duration,
+      target_lead_times=slice("6h", f"{6 * FORECAST_STEPS}h"))
+  part("extract_s", t)
+  del dataset
+  stddev, mean, diffs = synthetic.make_norm_stats(tc, device=DEVICE)
+  predictor = _wrap(loaded, tc)
+  t = time.perf_counter()
+  predictor(inputs, targets, forcings)  # builds the graph on the host
+  part("first_forecast_s", t)
+  _reset_counters()
+  t = time.perf_counter()
+  preds = predictor(inputs, targets, forcings)
+  part("forecast_s", t)
+  counts = {k: fn.launches for k, fn in _counters().items()}
+  counts.update(_mode_counts())
+  steps_per = 1 + mc.gnn_msg_steps
+  expected = {"fused_edge": steps_per * FORECAST_STEPS,
+              "fused_edge_encoder": FORECAST_STEPS,
+              "fused_decoder": FORECAST_STEPS, "segment_sum": 0}
+  if any(counts[k] != n for k, n in expected.items()):
+    raise AssertionError(f"forecast launches {counts}, expected {expected}")
+  _check_fieldset(torch, "forecast", preds, targets)
+  t = time.perf_counter()
+  rmse = evaluation.rmse(preds, targets)
+  acc = evaluation.acc(preds, targets, mean)
+  part("scores_s", t)
+  for metric, scores in (("rmse", rmse), ("acc", acc)):
+    for name, s in scores.items():
+      want = targets[name].shape[:2] + (
+          (len(tc.pressure_levels),) if "level" in targets[name].dims
+          else ())
+      if tuple(s.shape) != want or not torch.isfinite(s).all():
+        raise AssertionError(f"forecast {metric} {name}: shape "
+                             f"{tuple(s.shape)} (want {want}) or not finite")
+  peak_gb = torch.cuda.max_memory_allocated() / 1e9
+  for name in ("fused_edge", "fused_edge_encoder", "fused_decoder"):
+    results.setdefault(name, {"name": name})["forecast_launches"] = (
+        counts[name] - (counts["fused_edge_encoder"]
+                        if name == "fused_edge" else 0))
+  _log("forecast", t0, config=_label(preset), steps=FORECAST_STEPS,
+       bundle_mb=f"{bundle_mb:.1f}",
+       **{k: f"{v:.3f}" for k, v in parts.items()},
+       tisr_cpu_1stamp_s=f"{tisr_cpu_s:.2f}",
+       tisr_err_of_max=f"{tisr_err:.3g}", tisr_zeros_differ=zeros_differ,
+       rmse_t2m=f"{float(rmse['2m_temperature'].mean()):.4f}",
+       acc_t2m=f"{float(acc['2m_temperature'].mean()):.4f}",
+       peak_mem_gb=f"{peak_gb:.2f}",
+       k1_per_step=counts["fused_edge"] // FORECAST_STEPS,
+       k2_per_step=counts["fused_decoder"] // FORECAST_STEPS, finite=True)
+  del loaded, predictor, preds, inputs, targets, forcings
+  torch.cuda.empty_cache()
+
+
+GENCAST_0P25_CHECK_RES = 1.0   # grid of the 0.25° step's CPU check
+GENCAST_0P25_CHECK_LAYERS = 1  # its transformer depth
+
+
+def _gencast_0p25_check_preset():
+  """zoo.gencast_0p25deg()'s denoiser (mesh-6, latent 512, k-hop 16, 4
+  heads) on a 1.0° grid with its transformer cut to one layer: the
+  card-vs-CPU check of the 0.25° step at a size the CPU runs in about ten
+  seconds an evaluation (a 0.25° evaluation would take minutes)."""
+  from graphcast_tpu_torch.models import zoo
+  preset = zoo.gencast_0p25deg()
+  arch = preset.denoiser_architecture_config
+  return dataclasses.replace(
+      preset, resolution=GENCAST_0P25_CHECK_RES,
+      denoiser_architecture_config=dataclasses.replace(
+          arch, sparse_transformer_config=dataclasses.replace(
+              arch.sparse_transformer_config,
+              num_layers=GENCAST_0P25_CHECK_LAYERS)))
+
+
+def phase_gencast_0p25(torch, results, profile_dir=None):
+  """One 12 h step of zoo.gencast_0p25deg() (module doc)."""
+  from graphcast_tpu_torch.examples.graphcast_demo import (
+      era5_inputs_targets_forcings)
+  from graphcast_tpu_torch.models import zoo
+  t0 = time.perf_counter()
+  preset = zoo.gencast_0p25deg()
+  model, stack = _gencast_stack(torch, preset, seed=0)
+  data = era5_inputs_targets_forcings(preset.task_config, preset.resolution,
+                                      1, 12, seed=0, device=DEVICE)
+  inputs, targets, forcings = (fs.astype(torch.bfloat16) for fs in data)
+  del data
+  setup_s = time.perf_counter() - t0
+
+  def step(seed):
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    with torch.inference_mode():
+      return stack(inputs, targets, forcings, generator=gen)
+
+  # Warm-up: one denoiser evaluation builds the graph, its device statics
+  # and the attention mask; the sampler's SHT basis is built beside it.
+  t1 = time.perf_counter()
+  with torch.inference_mode():
+    model.noise_basis(targets)
+    _denoise(torch, model, inputs, targets, torch.tensor([1.0]), forcings,
+             torch.bfloat16, DEVICE)
+  torch.cuda.synchronize()
+  warm_s = time.perf_counter() - t1
+  torch.cuda.reset_peak_memory_stats()
+  _reset_counters()
+  t2 = time.perf_counter()
+  samples = [step(1 + i) for i in range(GENCAST_0P25_STEPS)]
+  torch.cuda.synchronize()
+  steps_s = time.perf_counter() - t2
+  counts = {k: fn.launches for k, fn in _counters().items()}
+  counts.update(_mode_counts())
+  peak_gb = torch.cuda.max_memory_allocated() / 1e9
+  evals = 2 * preset.sampler_config.num_noise_levels - 1
+  layers = preset.denoiser_architecture_config.sparse_transformer_config
+  expected = {"splash_fwd": evals * layers.num_layers,
+              "fused_edge_embed": evals, "fused_decoder_embed": evals,
+              "fused_edge": evals, "fused_decoder": evals, "segment_sum": 0}
+  if any(counts[k] != n * GENCAST_0P25_STEPS for k, n in expected.items()):
+    raise AssertionError(f"gencast_0p25 launches {counts}, expected "
+                         f"{expected} per step")
+  for sample in samples:
+    _check_fieldset(torch, "gencast_0p25", sample, targets)
+  if profile_dir:
+    _profile_step(torch, lambda: step(7), profile_dir, "gencast_0p25_step")
+  for name in ("splash_fwd", "fused_edge_embed", "fused_decoder_embed"):
+    results.setdefault(name, {"name": name})[
+        "gencast_0p25_launches_per_step"] = counts[name] // GENCAST_0P25_STEPS
+  del model, stack, samples, inputs, targets, forcings
+  torch.cuda.empty_cache()
+
+  # The card against the CPU on the same weights, one preconditioned
+  # denoiser evaluation per noise level, at a lower resolution.
+  t3 = time.perf_counter()
+  from graphcast_tpu_torch.data import synthetic
+  check = _gencast_0p25_check_preset()
+  inputs, targets, forcings = synthetic.make_example_batch(
+      check.task_config, resolution=check.resolution, batch=1,
+      num_target_times=1, time_step_hours=12, device="cpu")
+  # One model: its graph and attention mask are built once, on the CPU
+  # run, and the same module then moves to the card.
+  model, _ = _gencast_stack(torch, check, seed=MINI_SEED, device="cpu")
+  rng = np.random.RandomState(13)
+  sigma = 1.0
+  noisy = targets.map_data(lambda x: x + sigma * torch.from_numpy(
+      rng.randn(*x.shape).astype(np.float32)))
+  level = torch.tensor([sigma])
+  outs = {bf16: _denoise(torch, model, inputs, noisy, level, forcings,
+                         torch.bfloat16 if bf16 else torch.float32, "cpu")
+          for bf16 in (False, True)}
+  out_card = _denoise(torch, model.to(DEVICE), inputs, noisy, level,
+                      forcings, torch.bfloat16, DEVICE)
+  worst = _check_noise_floor(
+      torch, f"gencast_0p25 check sigma={sigma}",
+      {n: out_card.data(n) for n in targets.var_names}, outs,
+      targets.var_names)
+  check_s = time.perf_counter() - t3
+  _log("gencast_0p25", t0, config=_gencast_label(preset),
+       steps=GENCAST_0P25_STEPS, setup_s=f"{setup_s:.1f}",
+       warmup_evaluation_s=f"{warm_s:.2f}",
+       s_per_12h_step=f"{steps_s / GENCAST_0P25_STEPS:.4f}",
+       peak_mem_gb=f"{peak_gb:.2f}",
+       **{f"{k}_per_step": counts[k] // GENCAST_0P25_STEPS
+          for k in ("splash_fwd", "fused_edge_embed",
+                    "fused_decoder_embed")},
+       check=_gencast_label(check), check_s=f"{check_s:.1f}",
+       check_worst_err_over_bound=f"{worst:.3f}", finite=True)
+  del model
+  torch.cuda.empty_cache()
+
+
+_ENSEMBLE_OUT = {}  # the ensemble phase's members and targets, for triblock
+
+
+def _triblock_run(torch, block, cfg, x, cot, masks, n, pad, size):
+  """(output, {name: gradient}) of triblockdiag_mha for the cotangent."""
+  from graphcast_tpu_torch.models.sparse_transformer import triblockdiag_mha
+  x = x.detach().requires_grad_(True)
+  out = triblockdiag_mha(block, cfg, x, masks, n, pad, size)
+  leaves = {"x": x, **{k: p for k, p in block.named_parameters()
+                       if k.startswith("mha_")}}
+  grads = torch.autograd.grad((out * cot).sum(), list(leaves.values()))
+  return out.detach(), dict(zip(leaves, grads))
+
+
+def phase_triblock(torch, results):
+  """triblockdiag_mha at the GenCast 1.0° shape, card against CPU, and the
+  ensemble's CRPS card against CPU (module doc)."""
+  from graphcast_tpu_torch import evaluation
+  from graphcast_tpu_torch.models import sparse_transformer as st
+  t0 = time.perf_counter()
+  mask = _k_hop_block_map(5)[0]
+  size = st.get_mask_block_size(mask)
+  host_masks, pad = st.build_triblock_masks(mask, size)
+  cfg = st.SparseTransformerConfig(attention_k_hop=16, d_model=512,
+                                   num_layers=1, num_heads=4,
+                                   attention_type="triblockdiag_mha")
+  rng = np.random.RandomState(17)
+  n = mask.shape[0]
+  x = torch.from_numpy(rng.randn(1, n, 512).astype(np.float32))
+  cot = torch.from_numpy(rng.randn(1, n, 512).astype(np.float32))
+  transformer = st.Transformer(cfg, cond_size=16)
+  block = transformer.block_00
+  with torch.no_grad():
+    for name, p in block.named_parameters():
+      p.copy_(torch.from_numpy(
+          (rng.randn(*p.shape) / np.sqrt(p.shape[0])).astype(np.float32)))
+  t1 = time.perf_counter()
+  want, want_grads = _triblock_run(torch, block, cfg, x, cot,
+                                   torch.from_numpy(host_masks), n, pad,
+                                   size)
+  cpu_s = time.perf_counter() - t1
+  block.to(DEVICE)
+  args = (cfg, x.to(DEVICE), cot.to(DEVICE),
+          torch.from_numpy(host_masks).to(DEVICE), n, pad, size)
+  torch.cuda.reset_peak_memory_stats()
+  _triblock_run(torch, block, *args)  # warm-up
+  torch.cuda.synchronize()
+  t2 = time.perf_counter()
+  got, got_grads = _triblock_run(torch, block, *args)
+  torch.cuda.synchronize()
+  card_ms = (time.perf_counter() - t2) * 1e3
+  peak_gb = torch.cuda.max_memory_allocated() / 1e9
+  worst = 0.0
+  for name, g, w in [("out", got, want)] + [
+      (k, got_grads[k], want_grads[k]) for k in want_grads]:
+    err = float((g.cpu() - w).abs().max() / w.abs().max())
+    if not err <= TRIBLOCK_ATOL:
+      raise AssertionError(f"triblock {name}: card vs CPU max-abs {err:.3g}"
+                           f" of the max (tol {TRIBLOCK_ATOL})")
+    worst = max(worst, err)
+  del block, transformer, args, got, got_grads
+  torch.cuda.empty_cache()
+
+  # The ensemble's members scored on the card and on the CPU.
+  if "preds" not in _ENSEMBLE_OUT:
+    phase_ensemble(torch, {k: {"name": k} for k in ("segment_sum",
+                                                     "splash_fwd")})
+  preds, targets = _ENSEMBLE_OUT["preds"], _ENSEMBLE_OUT["targets"]
+  targets = targets.isel(time=slice(0, preds.sizes["time"]))
+  crps_card = evaluation.crps_ensemble(preds, targets)
+  crps_cpu = evaluation.crps_ensemble(preds.to("cpu"), targets.to("cpu"))
+  crps_worst = 0.0
+  for name, c in crps_cpu.items():
+    err = float(((crps_card[name].cpu() - c).abs()
+                 / c.abs().clamp(min=1e-12)).max())
+    if not (torch.isfinite(c).all() and err <= CRPS_RTOL):
+      raise AssertionError(f"triblock crps {name}: card vs CPU relative "
+                           f"{err:.3g} (tol {CRPS_RTOL})")
+    crps_worst = max(crps_worst, err)
+  _log("triblock", t0, shape=f"1x{n}x512/4heads", block=size,
+       blocks=host_masks.shape[1], cpu_fwd_bwd_s=f"{cpu_s:.1f}",
+       card_fwd_bwd_ms=f"{card_ms:.2f}", card_peak_gb=f"{peak_gb:.2f}",
+       worst_err_of_max=f"{worst:.3g}", crps_members=preds.sizes["batch"],
+       crps_t2m=f"{float(crps_card['2m_temperature'].mean()):.4f}",
+       crps_worst_rel=f"{crps_worst:.3g}")
 
 
 def _k1p_entry(mode):
@@ -2950,7 +3339,8 @@ def main(argv=None) -> int:
   parser.add_argument("--profile", metavar="DIR",
                       help="also profile one main-path step, one train step, "
                            "one GenCast step, one GenCast train step, one "
-                           "ensemble chunk and one batch-4 GraphCast step "
+                           "ensemble chunk, one batch-4 GraphCast step and "
+                           "one 0.25 deg GenCast step "
                            "(torch.profiler) and write their kernel tables "
                            "and traces to DIR")
   args = parser.parse_args(argv)
@@ -3032,6 +3422,12 @@ def main(argv=None) -> int:
     phase_ensemble_small(torch)
   if "graphcast_batch" in phases:
     phase_graphcast_batch(torch, results, args.profile)
+  if "forecast" in phases:
+    phase_forecast(torch, results)
+  if "gencast_0p25" in phases:
+    phase_gencast_0p25(torch, results, args.profile)
+  if "triblock" in phases:
+    phase_triblock(torch, results)
   if {"k1p", "main_pipelined", "bench"} & set(phases):
     for name in ("fused_edge_pipelined", "fused_edge_pipelined_encoder",
                  "fused_edge_pipelined_embed"):

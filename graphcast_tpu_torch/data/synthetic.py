@@ -3,7 +3,8 @@
 Port of graphcast_tpu/data/synthetic.py: the same numpy draws from the same
 seed (tests/test_torch_rollout.py holds the arrays equal), handed back as
 FieldSets of tensors on ``device``: the card unless the caller asks for
-"cpu".
+"cpu". The port adds ``make_era5_dataset``, an ERA5-shaped time series
+drawn on the device, for the data pipeline of data/era5.py.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import numpy as np
 import torch
 
 from graphcast_tpu_torch import devices
-from graphcast_tpu_torch.fields import FieldSet, from_numpy
+from graphcast_tpu_torch.fields import Field, FieldSet, from_numpy
 from graphcast_tpu_torch.models import configs
 
 
@@ -108,3 +109,57 @@ def make_norm_stats(task_config: configs.TaskConfig, seed: int = 1,
     return from_numpy(fields, coords={"level": levels}).to(device)
 
   return build(0.5), build(0.0), build(0.5)
+
+
+def make_era5_dataset(
+    task_config: configs.TaskConfig,
+    resolution: float,
+    num_times: int,
+    batch: int = 1,
+    start: str = "2022-01-01T00:00",
+    time_step_hours: int = 6,
+    seed: int = 0,
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str = devices.DEFAULT_DEVICE,
+) -> FieldSet:
+  """An ERA5-shaped time series for the task, random data drawn on
+  ``device`` from a ``torch.Generator`` seeded with ``seed``: the port's
+  stand-in for an ERA5 slice (the reference demos' ``source-era5_...nc``
+  datasets), the input of data/era5.py.
+
+  Holds every variable of the task but the derived ones (the progress
+  features and TOA incident solar radiation, which ``era5.add_derived_vars``
+  and ``era5.add_tisr_var`` compute): atmospheric variables (batch, time,
+  level, lat, lon) at the task's pressure levels, surface variables
+  (batch, time, lat, lon), statics (lat, lon). Coords: lat, lon, level,
+  "time" (timedelta64[ns] from 0, ``time_step_hours`` apart) and "datetime"
+  [batch, time] (datetime64[ns] from ``start``).
+  """
+  device = devices.resolve(device)
+  from graphcast_tpu_torch.data import era5
+  names = sorted((set(task_config.input_variables)
+                  | set(task_config.target_variables)
+                  | set(task_config.forcing_variables))
+                 - era5.DERIVED_VARS - {era5.TISR})
+  lat, lon = grid_coords(resolution)
+  nlat, nlon = lat.shape[0], lon.shape[0]
+  levels = np.asarray(task_config.pressure_levels, np.int32)
+  gen = torch.Generator(device=device).manual_seed(seed)
+  fields = {}
+  for name in names:
+    if name in configs.STATIC_VARS:
+      shape, dims = (nlat, nlon), ("lat", "lon")
+    elif name in configs.ALL_ATMOSPHERIC_VARS:
+      shape = (batch, num_times, levels.shape[0], nlat, nlon)
+      dims = ("batch", "time", "level", "lat", "lon")
+    else:
+      shape, dims = (batch, num_times, nlat, nlon), ("batch", "time", "lat",
+                                                     "lon")
+    fields[name] = Field(torch.randn(shape, generator=gen, device=device,
+                                     dtype=dtype), dims)
+  time = (np.arange(num_times) * np.timedelta64(time_step_hours, "h")).astype(
+      "timedelta64[ns]")
+  datetime = np.broadcast_to(np.datetime64(start, "ns") + time,
+                             (batch, num_times)).copy()
+  return FieldSet(fields, coords={"lat": lat, "lon": lon, "level": levels,
+                                  "time": time, "datetime": datetime})

@@ -13,12 +13,19 @@ equals the JAX package's (numpy backend).
 All edge lists are sorted by receiver: the port's kernels walk them as
 receiver-sorted rows (ops/fused_edge.py) or as exactly 3 rows per grid node
 (ops/fused_decoder.py).
+
+The models take their artifact from ``cached_artifact``: one build per
+process for each grid and mesh configuration (the last
+``ARTIFACT_CACHE_SIZE`` kept), shared read-only by every model of that
+configuration, where the JAX package keeps a disk cache (``cache_dir``,
+not ported).
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import inspect
 from typing import Optional
 
 import numpy as np
@@ -171,6 +178,33 @@ def build_artifact(
       grid2mesh=grid2mesh,
       mesh=mesh_edges,
       mesh2grid=mesh2grid)
+
+
+ARTIFACT_CACHE_SIZE = 4
+_ARTIFACTS: collections.OrderedDict = collections.OrderedDict()
+
+
+def cached_artifact(grid_lat: np.ndarray, grid_lon: np.ndarray,
+                    mesh_size: int, **kwargs) -> GridMeshArtifact:
+  """``build_artifact`` with the same arguments, built once per process:
+  models of one configuration (a card and a CPU copy, a model loaded from
+  a checkpoint beside a fresh one) share the artifact, which nobody
+  modifies. The least recently used entry beyond ``ARTIFACT_CACHE_SIZE``
+  is dropped."""
+  grid_lat = np.asarray(grid_lat, dtype=np.float32)
+  grid_lon = np.asarray(grid_lon, dtype=np.float32)
+  args = inspect.signature(build_artifact).bind(grid_lat, grid_lon,
+                                                mesh_size, **kwargs)
+  args.apply_defaults()  # a default given or left out is the same key
+  key = (grid_lat.tobytes(), grid_lon.tobytes(),
+         tuple(args.arguments.items())[2:])
+  if key in _ARTIFACTS:
+    _ARTIFACTS.move_to_end(key)
+  else:
+    _ARTIFACTS[key] = build_artifact(grid_lat, grid_lon, mesh_size, **kwargs)
+    while len(_ARTIFACTS) > ARTIFACT_CACHE_SIZE:
+      _ARTIFACTS.popitem(last=False)
+  return _ARTIFACTS[key]
 
 
 def permute_mesh_to_banded(

@@ -185,7 +185,7 @@ class DenoiserArchitecture(nn.Module):
     self._pipelined = env_flags.env_flag("GC_PIPELINED_EDGE")
     coords = inputs.coords
     st_cfg = self._cfg.sparse_transformer_config
-    self._artifact = artifact_lib.build_artifact(
+    self._artifact = artifact_lib.cached_artifact(
         grid_lat=coords["lat"], grid_lon=coords["lon"],
         mesh_size=self._cfg.mesh_size,
         radius_query_fraction_edge_length=(
@@ -199,25 +199,27 @@ class DenoiserArchitecture(nn.Module):
 
   def _statics(self, device: torch.device) -> dict:
     """Edge lists and raw structural features on ``device`` (built once per
-    device)."""
+    device, as normal tensors even under inference mode: a model that
+    sampled first can still be trained)."""
     key = str(device)
     if key not in self._graph:
-      art = self._artifact
-      g, m = art.num_grid_nodes, art.num_mesh_nodes
+      with torch.inference_mode(False):
+        art = self._artifact
+        g, m = art.num_grid_nodes, art.num_mesh_nodes
 
-      def tensor(a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+        def tensor(a):
+          return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
-      self._graph[key] = {
-          "g2m": EdgeIndex(art.grid2mesh.senders, art.grid2mesh.receivers,
-                           g, m, device=device),
-          "m2g": EdgeIndex(art.mesh2grid.senders, art.mesh2grid.receivers,
-                           m, g, device=device),
-          "grid_node_features": tensor(art.grid_node_features),
-          "mesh_node_features": tensor(art.mesh_node_features),
-          "g2m_edge_features": tensor(art.grid2mesh.features),
-          "m2g_edge_features": tensor(art.mesh2grid.features),
-      }
+        self._graph[key] = {
+            "g2m": EdgeIndex(art.grid2mesh.senders, art.grid2mesh.receivers,
+                             g, m, device=device),
+            "m2g": EdgeIndex(art.mesh2grid.senders, art.mesh2grid.receivers,
+                             m, g, device=device),
+            "grid_node_features": tensor(art.grid_node_features),
+            "mesh_node_features": tensor(art.mesh_node_features),
+            "g2m_edge_features": tensor(art.grid2mesh.features),
+            "m2g_edge_features": tensor(art.mesh2grid.features),
+        }
     return self._graph[key]
 
   # ----- fused stages (batch 1; conditioning folded into vectors) -----

@@ -183,17 +183,18 @@ class GenCast(Denoiser, Predictor):
     """The SHT synthesis tensors of the targets' grid (f32 buffers on the
     targets' device, built at the first call)."""
     device = targets_template[targets_template.var_names[0]].data.device
-    if not hasattr(self, "noise_basis_legendre"):
-      coords = targets_template.coords
-      arrays = noise_lib.white_noise_basis(coords["lat"],
-                                           coords["lon"]).arrays()
-      for k in _BASIS_KEYS:
-        self.register_buffer(f"noise_basis_{k}", torch.as_tensor(arrays[k]),
-                             persistent=False)
-    if self.noise_basis_legendre.device != device:
-      for k in _BASIS_KEYS:
-        setattr(self, f"noise_basis_{k}",
-                getattr(self, f"noise_basis_{k}").to(device))
+    with torch.inference_mode(False):  # usable under autograd later
+      if not hasattr(self, "noise_basis_legendre"):
+        coords = targets_template.coords
+        arrays = noise_lib.white_noise_basis(coords["lat"],
+                                             coords["lon"]).arrays()
+        for k in _BASIS_KEYS:
+          self.register_buffer(f"noise_basis_{k}",
+                               torch.as_tensor(arrays[k]), persistent=False)
+      if self.noise_basis_legendre.device != device:
+        for k in _BASIS_KEYS:
+          setattr(self, f"noise_basis_{k}",
+                  getattr(self, f"noise_basis_{k}").to(device))
     return {k: getattr(self, f"noise_basis_{k}") for k in _BASIS_KEYS}
 
   def forward(self, inputs: FieldSet, targets_template: FieldSet,

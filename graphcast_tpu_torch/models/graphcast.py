@@ -209,7 +209,7 @@ class GraphCast(Predictor):
       return
     self._pipelined = env_flags.env_flag("GC_PIPELINED_EDGE")
     coords = inputs.coords
-    self._artifact = artifact_lib.build_artifact(
+    self._artifact = artifact_lib.cached_artifact(
         grid_lat=coords["lat"],
         grid_lon=coords["lon"],
         mesh_size=self._mc.mesh_size,
@@ -221,28 +221,30 @@ class GraphCast(Predictor):
 
   def _statics(self, device: torch.device) -> dict:
     """Edge lists and structural features on ``device`` (built once per
-    device)."""
+    device, as normal tensors even under inference mode: a model that
+    forecast first can still be trained)."""
     key = str(device)
     if key not in self._graph:
-      art = self._artifact
-      g, m = art.num_grid_nodes, art.num_mesh_nodes
+      with torch.inference_mode(False):
+        art = self._artifact
+        g, m = art.num_grid_nodes, art.num_mesh_nodes
 
-      def edges(e, ns, nr):
-        return EdgeIndex(e.senders, e.receivers, ns, nr, device=device)
+        def edges(e, ns, nr):
+          return EdgeIndex(e.senders, e.receivers, ns, nr, device=device)
 
-      def tensor(a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+        def tensor(a):
+          return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
-      self._graph[key] = {
-          "g2m": edges(art.grid2mesh, g, m),
-          "mesh": edges(art.mesh, m, m),
-          "m2g": edges(art.mesh2grid, m, g),
-          "grid_node_features": tensor(art.grid_node_features),
-          "mesh_node_features": tensor(art.mesh_node_features),
-          "g2m_edge_features": tensor(art.grid2mesh.features),
-          "mesh_edge_features": tensor(art.mesh.features),
-          "m2g_edge_features": tensor(art.mesh2grid.features),
-      }
+        self._graph[key] = {
+            "g2m": edges(art.grid2mesh, g, m),
+            "mesh": edges(art.mesh, m, m),
+            "m2g": edges(art.mesh2grid, m, g),
+            "grid_node_features": tensor(art.grid_node_features),
+            "mesh_node_features": tensor(art.mesh_node_features),
+            "g2m_edge_features": tensor(art.grid2mesh.features),
+            "mesh_edge_features": tensor(art.mesh.features),
+            "m2g_edge_features": tensor(art.mesh2grid.features),
+        }
     return self._graph[key]
 
   # ----- hoisted static edge latents -----

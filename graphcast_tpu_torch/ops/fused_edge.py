@@ -215,8 +215,9 @@ class EdgeIndex:
     """K3's work plan for this edge list on its device (built at first
     use; ops/segment_sum.py)."""
     if self._segment_plan is None:
-      self._segment_plan = segment_sum.plan_segments(self.row_offsets,
-                                                     self.device)
+      with torch.inference_mode(False):
+        self._segment_plan = segment_sum.plan_segments(self.row_offsets,
+                                                       self.device)
     return self._segment_plan
 
   def sender_plan(self) -> segment_sum.SenderPlan:
@@ -224,8 +225,9 @@ class EdgeIndex:
     sender-sorted permutation and the plan over the senders (built at first
     use; ops/segment_sum.py)."""
     if self._sender_plan is None:
-      self._sender_plan = segment_sum.plan_senders(
-          self._senders_host, self.num_senders, self.device)
+      with torch.inference_mode(False):
+        self._sender_plan = segment_sum.plan_senders(
+            self._senders_host, self.num_senders, self.device)
     return self._sender_plan
 
 

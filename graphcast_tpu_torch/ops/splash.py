@@ -89,7 +89,8 @@ class BlockMap:
     once per device)."""
     key = str(device)
     if key not in self._on_device:
-      self._on_device[key] = _DeviceMap(self, device)
+      with torch.inference_mode(False):  # usable under autograd later
+        self._on_device[key] = _DeviceMap(self, device)
     return self._on_device[key]
 
   @property

@@ -60,3 +60,24 @@ def test_edge_lists_are_receiver_sorted_with_three_per_grid_node():
     assert (np.diff(getattr(art, name).receivers) >= 0).all(), name
   np.testing.assert_array_equal(
       art.mesh2grid.receivers, np.repeat(np.arange(art.num_grid_nodes), 3))
+
+
+def test_cached_artifact_builds_once_per_configuration(monkeypatch):
+  """Models take their artifact from cached_artifact: a default given or
+  left out is the same configuration, the artifact equals a fresh build,
+  and the least recently used one goes beyond ARTIFACT_CACHE_SIZE."""
+  monkeypatch.setattr(artifact, "_ARTIFACTS", type(artifact._ARTIFACTS)())
+  lat, lon = synthetic.grid_coords(30.0)
+  a = artifact.cached_artifact(lat, lon, 1)
+  assert artifact.cached_artifact(
+      grid_lat=lat, grid_lon=lon, mesh_size=1, multimesh=True,
+      radius_query_fraction_edge_length=0.6) is a
+  fresh = artifact.build_artifact(lat, lon, 1)
+  for name in _ARRAYS:
+    np.testing.assert_array_equal(getattr(a, name), getattr(fresh, name))
+  banded = artifact.cached_artifact(lat, lon, 1, **_GENCAST)
+  assert banded is not a
+  for mesh_size in range(2, 2 + artifact.ARTIFACT_CACHE_SIZE - 1):
+    artifact.cached_artifact(lat, lon, mesh_size)
+  assert artifact.cached_artifact(lat, lon, 1, **_GENCAST) is banded
+  assert artifact.cached_artifact(lat, lon, 1) is not a  # evicted

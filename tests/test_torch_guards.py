@@ -307,6 +307,85 @@ def test_port_sources_name_no_jax_package():
   assert not offenders, offenders
 
 
+def test_demo_path_runs_without_jax_pandas_or_xarray():
+  """The demo path (bundle → ERA5-shaped data → derived variables and TISR
+  → extraction → forecast → scores) in a process where jax, pandas and
+  xarray cannot be imported, as on the card's machine."""
+  code = textwrap.dedent("""
+      import io, sys
+      for name in ("jax", "graphcast_tpu", "pandas", "xarray"):
+        sys.modules[name] = None          # any import of them now raises
+      import torch
+      from graphcast_tpu_torch import evaluation
+      from graphcast_tpu_torch.compat import haiku_checkpoint
+      from graphcast_tpu_torch.data import era5, synthetic
+      from graphcast_tpu_torch.models import configs
+      from graphcast_tpu_torch.models.graphcast import GraphCast
+      from graphcast_tpu_torch.wrappers import (
+          Autoregressive, Bfloat16Cast, InputsAndResiduals)
+      task = configs.TaskConfig(
+          input_variables=("2m_temperature", "temperature",
+                           "toa_incident_solar_radiation",
+                           "day_progress_sin", "land_sea_mask"),
+          target_variables=("2m_temperature", "temperature"),
+          forcing_variables=("toa_incident_solar_radiation",
+                             "day_progress_sin"),
+          pressure_levels=(500, 850), input_duration="12h")
+      mc = configs.ModelConfig(resolution=30.0, mesh_size=1, latent_size=8,
+                               gnn_msg_steps=1)
+      bundle = io.BytesIO()
+      haiku_checkpoint.save_graphcast_checkpoint(
+          bundle, GraphCast(mc, task, generator=torch.Generator().manual_seed(0),
+                            device="cpu"), mc, task)
+      bundle.seek(0)
+      model, mc, task, _, _ = haiku_checkpoint.load_graphcast_checkpoint(
+          bundle, device="cpu")
+      data = synthetic.make_era5_dataset(task, 30.0, num_times=4,
+                                         device="cpu")
+      data = era5.add_tisr_var(era5.add_derived_vars(data))
+      inputs, targets, forcings = era5.extract_inputs_targets_forcings(
+          data, input_variables=task.input_variables,
+          target_variables=task.target_variables,
+          forcing_variables=task.forcing_variables,
+          pressure_levels=task.pressure_levels,
+          input_duration=task.input_duration,
+          target_lead_times=slice("6h", "12h"))
+      stats = synthetic.make_norm_stats(task, device="cpu")
+      stack = Autoregressive(InputsAndResiduals(Bfloat16Cast(model), *stats))
+      preds = stack(inputs, targets, forcings)
+      scores = [*evaluation.rmse(preds, targets).values(),
+                *evaluation.acc(preds, targets, stats[1]).values()]
+      assert all(torch.isfinite(v).all() for v in scores)
+      loaded = [m for m in ("jax", "pandas", "xarray", "graphcast_tpu")
+                if sys.modules.get(m) is not None]
+      assert not loaded, loaded
+      print("scores", len(scores))
+      """)
+  env = {**os.environ, "PYTHONPATH": str(REPO)}
+  proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                        text=True, env=env, cwd=REPO, timeout=300)
+  assert proc.returncode == 0, proc.stderr
+  assert proc.stdout.split() == ["scores", "4"], proc.stdout
+
+
+@pytest.mark.parametrize("package", ["pandas", "xarray"])
+def test_port_sources_import_no_pandas_and_xarray_only_in_the_bridge(
+    package):
+  """No module of the port, nor chip_smoke.py, imports pandas (the card's
+  machine has none); xarray is imported only inside the gated bridge."""
+  import re
+  pattern = re.compile(rf"^\s*(import\s+{package}([.\s,]|$)"
+                       rf"|from\s+{package}(\.\w+)*\s+import\b)",
+                       re.MULTILINE)
+  files = sorted((REPO / "graphcast_tpu_torch").rglob("*.py"))
+  files += [REPO / "chip_smoke.py", REPO / "edge_study.py"]
+  allowed = {REPO / "graphcast_tpu_torch" / "xarray_bridge.py"} if (
+      package == "xarray") else set()
+  offenders = [str(f) for f in files
+               if f not in allowed and pattern.search(f.read_text())]
+  assert not offenders, offenders
+
+
 @pytest.mark.parametrize("case", ["splash_head_dim", "splash_dtype",
                                   "splash_backward_cpu",
                                   "edge_embed_features", "edge_embed_ew0",

@@ -1,7 +1,9 @@
 """The port's sparse transformer (models/sparse_transformer.py) and
 MeshTransformer (models/transformer.py) against the JAX package's, on the
-same numpy weights and inputs, with the "mha" and "splash_mha" backends
-(the JAX splash kernel in Pallas interpret mode).
+same numpy weights and inputs, with the "mha", "triblockdiag_mha" and
+"splash_mha" backends (the JAX splash kernel in Pallas interpret mode);
+the tri-block backend also in its gradients, against JAX and against the
+port's own "mha" on the same mask.
 
 The released init makes ``mha_final``, ``ffw_down`` and every norm
 conditioning about zero (final init multipliers 0, conditioning stddev
@@ -75,7 +77,8 @@ def _weights(jax_tree, seed):
       jax.tree_util.tree_map(np.asarray, jax_tree)), seed)
 
 
-@pytest.mark.parametrize("attention_type", ["mha", "splash_mha"])
+@pytest.mark.parametrize("attention_type",
+                         ["mha", "triblockdiag_mha", "splash_mha"])
 def test_transformer_matches_jax(attention_type):
   senders, receivers, n = _mesh(2, patch=True)
   adj = transformer.adjacency_from_edges(senders, receivers, n)
@@ -134,10 +137,112 @@ def test_k_hop_adjacency_equals_jax():
     assert (got != want).nnz == 0
 
 
-def test_triblockdiag_is_not_ported():
+def _port_transformer(attention_type, flat, adj, cond_size):
   port = sparse_transformer.Transformer(
-      sparse_transformer.SparseTransformerConfig(**_cfg("triblockdiag_mha")),
-      3)
-  senders, receivers, n = _mesh(1, patch=False)
-  with pytest.raises(NotImplementedError, match="triblockdiag"):
-    port.prepare_mask(transformer.adjacency_from_edges(senders, receivers, n))
+      sparse_transformer.SparseTransformerConfig(**_cfg(attention_type)),
+      cond_size)
+  params.load_params(port, flat)
+  port.prepare_mask(adj)
+  return port
+
+
+def _port_value_and_grads(port, x, cond, cot):
+  """The output and the gradients of sum(out * cot) in x and every
+  parameter, {flat key or "x": array}."""
+  x = torch.from_numpy(x).requires_grad_(True)
+  out = port(x, torch.from_numpy(cond))
+  leaves = {"x": x, **params.flat_params(port)}
+  grads = torch.autograd.grad((out * torch.from_numpy(cot)).sum(),
+                              list(leaves.values()))
+  return out.detach().numpy(), {k: g.numpy() for k, g in zip(leaves, grads)}
+
+
+def _assert_grads_close(got, want):
+  assert set(got) == set(want)
+  for key in want:
+    w = np.asarray(want[key])
+    np.testing.assert_allclose(got[key], w, rtol=5e-4,
+                               atol=5e-4 * np.abs(w).max(), err_msg=key)
+
+
+def _triblock_case():
+  senders, receivers, n = _mesh(2, patch=True)
+  adj = transformer.adjacency_from_edges(senders, receivers, n)
+  cond_size = 5
+  jt = jax_st.Transformer(adj, _jax_cfg("triblockdiag_mha"))
+  flat = _weights(jt.init(jax.random.PRNGKey(6), cond_size), seed=7)
+  rng = np.random.RandomState(8)
+  x = rng.randn(2, n, 32).astype(np.float32)
+  cond = rng.randn(2, cond_size).astype(np.float32)
+  cot = rng.randn(2, n, 32).astype(np.float32)
+  return jt, flat, adj, cond_size, x, cond, cot
+
+
+def test_triblockdiag_gradients_match_jax():
+  jt, flat, adj, cond_size, x, cond, cot = _triblock_case()
+
+  def loss(tree, xs):
+    return jnp.sum(jt.apply(tree, xs, jnp.asarray(cond)) * cot)
+
+  tree_grads, x_grad = jax.grad(loss, argnums=(0, 1))(nest(flat),
+                                                      jnp.asarray(x))
+  want = {**params.params_from_jax(
+      jax.tree_util.tree_map(np.asarray, tree_grads)), "x": x_grad}
+  port = _port_transformer("triblockdiag_mha", flat, adj, cond_size)
+  _, got = _port_value_and_grads(port, x, cond, cot)
+  assert np.abs(got["x"]).max() > 0
+  _assert_grads_close(got, want)
+
+
+def test_triblockdiag_matches_port_mha_on_the_same_mask():
+  _, flat, adj, cond_size, x, cond, cot = _triblock_case()
+  tri = _port_transformer("triblockdiag_mha", flat, adj, cond_size)
+  assert tri._num_padding > 0  # the last block is padded
+  out_t, grads_t = _port_value_and_grads(tri, x, cond, cot)
+  out_m, grads_m = _port_value_and_grads(
+      _port_transformer("mha", flat, adj, cond_size), x, cond, cot)
+  np.testing.assert_allclose(out_t, out_m, rtol=5e-4,
+                             atol=5e-4 * np.abs(out_m).max())
+  _assert_grads_close(grads_t, grads_m)
+
+
+@pytest.mark.parametrize("k_hop", [1, 2, 4])
+def test_triblock_masks_equal_jax(k_hop):
+  senders, receivers, n = _mesh(2, patch=False)
+  mask = sparse_transformer.k_hop_adjacency_from_matrix(
+      transformer.adjacency_from_edges(senders, receivers, n), k_hop)
+  size = sparse_transformer.get_mask_block_size(mask)
+  assert size == jax_st.get_mask_block_size(mask)
+  got, pad = sparse_transformer.build_triblock_masks(mask, size)
+  want, want_pad = jax_st.build_triblock_masks(mask, size)
+  assert pad == want_pad
+  np.testing.assert_array_equal(got, want)
+  assert got.sum() == mask.nnz
+  with pytest.raises(ValueError, match="tri-block band"):
+    sparse_transformer.build_triblock_masks(mask, max(1, size // 3))
+
+
+def test_prepared_mask_is_shared_by_content(monkeypatch):
+  """Transformers of one adjacency, k-hop and backend share the mask
+  built for the first; the adjacency is keyed by content (edge order and
+  duplicates aside)."""
+  monkeypatch.setattr(sparse_transformer, "_MASKS",
+                      type(sparse_transformer._MASKS)())
+  senders, receivers, n = _mesh(2, patch=True)
+  adj = transformer.adjacency_from_edges(senders, receivers, n)
+  order = np.random.RandomState(0).permutation(senders.size)
+  shuffled = transformer.adjacency_from_edges(
+      np.concatenate([senders[order], senders[:5]]),
+      np.concatenate([receivers[order], receivers[:5]]), n)
+  cfg = sparse_transformer.SparseTransformerConfig(**_cfg("splash_mha"))
+  one, two = (sparse_transformer.Transformer(cfg, 3) for _ in range(2))
+  one.prepare_mask(adj)
+  two.prepare_mask(shuffled)
+  assert one._block_map is two._block_map
+  other = sparse_transformer.prepared_mask(adj, 1, "splash_mha")
+  assert other["block_map"] is not one._block_map
+  tri = sparse_transformer.prepared_mask(adj, 2, "triblockdiag_mha")
+  want = sparse_transformer.build_triblock_masks(
+      sparse_transformer.k_hop_adjacency_from_matrix(adj, 2),
+      tri["block_size"])[0]
+  np.testing.assert_array_equal(tri["triblock"], want)
