@@ -81,6 +81,15 @@ Phases, each printing one line with its seconds and results:
          memory from the build log, and the pair timed in turns with the
          backward of scaled_dot_product_attention with the dense boolean
          mask (the library yardstick) where that mask fits.
+  sp_attention  K6, K7 and K8 on sequence-parallel shard maps (ops/
+         splash.py shard_block_maps) at the mesh-6 k-hop-16 mask, 4 heads of
+         128, for S in SP_SHARDS: each shard's kernels against their plain
+         twins on its map; the shards' o, lse and dq put together equal the
+         unsharded kernels' bit for bit (each q row meets the same kv tiles
+         in the same order); their dk and dv partials summed in shard order
+         within SP_DKV_RTOL of the unsharded K8; a rerun bit-equal; every
+         shard's time beside the unsharded kernels' and its bound; SDPA
+         with the first shard's rows of the dense mask as K6's yardstick.
   embed  K1 and K2 in embed mode (GenCast's grid2mesh and mesh2grid, raw
          edge features embedded in the kernel) against their plain versions
          on the real 1.0° GenCast and 0.25° edge sets; each timed in turns
@@ -158,6 +167,23 @@ Phases, each printing one line with its seconds and results:
          phase's CPU f32 run, each within the small phase's noise floor;
          then rollout_final over BATCH_STEPS timed steps: s per step, peak
          memory, K3 once per aggregation (17 a step), K1 and K2 none.
+  parallel  PARALLEL_WORLD ranks (processes; nccl with one card each where
+         the machine has them, else gloo on the one card; the backend and
+         world size on a line of their own) over parallel/sharding.py
+         meshes: (a) the zoo.graphcast_small() AR-1 train step, global
+         batch PARALLEL_WORLD, one example per rank, through K1, K2, K4 and
+         K5; the updated parameters equal, bit for bit, one process that
+         averages both examples' batch-1 gradients and steps (constant
+         learning rate 1e-3); s/step, peak GB per rank, launches; (b) the
+         zoo.gencast_1p0deg() loss and every gradient with its
+         transformer split over "sp" (K6-K8 on shard maps, 16 launches
+         each) against the unsharded step on the same weights, σ and
+         noise, within SP_TRAIN_RTOL; (c) the ENSEMBLE_MEMBERS-member 12 h
+         step with the members split over "batch", member by member
+         against the unsharded ensemble on the same member streams, both
+         under torch's deterministic algorithms (which fix the order of
+         the general path's index_add_ sums): the unsharded ensemble's
+         rerun bit-equal, the sharded members bit-equal to it.
   forecast  the GraphCast demo's path (examples/graphcast_demo.py) at
          zoo.graphcast() (0.25°, 37 levels, mesh-6, latent 512, 16 steps):
          the port's random weights written as a reference-format bundle
@@ -253,6 +279,7 @@ import argparse
 import dataclasses
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -278,15 +305,21 @@ BATCH = 4               # GraphCast_small batch of the graphcast_batch phase
 BATCH_STEPS = 2         # its timed 6 h steps
 MAIN_PIPELINED_RTOL = 1e-2  # relative RMS per variable, vs main's final
 BENCH_STEPS = 4         # the bench phase's BENCH_NUM_STEPS
+SP_SHARDS = (2, 4)      # sequence-parallel shard counts of sp_attention
+SP_DKV_RTOL = 1e-2      # relative RMS, summed dk/dv partials vs whole K8
+PARALLEL_WORLD = 2      # ranks of the parallel phase
+PARALLEL_STEPS = 2      # its timed data-parallel train steps
+SP_TRAIN_RTOL = 1e-2    # bf16 noise floor: sp vs unsharded loss and grads
 PEAK_FLOPS = 989e12     # H100 SXM, dense bf16 tensor cores
 PEAK_F32 = 67e12        # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3, bytes/s
 DEVICE = "cuda"
-PHASES = ("build", "k1", "k2", "k4", "k5", "wgrad", "k6", "k7k8", "embed",
-          "embed_bwd", "k3", "main", "small", "train", "train_small",
-          "gencast", "gencast_small", "gencast_train", "gencast_train_small",
-          "ensemble", "ensemble_small", "graphcast_batch", "forecast",
-          "gencast_0p25", "triblock", "k1p", "main_pipelined", "bench")
+PHASES = ("build", "k1", "k2", "k4", "k5", "wgrad", "k6", "k7k8",
+          "sp_attention", "embed", "embed_bwd", "k3", "main", "small",
+          "train", "train_small", "gencast", "gencast_small", "gencast_train",
+          "gencast_train_small", "ensemble", "ensemble_small",
+          "graphcast_batch", "parallel", "forecast", "gencast_0p25",
+          "triblock", "k1p", "main_pipelined", "bench")
 
 
 def _log(phase, t0, **fields):
@@ -1720,6 +1753,177 @@ def phase_k7k8(torch, results):
     results[name] = entry
 
 
+def _sp_bounds(batch, heads, d, rows, n, nnz):
+  """The bounds of one shard's K6, K7 and K8 (``rows`` q rows against
+  ``n`` kv rows, ``nnz`` mask entries): K6 reads q, k, v, writes o and
+  lse; K7 reads q, do, k, v, lse, delta, writes dq; K8 reads the same,
+  writes dk and dv for every kv row."""
+  b, w = batch * heads * d * 2, batch * heads * 4
+  return {"splash_fwd_shard": _bound(4 * batch * heads * nnz * d,
+                                     (2 * rows + 2 * n) * b + rows * w),
+          "splash_dq_shard": _bound(6 * batch * heads * nnz * d,
+                                    (3 * rows + 2 * n) * b + 2 * rows * w),
+          "splash_dkv_shard": _bound(8 * batch * heads * nnz * d,
+                                     (2 * rows + 4 * n) * b + 2 * rows * w)}
+
+
+def phase_sp_attention(torch, results):
+  """K6, K7 and K8 on sequence-parallel shard maps (module doc), in one
+  process: each shard against its plain twins, the shards' o, lse and dq
+  put together against the unsharded kernels bit for bit, their dk and dv
+  partials summed in shard order against the unsharded K8, a rerun
+  bit-equal, each shard timed beside the unsharded kernels."""
+  from graphcast_tpu_torch.ops import splash
+  t0 = time.perf_counter()
+  gen = torch.Generator(device=DEVICE).manual_seed(21)
+  batch, heads, d = 1, 4, 128
+  scale = d ** -0.5
+  mask, bm, _, _ = _k_hop_block_map(6)
+  n = bm.n
+  q, k, v, do = (_randn(torch, gen, (batch, n, heads, d), 1.0,
+                        torch.bfloat16) for _ in range(4))
+  names = ("splash_fwd_shard", "splash_dq_shard", "splash_dkv_shard")
+  entries = {
+      name: _entry(name, src, at, launches=None)
+      for name, src, at in zip(names, ("splash_fwd.cu", "splash_bwd.cu",
+                                       "splash_bwd.cu"),
+                               ("graphcast_tpu/ops/splash.py:217",
+                                "graphcast_tpu/ops/splash.py:382",
+                                "graphcast_tpu/ops/splash.py:437"))}
+  worst = {name: 0.0 for name in names}
+
+  def run(m, qs, dos):
+    (qh, kh, vh), oh, lseh = splash._launch_splash(qs, k, v, m, scale)
+    doh = splash._to_heads(dos, m.n_pad)
+    args = (qh, kh, vh, doh, lseh, splash.attention_delta(oh, doh), m, scale)
+    return (oh, lseh, splash.splash_dq(*args), *splash.splash_dkv(*args)), args
+
+  with torch.inference_mode():
+    (oh, lseh, dq, dk, dv), whole = run(bm, q, do)
+    o, lse = splash._outputs(oh, lseh, batch, n)
+    dq = splash._from_heads(dq, batch, n)
+    dk, dv = (splash._from_heads(g, batch, n) for g in (dk, dv))
+    whole_ms = [_time_ms(torch, lambda: splash._launch_splash(q, k, v, bm,
+                                                              scale), reps=10),
+                _time_ms(torch, lambda: splash.splash_dq(*whole), reps=10),
+                _time_ms(torch, lambda: splash.splash_dkv(*whole), reps=10)]
+    for shards in SP_SHARDS:
+      t1 = time.perf_counter()
+      maps = splash.shard_block_maps(bm, shards)
+      map_s = time.perf_counter() - t1
+      parts = {key: [] for key in ("o", "lse", "dq")}
+      dk_sum = torch.zeros(dk.shape, device=DEVICE)
+      dv_sum = torch.zeros(dv.shape, device=DEVICE)
+      shard_ms = []
+      for s, (m, (a, b)) in enumerate(zip(maps, splash.shard_rows(n,
+                                                                  shards))):
+        qs, dos = q[:, a:b], do[:, a:b]
+        (ohs, lses, dqs, dks, dvs), args = run(m, qs, dos)
+        if s == 0:  # a rerun is bit-equal
+          again, _ = run(m, qs, dos)
+          for name, x, y in zip(("o", "lse", "dq", "dk", "dv"),
+                                (ohs, lses, dqs, dks, dvs), again):
+            if not torch.equal(x, y):
+              raise AssertionError(f"sp_attention S={shards} shard 0 {name}:"
+                                   " a rerun is not bit-equal")
+          del again
+        os_, ls_ = splash._outputs(ohs, lses, batch, b - a)
+        parts["o"].append(os_)
+        parts["lse"].append(ls_)
+        dqs = splash._from_heads(dqs, batch, b - a)
+        parts["dq"].append(dqs)
+        dks, dvs = (splash._from_heads(g, batch, n) for g in (dks, dvs))
+        dk_sum += dks.float()
+        dv_sum += dvs.float()
+        # Each shard's kernels against their plain twins on its map.
+        want_o, want_lse = splash.block_sparse_attention_reference(
+            qs, k, v, m, scale)
+        phase = f"sp_attention S={shards} shard {s}"
+        err = _check_close(f"{phase} o", os_, want_o)[0]
+        if not (ls_ - want_lse).abs().max().item() <= LSE_ATOL:
+          raise AssertionError(f"{phase} lse beyond {LSE_ATOL}")
+        ref = (qs, k, v, os_, ls_, dos, m, scale)
+        e_dq = _check_grads(phase, {"dq": dqs},
+                            {"dq": splash._dq_reference(*ref)})
+        want_dk, want_dv = splash._dkv_reference(*ref)
+        e_dkv = _check_grads(phase, {"dk": dks, "dv": dvs},
+                             {"dk": want_dk, "dv": want_dv})
+        for name, e in zip(names, (err, e_dq[0], e_dkv[0])):
+          worst[name] = max(worst[name], e)
+        del want_o, want_lse, want_dk, want_dv
+        ms = [_time_ms(torch, lambda: splash._launch_splash(qs, k, v, m,
+                                                            scale), reps=10),
+              _time_ms(torch, lambda: splash.splash_dq(*args), reps=10),
+              _time_ms(torch, lambda: splash.splash_dkv(*args), reps=10)]
+        shard_ms.append(ms)
+        bounds = _sp_bounds(batch, heads, d, b - a, n, m.nnz)
+        print(f"[sp_attention] S={shards} shard={s} rows={a}:{b} "
+              f"active_tiles={m.n_active} mask_entries={m.nnz} "
+              f"k6_ms={ms[0]:.4f} k7_ms={ms[1]:.4f} k8_ms={ms[2]:.4f} "
+              + " ".join(f"{nm.split('_')[1]}_bound_ms="
+                         f"{bounds[nm]['bound_ms']:.4f}" for nm in names),
+              flush=True)
+        if s == 0:
+          plain = [_time_ms(
+                       torch, lambda: splash.block_sparse_attention_reference(
+                           qs, k, v, m, scale), reps=1),
+                   _time_ms(torch, lambda: splash._dq_reference(*ref), reps=1),
+                   _time_ms(torch, lambda: splash._dkv_reference(*ref),
+                            reps=1)]
+          first = (a, b, m, args, bounds, plain, ms)
+      # Put together: o, lse and dq bit for bit; dk, dv summed in order.
+      same = {key: torch.equal(torch.cat(parts[key], 2 if key == "lse"
+                                         else 1), want)
+              for key, want in (("o", o), ("lse", lse), ("dq", dq))}
+      if not all(same.values()):
+        raise AssertionError(f"sp_attention S={shards}: assembled shards "
+                             f"differ from the unsharded kernels: {same}")
+      rel = {name: _errors(got.to(want.dtype), want)[1]
+             for name, got, want in (("dk", dk_sum, dk), ("dv", dv_sum, dv))}
+      if not all(r <= SP_DKV_RTOL for r in rel.values()):
+        raise AssertionError(f"sp_attention S={shards}: summed partials "
+                             f"vs unsharded K8 rel_rms {rel} (tol "
+                             f"{SP_DKV_RTOL})")
+      # The library yardstick of the first shard's K6: SDPA with its rows
+      # of the dense mask, where they fit.
+      a, b, m, args, bounds, plain, ms = first
+      library_ms = None
+      try:
+        dense = torch.as_tensor(mask[a:b].toarray(), device=DEVICE)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q[:, a:b], k, v))
+        library_ms = _time_ms(
+            torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=dense, scale=scale), reps=5)
+        del dense, qt, kt, vt
+      except torch.cuda.OutOfMemoryError:
+        torch.cuda.empty_cache()
+      slowest = [max(col) for col in zip(*shard_ms)]
+      suffix = f"_s{shards}"
+      for i, name in enumerate(names):
+        e = entries[name]
+        e.update({"ms" + suffix: slowest[i], "shard0_ms" + suffix: ms[i],
+                  "plain_ms" + suffix: plain[i],
+                  "unsharded_ms": whole_ms[i],
+                  **{key + suffix: val for key, val in bounds[name].items()}})
+        e["library_ms" + suffix] = library_ms if i == 0 else None
+        if shards == SP_SHARDS[0]:
+          e.update(ms=ms[i], plain_ms=plain[i], library_ms=e["library_ms"
+                                                             + suffix],
+                   **bounds[name])
+      _log("sp_attention", t0, shards=shards, nodes=n,
+           rows_per_shard=maps[0].n_pad, shard_map_s=f"{map_s:.2f}",
+           assembled_o_lse_dq="bit-equal", rerun="bit-equal",
+           dk_rel_rms=f"{rel['dk']:.3g}", dv_rel_rms=f"{rel['dv']:.3g}",
+           unsharded_ms="/".join(f"{t:.4f}" for t in whole_ms),
+           slowest_shard_ms="/".join(f"{t:.4f}" for t in slowest),
+           library_ms="none" if library_ms is None else f"{library_ms:.4f}")
+  for name in names:
+    entries[name]["max_abs_err"] = worst[name]
+    results[name] = entries[name]
+  del q, k, v, do, o, lse, dq, dk, dv
+  torch.cuda.empty_cache()
+
+
 @functools.lru_cache(maxsize=None)
 def _gencast_artifact(resolution, mesh_size):
   """GenCast's banded artifact, the one its models take (built once per
@@ -2091,12 +2295,12 @@ def _redraw_degenerate(model, seed):
   params.load_params(model, flat)
 
 
-def _gencast_stack(torch, preset, seed, device=None):
+def _gencast_stack(torch, preset, seed, device=None, sequence_parallel=None):
   from graphcast_tpu_torch.data import synthetic
   from graphcast_tpu_torch.wrappers import InputsAndResiduals, NaNCleaner
   device = device or DEVICE
   model = preset.build(generator=torch.Generator().manual_seed(seed),
-                       device=device)
+                       device=device, sequence_parallel=sequence_parallel)
   _redraw_degenerate(model, seed)
   stats = synthetic.make_norm_stats(preset.task_config, device=device)
   return model, NaNCleaner(InputsAndResiduals(model, *stats),
@@ -2794,6 +2998,287 @@ TRIBLOCK_ATOL = 5e-4        # triblockdiag_mha card vs CPU, f32, of the max
 CRPS_RTOL = 1e-5            # crps_ensemble card vs CPU, relative
 
 
+def _const_lr_optimizer(model):
+  """ClippedAdamW at a constant learning rate of 1e-3: the first step
+  moves every parameter (graphcast_optimizer's warmup starts at 0)."""
+  from graphcast_tpu_torch import train
+  return train.ClippedAdamW(model.parameters(), lambda count: 1e-3, b1=0.9,
+                            b2=0.95, eps=1e-8, weight_decay=0.1,
+                            clip_norm=32.0)
+
+
+def _dp_data(torch):
+  """GraphCast_small's global batch of PARALLEL_WORLD examples (bf16)."""
+  from graphcast_tpu_torch.data import synthetic
+  from graphcast_tpu_torch.models import zoo
+  preset = zoo.graphcast_small()
+  data = synthetic.make_example_batch(
+      preset.task_config, resolution=preset.model_config.resolution,
+      batch=PARALLEL_WORLD, num_target_times=1, device=DEVICE)
+  return preset, [fs.astype(torch.bfloat16) for fs in data]
+
+
+def _parallel_rank(rank, out_dir):
+  """One rank of the parallel phase (module doc): (a) the data-parallel
+  GraphCast_small train step, (b) the GenCast 1.0° train step with its
+  transformer split over "sp", (c) the ensemble's members split over
+  "batch". Writes its numbers to out_dir/rank<r>.json and, from rank 0,
+  the tensors the parent checks."""
+  import torch
+  from graphcast_tpu_torch import rollout, train
+  from graphcast_tpu_torch.models import zoo
+  from graphcast_tpu_torch.parallel import sharding
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  out = {"rank": rank}
+  # (a) Data parallelism: one example per rank.
+  t0 = time.perf_counter()
+  mesh = sharding.make_mesh({"batch": PARALLEL_WORLD})
+  preset, data = _dp_data(torch)
+  local = train.shard_batch(mesh, *data)
+  model, stack = _stack(torch, preset, seed=0, device=DEVICE,
+                        gradient_checkpointing=True)
+  step = train.make_train_step(stack, _const_lr_optimizer(model), mesh)
+  losses = [float(step(*local)[0])]
+  torch.cuda.synchronize()
+  out["dp_first_step_s"] = time.perf_counter() - t0
+  if rank == 0:
+    torch.save({k: p.detach().cpu() for k, p in model.named_parameters()},
+               os.path.join(out_dir, "dp_params.pt"))
+  torch.cuda.reset_peak_memory_stats()
+  _reset_counters()
+  t1 = time.perf_counter()
+  for _ in range(PARALLEL_STEPS):
+    losses.append(float(step(*local)[0]))
+  torch.cuda.synchronize()
+  out["dp_s_per_step"] = (time.perf_counter() - t1) / PARALLEL_STEPS
+  out["dp_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+  out["dp_losses"] = losses
+  out["dp_counts"] = {**{k: fn.launches for k, fn in _counters().items()},
+                      **_mode_counts()}
+  del model, stack, step, data, local
+  torch.cuda.empty_cache()
+
+  # (b) Sequence parallelism: GenCast 1.0°, the transformer's nodes split.
+  t0 = time.perf_counter()
+  mesh = sharding.make_mesh({"sp": PARALLEL_WORLD})
+  preset = zoo.gencast_1p0deg()
+  model, stack = _gencast_stack(torch, preset, seed=0,
+                                sequence_parallel=(mesh, "sp"))
+  data = _gencast_train_data(torch, preset, DEVICE, torch.bfloat16)
+
+  def sp_step(m, s):
+    return _loss_and_grads(torch, s, m, data, DEVICE,
+                           generator=torch.Generator(
+                               device=DEVICE).manual_seed(5))
+
+  sp_step(model, stack)  # warm-up: mask, shard maps, SHT basis
+  torch.cuda.synchronize()
+  out["sp_setup_s"] = time.perf_counter() - t0
+  torch.cuda.reset_peak_memory_stats()
+  _reset_counters()
+  t1 = time.perf_counter()
+  loss, _, grads = sp_step(model, stack)
+  torch.cuda.synchronize()
+  out["sp_s_per_step"] = time.perf_counter() - t1
+  out["sp_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+  out["sp_counts"] = {k: fn.launches for k, fn in _counters().items()}
+  out["sp_loss"] = float(loss)
+  out["sp_config"] = _gencast_label(preset)
+  out["sp_layers"] = (preset.denoiser_architecture_config
+                      .sparse_transformer_config.num_layers)
+  del model, stack
+  torch.cuda.empty_cache()
+  if rank == 0:  # the unsharded step on the same σ, noise and weights
+    model, stack = _gencast_stack(torch, preset, seed=0)
+    want, _, want_grads = sp_step(model, stack)
+    out["sp_unsharded_loss"] = float(want)
+    out["sp_grad_rel_rms"] = {k: _errors(grads[k], w)[1]
+                              for k, w in want_grads.items()}
+    del model, stack, want_grads
+  del grads, data
+  torch.cuda.empty_cache()
+
+  # (c) The ensemble's members split over "batch", under deterministic
+  # algorithms: the general path's index_add_ sums then run in a fixed
+  # order, so the sharded and unsharded ensembles can be held bit for bit.
+  torch.use_deterministic_algorithms(True, warn_only=True)
+  t0 = time.perf_counter()
+  mesh = sharding.make_mesh({"batch": PARALLEL_WORLD})
+  model, stack = _gencast_stack(torch, preset, seed=0)
+  inputs, targets, forcings = (
+      fs.astype(torch.bfloat16) for fs in _gencast_step_data(preset))
+
+  def ensemble(m):
+    return rollout.chunked_ensemble_prediction(
+        stack, torch.Generator(device=DEVICE).manual_seed(1), inputs,
+        targets, forcings, num_samples=ENSEMBLE_MEMBERS, mesh=m,
+        pull_to_host=False)
+
+  _reset_counters()
+  sharded = ensemble(mesh)
+  torch.cuda.synchronize()
+  out["ens_s"] = time.perf_counter() - t0
+  out["ens_counts"] = {k: fn.launches for k, fn in _counters().items()}
+  if rank == 0:  # the unsharded ensemble, and its rerun
+    runs = [ensemble(None) for _ in range(2)]
+    torch.save({key: {n: fs.data(n).float().cpu() for n in fs.var_names}
+                for key, fs in zip(("sharded", "whole", "again"),
+                                   (sharded, *runs))},
+               os.path.join(out_dir, "ensemble.pt"))
+  with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+    json.dump(out, f)
+
+
+def _gencast_step_data(preset):
+  """GenCast's batch-1 inputs, one 12 h target and its forcings."""
+  from graphcast_tpu_torch.data import synthetic
+  return synthetic.make_example_batch(
+      preset.task_config, resolution=preset.resolution, batch=1,
+      num_target_times=1, time_step_hours=12, device=DEVICE)
+
+
+def _parallel_launches(dp_preset, sp_layers):
+  """The launches the parallel phase's ranks must count: per data-parallel
+  step (per PARALLEL_STEPS), per sequence-parallel step, and the kernels
+  the ensemble must have launched."""
+  mc = dp_preset.model_config
+  dp = _train_launches_per_step(_geometry(mc.resolution, mc.mesh_size),
+                                mc.gnn_msg_steps)
+  return {"dp": dp,
+          "sp": {k: sp_layers for k in ("splash_fwd", "splash_dq",
+                                         "splash_dkv")},
+          "ensemble": ("splash_fwd", "segment_sum")}
+
+
+def phase_parallel(torch, results):
+  """Data, sequence and ensemble parallelism over torch.distributed
+  (module doc): PARALLEL_WORLD ranks, one per card over nccl where there
+  are enough cards, else all on the one card over gloo."""
+  import tempfile
+  from graphcast_tpu_torch import train
+  from graphcast_tpu_torch.parallel import launch
+  t0 = time.perf_counter()
+  backend = launch.default_backend(PARALLEL_WORLD, "cuda")
+  staging = ("; gloo runs all-reduce, all-gather and broadcast on CUDA "
+             "tensors itself, the port stages nothing through the host"
+             if backend == "gloo" else "")
+  print(f"[parallel] backend={backend} world_size={PARALLEL_WORLD} "
+        f"cards={torch.cuda.device_count()}{staging}", flush=True)
+  torch.cuda.empty_cache()
+  with tempfile.TemporaryDirectory(dir=os.path.dirname(
+      os.path.abspath(__file__))) as out_dir:
+    launch.spawn(_parallel_rank, PARALLEL_WORLD, args=(out_dir,),
+                 device="cuda", timeout_s=300)
+    ranks = []
+    for r in range(PARALLEL_WORLD):
+      with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+        ranks.append(json.load(f))
+    got = torch.load(os.path.join(out_dir, "dp_params.pt"))
+    ens = torch.load(os.path.join(out_dir, "ensemble.pt"))
+  spawn_s = time.perf_counter() - t0
+
+  # (a) One process: both examples' batch-1 gradients, averaged, stepped.
+  preset, data = _dp_data(torch)
+  model, stack = _stack(torch, preset, seed=0, device=DEVICE,
+                        gradient_checkpointing=True)
+  opt = _const_lr_optimizer(model)
+  loss_fn = train.make_loss_fn(stack)
+  grads = []
+  for r in range(PARALLEL_WORLD):
+    opt.zero_grad()
+    loss_fn(*(fs.isel(batch=slice(r, r + 1)) for fs in data))[0].backward()
+    opt.fill_grads()
+    grads.append([p.grad for p in opt.params])
+  for p, *gs in zip(opt.params, *grads):
+    total = gs[0].clone()
+    for g in gs[1:]:
+      total += g
+    p.grad = total.div_(PARALLEL_WORLD)
+  opt.step()
+  differ = [k for k, p in model.named_parameters()
+            if not torch.equal(p.detach().cpu(), got[k])]
+  if differ:
+    raise AssertionError(f"parallel dp: {len(differ)} parameters differ "
+                         f"from the averaged single-process step: "
+                         f"{differ[:3]}")
+  del model, stack, opt, grads, got, data
+  torch.cuda.empty_cache()
+  expected = _parallel_launches(preset, ranks[0]["sp_layers"])
+  for r in ranks:
+    for name, per_step in expected["dp"].items():
+      if r["dp_counts"][name] != per_step * PARALLEL_STEPS:
+        raise AssertionError(f"parallel dp rank {r['rank']} launches "
+                             f"{r['dp_counts']}, expected {expected}")
+    if not np.isfinite(r["dp_losses"]).all():
+      raise AssertionError(f"parallel dp non-finite losses {r['dp_losses']}")
+  if len({tuple(r["dp_losses"]) for r in ranks}) != 1:
+    raise AssertionError("parallel dp: ranks report different losses")
+  dp = ranks[0]
+
+  # (b) Sequence parallelism against the unsharded step.
+  layers = ranks[0]["sp_layers"]
+  for r in ranks:
+    for name, n in expected["sp"].items():
+      if r["sp_counts"][name] != n:
+        raise AssertionError(f"parallel sp rank {r['rank']}: {name} "
+                             f"launched {r['sp_counts'][name]} times, "
+                             f"expected {n}")
+  loss_rel = abs(ranks[0]["sp_loss"] - ranks[0]["sp_unsharded_loss"]
+                 ) / abs(ranks[0]["sp_unsharded_loss"])
+  worst_grad = max(ranks[0]["sp_grad_rel_rms"].values())
+  if not (loss_rel <= SP_TRAIN_RTOL and worst_grad <= SP_TRAIN_RTOL):
+    bad = {k: v for k, v in ranks[0]["sp_grad_rel_rms"].items()
+           if not v <= SP_TRAIN_RTOL}
+    raise AssertionError(f"parallel sp: loss rel {loss_rel:.3g}, grads "
+                         f"beyond {SP_TRAIN_RTOL}: {bad}")
+  for name in ("splash_fwd_shard", "splash_dq_shard", "splash_dkv_shard"):
+    key = name.rsplit("_", 1)[0]
+    results.setdefault(name, {"name": name}).update(
+        launches=ranks[0]["sp_counts"][key], launches_per_step=layers)
+
+  # (c) The sharded ensemble member by member against the unsharded one.
+  for r in ranks:
+    if any(r["ens_counts"][name] == 0 for name in expected["ensemble"]):
+      raise AssertionError(f"parallel ensemble rank {r['rank']} ran no "
+                           f"kernel: {r['ens_counts']}")
+  member_rel, rerun_rel, differ = [], [], []
+  for name, whole in ens["whole"].items():
+    for m in range(ENSEMBLE_MEMBERS):
+      member_rel.append(_errors(ens["sharded"][name][m], whole[m])[1])
+      rerun_rel.append(_errors(ens["again"][name][m], whole[m])[1])
+      if not torch.equal(ens["sharded"][name][m], whole[m]):
+        differ.append(f"{name}[{m}]")
+    if not torch.equal(ens["again"][name], whole):
+      raise AssertionError(
+          f"parallel ensemble: the unsharded ensemble's rerun differs in "
+          f"{name} (rel_rms {max(rerun_rel):.3g}) under deterministic "
+          f"algorithms")
+  if differ:
+    raise AssertionError(
+        f"parallel ensemble: {len(differ)} member fields differ from the "
+        f"unsharded ensemble ({differ[:4]}), worst rel_rms "
+        f"{max(member_rel):.3g}")
+  _log("parallel", t0, backend=backend, world_size=PARALLEL_WORLD,
+       spawn_s=f"{spawn_s:.1f}",
+       dp_config=_label(preset) + "/AR1",
+       dp_global_batch=PARALLEL_WORLD, dp_params="bit-equal",
+       dp_s_per_step=f"{dp['dp_s_per_step']:.4f}",
+       dp_peak_gb_per_rank="/".join(f"{r['dp_peak_gb']:.2f}" for r in ranks),
+       dp_losses="[" + ",".join(f"{v:.6g}" for v in dp["dp_losses"]) + "]",
+       dp_launches_per_step="/".join(f"{k}:{n}" for k, n in
+                                     expected["dp"].items()),
+       sp_config=ranks[0]["sp_config"], sp=PARALLEL_WORLD,
+       sp_s_per_step=f"{ranks[0]['sp_s_per_step']:.4f}",
+       sp_peak_gb_per_rank="/".join(f"{r['sp_peak_gb']:.2f}" for r in ranks),
+       sp_loss=f"{ranks[0]['sp_loss']:.6g}",
+       unsharded_loss=f"{ranks[0]['sp_unsharded_loss']:.6g}",
+       sp_loss_rel=f"{loss_rel:.3g}", sp_worst_grad_rel_rms=f"{worst_grad:.3g}",
+       sp_k6_k7_k8_per_step=layers,
+       ens_members=ENSEMBLE_MEMBERS, ens_s=f"{ranks[0]['ens_s']:.2f}",
+       ens_members_bit_equal=True, ens_rerun_bit_equal=True)
+
+
 def phase_forecast(torch, results):
   """The GraphCast demo's path at full width (module doc)."""
   import io
@@ -3382,6 +3867,8 @@ def main(argv=None) -> int:
     phase_k6(torch, results)
   if "k7k8" in phases:
     phase_k7k8(torch, results)
+  if "sp_attention" in phases:
+    phase_sp_attention(torch, results)
   if "embed" in phases:
     phase_embed(torch, art, results)
   if "embed_bwd" in phases:
@@ -3422,6 +3909,8 @@ def main(argv=None) -> int:
     phase_ensemble_small(torch)
   if "graphcast_batch" in phases:
     phase_graphcast_batch(torch, results, args.profile)
+  if "parallel" in phases:
+    phase_parallel(torch, results)
   if "forecast" in phases:
     phase_forecast(torch, results)
   if "gencast_0p25" in phases:

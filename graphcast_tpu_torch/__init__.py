@@ -24,6 +24,10 @@ The TPU kernels on those paths are rewritten for Hopper in CUDA C++
 Each has a plain-PyTorch twin, used for CPU tensors (under autograd for
 gradients); CUDA tensors always take the kernels. Entry points put their
 tensors on the card unless the caller passes ``device="cpu"``.
+``parallel`` runs these paths over ``torch.distributed`` meshes (data and
+ensemble parallelism, Megatron-paired tensor parallelism, sequence-parallel
+splash attention); ``graft_entry`` holds the twins of the repository root's
+``__graft_entry__`` (a forward step, the multi-process dry run).
 ``python3 chip_smoke.py`` drives the port on a GPU. This package imports
 ``torch`` and never ``jax``.
 """

@@ -63,7 +63,13 @@
 //     dP^T, then dK: 3), each pass with K7's live set: one more product an
 //     entry, the stream and the exponentials twice, for products that run
 //     asynchronously. One block fills an SM (~200 KB of shared memory, 288
-//     threads).
+//     threads);
+//   * q and kv rows are counted apart (n_pad, n_pad_kv), so both kernels
+//     run a sequence-parallel shard's maps (ops/splash.py
+//     shard_block_maps): K7 the shard's q tiles against every kv tile, K8
+//     every kv tile against the shard's q tiles, writing the shard's dK
+//     and dV partials (0 where no q row of the shard attends a kv tile),
+//     which the shards' process group sums.
 
 #include "splash.cuh"
 
@@ -178,11 +184,12 @@ __global__ void __launch_bounds__(kSpBlockThreads, 1) splash_dq_kernel(
     const int2* __restrict__ group_pairs, const int* __restrict__ group_order,
     const unsigned long long* __restrict__ words,
     const int* __restrict__ full, bf16* __restrict__ dq, float scale, int nq,
-    int n_pad, int bh) {
+    int n_pad, int n_pad_kv, int bh) {
   extern __shared__ unsigned char smem_raw[];
   const SplashSmem sm(smem_raw, 2, false);
   const int grp = group_order[blockIdx.x / bh];
-  const int row0 = (blockIdx.x % bh) * n_pad;  // the head's first row
+  const int row0 = (blockIdx.x % bh) * n_pad;        // the head's first q row
+  const int kv_row0 = (blockIdx.x % bh) * n_pad_kv;  // and first kv row
   const int e_begin = group_offsets[grp];
   const int n = group_offsets[grp + 1] - e_begin;
   // The warp index, warp-uniform as ptxas sees it (a broadcast).
@@ -196,7 +203,7 @@ __global__ void __launch_bounds__(kSpBlockThreads, 1) splash_dq_kernel(
       sm.load_own(&tq, &tdo, row0, grp, min(2, nq - 2 * grp));
       for (int r = 0; r < n; ++r) {
         const int e = e_begin + r;
-        sm.stream(r, e, &tk, &tv, row0 + group_kv[e] * kSpT, group_pairs,
+        sm.stream(r, e, &tk, &tv, kv_row0 + group_kv[e] * kSpT, group_pairs,
                   full, words, 0);
       }
     }
@@ -314,11 +321,13 @@ __global__ void __launch_bounds__(kSpBlockThreads, 1) splash_dkv_kernel(
     const int2* __restrict__ group_pairs, const int* __restrict__ group_order,
     const unsigned long long* __restrict__ words_t,
     const int* __restrict__ full_t, bf16* __restrict__ dk,
-    bf16* __restrict__ dv, float scale, int nkv, int n_pad, int bh) {
+    bf16* __restrict__ dv, float scale, int nkv, int n_pad, int n_pad_kv,
+    int bh) {
   extern __shared__ unsigned char smem_raw[];
   const SplashSmem sm(smem_raw, 2, true);
   const int grp = group_order[blockIdx.x / bh];
-  const int row0 = (blockIdx.x % bh) * n_pad;
+  const int q_row0 = (blockIdx.x % bh) * n_pad;   // the head's first q row
+  const int row0 = (blockIdx.x % bh) * n_pad_kv;  // and first kv row
   const int e_begin = group_offsets[grp];
   const int n = group_offsets[grp + 1] - e_begin;
   const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
@@ -331,7 +340,7 @@ __global__ void __launch_bounds__(kSpBlockThreads, 1) splash_dkv_kernel(
       sm.load_own(&tk, &tv, row0, grp, min(2, nkv - 2 * grp));
       for (int r = 0; r < 2 * n; ++r) {
         const int e = e_begin + r % n;
-        const int qr = row0 + group_q[e] * kSpT;
+        const int qr = q_row0 + group_q[e] * kSpT;
         uint64_t* bar = sm.stream(r, e, &tq, &tdo, qr, group_pairs, full_t,
                                   words_t, 2 * kSpRowVals);
         bulk_load(sm.lse + ring_stage(r) * kSpT, lse + qr, kSpRowVals, bar);
@@ -345,16 +354,19 @@ __global__ void __launch_bounds__(kSpBlockThreads, 1) splash_dkv_kernel(
                scale, nkv, row0, grp);
 }
 
-// The four bf16 operands' tensor maps ([bh * n_pad, 128] each, 64 x 64
-// boxes).
+// The four bf16 operands' tensor maps (q, dout [bh * n_pad, 128], k, v
+// [bh * n_pad_kv, 128], 64 x 64 boxes).
 inline cudaError_t operand_maps(CUtensorMap (&maps)[4], const void* q,
                                 const void* k, const void* v,
-                                const void* dout, int bh, int n_pad) {
+                                const void* dout, int bh, int n_pad,
+                                int n_pad_kv) {
   const uint64_t rows = (uint64_t)bh * n_pad;
+  const uint64_t kv_rows = (uint64_t)bh * n_pad_kv;
   const void* ptrs[4] = {q, k, v, dout};
   for (int i = 0; i < 4; ++i) {
-    const cudaError_t err =
-        bf16_tile_map(&maps[i], ptrs[i], rows, kSpD, kSpD, kSpT);
+    const cudaError_t err = bf16_tile_map(
+        &maps[i], ptrs[i], i == 1 || i == 2 ? kv_rows : rows, kSpD, kSpD,
+        kSpT);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -362,8 +374,8 @@ inline cudaError_t operand_maps(CUtensorMap (&maps)[4], const void* q,
 
 }  // namespace gc
 
-// q, k, v, dout, dq: [bh, n_pad, 128] bf16; lse, delta: [bh, n_pad] f32
-// (lse 0 past n), 16-byte aligned; n_pad = nq * 64. The forward map's
+// q, dout, dq: [bh, n_pad, 128] bf16; k, v: [bh, n_pad_kv, 128] bf16; lse,
+// delta: [bh, n_pad] f32 (lse 0 past n), 16-byte aligned; n_pad = nq * 64. The forward map's
 // words [n_active, 64] and full [n_active] and its work lists from
 // ops/splash.py paired_lists: group_offsets [groups + 1], group_kv
 // [entries], group_pairs [entries, 2], group_order [groups].
@@ -373,12 +385,14 @@ extern "C" int gc_splash_dq(const void* q, const void* k, const void* v,
                             const int* group_kv, const void* group_pairs,
                             const int* group_order, const void* words,
                             const int* full, void* dq, float scale, int bh,
-                            int nq, int groups, int n_pad, void* stream) {
+                            int nq, int groups, int n_pad, int n_pad_kv,
+                            void* stream) {
   using gc::bf16;
   if (bh <= 0 || nq <= 0) return 0;
   if (groups != (nq + 1) / 2) return cudaErrorInvalidValue;
   CUtensorMap maps[4];
-  cudaError_t err = gc::operand_maps(maps, q, k, v, dout, bh, n_pad);
+  cudaError_t err =
+      gc::operand_maps(maps, q, k, v, dout, bh, n_pad, n_pad_kv);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(gc::splash_dq_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -389,13 +403,13 @@ extern "C" int gc_splash_dq(const void* q, const void* k, const void* v,
       maps[0], maps[1], maps[2], maps[3], lse, delta, group_offsets,
       group_kv, static_cast<const int2*>(group_pairs), group_order,
       static_cast<const unsigned long long*>(words), full,
-      static_cast<bf16*>(dq), scale, nq, n_pad, bh);
+      static_cast<bf16*>(dq), scale, nq, n_pad, n_pad_kv, bh);
   return cudaGetLastError();
 }
 
 // As gc_splash_dq, over the transposed map: its words_t (one word per kv
 // row), full_t and paired lists (group_q: the q tile of each entry); dk,
-// dv: [bh, n_pad, 128] bf16.
+// dv: [bh, n_pad_kv, 128] bf16.
 extern "C" int gc_splash_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const float* lse,
                              const float* delta, const int* group_offsets,
@@ -403,12 +417,13 @@ extern "C" int gc_splash_dkv(const void* q, const void* k, const void* v,
                              const int* group_order, const void* words_t,
                              const int* full_t, void* dk, void* dv,
                              float scale, int bh, int nkv, int groups,
-                             int n_pad, void* stream) {
+                             int n_pad, int n_pad_kv, void* stream) {
   using gc::bf16;
   if (bh <= 0 || nkv <= 0) return 0;
   if (groups != (nkv + 1) / 2) return cudaErrorInvalidValue;
   CUtensorMap maps[4];
-  cudaError_t err = gc::operand_maps(maps, q, k, v, dout, bh, n_pad);
+  cudaError_t err =
+      gc::operand_maps(maps, q, k, v, dout, bh, n_pad, n_pad_kv);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(gc::splash_dkv_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -419,7 +434,8 @@ extern "C" int gc_splash_dkv(const void* q, const void* k, const void* v,
       maps[0], maps[1], maps[2], maps[3], lse, delta, group_offsets, group_q,
       static_cast<const int2*>(group_pairs), group_order,
       static_cast<const unsigned long long*>(words_t), full_t,
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), scale, nkv, n_pad, bh);
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), scale, nkv, n_pad,
+      n_pad_kv, bh);
   return cudaGetLastError();
 }
 

@@ -52,7 +52,11 @@
 //     register sets, which keeps ptxas from serialising the products;
 //   * the grid walks the q tile pairs heaviest first (union lists of 31-68
 //     kv tiles at mesh-5), each pair's heads together, so the long lists
-//     start first; one block fills an SM (~169 KB of shared memory).
+//     start first; one block fills an SM (~169 KB of shared memory);
+//   * q and kv rows are counted apart (n_pad, n_pad_kv): a sequence-parallel
+//     shard runs its own q tiles against every kv tile (ops/splash.py
+//     shard_block_maps) with no other change; a q row sees the same kv
+//     tiles in the same order as in the whole map.
 
 #include "splash.cuh"
 
@@ -132,11 +136,13 @@ __global__ void __launch_bounds__(kSpBlockThreads, 1) splash_fwd_kernel(
     const int2* __restrict__ group_pairs, const int* __restrict__ group_order,
     const unsigned long long* __restrict__ words,
     const int* __restrict__ full, bf16* __restrict__ o,
-    float* __restrict__ lse, float scale, int nq, int n_pad, int bh) {
+    float* __restrict__ lse, float scale, int nq, int n_pad, int n_pad_kv,
+    int bh) {
   extern __shared__ unsigned char smem_raw[];
   const SplashSmem sh(smem_raw, 1, false);  // own: q tiles 2g, 2g + 1
   const int grp = group_order[blockIdx.x / bh];
-  const int row0 = (blockIdx.x % bh) * n_pad;  // the head's first row
+  const int row0 = (blockIdx.x % bh) * n_pad;        // the head's first q row
+  const int kv_row0 = (blockIdx.x % bh) * n_pad_kv;  // and first kv row
   const int e_begin = group_offsets[grp], e_end = group_offsets[grp + 1];
   // The warp index, warp-uniform as ptxas sees it (a broadcast).
   const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
@@ -148,7 +154,7 @@ __global__ void __launch_bounds__(kSpBlockThreads, 1) splash_fwd_kernel(
     if (lane == 0) {
       sh.load_own(&tq, nullptr, row0, grp, min(2, nq - 2 * grp));
       for (int e = e_begin; e < e_end; ++e) {
-        sh.stream(e - e_begin, e, &tk, &tv, row0 + group_kv[e] * kSpT,
+        sh.stream(e - e_begin, e, &tk, &tv, kv_row0 + group_kv[e] * kSpT,
                   group_pairs, full, words, 0);
       }
     }
@@ -293,7 +299,8 @@ __global__ void __launch_bounds__(kSpBlockThreads, 1) splash_fwd_kernel(
 
 }  // namespace gc
 
-// q, k, v, o: [bh, n_pad, 128] bf16; lse: [bh, n_pad] f32; n_pad = nq * 64.
+// q, o: [bh, n_pad, 128] bf16; k, v: [bh, n_pad_kv, 128] bf16; lse:
+// [bh, n_pad] f32; n_pad = nq * 64.
 // The work lists of ops/splash.py paired_lists: group_offsets [groups + 1],
 // group_kv [entries], group_pairs [entries, 2], group_order [groups].
 extern "C" int gc_splash_fwd(const void* q, const void* k, const void* v,
@@ -301,19 +308,21 @@ extern "C" int gc_splash_fwd(const void* q, const void* k, const void* v,
                              const void* group_pairs, const int* group_order,
                              const void* words, const int* full, void* o,
                              float* lse, float scale, int bh, int nq,
-                             int groups, int n_pad, void* stream) {
+                             int groups, int n_pad, int n_pad_kv,
+                             void* stream) {
   using gc::bf16;
   if (bh <= 0 || nq <= 0) return 0;
   if (groups != (nq + 1) / 2) return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
   const uint64_t rows = (uint64_t)bh * n_pad;
+  const uint64_t kv_rows = (uint64_t)bh * n_pad_kv;
   cudaError_t err = gc::bf16_tile_map(&tq, q, rows, gc::kSpD, gc::kSpD,
                                       gc::kSpT);
   if (err == cudaSuccess) {
-    err = gc::bf16_tile_map(&tk, k, rows, gc::kSpD, gc::kSpD, gc::kSpT);
+    err = gc::bf16_tile_map(&tk, k, kv_rows, gc::kSpD, gc::kSpD, gc::kSpT);
   }
   if (err == cudaSuccess) {
-    err = gc::bf16_tile_map(&tv, v, rows, gc::kSpD, gc::kSpD, gc::kSpT);
+    err = gc::bf16_tile_map(&tv, v, kv_rows, gc::kSpD, gc::kSpD, gc::kSpT);
   }
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(gc::splash_fwd_kernel,
@@ -325,7 +334,7 @@ extern "C" int gc_splash_fwd(const void* q, const void* k, const void* v,
       tq, tk, tv, group_offsets, group_kv,
       static_cast<const int2*>(group_pairs), group_order,
       static_cast<const unsigned long long*>(words), full,
-      static_cast<bf16*>(o), lse, scale, nq, n_pad, bh);
+      static_cast<bf16*>(o), lse, scale, nq, n_pad, n_pad_kv, bh);
   return cudaGetLastError();
 }
 

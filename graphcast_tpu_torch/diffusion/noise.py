@@ -25,13 +25,14 @@ def white_noise_basis(lat: np.ndarray, lon: np.ndarray
   return sht.SphericalHarmonicBasis(lat, lon, np.shape(lon)[0] // 2)
 
 
-def sample_spherical_noise(generator: torch.Generator,
+def sample_spherical_noise(generator,
                            power_spectrum: np.ndarray,
                            batch_shape: tuple[int, ...], basis: dict,
                            dtype=torch.float32) -> torch.Tensor:
   """GP noise on the sphere with the given power spectrum, [*batch_shape,
   lat, lon]; its pointwise variance is sum(power_spectrum). ``basis``:
-  ``SphericalHarmonicBasis.tensors`` on the data's device."""
+  ``SphericalHarmonicBasis.tensors`` on the data's device; ``generator``
+  a torch.Generator or one per batch entry (``randn``)."""
   max_l = int(np.shape(power_spectrum)[0])
   # Coefficient variance 4π·power[l]/(2l+1), split over the 2l+1 real
   # harmonics of wavenumber l (reference: samplers_utils.py:296-313).
@@ -43,11 +44,24 @@ def sample_spherical_noise(generator: torch.Generator,
   scale = torch.as_tensor((per_coeff_std[:, None] * tri_mask).astype(
       np.float32), device=device)
   shape = tuple(batch_shape) + (max_l, max_l)
-  cos_coeffs = torch.randn(shape, generator=generator,
-                           device=generator.device).to(device) * scale
-  sin_coeffs = torch.randn(shape, generator=generator,
-                           device=generator.device).to(device) * scale
+  cos_coeffs = randn(generator, shape).to(device) * scale
+  sin_coeffs = randn(generator, shape).to(device) * scale
   return sht.synthesize_with(basis, cos_coeffs, sin_coeffs).to(dtype)
+
+
+def randn(generator, shape: tuple[int, ...]) -> torch.Tensor:
+  """Standard normal draws of ``shape`` on the generator's device. A
+  sequence of generators, one per entry of the leading (batch) dim, draws
+  each entry from its own: an ensemble member's noise then depends on its
+  stream alone, not on which members share a batch or a rank
+  (rollout.member_generators)."""
+  if isinstance(generator, torch.Generator):
+    return torch.randn(shape, generator=generator, device=generator.device)
+  if len(generator) != shape[0]:
+    raise ValueError(f"{len(generator)} generators for a batch of "
+                     f"{shape[0]}")
+  return torch.stack([torch.randn(shape[1:], generator=g, device=g.device)
+                      for g in generator])
 
 
 def spherical_white_noise_like(generator: torch.Generator,

@@ -244,10 +244,10 @@ class DenoiserArchitecture(nn.Module):
     ee = embed.mlp
     agg = fused_edge(
         st["g2m"], st["g2m_edge_features"], grid_emb @ ws, mesh_emb @ wr,
-        s_e[:, None] * we, o_e @ we + b0.to(dtype), pe.mlp["linear_1"].w,
-        pe.mlp["linear_1"].b, s1, o1, write_edges=False,
-        embed_weights=(ee["linear_0"].w, ee["linear_0"].b,
-                       ee["linear_1"].w, ee["linear_1"].b),
+        s_e[:, None] * we, o_e @ we + b0.to(dtype), pe.mlp["linear_1"].full_w,
+        pe.mlp["linear_1"].full_b, s1, o1, write_edges=False,
+        embed_weights=(ee["linear_0"].full_w, ee["linear_0"].full_b,
+                       ee["linear_1"].full_w, ee["linear_1"].full_b),
         pipelined=self._pipelined)
     if self._cfg.grid2mesh_aggregate_normalization:
       agg = agg / self._cfg.grid2mesh_aggregate_normalization
@@ -269,21 +269,21 @@ class DenoiserArchitecture(nn.Module):
     s_e, o_e = embed.norm_conditioning.scale_offset(cond, dtype)
     es, eo = pe.norm_conditioning.scale_offset(cond, dtype)
     ns, no = pn.norm_conditioning.scale_offset(cond, dtype)
-    wn0 = pn.mlp["linear_0"].w
+    wn0 = pn.mlp["linear_0"].full_w
     ee = embed.mlp
     weights = {
-        "ew0": ee["linear_0"].w, "eb0": ee["linear_0"].b,
-        "ew1": ee["linear_1"].w, "eb1": ee["linear_1"].b,
+        "ew0": ee["linear_0"].full_w, "eb0": ee["linear_0"].full_b,
+        "ew1": ee["linear_1"].full_w, "eb1": ee["linear_1"].full_b,
         "we": s_e[:, None] * we, "b0": o_e @ we + b0.to(dtype),
         "wr": wr,
-        "w1": pe.mlp["linear_1"].w, "b1": pe.mlp["linear_1"].b,
+        "w1": pe.mlp["linear_1"].full_w, "b1": pe.mlp["linear_1"].full_b,
         "escale": es, "eoffset": eo,
         "wng": wn0[:latent], "wna": wn0[latent:],
-        "bn0": pn.mlp["linear_0"].b,
-        "wn1": pn.mlp["linear_1"].w, "bn1": pn.mlp["linear_1"].b,
+        "bn0": pn.mlp["linear_0"].full_b,
+        "wn1": pn.mlp["linear_1"].full_w, "bn1": pn.mlp["linear_1"].full_b,
         "nscale": ns, "noffset": no,
-        "wd0": pd.mlp["linear_0"].w, "bd0": pd.mlp["linear_0"].b,
-        "wd1": pd.mlp["linear_1"].w, "bd1": pd.mlp["linear_1"].b,
+        "wd0": pd.mlp["linear_0"].full_w, "bd0": pd.mlp["linear_0"].full_b,
+        "wd1": pd.mlp["linear_1"].full_w, "bd1": pd.mlp["linear_1"].full_b,
     }
     return fused_decode(st["m2g"], latent_grid, latent_mesh @ ws,
                         st["m2g_edge_features"], weights)

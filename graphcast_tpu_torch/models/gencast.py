@@ -131,16 +131,17 @@ class GenCast(Denoiser, Predictor):
     then moved to ``device`` (the card unless the caller asks for "cpu");
     or loaded later with params.load_params. The keywords between are the
     JAX package's: the artifact cache, chunked encode/decode, the XLA-only
-    and split ``fused_aggregation`` modes, ``interpret_attention`` (the
-    tensors' device picks the kernel or its plain version) and sequence
-    parallelism are not ported, and asking for them raises
-    NotImplementedError (models/base.py refuse_unported_forms)."""
+    and split ``fused_aggregation`` modes and ``interpret_attention`` (the
+    tensors' device picks the kernel or its plain version) are not
+    ported, and asking for them raises NotImplementedError (models/base.py
+    refuse_unported_forms). ``sequence_parallel``, a (parallel.sharding
+    mesh, axis name) pair, splits the transformer's node axis over that
+    axis (sparse_transformer.Transformer.enable_sequence_parallel; every
+    rank of the axis runs the same call)."""
     refuse_unported_forms(
         "GenCast", cache_dir, decode_chunks, encode_chunks, fused_aggregation,
         **{f"interpret_attention={interpret_attention!r}":
-               interpret_attention is not None,
-           "sequence parallelism (sequence_parallel)":
-               sequence_parallel is not None})
+               interpret_attention is not None})
     device = devices.resolve(device)
     super().__init__(noise_encoder_config, dataclasses.replace(
         denoiser_architecture_config,
@@ -150,6 +151,9 @@ class GenCast(Denoiser, Predictor):
     self._noise_config = noise_config
     self._task_config = task_config
     core.reset_parameters(self, generator)
+    if sequence_parallel is not None:
+      self.architecture.mesh_transformer.enable_sequence_parallel(
+          *sequence_parallel)
     self.to(device)
 
   # --- EDM preconditioning (reference: gencast.py:177-208) ---

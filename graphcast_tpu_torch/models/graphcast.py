@@ -311,7 +311,7 @@ class GraphCast(Predictor):
     _, ws, wr, _ = pe.factored_first_layer(latent, latent, dtype)
     lin1 = pe.mlp["linear_1"]
     agg = fused_edge(st["g2m"], const, grid_emb @ ws, mesh_emb @ wr, None,
-                     None, lin1.w, lin1.b, pe.layer_norm.scale,
+                     None, lin1.full_w, lin1.full_b, pe.layer_norm.scale,
                      pe.layer_norm.offset, write_edges=False,
                      pipelined=self._pipelined)
     mesh_upd = gnn["processor_0_nodes_mesh_nodes"](mesh_emb, agg.to(dtype))
@@ -337,17 +337,17 @@ class GraphCast(Predictor):
     pn = gnn["processor_0_nodes_grid_nodes"]
     pd = gnn["decoder_nodes_grid_nodes"]
     _, ws, wr, _ = pe.factored_first_layer(latent, latent, dtype)
-    wn0 = pn.mlp["linear_0"].w
+    wn0 = pn.mlp["linear_0"].full_w
     weights = {
         "wr": wr,
-        "w1": pe.mlp["linear_1"].w, "b1": pe.mlp["linear_1"].b,
+        "w1": pe.mlp["linear_1"].full_w, "b1": pe.mlp["linear_1"].full_b,
         "escale": pe.layer_norm.scale, "eoffset": pe.layer_norm.offset,
         "wng": wn0[:latent], "wna": wn0[latent:],
-        "bn0": pn.mlp["linear_0"].b,
-        "wn1": pn.mlp["linear_1"].w, "bn1": pn.mlp["linear_1"].b,
+        "bn0": pn.mlp["linear_0"].full_b,
+        "wn1": pn.mlp["linear_1"].full_w, "bn1": pn.mlp["linear_1"].full_b,
         "nscale": pn.layer_norm.scale, "noffset": pn.layer_norm.offset,
-        "wd0": pd.mlp["linear_0"].w, "bd0": pd.mlp["linear_0"].b,
-        "wd1": pd.mlp["linear_1"].w, "bd1": pd.mlp["linear_1"].b,
+        "wd0": pd.mlp["linear_0"].full_w, "bd0": pd.mlp["linear_0"].full_b,
+        "wd1": pd.mlp["linear_1"].full_w, "bd1": pd.mlp["linear_1"].full_b,
     }
     return fused_decode(st["m2g"], latent_grid_nodes,
                         latent_mesh_nodes @ ws, const, weights)

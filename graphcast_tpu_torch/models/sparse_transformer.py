@@ -19,6 +19,15 @@ is built by ``prepare_mask`` (once, on the host) before the first call,
 and shared by every transformer of the process with the same adjacency,
 k-hop and backend (``prepared_mask``; at mesh-6 the k-hop-16 mask and its
 block map take tens of seconds to build).
+
+``enable_sequence_parallel(mesh, axis)`` (the JAX package's, :341-350;
+splash only) splits the node axis over a mesh axis: each rank runs the
+per-node LayerNorms, conditioning and feed-forward on its own rows, and
+the attention on its q rows against k and v gathered from every rank
+(ops/splash.py ``SequenceParallelAttention``); the output is gathered
+whole. Each rank's parameter and conditioning gradients are then its
+rows' part, summed over the axis in the backward
+(parallel/collectives.py).
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ from torch import nn
 
 from graphcast_tpu_torch.nn import core
 from graphcast_tpu_torch.ops import splash
+from graphcast_tpu_torch.parallel import collectives
 
 # Stddev of a standard normal truncated to [-2, 2] (graphcast_tpu/nn/
 # core.py): VarianceScaling divides by it so the sample stddev hits its
@@ -171,9 +181,15 @@ def _variance_scaling_stddev(scale: float, fan_in: int) -> float:
 
 
 def _mh_linear(layer: core.Linear, x, num_heads: int, head_size: int):
-  """[..., d] → [..., heads, head_size], no bias."""
+  """[..., d] → [..., heads, head_size], no bias. A column-split layer
+  (tensor parallelism) yields its rank's share of the ``num_heads``."""
   out = layer(x)
-  return out.reshape(out.shape[:-1] + (num_heads, head_size))
+  if out.shape[-1] % head_size:
+    raise ValueError(f"{out.shape[-1]} projection columns on this rank do "
+                     f"not hold whole heads of {head_size} ({num_heads} "
+                     "heads in all): split the heads evenly over the model "
+                     "axis")
+  return out.reshape(out.shape[:-1] + (out.shape[-1] // head_size, head_size))
 
 
 def dense_mha(block: nn.ModuleDict, cfg: SparseTransformerConfig, x,
@@ -189,7 +205,7 @@ def dense_mha(block: nn.ModuleDict, cfg: SparseTransformerConfig, x,
   weights = torch.softmax(logits, dim=-1).to(x.dtype)
   out = torch.einsum("bhtT,bThd->bthd", weights.float(), v.float()).to(
       x.dtype)
-  return block["mha_final"](out.reshape(out.shape[:-2] + (-1,)))
+  return block["mha_final"](out.flatten(-2))
 
 
 def triblockdiag_mha(block: nn.ModuleDict, cfg: SparseTransformerConfig, x,
@@ -241,8 +257,7 @@ def triblockdiag_mha(block: nn.ModuleDict, cfg: SparseTransformerConfig, x,
                         values.float()).to(x.dtype)
 
   out = av(e_d, v[:, 1:-1]) + av(e_u, v[:, 2:]) + av(e_l, v[:, :-2])
-  out = out.reshape(b, num_blocks * block_size,
-                    cfg.num_heads * cfg.value_size)
+  out = out.reshape(b, num_blocks * block_size, -1)
   return block["mha_final"](out)[:, :num_nodes]
 
 
@@ -295,6 +310,22 @@ class Transformer(nn.Module):
     self._host_mask: Optional[np.ndarray] = None  # mha, triblockdiag_mha
     self._device_masks: dict = {}
     self._block_map: Optional[splash.BlockMap] = None
+    self._sp_group = None
+    self._sp: Optional[splash.SequenceParallelAttention] = None
+
+  def enable_sequence_parallel(self, mesh, axis: str):
+    """Splits the node axis over ``mesh``'s ``axis`` (module doc; splash
+    backend only, as in the JAX package)."""
+    if self.cfg.attention_type != "splash_mha":
+      raise ValueError(
+          "sequence-parallel attention requires attention_type='splash_mha', "
+          f"got {self.cfg.attention_type!r}")
+    self._sp_group = mesh.get_group(axis)
+    self._sp = None
+    for m in self.modules():
+      if isinstance(m, core.Linear):
+        m.parallel = m.parallel or collectives.LinearSharding()
+        m.parallel.grad_group = self._sp_group
 
   def prepare_mask(self, adjacency: sp.spmatrix):
     """Takes the k-hop attention mask for the chosen backend (host; built
@@ -334,9 +365,12 @@ class Transformer(nn.Module):
     q = _mh_linear(block["mha_proj_q"], x, cfg.num_heads, cfg.key_size)
     k = _mh_linear(block["mha_proj_k"], x, cfg.num_heads, cfg.key_size)
     v = _mh_linear(block["mha_proj_v"], x, cfg.num_heads, cfg.value_size)
-    out, _ = splash.block_sparse_attention(q, k, v, self._block_map,
-                                           cfg.key_size ** -0.5)
-    return block["mha_final"](out.reshape(out.shape[:-2] + (-1,)))
+    if self._sp is not None:
+      out, _ = self._sp(q, k, v, cfg.key_size ** -0.5)
+    else:
+      out, _ = splash.block_sparse_attention(q, k, v, self._block_map,
+                                             cfg.key_size ** -0.5)
+    return block["mha_final"](out.flatten(-2))
 
   def _ffw(self, block, x):
     act = core.ACTIVATIONS[self.cfg.activation]
@@ -347,6 +381,12 @@ class Transformer(nn.Module):
     if self._host_mask is None and self._block_map is None:
       raise RuntimeError("call prepare_mask before the first forward")
     cond = global_norm_conditioning[:, None]  # [batch, 1, cond]
+    if self._sp_group is not None:
+      if self._sp is None or self._sp.n != self._block_map.n:
+        self._sp = splash.SequenceParallelAttention(self._block_map,
+                                                    self._sp_group)
+      x = self._sp.split(x)
+      cond = collectives.grad_all_reduce(cond, self._sp_group)
     ln = core.layer_norm_no_params
     for i in range(self.cfg.num_layers):
       block = getattr(self, f"block_{i:02d}")
@@ -354,4 +394,5 @@ class Transformer(nn.Module):
       x = x + self._attend(block, h)
       h = block["norm_conditioning_1"](ln(x), cond)
       x = x + self._ffw(block, h)
-    return self.final_norm_conditioning(ln(x), cond)
+    out = self.final_norm_conditioning(ln(x), cond)
+    return out if self._sp is None else self._sp.gather(out, False)

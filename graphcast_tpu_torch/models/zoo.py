@@ -75,9 +75,11 @@ class GenCastPreset:
   noise_encoder_config: "object"
 
   def build(self, *, generator: torch.Generator,
-            device: torch.device | str = devices.DEFAULT_DEVICE):
+            device: torch.device | str = devices.DEFAULT_DEVICE,
+            sequence_parallel=None):
     """The GenCast predictor of this preset, parameters drawn from
-    ``generator`` (CPU) and moved to ``device``."""
+    ``generator`` (CPU) and moved to ``device``; ``sequence_parallel`` as
+    GenCast's."""
     from graphcast_tpu_torch.models import gencast
     return gencast.GenCast(
         task_config=self.task_config,
@@ -85,6 +87,7 @@ class GenCastPreset:
         sampler_config=self.sampler_config,
         noise_config=self.noise_config,
         noise_encoder_config=self.noise_encoder_config,
+        sequence_parallel=sequence_parallel,
         generator=generator, device=device)
 
 

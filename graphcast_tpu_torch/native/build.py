@@ -111,7 +111,7 @@ def _declare(lib: ctypes.CDLL):
   lib.gc_fused_decoder_embed.restype = i
   lib.gc_fused_decoder_embed.argtypes = [p] * 28 + [i] * 6 + [p]
   lib.gc_splash_fwd.restype = i
-  lib.gc_splash_fwd.argtypes = [p] * 11 + [ctypes.c_float] + [i] * 4 + [p]
+  lib.gc_splash_fwd.argtypes = [p] * 11 + [ctypes.c_float] + [i] * 5 + [p]
   lib.gc_splash_fwd_smem.restype = i
   lib.gc_splash_fwd_smem.argtypes = []
   for name in ("gc_fused_decoder_bwd_embed_nodes",
@@ -129,9 +129,9 @@ def _declare(lib: ctypes.CDLL):
   lib.gc_feature_grad.restype = i
   lib.gc_feature_grad.argtypes = [p, i, p, i, p, p, p, p, i, i, i, i, p]
   lib.gc_splash_dq.restype = i
-  lib.gc_splash_dq.argtypes = [p] * 13 + [ctypes.c_float] + [i] * 4 + [p]
+  lib.gc_splash_dq.argtypes = [p] * 13 + [ctypes.c_float] + [i] * 5 + [p]
   lib.gc_splash_dkv.restype = i
-  lib.gc_splash_dkv.argtypes = [p] * 14 + [ctypes.c_float] + [i] * 4 + [p]
+  lib.gc_splash_dkv.argtypes = [p] * 14 + [ctypes.c_float] + [i] * 5 + [p]
   for name in ("gc_splash_dq_smem", "gc_splash_dkv_smem"):
     getattr(lib, name).restype = i
     getattr(lib, name).argtypes = []

@@ -16,6 +16,12 @@ truncated to [-2, 2], scaled by 1/sqrt(fan_in) (or a given stddev) with no
 variance correction; biases and offsets 0, scales 1. It takes an explicit
 CPU ``torch.Generator``: initialise on the CPU, then move the module.
 
+A Linear split over ranks (parallel/sharding.py
+``shard_params_tensor_parallel``, sequence parallelism) carries a
+``parallel`` (parallel/collectives.py ``LinearSharding``): its forward runs
+the split product with its collectives, and ``full_w``/``full_b`` give the
+whole weight and bias, which the fused kernels' callers read.
+
 Under GenCast's norm conditioning (``MLPWithNorm(use_norm_conditioning=
 True)``) the LayerNorm has no parameters and a ``NormConditioning`` maps the
 conditioning vector to a per-channel (scale - 1, offset) instead
@@ -52,6 +58,7 @@ class Linear(nn.Module):
     self.init_stddev = init_stddev
     self.w = nn.Parameter(torch.empty(in_size, out_size))
     self.b = nn.Parameter(torch.zeros(out_size)) if with_bias else None
+    self.parallel = None  # a parallel.collectives.LinearSharding
 
   @torch.no_grad()
   def reset_parameters(self, generator: torch.Generator):
@@ -64,8 +71,20 @@ class Linear(nn.Module):
       self.b.zero_()
 
   def forward(self, x):
+    if self.parallel is not None:
+      return self.parallel.forward(self, x)
     y = x @ self.w.to(x.dtype)
     return y if self.b is None else y + self.b.to(x.dtype)
+
+  @property
+  def full_w(self):
+    """The whole weight [in, out] (gathered where it is split)."""
+    return self.w if self.parallel is None else self.parallel.full(self, "w")
+
+  @property
+  def full_b(self):
+    """The whole bias [out] or None (gathered where it is split)."""
+    return self.b if self.parallel is None else self.parallel.full(self, "b")
 
 
 class MLP(nn.ModuleDict):
@@ -182,8 +201,15 @@ class MLPWithNorm(nn.Module):
     norm, all in edge_feats' dtype. Node arrays are [nodes, ...], indices
     int32 [edges]."""
     dtype = edge_feats.dtype
-    we, ws, wr, b0 = self.factored_first_layer(edge_feats.shape[-1],
-                                               sender_full.shape[-1], dtype)
+    lin = self.mlp["linear_0"]
+    w, b0 = lin.w, lin.b
+    if lin.parallel is not None:  # a column split: this rank's hidden units
+      w, b0 = lin.parallel.params(lin)
+      edge_feats, sender_full, receiver_full = (
+          lin.parallel.enter(t) for t in (edge_feats, sender_full,
+                                          receiver_full))
+    we, ws, wr = _split_rows(w.to(dtype), edge_feats.shape[-1],
+                             sender_full.shape[-1])
     x = (edge_feats @ we
          + (sender_full @ ws).index_select(0, senders)
          + (receiver_full @ wr).index_select(0, receivers)
@@ -193,16 +219,22 @@ class MLPWithNorm(nn.Module):
     return self._norm(x, cond)
 
   def factored_first_layer(self, edge_size: int, sender_size: int, dtype):
-    """(We, Ws, Wr, b0) of the first linear layer, cast to ``dtype``.
+    """(We, Ws, Wr, b0) of the whole first linear layer, cast to ``dtype``.
 
     The factored edge update (graphcast_tpu nn/core.py:237):
     W·concat(e, n_s, n_r) = We·e + (Ws·N)[senders] + (Wr·N)[receivers], so
     node projections are computed once per node, not once per edge; the
     kernels in ops/ do the gathers."""
     lin = self.mlp["linear_0"]
-    w = lin.w.to(dtype)
-    return (w[:edge_size], w[edge_size:edge_size + sender_size],
-            w[edge_size + sender_size:], lin.b)
+    return (*_split_rows(lin.full_w.to(dtype), edge_size, sender_size),
+            lin.full_b)
+
+
+def _split_rows(w, edge_size: int, sender_size: int):
+  """(We, Ws, Wr): the first layer's rows for the edge, sender and
+  receiver features."""
+  return (w[:edge_size], w[edge_size:edge_size + sender_size],
+          w[edge_size + sender_size:])
 
 
 def reset_parameters(module: nn.Module, generator: torch.Generator):

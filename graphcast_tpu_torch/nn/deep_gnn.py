@@ -214,8 +214,9 @@ class DeepGraphNet(nn.ModuleDict):
                                 "and layer norm without conditioning")
     we, ws, wr, b0 = pe.factored_first_layer(e.shape[-1], x.shape[-1], dtype)
     lin1 = pe.mlp["linear_1"]
-    e_new, agg = fused_edge(edges, e, x @ ws, x @ wr, we, b0, lin1.w, lin1.b,
-                            pe.layer_norm.scale, pe.layer_norm.offset,
+    e_new, agg = fused_edge(edges, e, x @ ws, x @ wr, we, b0, lin1.full_w,
+                            lin1.full_b, pe.layer_norm.scale,
+                            pe.layer_norm.offset,
                             write_edges=True, pipelined=pipelined)
     n_upd = self[f"processor_{i}_nodes_{node_name}"](x, agg.to(dtype))
     return x + n_upd, e_new

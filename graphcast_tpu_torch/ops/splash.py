@@ -33,6 +33,15 @@ it; K8 walks it. The TPU version's 512×512 tiles and its sublane-strided
 bit packing (splash.py:72-107) are Mosaic layouts and are not ported; at
 64×64 the k-hop-16 mask of the 1.0° mesh-5 covers 35 % fewer entries.
 
+A map may be rectangular: q rows against kv rows of another count. A
+sequence-parallel shard's map (``shard_block_maps``) covers the shard's q
+tiles against every kv tile; its transpose lists, for every kv tile, the
+shard's q tiles that attend it, as the JAX package's
+``_build_shard_transposed_maps`` does (splash.py:1025).
+``SequenceParallelAttention`` runs K6, K7 and K8 on those maps with the q
+rows split over a process group and k, v gathered whole (the twin of the
+JAX ``SequenceParallelAttention``, splash.py:760).
+
 ``block_sparse_attention`` runs the CUDA kernels (csrc/splash_fwd.cu and
 csrc/splash_bwd.cu, K6 and K7 on the map's ``paired_lists``, K8 on its
 transpose's) for CUDA tensors and
@@ -53,6 +62,7 @@ import scipy.sparse as sp
 import torch
 
 from graphcast_tpu_torch.native import build
+from graphcast_tpu_torch.parallel import collectives
 
 NEG_INF = -1e30
 TILE = 64
@@ -64,7 +74,9 @@ class BlockMap:
   """A static mask compiled to active (q tile, kv tile) pairs.
 
   Attributes:
-    n: mask size (nodes); n_pad = nq * TILE.
+    n: q rows of the mask (nodes); n_pad = nq * TILE.
+    n_kv: kv columns of the mask; n_pad_kv = nkv * TILE.
+    nkv: kv tiles.
     kv_offsets: [nq + 1] int32, CSR offsets of each q tile's active pairs.
     kv_index: [n_active] int32, kv tile of each pair, ascending per q tile.
     words: [n_active, TILE] uint64; bit c of words[a, r] is mask[q tile row
@@ -76,6 +88,8 @@ class BlockMap:
       itself a transpose.
   """
   n: int
+  n_kv: int
+  nkv: int
   kv_offsets: np.ndarray
   kv_index: np.ndarray
   words: np.ndarray
@@ -102,15 +116,20 @@ class BlockMap:
     return self.nq * TILE
 
   @property
+  def n_pad_kv(self) -> int:
+    return self.nkv * TILE
+
+  @property
   def n_active(self) -> int:
     return int(self.kv_index.shape[0])
 
 
-def _compile(rows: np.ndarray, cols: np.ndarray, n: int,
+def _compile(rows: np.ndarray, cols: np.ndarray, n: int, n_kv: int,
              transposed: Optional[BlockMap]) -> BlockMap:
-  """The BlockMap of the mask entries (rows[i], cols[i])."""
-  nq = -(-n // TILE)
-  pair = (rows // TILE) * nq + cols // TILE
+  """The BlockMap of the mask entries (rows[i], cols[i]) of an [n, n_kv]
+  mask."""
+  nq, nkv = -(-n // TILE), -(-n_kv // TILE)
+  pair = (rows // TILE) * nkv + cols // TILE
   uniq, inv = np.unique(pair, return_inverse=True)
   # One word per (pair, row): distinct bits, so their sum is their OR.
   key = inv.astype(np.int64) * TILE + rows % TILE
@@ -121,27 +140,93 @@ def _compile(rows: np.ndarray, cols: np.ndarray, n: int,
   words = np.zeros(len(uniq) * TILE, np.uint64)
   words[key[starts]] = np.add.reduceat(bits, starts) if len(starts) else 0
   words = words.reshape(len(uniq), TILE)
-  qb = uniq // nq
+  qb = uniq // nkv
   kv_offsets = np.zeros(nq + 1, np.int32)
   kv_offsets[1:] = np.cumsum(np.bincount(qb, minlength=nq))
   return BlockMap(
-      n=n, kv_offsets=kv_offsets, kv_index=(uniq % nq).astype(np.int32),
-      words=words, full=(words == np.uint64(2**64 - 1)).all(axis=1),
+      n=n, n_kv=n_kv, nkv=nkv, kv_offsets=kv_offsets,
+      kv_index=(uniq % nkv).astype(np.int32), words=words,
+      full=(words == np.uint64(2**64 - 1)).all(axis=1),
       nnz=int(rows.size), transposed=transposed)
 
 
 def build_block_map(mask: sp.spmatrix) -> BlockMap:
-  """Compiles a square boolean sparse mask into a ``BlockMap`` and its
-  transpose, from its nonzero coordinates (never densified; the mask need
-  not be symmetric)."""
-  n = mask.shape[0]
-  if mask.shape != (n, n):
-    raise ValueError(f"mask must be square, got {mask.shape}")
+  """Compiles a boolean sparse mask [q rows, kv columns] into a
+  ``BlockMap`` and its transpose, from its nonzero coordinates (never
+  densified; the mask need not be square or symmetric)."""
+  n, n_kv = mask.shape
   coo = mask.tocoo()
   keep = coo.data.astype(bool)
   rows = coo.row[keep].astype(np.int64)
   cols = coo.col[keep].astype(np.int64)
-  return _compile(rows, cols, n, _compile(cols, rows, n, None))
+  return _compile(rows, cols, n, n_kv, _compile(cols, rows, n_kv, n, None))
+
+
+def _popcount(words: np.ndarray) -> int:
+  return int(np.unpackbits(np.ascontiguousarray(words).view(np.uint8)).sum())
+
+
+def _take_rows(bm: BlockMap, lo: int, count: int, n: int) -> BlockMap:
+  """The q tiles lo .. lo + count - 1 of ``bm`` (tiles past bm.nq empty)
+  as a map of ``n`` q rows, without a transpose."""
+  hi = min(lo + count, bm.nq)
+  offsets = bm.kv_offsets[min(lo, bm.nq):hi + 1] if lo < bm.nq else (
+      bm.kv_offsets[-1:])
+  a0, a1 = int(offsets[0]), int(offsets[-1])
+  kv_offsets = np.full(count + 1, a1 - a0, np.int32)
+  kv_offsets[:len(offsets)] = offsets - a0
+  words = bm.words[a0:a1]
+  return BlockMap(n=n, n_kv=bm.n_kv, nkv=bm.nkv, kv_offsets=kv_offsets,
+                  kv_index=bm.kv_index[a0:a1], words=words,
+                  full=bm.full[a0:a1], nnz=_popcount(words))
+
+
+def _take_columns(bt: BlockMap, lo: int, count: int, n_kv: int) -> BlockMap:
+  """The entries of the transposed map ``bt`` whose q tile (its kv_index)
+  lies in lo .. lo + count - 1, renumbered from 0: for every kv tile the
+  shard's q tiles that attend it, ascending (the JAX package's
+  _build_shard_transposed_maps, splash.py:1025)."""
+  keep = (bt.kv_index >= lo) & (bt.kv_index < lo + count)
+  row = np.repeat(np.arange(bt.nq), np.diff(bt.kv_offsets))
+  kv_offsets = np.zeros(bt.nq + 1, np.int32)
+  kv_offsets[1:] = np.cumsum(np.bincount(row[keep], minlength=bt.nq))
+  words = bt.words[keep]
+  return BlockMap(n=bt.n, n_kv=n_kv, nkv=count, kv_offsets=kv_offsets,
+                  kv_index=(bt.kv_index[keep] - lo).astype(np.int32),
+                  words=words, full=bt.full[keep], nnz=_popcount(words))
+
+
+def shard_rows(n: int, num_shards: int) -> list[tuple[int, int]]:
+  """The q rows [start, stop) of each of ``num_shards`` sequence-parallel
+  shards of n rows: ceil(ceil(n / TILE) / num_shards) tiles each, the
+  last shards padded with empty tiles (the JAX package raises where the
+  shard count does not divide the q tiles, splash.py:782; the port's TILE
+  is fixed, so it pads)."""
+  rows = shard_tiles(n, num_shards) * TILE
+  return [(min(s * rows, n), min((s + 1) * rows, n))
+          for s in range(num_shards)]
+
+
+def shard_tiles(n: int, num_shards: int) -> int:
+  """q tiles of each shard (``shard_rows``)."""
+  return -(-(-(-n // TILE)) // num_shards)
+
+
+def shard_block_maps(bm: BlockMap, num_shards: int) -> list[BlockMap]:
+  """The sequence-parallel shard maps of a map (module doc): shard s covers
+  q tiles s·t .. s·t + t − 1 (t = ``shard_tiles``; tiles past bm.nq are
+  empty) against every kv tile, with its transpose over the same q tiles
+  renumbered from 0. Each shard's q rows are ``shard_rows``'s."""
+  if bm.transposed is None:
+    raise ValueError("shard a forward map (one with its transpose)")
+  tiles = shard_tiles(bm.n, num_shards)
+  maps = []
+  for s, (start, stop) in enumerate(shard_rows(bm.n, num_shards)):
+    shard = _take_rows(bm, s * tiles, tiles, stop - start)
+    shard.transposed = _take_columns(bm.transposed, s * tiles, tiles,
+                                     stop - start)
+    maps.append(shard)
+  return maps
 
 
 def _allowed(words: torch.Tensor) -> torch.Tensor:
@@ -167,16 +252,17 @@ def block_sparse_attention_reference(q, k, v, block_map: BlockMap,
                                      scale: float):
   """Plain-PyTorch version of K6 over the same block map.
 
-  q, k, v: [batch, n, heads, d]. Per q tile, the logits over its active kv
-  tiles are masked, the softmax is taken in f32, and the weights are cast to
-  v's dtype before the product (splash.py:1059). Returns (o [batch, n,
-  heads, d] in v's dtype, lse [batch, heads, n] f32).
+  q: [batch, n, heads, d]; k, v: [batch, n_kv, heads, d]. Per q tile, the
+  logits over its active kv tiles are masked, the softmax is taken in f32,
+  and the weights are cast to v's dtype before the product
+  (splash.py:1059). Returns (o [batch, n, heads, d] in v's dtype, lse
+  [batch, heads, n] f32).
   """
   batch, n, heads, d = q.shape
   bm = block_map
-  if n != bm.n:
-    raise ValueError(f"block map built for {bm.n} nodes, got {n}")
-  qf, kf, vf = (_padded(t, bm.n_pad) for t in (q, k, v))
+  _check_rows(bm, q, k)
+  qf = _padded(q, bm.n_pad)
+  kf, vf = (_padded(t, bm.n_pad_kv) for t in (k, v))
   words = torch.from_numpy(bm.words.view(np.int64)).to(q.device)
   o = torch.zeros(batch, bm.n_pad, heads, d, dtype=v.dtype, device=q.device)
   lse = torch.zeros(batch, heads, bm.n_pad, device=q.device)
@@ -198,12 +284,19 @@ def block_sparse_attention_reference(q, k, v, block_map: BlockMap,
   return o[:, :n], lse[:, :, :n]
 
 
+def _check_rows(bm: BlockMap, q, k):
+  if q.shape[1] != bm.n or k.shape[1] != bm.n_kv:
+    raise ValueError(f"block map built for {bm.n} q and {bm.n_kv} kv "
+                     f"nodes, got {q.shape[1]} and {k.shape[1]}")
+
+
 def _backward_operands(q, k, v, o, lse, do, bm: BlockMap):
-  """f32 copies padded to n_pad, δ = Σ o·do [batch, heads, n_pad], and
-  lse padded with 0 (the padded rows' mask words are 0, so their p is 0)."""
-  if q.shape[1] != bm.n:
-    raise ValueError(f"block map built for {bm.n} nodes, got {q.shape[1]}")
-  qf, kf, vf, dof = (_padded(t, bm.n_pad) for t in (q, k, v, do))
+  """f32 copies padded to n_pad (q, do) and n_pad_kv (k, v), δ = Σ o·do
+  [batch, heads, n_pad], and lse padded with 0 (the padded rows' mask
+  words are 0, so their p is 0)."""
+  _check_rows(bm, q, k)
+  qf, dof = (_padded(t, bm.n_pad) for t in (q, do))
+  kf, vf = (_padded(t, bm.n_pad_kv) for t in (k, v))
   delta = (_padded(o, bm.n_pad) * dof).sum(-1).permute(0, 2, 1)
   lse = torch.nn.functional.pad(lse.float(), (0, bm.n_pad - bm.n))
   return qf, kf, vf, dof, delta, lse
@@ -254,7 +347,7 @@ def _dkv_reference(q, k, v, o, lse, do, bm: BlockMap, scale: float):
                              dof[:, rows])
     dk[:, kv] = torch.einsum("bhkq,bqhd->bkhd", dst.to(q.dtype).float(),
                              qf[:, rows])
-  return dk[:, :bm.n].to(k.dtype), dv[:, :bm.n].to(v.dtype)
+  return dk[:, :bm.n_kv].to(k.dtype), dv[:, :bm.n_kv].to(v.dtype)
 
 
 def block_sparse_attention_backward_reference(q, k, v, o, lse, do,
@@ -263,8 +356,9 @@ def block_sparse_attention_backward_reference(q, k, v, o, lse, do,
   """Plain-PyTorch version of K7 and K8 (module doc): the gradients of
   ``block_sparse_attention``'s o for the cotangent ``do``.
 
-  q, k, v, o, do: [batch, n, heads, d]; lse [batch, heads, n] f32, both
-  from the forward. Returns (dq, dk, dv) in q's, k's and v's dtypes.
+  q, o, do: [batch, n, heads, d]; k, v: [batch, n_kv, heads, d]; lse
+  [batch, heads, n] f32, both from the forward. Returns (dq, dk, dv) in
+  q's, k's and v's dtypes.
   """
   args = (q, k, v, o, lse, do, block_map, scale)
   return (_dq_reference(*args), *_dkv_reference(*args))
@@ -302,16 +396,16 @@ class PairedLists:
 
 def paired_lists(bm: BlockMap) -> PairedLists:
   """The union kv lists of q tile pairs (``PairedLists``) of a BlockMap."""
-  nq = bm.nq
+  nq, nkv = bm.nq, max(bm.nkv, 1)
   groups = -(-nq // 2)
   qt = np.repeat(np.arange(nq), np.diff(bm.kv_offsets))
-  key = (qt // 2).astype(np.int64) * nq + bm.kv_index
+  key = (qt // 2).astype(np.int64) * nkv + bm.kv_index
   uniq, inverse = np.unique(key, return_inverse=True)
   pairs = np.full((len(uniq), 2), -1, np.int32)
   pairs[inverse, qt % 2] = np.arange(bm.n_active, dtype=np.int32)
   offsets = np.zeros(groups + 1, np.int32)
-  offsets[1:] = np.cumsum(np.bincount(uniq // nq, minlength=groups))
-  return PairedLists(offsets=offsets, kv=(uniq % nq).astype(np.int32),
+  offsets[1:] = np.cumsum(np.bincount(uniq // nkv, minlength=groups))
+  return PairedLists(offsets=offsets, kv=(uniq % nkv).astype(np.int32),
                      pairs=pairs, order=heaviest_first(offsets))
 
 
@@ -350,21 +444,22 @@ def _from_heads(x, batch, n):
 def _launch_splash(q, k, v, bm: BlockMap, scale: float):
   """K6 on CUDA tensors (checks, then one launch). Returns ((qh, kh, vh),
   o, lse) in the padded head-major layout: [batch·heads, n_pad, d] bf16
-  and [batch·heads, n_pad] f32, lse 0 past n."""
+  (k, v: n_pad_kv rows) and [batch·heads, n_pad] f32, lse 0 past n."""
   batch, n, heads, d = q.shape
-  if n != bm.n:
-    raise ValueError(f"block map built for {bm.n} nodes, got {n}")
+  _check_rows(bm, q, k)
   if d != HEAD_DIM:
     raise ValueError(f"the kernel takes head dim {HEAD_DIM}, got {d}")
-  for name, t in (("q", q), ("k", k), ("v", v)):
-    if t.shape != q.shape:
+  for name, t in (("k", k), ("v", v)):
+    if t.shape != (batch, bm.n_kv, heads, d):
       raise ValueError(f"{name} has shape {tuple(t.shape)}, q {q.shape}")
+  for name, t in (("q", q), ("k", k), ("v", v)):
     if t.dtype != torch.bfloat16:
       raise TypeError(f"{name} has dtype {t.dtype}, the kernel takes bf16")
     if t.device != q.device:
       raise ValueError(f"{name} is on {t.device}, q on {q.device}")
   dm = bm.on_device(q.device)
-  qh, kh, vh = (_to_heads(t, bm.n_pad) for t in (q, k, v))
+  qh = _to_heads(q, bm.n_pad)
+  kh, vh = (_to_heads(t, bm.n_pad_kv) for t in (k, v))
   o = torch.empty_like(qh)
   lse = torch.empty(batch * heads, bm.n_pad, dtype=torch.float32,
                     device=q.device)
@@ -374,7 +469,7 @@ def _launch_splash(q, k, v, bm: BlockMap, scale: float):
       dm.group_offsets.data_ptr(), dm.group_kv.data_ptr(),
       dm.group_pairs.data_ptr(), dm.group_order.data_ptr(),
       dm.words.data_ptr(), dm.full.data_ptr(), o.data_ptr(), lse.data_ptr(),
-      float(scale), batch * heads, bm.nq, dm.groups, bm.n_pad,
+      float(scale), batch * heads, bm.nq, dm.groups, bm.n_pad, bm.n_pad_kv,
       torch.cuda.current_stream(q.device).cuda_stream)
   build.check(lib, code, "splash_fwd kernel launch")
   block_sparse_attention.launches += 1
@@ -399,14 +494,14 @@ def _check_heads(bm: BlockMap, qh, kh, vh, do, lse, delta):
   if qh.device.type != "cuda":
     raise ValueError(f"K7/K8 take CUDA tensors, got {qh.device} (on the "
                      "CPU, block_sparse_attention runs the plain backward)")
-  for name, t in (("q", qh), ("k", kh), ("v", vh), ("do", do)):
-    if t.shape != qh.shape or t.dtype != torch.bfloat16 or not (
+  bh = qh.shape[0]
+  for name, t, rows in (("q", qh, bm.n_pad), ("k", kh, bm.n_pad_kv),
+                        ("v", vh, bm.n_pad_kv), ("do", do, bm.n_pad)):
+    if t.shape != (bh, rows, HEAD_DIM) or t.dtype != torch.bfloat16 or not (
         t.is_contiguous()) or t.device != qh.device:
       raise ValueError(f"{name} must be contiguous bf16 of shape "
-                       f"{tuple(qh.shape)} on {qh.device}")
-  if qh.shape[1:] != (bm.n_pad, HEAD_DIM):
-    raise ValueError(f"head-major operands must be [bh, {bm.n_pad}, "
-                     f"{HEAD_DIM}], got {tuple(qh.shape)}")
+                       f"{(bh, rows, HEAD_DIM)} on {qh.device}, got "
+                       f"{tuple(t.shape)}")
   for name, t in (("lse", lse), ("delta", delta)):
     if t.shape != qh.shape[:2] or t.dtype != torch.float32 or not (
         t.is_contiguous()) or t.device != qh.device:
@@ -419,8 +514,9 @@ def _check_heads(bm: BlockMap, qh, kh, vh, do, lse, delta):
 
 
 def splash_dq(qh, kh, vh, do, lse, delta, bm: BlockMap, scale: float):
-  """K7 on CUDA tensors in the padded head-major layout: q, k, v, do
-  [batch·heads, n_pad, 128] bf16; lse (0 past n) and delta
+  """K7 on CUDA tensors in the padded head-major layout: q, do
+  [batch·heads, n_pad, 128] bf16, k, v [batch·heads, n_pad_kv, 128];
+  lse (0 past n) and delta
   (``attention_delta``) [batch·heads, n_pad] f32. Returns dq in that
   layout (bf16)."""
   _check_heads(bm, qh, kh, vh, do, lse, delta)
@@ -433,7 +529,7 @@ def splash_dq(qh, kh, vh, do, lse, delta, bm: BlockMap, scale: float):
       dm.group_kv.data_ptr(), dm.group_pairs.data_ptr(),
       dm.group_order.data_ptr(), dm.words.data_ptr(), dm.full.data_ptr(),
       dq.data_ptr(), float(scale), qh.shape[0], bm.nq, dm.groups, bm.n_pad,
-      torch.cuda.current_stream(qh.device).cuda_stream)
+      bm.n_pad_kv, torch.cuda.current_stream(qh.device).cuda_stream)
   build.check(lib, code, "splash_dq kernel launch")
   splash_dq.launches += 1
   return dq
@@ -441,7 +537,9 @@ def splash_dq(qh, kh, vh, do, lse, delta, bm: BlockMap, scale: float):
 
 def splash_dkv(qh, kh, vh, do, lse, delta, bm: BlockMap, scale: float):
   """K8 on CUDA tensors, operands as ``splash_dq``, over the transposed
-  map's paired lists. Returns (dk, dv)."""
+  map's paired lists. Returns (dk, dv) [batch·heads, n_pad_kv, 128]: over
+  a shard map, the shard's partial sums (zero for kv tiles no q row of the
+  shard attends)."""
   _check_heads(bm, qh, kh, vh, do, lse, delta)
   dt = bm.transposed.on_device(qh.device)
   dk, dv = torch.empty_like(kh), torch.empty_like(vh)
@@ -452,7 +550,7 @@ def splash_dkv(qh, kh, vh, do, lse, delta, bm: BlockMap, scale: float):
       dt.group_kv.data_ptr(), dt.group_pairs.data_ptr(),
       dt.group_order.data_ptr(), dt.words.data_ptr(), dt.full.data_ptr(),
       dk.data_ptr(), dv.data_ptr(), float(scale), qh.shape[0],
-      bm.transposed.nq, dt.groups, bm.n_pad,
+      bm.transposed.nq, dt.groups, bm.n_pad, bm.n_pad_kv,
       torch.cuda.current_stream(qh.device).cuda_stream)
   build.check(lib, code, "splash_dkv kernel launch")
   splash_dkv.launches += 1
@@ -494,7 +592,8 @@ class _BlockSparseAttentionFunction(torch.autograd.Function):
     delta = attention_delta(oh, doh)
     dq = splash_dq(qh, kh, vh, doh, lseh, delta, bm, scale)
     dk, dv = splash_dkv(qh, kh, vh, doh, lseh, delta, bm, scale)
-    return (*(_from_heads(g, ctx.batch, bm.n) for g in (dq, dk, dv)), None,
+    return (_from_heads(dq, ctx.batch, bm.n),
+            *(_from_heads(g, ctx.batch, bm.n_kv) for g in (dk, dv)), None,
             None)
 
 
@@ -502,8 +601,9 @@ def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            block_map: BlockMap, scale: float):
   """Masked attention over ``block_map`` (module doc).
 
-  q, k, v: [batch, n, heads, d] (the JAX package's layout). Returns (o
-  [batch, n, heads, d], lse [batch, heads, n] f32). CPU tensors run the
+  q: [batch, n, heads, d], k, v: [batch, n_kv, heads, d] (the JAX
+  package's layout; n and n_kv the map's). Returns (o [batch, n, heads,
+  d], lse [batch, heads, n] f32). CPU tensors run the
   plain versions; CUDA tensors launch K6 (bf16, d = 128), and K7 and K8 in
   the backward, or raise. Differentiable in q, k and v.
   """
@@ -518,3 +618,52 @@ def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 block_sparse_attention.launches = 0
+
+
+class SequenceParallelAttention:
+  """Block-sparse attention with the q (node) rows split over a process
+  group: the twin of the JAX ``SequenceParallelAttention``
+  (splash.py:760-856).
+
+  Rank s holds q rows ``shard_rows(n, S)[s]`` and runs K6 and K7 on its
+  shard map (``shard_block_maps``): its q rows against the whole k and v,
+  which ``gather`` puts together from every rank's rows. K8 runs on the
+  shard's transposed map and gives the shard's dk and dv partials for
+  every kv row; the gather's backward sums them over the group (in f32)
+  and hands each rank its rows, as shard_map's transpose of replicated k
+  and v does in JAX. The forward and dq need no communication beyond the
+  gather.
+  """
+
+  def __init__(self, block_map: BlockMap, group):
+    size = collectives.group_size(group)
+    rank = collectives.group_rank(group)
+    self.group = group
+    self.n = block_map.n
+    self.shard = shard_block_maps(block_map, size)[rank]
+    self.rows = shard_rows(block_map.n, size)[rank]
+    self.rows_per_shard = shard_tiles(block_map.n, size) * TILE
+
+  def split(self, x):
+    """x [batch, n, ...], the same on every rank → this rank's rows; the
+    backward gathers every rank's row gradients."""
+    pad = [0, 0] * (x.ndim - 2) + [0, self.rows_per_shard
+                                   * collectives.group_size(self.group)
+                                   - x.shape[1]]
+    part = collectives.split(torch.nn.functional.pad(x, pad), 1, self.group)
+    return part[:, :self.rows[1] - self.rows[0]]
+
+  def gather(self, x, reduce_grad: bool):
+    """This rank's rows [batch, rows, ...] → every rank's, [batch, n, ...]
+    (collectives.all_gather: ``reduce_grad`` where each rank's consumers
+    of the whole differ, as the attention's of k and v)."""
+    pad = [0, 0] * (x.ndim - 2) + [0, self.rows_per_shard - x.shape[1]]
+    whole = collectives.all_gather(torch.nn.functional.pad(x, pad), 1,
+                                   self.group, reduce_grad)
+    return whole[:, :self.n]
+
+  def __call__(self, q, k, v, scale: float):
+    """q, k, v: this rank's rows [batch, rows, heads, d]. Returns (o, lse)
+    for its rows, as ``block_sparse_attention``."""
+    return block_sparse_attention(q, self.gather(k, True),
+                                  self.gather(v, True), self.shard, scale)

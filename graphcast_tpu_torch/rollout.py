@@ -16,10 +16,17 @@ predictor that feeds each chunk's predictions back as the next inputs:
 Randomness: the JAX package splits a key per chunk and hands the predictor
 ``rng=``. Here one ``torch.Generator`` is handed to every call as
 ``generator=`` and is drawn from in chunk order; a deterministic predictor
-(GraphCast) is called with ``generator=None`` and takes none. The chunks run
-under ``torch.inference_mode()``. The JAX package's ``mesh=`` (members
-sharded over devices) and ``carry_constraint`` are not ported:
-``chunked_ensemble_prediction(mesh=...)`` raises NotImplementedError.
+(GraphCast) is called with ``generator=None`` and takes none. An ensemble
+gives each member a generator of its own, seeded from one draw of the
+generator and the member's index (``member_generators``), so that a
+member's noise does not depend on how the members are split over ranks. The chunks run
+under ``torch.inference_mode()``.
+
+``chunked_ensemble_prediction(mesh=...)`` splits the members over a mesh
+axis (graphcast_tpu/rollout.py:188-214): each rank runs its members, its
+carried input window stays its own from chunk to chunk (what the JAX
+package's re-pinned sharding does), and each chunk's predictions are
+gathered so that every rank returns the whole ensemble.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import numpy as np
 import torch
 
 from graphcast_tpu_torch.fields import Field, FieldSet
+from graphcast_tpu_torch.parallel import sharding
 
 # predictor_fn(inputs=, targets_template=, forcings=[, generator=]) ->
 # predictions
@@ -75,7 +83,7 @@ def _check_equispaced(target_times):
 
 def chunked_prediction_generator(
     predictor_fn: PredictorFn,
-    generator: Optional[torch.Generator],
+    generator,
     inputs: FieldSet,
     targets_template: FieldSet,
     forcings: FieldSet,
@@ -124,7 +132,7 @@ def chunked_prediction_generator(
 
 def chunked_prediction(
     predictor_fn: PredictorFn,
-    generator: Optional[torch.Generator],
+    generator,
     inputs: FieldSet,
     targets_template: FieldSet,
     forcings: FieldSet,
@@ -132,9 +140,14 @@ def chunked_prediction(
     pull_to_host: bool = True,
 ) -> FieldSet:
   """All chunks concatenated along time (reference: rollout.py:205-242)."""
-  out = FieldSet.concat(list(chunked_prediction_generator(
+  return _concat(chunked_prediction_generator(
       predictor_fn, generator, inputs, targets_template, forcings,
-      num_steps_per_chunk, pull_to_host)), "time")
+      num_steps_per_chunk, pull_to_host), targets_template)
+
+
+def _concat(chunks, targets_template: FieldSet) -> FieldSet:
+  """The chunks along time, with the template's time coordinates."""
+  out = FieldSet.concat(list(chunks), "time")
   for name in ("time", "datetime"):
     value = targets_template.coords.get(name)
     if value is not None:
@@ -153,6 +166,24 @@ def tile_batch(fs: FieldSet, factor: int) -> FieldSet:
   return fs.map(fn)
 
 
+def member_generators(generator: torch.Generator,
+                      members) -> list[torch.Generator]:
+  """One generator per ensemble member (module doc), on ``generator``'s
+  device, each seeded from (a draw of ``generator``, the member's global
+  index) through numpy's SeedSequence. The draw advances ``generator``, so
+  a second call gives other streams; ranks whose generators are in one
+  state draw one seed."""
+  seed = int(torch.randint(0, 2**62, (), generator=generator,
+                           device=generator.device))
+  device = generator.device
+  out = []
+  for m in members:
+    state = np.random.SeedSequence([seed, m]).generate_state(2, np.uint32)
+    out.append(torch.Generator(device=device).manual_seed(
+        int(state[0]) << 31 | int(state[1]) >> 1))
+  return out
+
+
 def chunked_ensemble_prediction(
     predictor_fn: PredictorFn,
     generator: Optional[torch.Generator],
@@ -161,23 +192,40 @@ def chunked_ensemble_prediction(
     forcings: FieldSet,
     num_samples: int,
     mesh=None,
+    mesh_axis: str = "batch",
     num_steps_per_chunk: int = 1,
     pull_to_host: bool = True,
 ) -> FieldSet:
   """Ensemble inference: ``num_samples`` members as the batch axis, each
   with its own noise inside the predictor (graphcast_tpu/rollout.py:
   176-214). Returns predictions of batch ``input_batch * num_samples``,
-  the members of each input together. ``mesh`` (sharding the members over
-  devices) is not ported."""
+  the members of each input together. A probabilistic predictor's
+  members draw from ``member_generators`` of ``generator``, which every
+  rank of a ``mesh`` passes in one state. With a ``mesh`` the members are
+  split over its ``mesh_axis`` (module doc)."""
+  inputs, targets_template, forcings = (
+      tile_batch(fs, num_samples) for fs in (inputs, targets_template,
+                                             forcings))
+  members = range(targets_template.sizes["batch"])
+  dim_to_axis = {"batch": mesh_axis}
   if mesh is not None:
-    raise NotImplementedError(
-        "chunked_ensemble_prediction(mesh=...): sharding members over "
-        "devices is not ported")
-  return chunked_prediction(
-      predictor_fn, generator, tile_batch(inputs, num_samples),
-      tile_batch(targets_template, num_samples),
-      tile_batch(forcings, num_samples),
-      num_steps_per_chunk=num_steps_per_chunk, pull_to_host=pull_to_host)
+    inputs, targets_template, forcings = sharding.shard_fieldsets(
+        mesh, inputs, targets_template, forcings, dim_to_axis=dim_to_axis)
+    size = sharding.axis_size(mesh, mesh_axis)
+    per_rank = len(members) // size
+    rank = sharding.axis_rank(mesh, mesh_axis)
+    members = members[rank * per_rank:(rank + 1) * per_rank]
+  if generator is not None:
+    generator = member_generators(generator, members)
+  chunks = chunked_prediction_generator(
+      predictor_fn, generator, inputs, targets_template, forcings,
+      num_steps_per_chunk, pull_to_host=mesh is None and pull_to_host)
+  if mesh is not None:
+    chunks = (sharding.gather_fieldsets(mesh, c, dim_to_axis=dim_to_axis)
+              for c in chunks)
+    if pull_to_host:
+      chunks = (c.to("cpu") for c in chunks)
+  return _concat(chunks, targets_template)
 
 
 def extend_targets_template(targets_template: FieldSet,

@@ -1,5 +1,4 @@
-"""Training step: AR loss + grads + optimizer (port of graphcast_tpu/train.py,
-one device).
+"""Training step: AR loss + grads + optimizer (port of graphcast_tpu/train.py).
 
 The parameters live in the predictor's modules (f32 masters) and the
 optimizer state in ``torch.optim``; a train step is loss, ``backward`` and
@@ -9,21 +8,30 @@ b2 0.95, eps 1e-8, weight decay 0.1 on every parameter) with a linear
 warmup and cosine decay, read at the step count before the increment, so
 the first step's learning rate is 0.
 
-Not ported: batch sharding over a device mesh (``shard_batch``, the
-``mesh`` argument) and the params-tree plumbing (``TrainState``,
-``partition_params``): the graph statics live on the model here, not in
-the parameters.
+Over a device mesh (parallel/sharding.py), ``shard_batch`` gives each rank
+its slice of the batch and ``make_train_step(..., mesh=)`` takes the JAX
+step's contract (train.py:52): the loss is the mean over the whole batch.
+Each rank's gradients of its slice's mean are averaged over the ``batch``
+axis by bucketed all-reduces after ``backward``, before the clip, so every
+rank clips the same gradient and its parameters stay bit-equal to every
+other replica's. Under tensor parallelism the global norm adds the split
+parameters' squares over the ``model`` axis. Not ported: the params-tree
+plumbing (``TrainState``, ``partition_params``): the graph statics live on
+the model here, not in the parameters.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable
+from typing import Callable, Iterable, Optional
 
 import torch
+import torch.distributed as dist
 
 from graphcast_tpu_torch.fields import FieldSet
 from graphcast_tpu_torch.models.base import Predictor
+from graphcast_tpu_torch.parallel import collectives
+from graphcast_tpu_torch.parallel import sharding
 
 
 def make_loss_fn(predictor: Predictor):
@@ -77,12 +85,22 @@ class ClippedAdamW:
   def zero_grad(self):
     self.adamw.zero_grad(set_to_none=True)
 
-  @torch.no_grad()
-  def step(self):
+  def fill_grads(self):
+    """Gives every parameter without a gradient a zero one."""
     for p in self.params:
       if p.grad is None:
         p.grad = torch.zeros_like(p)
-    torch.nn.utils.clip_grad_norm_(self.params, self.clip_norm)
+
+  @torch.no_grad()
+  def step(self, total_norm: Optional[torch.Tensor] = None):
+    """``total_norm``: the gradients' global norm where this rank holds
+    only part of them (tensor parallelism); else it is computed here."""
+    self.fill_grads()
+    if total_norm is None:
+      torch.nn.utils.clip_grad_norm_(self.params, self.clip_norm)
+    else:  # clip_grad_norm_'s rule on the given norm
+      coef = torch.clamp(self.clip_norm / (total_norm + 1e-6), max=1.0)
+      torch._foreach_mul_([p.grad for p in self.params], coef)
     for group in self.adamw.param_groups:
       group["lr"] = self.schedule(self.count)
     self.adamw.step()
@@ -102,18 +120,62 @@ def graphcast_optimizer(params: Iterable[torch.nn.Parameter],
                       weight_decay=weight_decay, clip_norm=clip_norm)
 
 
-def make_train_step(predictor: Predictor, optimizer: ClippedAdamW):
+def shard_batch(mesh, *fieldsets: FieldSet):
+  """Each FieldSet's slice of the batch for this rank (graphcast_tpu/
+  train.py:131): the batch dim split over the mesh's "batch" axis."""
+  return sharding.shard_fieldsets(mesh, *fieldsets)
+
+
+def global_grad_norm(params, tp_params, model_group) -> torch.Tensor:
+  """The global norm of the gradients of ``params``, where those in
+  ``tp_params`` are this rank's parts of tensors split over
+  ``model_group``."""
+  tp_ids = {id(p) for p in tp_params}
+  sq = [torch.zeros((), device=params[0].grad.device) for _ in range(2)]
+  for p in params:
+    sq[id(p) in tp_ids] += p.grad.float().square().sum()
+  dist.all_reduce(sq[1], group=model_group)
+  return torch.sqrt(sq[0] + sq[1])
+
+
+def make_train_step(predictor: Predictor, optimizer: ClippedAdamW,
+                    mesh=None):
   """Returns train_step(inputs, targets, forcings, **kwargs) → (loss,
   diagnostics), detached; the step updates the predictor's parameters in
-  place. ``kwargs`` go to the loss (``make_loss_fn``)."""
+  place. ``kwargs`` go to the loss (``make_loss_fn``).
+
+  With a ``mesh`` (module doc), each rank passes its slice of the batch
+  (``shard_batch``); the returned loss and diagnostics are the whole
+  batch's means, the same on every rank. Make the optimizer after
+  ``sharding.shard_params_tensor_parallel``."""
   loss_fn = make_loss_fn(predictor)
+  batch_group = None
+  if mesh is not None and "batch" in mesh.mesh_dim_names and (
+      sharding.axis_size(mesh, "batch") > 1):
+    batch_group = mesh.get_group("batch")
+  tp_params, model_group = sharding.tensor_parallel_parameters(predictor)
+
+  def mean_over_batch(x):
+    x = x.detach().clone()
+    dist.all_reduce(x, group=batch_group)
+    return x / collectives.group_size(batch_group)
 
   def train_step(inputs: FieldSet, targets: FieldSet, forcings: FieldSet,
                  **kwargs):
     optimizer.zero_grad()
     loss, diagnostics = loss_fn(inputs, targets, forcings, **kwargs)
     loss.backward()
-    optimizer.step()
+    total_norm = None
+    if batch_group is not None:
+      optimizer.fill_grads()
+      collectives.all_reduce_mean_([p.grad for p in optimizer.params],
+                                   batch_group)
+      loss = mean_over_batch(loss)
+      diagnostics = {k: mean_over_batch(v) for k, v in diagnostics.items()}
+    if tp_params:
+      optimizer.fill_grads()
+      total_norm = global_grad_norm(optimizer.params, tp_params, model_group)
+    optimizer.step(total_norm)
     return loss.detach(), {k: v.detach() for k, v in diagnostics.items()}
 
   return train_step

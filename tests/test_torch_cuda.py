@@ -488,6 +488,54 @@ def test_block_sparse_attention_backward_kernels_match_plain(n, batch, kind,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("num_shards", [2, 3, 4])
+def test_attention_kernels_on_shard_maps(num_shards, cuda_device):
+  """K6, K7 and K8 on sequence-parallel shard maps (rectangular: the
+  shard's q tiles against every kv tile; 700 nodes give 11 q tiles, which
+  3 and 4 shards do not divide, so the last shards hold empty tiles):
+  each shard against the plain twins on its map; the shards' o, lse and dq
+  put together equal the whole map's kernels bit for bit; the dk and dv
+  partials summed in shard order within the backward tolerance of the
+  whole map's."""
+  bm = _attention_case(700, 700, "banded")
+  q, k, v, do = (t.detach() for t in _backward_operands(bm, 2, 5,
+                                                        cuda_device))
+  scale = 128 ** -0.5
+
+  def run(m, qs, dos):
+    qs = qs.detach().requires_grad_()
+    ks, vs = k.detach().requires_grad_(), v.detach().requires_grad_()
+    o, lse = splash.block_sparse_attention(qs, ks, vs, m, scale)
+    return (o, lse, *torch.autograd.grad(o, (qs, ks, vs), dos)), (qs, ks,
+                                                                   vs)
+
+  (o, lse, dq, dk, dv), _ = run(bm, q, do)
+  parts, dk_sum, dv_sum = [], torch.zeros(dk.shape, device=cuda_device), (
+      torch.zeros(dv.shape, device=cuda_device))
+  for m, (a, b) in zip(splash.shard_block_maps(bm, num_shards),
+                       splash.shard_rows(bm.n, num_shards)):
+    got, (qs, ks, vs) = run(m, q[:, a:b], do[:, a:b])
+    parts.append(got[:3])
+    dk_sum += got[3].float()
+    dv_sum += got[4].float()
+    with torch.no_grad():
+      want_o, want_lse = splash.block_sparse_attention_reference(
+          qs, ks, vs, m, scale)
+      _assert_close(got[0], want_o)
+      assert (got[1] - want_lse).abs().max().item() <= 1e-3
+      want = splash.block_sparse_attention_backward_reference(
+          qs, ks, vs, got[0], got[1], do[:, a:b], m, scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got[2:], want):
+      _assert_grads_close({name: g}, {name: w})
+  torch.cuda.synchronize()
+  for i, (name, whole) in enumerate((("o", o), ("lse", lse), ("dq", dq))):
+    assert torch.equal(torch.cat([p[i] for p in parts], 2 if i == 1 else 1),
+                       whole), name
+  _assert_grads_close({"dk": dk_sum.to(dk.dtype), "dv": dv_sum.to(dv.dtype)},
+                      {"dk": dk, "dv": dv})
+
+
+@pytest.mark.cuda
 def test_fused_edge_embed_backward_matches_twin_autograd(cuda_device):
   rng = np.random.RandomState(7)
   n, ns, e, F = 700, 2000, 5000, 4

@@ -488,12 +488,19 @@ def test_constructor_takes_the_jax_keywords(keywords):
     ({"fused_aggregation": False}, "XLA-only and split"),
     ({"cache_dir": "/tmp/artifacts"}, "artifact cache"),
     ({"interpret_attention": True}, "interpret_attention"),
-    ({"sequence_parallel": (object(), "mesh")}, "sequence parallelism"),
 ])
 def test_constructor_refuses_unported_forms(keywords, form):
   """Each unported value raises NotImplementedError naming its form."""
   with pytest.raises(NotImplementedError, match=form):
     _port_model_with(**keywords)
+
+
+def test_sequence_parallel_takes_splash_attention_only():
+  """As in the JAX package (Transformer.enable_sequence_parallel), the
+  node axis splits only under splash attention (tests/test_torch_parallel.py
+  runs it)."""
+  with pytest.raises(ValueError, match="splash_mha"):
+    _port_model_with(sequence_parallel=(object(), "sp"))
 
 
 def _stacks(jmodel, port):
@@ -520,11 +527,23 @@ def _with_sst_nans(j_fs, t_fs):
 def test_loss_and_grads_match_jax(attention_type, monkeypatch):
   """The wrapper stack's loss, diagnostics and every parameter gradient at
   batch 1, with NaNs in SST, on the same σ and noise."""
+  _check_loss_and_grads(attention_type, monkeypatch, batch=1)
+
+
+@pytest.mark.parametrize("attention_type", ["mha", "splash_mha"])
+def test_loss_and_grads_match_jax_at_batch_2(attention_type, monkeypatch):
+  """As at batch 1, with two members of different σ: the general path of
+  both packages (a noise level per member), whose gradients the batch-1
+  case does not reach."""
+  _check_loss_and_grads(attention_type, monkeypatch, batch=2)
+
+
+def _check_loss_and_grads(attention_type, monkeypatch, batch):
   jmodel, tree, port = _shared_weights(attention_type)
-  (j_in, j_tg, j_fc), (t_in, t_tg, t_fc) = _batch()
+  (j_in, j_tg, j_fc), (t_in, t_tg, t_fc) = _batch(batch)
   j_in, t_in = _with_sst_nans(j_in, t_in)
   j_tg, t_tg = _with_sst_nans(j_tg, t_tg)
-  sigma = np.array([1.7], np.float32)
+  sigma = np.array([1.7, 0.6][:batch], np.float32)
   rng = np.random.RandomState(21)
   draws = {n: rng.randn(*j_tg[n].shape).astype(np.float32)
            for n in j_tg.var_names}

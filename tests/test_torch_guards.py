@@ -475,15 +475,53 @@ def test_new_kernel_wrappers_refuse_inputs_before_launching(case,
                                        m(3 * G, F), weights)
 
 
-def test_ensemble_over_a_device_mesh_is_not_ported():
-  from graphcast_tpu_torch import rollout
-
-  def never(**kwargs):
-    raise AssertionError("the predictor ran")
-
-  with pytest.raises(NotImplementedError, match="mesh"):
-    rollout.chunked_ensemble_prediction(never, None, None, None, None,
-                                        num_samples=2, mesh=object())
+def test_parallel_and_dry_run_run_without_jax(tmp_path):
+  """graphcast_tpu_torch.parallel and graft_entry import, and a
+  one-process mesh trains a data-parallel GraphCast step, with ``jax`` and
+  ``graphcast_tpu`` unimportable."""
+  code = textwrap.dedent(f"""
+      import sys
+      sys.modules["jax"] = None
+      sys.modules["graphcast_tpu"] = None
+      import torch
+      import torch.distributed as dist
+      from graphcast_tpu_torch import graft_entry, train
+      from graphcast_tpu_torch.parallel import (
+          collectives, launch, sharding)
+      from graphcast_tpu_torch.data import synthetic
+      from graphcast_tpu_torch.models import configs
+      from graphcast_tpu_torch.models.graphcast import GraphCast
+      assert graft_entry.mesh_axes(8) == {{"batch": 2, "model": 2, "sp": 2}}
+      dist.init_process_group("gloo", init_method="file://{tmp_path}/r",
+                              world_size=1, rank=0)
+      mesh = sharding.make_mesh({{"batch": 1, "model": 1}})
+      task = configs.TaskConfig(
+          input_variables=("2m_temperature", "toa_incident_solar_radiation",
+                           "land_sea_mask"),
+          target_variables=("2m_temperature",),
+          forcing_variables=("toa_incident_solar_radiation",),
+          pressure_levels=(500,), input_duration="12h")
+      model = GraphCast(configs.ModelConfig(
+          resolution=30.0, mesh_size=1, latent_size=16, gnn_msg_steps=1,
+          hidden_layers=1), task, generator=torch.Generator().manual_seed(0),
+          device="cpu")
+      sharding.shard_params_tensor_parallel(model, mesh)
+      data = train.shard_batch(mesh, *synthetic.make_example_batch(
+          task, 30.0, device="cpu"))
+      step = train.make_train_step(
+          model, train.graphcast_optimizer(model.parameters()), mesh)
+      loss, _ = step(*data)
+      dist.destroy_process_group()
+      assert torch.isfinite(loss)
+      assert not any(m == "jax" or m.startswith(("jax.", "graphcast_tpu."))
+                     for m in sys.modules if sys.modules[m] is not None)
+      print("trained", float(loss))
+      """)
+  env = {**os.environ, "PYTHONPATH": str(REPO)}
+  proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                        text=True, env=env, cwd=REPO, timeout=300)
+  assert proc.returncode == 0, proc.stderr
+  assert proc.stdout.startswith("trained"), proc.stdout
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

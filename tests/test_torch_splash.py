@@ -386,3 +386,134 @@ def test_heaviest_first_keeps_empty_rows_last():
   after every row with entries."""
   np.testing.assert_array_equal(
       splash.heaviest_first(np.array([0, 4, 4, 6, 6])), [0, 2, 1, 3])
+
+
+def _jax_tile(mask_blocks, row, block=64):
+  """The [q row, kv column] bool tile of a JAX bitmap-table row (0: the
+  full block; rows packed as splash._build_block_map packs them)."""
+  if row == 0:
+    return np.ones((block, block), bool)
+  gw = block // 32
+  r = np.arange(block)
+  return ((mask_blocks[row][r % gw] >> (r // gw)[:, None].astype(np.uint32))
+          & 1).astype(bool)
+
+
+def _port_tile(words_row):
+  """[row, column] bool tile of a port pair's 64 words."""
+  return ((words_row[:, None] >> np.arange(64, dtype=np.uint64)) & 1
+          ).astype(bool)
+
+
+@pytest.mark.parametrize("num_shards", [1, 2, 4])
+@pytest.mark.parametrize("n", [512, 300])
+def test_shard_maps_match_jax_shard_transposed_maps(n, num_shards):
+  """Each shard's map (its q tiles against every kv tile) and transposed
+  map (every kv tile against its q tiles, renumbered from 0) hold the
+  entries of the JAX package's per-shard maps (BlockSparseAttention's
+  kv_index/mask_rows split by shard, _build_shard_transposed_maps) at
+  64 x 64 blocks, pair for pair and bit for bit. At n = 300 the 5 q tiles
+  do not divide over 2 or 4 shards: the port pads them with empty tiles,
+  where JAX raises, so its maps are built on the mask padded to the
+  shards' rows (the padding nodes attend nothing)."""
+  mask = sp.csr_matrix(_banded_mask(n, 48, seed=n).toarray())
+  tiles = splash.shard_tiles(n, num_shards)
+  n_jax = tiles * num_shards * 64
+  padded = sp.csr_matrix((mask.data, mask.indices, np.r_[
+      mask.indptr, np.full(n_jax - n, mask.indptr[-1])]), shape=(n_jax,
+                                                                 n_jax))
+  m = jax_splash.BlockSparseAttention.from_mask(
+      padded, block_q=64, block_kv=64, interpret=True)._map
+  q_index, q_count, rows_t, _ = jax_splash._build_shard_transposed_maps(
+      m, num_shards)
+  bm = splash.build_block_map(mask)
+  shards = splash.shard_block_maps(bm, num_shards)
+  assert [s.n for s in shards] == [b - a for a, b in
+                                   splash.shard_rows(n, num_shards)]
+  assert sum(s.nnz for s in shards) == bm.nnz == sum(
+      s.transposed.nnz for s in shards)
+  for s, shard in enumerate(shards):
+    assert shard.nq == tiles and shard.nkv == bm.nkv
+    for t in range(tiles):  # the forward map: q tile t of the shard
+      i = s * tiles + t
+      lo, hi = shard.kv_offsets[t], shard.kv_offsets[t + 1]
+      count = m["kv_count"][i]
+      np.testing.assert_array_equal(shard.kv_index[lo:hi],
+                                    m["kv_index"][i, :count])
+      for a, slot in zip(range(lo, hi), range(count)):
+        np.testing.assert_array_equal(
+            _port_tile(shard.words[a]),
+            _jax_tile(m["mask_blocks"], m["mask_rows"][i, slot]))
+    bt = shard.transposed
+    assert bt.nq == bm.nkv and bt.nkv == tiles
+    for j in range(m["nkv"]):  # the transposed map: kv tile j
+      count = q_count[s, j]
+      if j >= bt.nq:  # JAX's padding tiles attend and are attended by none
+        assert count == 0
+        continue
+      lo, hi = bt.kv_offsets[j], bt.kv_offsets[j + 1]
+      np.testing.assert_array_equal(bt.kv_index[lo:hi],
+                                    q_index[s, j, :count])
+      for a, slot in zip(range(lo, hi), range(count)):
+        np.testing.assert_array_equal(
+            _port_tile(bt.words[a]).T,
+            _jax_tile(m["mask_blocks"], rows_t[s, j, slot]))
+
+
+@pytest.mark.parametrize("n", [256, 300])
+def test_sequence_parallel_attention_matches_unsharded_and_jax(n, tmp_path):
+  """SequenceParallelAttention over 2 gloo processes (q, k and v split by
+  rows, k and v gathered, dk and dv partials summed over the group): its
+  gathered output equals the unsharded plain version bit for bit (each q
+  row meets the same kv tiles in the same order) and its q, k and v
+  gradients equal the unsharded plain backward's (1e-6); both within the
+  JAX test's 2e-4 / 2e-3 (tests/test_splash.py:329) of the JAX
+  package's SequenceParallelAttention over 2 devices (n = 256: 4 q tiles)
+  or, where the q tiles do not divide over the shards (n = 300), of its
+  unsharded attention."""
+  import torch_parallel_workers as workers
+  from graphcast_tpu_torch.parallel import launch
+  mask = _banded_mask(n, 48, seed=4)
+  rng = np.random.RandomState(0)
+  q, k, v, target = (rng.randn(1, n, 1, 128).astype(np.float32)
+                     for _ in range(4))
+  scale = 128 ** -0.5
+  workers.save(tmp_path, "attention", mask=mask.toarray(), q=q, k=k, v=v,
+               target=target, scale=np.array(scale))
+  launch.spawn(workers.sp_attention, 2, args=(str(tmp_path),),
+               init_method=f"file://{tmp_path}/rendezvous", timeout_s=60)
+  ranks = [workers.load(tmp_path, f"attn{r}") for r in range(2)]
+
+  # The port's unsharded plain version.
+  tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+  o, _ = splash.block_sparse_attention(tq, tk, tv,
+                                       splash.build_block_map(mask), scale)
+  ((o - torch.from_numpy(target)) ** 2).sum().backward()
+  for got in ranks:
+    np.testing.assert_array_equal(got["o"], o.detach().numpy())
+    for name, t in (("dq", tq), ("dk", tk), ("dv", tv)):
+      np.testing.assert_allclose(got[name], t.grad.numpy(), rtol=1e-6,
+                                 atol=1e-6, err_msg=name)
+
+  # The JAX package's.
+  attn = jax_splash.BlockSparseAttention.from_mask(mask, block_q=64,
+                                                   block_kv=64,
+                                                   interpret=True)
+  if n == 256:
+    from graphcast_tpu.parallel import sharding as jax_sharding
+    fn = attn.sequence_parallel(
+        jax_sharding.make_mesh({"sp": 2}, devices=jax.devices()[:2]), "sp")
+  else:
+    fn = attn
+
+  def loss(q, k, v):
+    return jnp.sum((fn(q, k, v, scale=scale) - target) ** 2)
+
+  want_o = fn(*(jnp.asarray(x) for x in (q, k, v)), scale=scale)
+  grads = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(x)
+                                              for x in (q, k, v)))
+  np.testing.assert_allclose(ranks[0]["o"], np.asarray(want_o), rtol=2e-4,
+                             atol=2e-4)
+  for name, g in zip(("dq", "dk", "dv"), grads):
+    np.testing.assert_allclose(ranks[0][name], np.asarray(g), rtol=2e-3,
+                               atol=2e-3, err_msg=name)

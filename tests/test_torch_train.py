@@ -1,6 +1,7 @@
 """The port's training path against graphcast_tpu's, on shared weights and
 inputs (tiny config: 30° grid, mesh-1, latent 16, 2 message-passing steps,
-batch 1; both packages build the geometry with the numpy backend).
+batch 1, and batch 2 where named; both packages build the geometry with
+the numpy backend).
 
 - ``GraphCast.loss`` and every parameter gradient, f32, against the JAX
   model with ``fused_aggregation`` False (plain XLA) and True (Pallas
@@ -16,6 +17,9 @@ batch 1; both packages build the geometry with the numpy backend).
 - A 2-step AR loss and its gradients: with per-step checkpointing equal to
   without (rtol 1e-6: the recompute runs the same CPU operations), and
   equal to the JAX stack's (5e-4).
+- At batch 2, the f32 stack's AR-1 and AR-2 loss and every gradient
+  against the JAX stack's (5e-4): both packages' general path, the batch
+  mean of the per-example losses, the base of data parallelism.
 - The optimizer against optax's chain fed the same numpy gradients, 5
   steps (1e-6; the first step's learning rate is 0, so it changes nothing).
 - 3 ``make_train_step`` steps against the JAX package's jitted train step:
@@ -80,7 +84,12 @@ def case():
   return build_case()
 
 
-def build_case():
+@pytest.fixture(scope="module")
+def case2():
+  return build_case(batch=2)
+
+
+def build_case(batch=1):
   """JAX models/params and data, the port's data and a model factory."""
   with pytest.MonkeyPatch.context() as mp:
     mp.setattr(jax_artifact, "build_artifact", functools.partial(
@@ -88,9 +97,10 @@ def build_case():
     jtask = jax_configs.TaskConfig(**TINY_TASK)
     task = configs.TaskConfig(**TINY_TASK)
     j_data = jax_synthetic.make_example_batch(
-        jtask, resolution=30.0, batch=1, num_target_times=2)
+        jtask, resolution=30.0, batch=batch, num_target_times=2)
     t_data = synthetic.make_example_batch(
-        task, resolution=30.0, batch=1, num_target_times=2, device="cpu")
+        task, resolution=30.0, batch=batch, num_target_times=2,
+        device="cpu")
     models = {fused: JaxGraphCast(jax_configs.ModelConfig(**TINY_MODEL),
                                   jtask, cache_dir="",
                                   fused_aggregation=fused)
@@ -138,8 +148,10 @@ def _jax_loss_and_grads(predictor, case, statics, n):
 
 def _port_loss_and_grads(predictor, model, case, n):
   model.zero_grad(set_to_none=True)
-  loss, diagnostics = predictor.loss(*_steps(case["t_data"], n))
-  assert loss.dtype == torch.float32 and loss.shape == (1,)
+  data = _steps(case["t_data"], n)
+  loss, diagnostics = predictor.loss(*data)
+  assert loss.dtype == torch.float32
+  assert loss.shape == (data[1].sizes["batch"],)
   assert set(diagnostics) == set(TINY_TASK["target_variables"])
   loss = loss.mean()
   loss.backward()
@@ -215,6 +227,21 @@ def test_ar2_loss_checkpointed_equals_plain_and_jax(case):
   _assert_grads_close(out[True][1], out[False][1], rtol=1e-6, atol=1e-9)
   np.testing.assert_allclose(out[True][0], want_loss, rtol=TOL)
   _assert_grads_close(out[True][1], want)
+
+
+@pytest.mark.parametrize("steps", [1, 2])
+def test_loss_and_grads_match_jax_at_batch_2(steps, case2):
+  """AR-1 and AR-2 (per-step checkpointing) at batch 2: the loss is the
+  mean of the two examples' and every gradient that mean's."""
+  want_loss, want = _jax_loss_and_grads(
+      _jax_stack(case2, False, gradient_checkpointing=True), case2,
+      case2["statics"][False], steps)
+  model = case2["port_model"]()
+  got_loss, got = _port_loss_and_grads(
+      _port_stack(case2, model, False, gradient_checkpointing=True), model,
+      case2, steps)
+  np.testing.assert_allclose(got_loss, want_loss, rtol=TOL)
+  _assert_grads_close(got, want)
 
 
 def test_ar2_loss_and_predictions_stack_over_time(case):
