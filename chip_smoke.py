@@ -26,8 +26,9 @@ Phases, each printing one line with its seconds and results:
   main   the main path: zoo.graphcast() (0.25°, 37 levels, mesh-6, latent
          512, 16 message-passing steps), random weights from a fixed
          torch.Generator, Autoregressive(InputsAndResiduals(Bfloat16Cast(
-         GraphCast))).rollout_final for 4 six-hour steps at batch 1 in bf16;
-         checks finiteness and the kernels' launch counts.
+         GraphCast))).rollout_final for 4 six-hour steps at batch 1 in bf16
+         from an ERA5-shaped series made on the card (data/era5.py); checks
+         finiteness and the kernels' launch counts.
   small  zoo.graphcast_small() one step on the card (bf16, kernels) against
          the same port on the CPU (twins): per variable,
          rms(card bf16 - cpu f32) <= 2 * rms(cpu bf16 - cpu f32) + eps.
@@ -103,6 +104,35 @@ Phases, each printing one line with its seconds and results:
          feature-gradient pass they share against its plain version, a
          rerun bit-equal, timed in turns with its two products as bf16
          cuBLAS calls (x.t() @ d, d @ w0.t(): the library yardstick).
+  train_forms  zoo.graphcast()'s training step in the memory forms, each
+         from the same seed's weights and the same bf16 batch through
+         Autoregressive(InputsAndResiduals(Bfloat16Cast(GraphCast)),
+         gradient_checkpointing=True) and graphcast_optimizer(peak_lr=
+         1e-3): A (fused, AR-2), A_remat (A with remat_processor), B (the
+         JAX package's 0.25° training form, TRAINING_FORM, with
+         loss_scan_unroll=4, AR-2), C (B with loss_carry_offload and
+         loss_offload_processor_carries) at AR-2 and AR-4 (C_ar4). Two
+         steps each: the first (learning rate 0) gives the loss and every
+         gradient, the second s/step, peak GB, the launches of K1, K2, K3,
+         K4, K5, the sender sums and the weight-gradient reduction, and the
+         parameters. Checks A_remat bit-equal to A and C to B (loss,
+         gradients, parameters), B within FORMS_RTOL of A (loss relative
+         difference, each gradient's relative RMS), finite losses, changed
+         parameters, and which kernels each form launches.
+  ensemble_0p25_chunked  zoo.gencast_0p25deg().build(**ENSEMBLE_0P25_FORM)
+         (chunked encode and decode, unfused; tools/
+         bench_train_gencast.py's 0.25° form): (a) one preconditioned
+         denoiser evaluation of 2 members at the sampler's first noise
+         level, against the same weights unchunked (the general path)
+         within FORMS_RTOL per variable, the chunked rerun bit-equal
+         without torch's deterministic algorithms; the general path's
+         grid2mesh sender gather ([G, 2, 512] bf16 rows onto the 0.25°
+         grid2mesh edges) in ns/row; (b) the evaluation at
+         ENSEMBLE_0P25_MEMBERS members: s per evaluation and per
+         member-evaluation, peak GB (an out-of-memory error fails it);
+         (c) one GenCast training step in the same form at batch 1 after
+         a warm-up step: s/step, peak GB, finite losses, changed
+         parameters, K3 and K6-K8 launches.
   gencast  GenCast's sampling path: zoo.gencast_1p0deg() (1.0°, 13 levels,
          mesh-5, latent 512, 16-layer 4-head k-hop-16 transformer, 20 noise
          levels) at full width, random weights from a fixed generator with
@@ -114,8 +144,8 @@ Phases, each printing one line with its seconds and results:
          layer per evaluation, K1 and K2 embed once per evaluation; 39
          evaluations).
   gencast_small  zoo.gencast_mini() (mesh-4; its transformer cut to
-         MINI_LAYERS layers, for the CPU side's sake, in all the Mini
-         phases): one preconditioned denoiser
+         MINI_LAYERS layers, for the CPU side's sake and the script's time
+         limit, in all the Mini phases): one preconditioned denoiser
          evaluation at three noise levels on the card against the port on
          the CPU, with the small phase's noise-floor rule per variable.
   gencast_train  GenCast's training path: train.make_train_step over
@@ -316,10 +346,11 @@ PEAK_BYTES = 3.35e12    # H100 SXM HBM3, bytes/s
 DEVICE = "cuda"
 PHASES = ("build", "k1", "k2", "k4", "k5", "wgrad", "k6", "k7k8",
           "sp_attention", "embed", "embed_bwd", "k3", "main", "small",
-          "train", "train_small", "gencast", "gencast_small", "gencast_train",
-          "gencast_train_small", "ensemble", "ensemble_small",
+          "train", "train_forms", "train_small", "gencast", "gencast_small",
+          "gencast_train", "gencast_train_small", "ensemble", "ensemble_small",
           "graphcast_batch", "parallel", "forecast", "gencast_0p25",
-          "triblock", "k1p", "main_pipelined", "bench")
+          "ensemble_0p25_chunked", "triblock", "k1p", "main_pipelined",
+          "bench")
 
 
 def _log(phase, t0, **fields):
@@ -1017,9 +1048,13 @@ def _wrap(model, task_config, bf16=True, **ar_kw):
       mean_by_level=mean, diffs_stddev_by_level=diffs), **ar_kw)
 
 
-def _stack(torch, preset, seed, bf16=True, device=DEVICE, **ar_kw):
+def _stack(torch, preset, seed, bf16=True, device=DEVICE, model_kw=None,
+           **ar_kw):
+  """(GraphCast, its training stack); ``model_kw``: the constructor's
+  forms (chunks, fused_aggregation, remat_processor)."""
   from graphcast_tpu_torch.models.graphcast import GraphCast
   model = GraphCast(preset.model_config, preset.task_config,
+                    **(model_kw or {}),
                     generator=torch.Generator().manual_seed(seed),
                     device=device)
   return model, _wrap(model, preset.task_config, bf16, **ar_kw)
@@ -1069,17 +1104,17 @@ def _profile_step(torch, run, out_dir, name="main_step"):
 def _main_data(torch):
   """The main path's batch-1 bf16 inputs, one-step targets template and
   ROLLOUT_STEPS steps of forcings on the card (main and main_pipelined)."""
-  from graphcast_tpu_torch.data import synthetic
+  from graphcast_tpu_torch.examples.graphcast_demo import (
+      era5_inputs_targets_forcings)
   from graphcast_tpu_torch.models import zoo
-  from graphcast_tpu_torch.rollout import extend_targets_template
   preset = zoo.graphcast()
-  inputs, targets, forcings = synthetic.make_example_batch(
-      preset.task_config, resolution=preset.model_config.resolution,
-      batch=1)
+  # An ERA5-shaped series made from a seed on the card (data/era5.py).
+  inputs, targets, forcings = era5_inputs_targets_forcings(
+      preset.task_config, preset.model_config.resolution, ROLLOUT_STEPS, 6,
+      seed=0, device=DEVICE)
   bf16 = torch.bfloat16
-  return (inputs.astype(bf16).to(DEVICE), targets.astype(bf16).to(DEVICE),
-          extend_targets_template(forcings, ROLLOUT_STEPS).astype(bf16).to(
-              DEVICE))
+  return (inputs.astype(bf16), targets.isel(time=slice(0, 1)).astype(bf16),
+          forcings.astype(bf16))
 
 
 _MAIN_FINAL = {}  # main's final state, for main_pipelined
@@ -1349,7 +1384,8 @@ def _train_launches_per_step(art, mp_steps):
 
 def phase_train(torch, results, profile_dir=None):
   from graphcast_tpu_torch import train
-  from graphcast_tpu_torch.data import synthetic
+  from graphcast_tpu_torch.examples.graphcast_demo import (
+      era5_inputs_targets_forcings)
   from graphcast_tpu_torch.models import zoo
   t0 = time.perf_counter()
   preset = zoo.graphcast()
@@ -1357,10 +1393,9 @@ def phase_train(torch, results, profile_dir=None):
   model, predictor = _stack(torch, preset, seed=0,
                             gradient_checkpointing=True)
   predictor = predictor.to(DEVICE)
-  data = synthetic.make_example_batch(preset.task_config,
-                                      resolution=mc.resolution, batch=1,
-                                      num_target_times=1)
-  data = [fs.astype(torch.bfloat16).to(DEVICE) for fs in data]
+  data = era5_inputs_targets_forcings(preset.task_config, mc.resolution, 1,
+                                      6, seed=0, device=DEVICE)
+  data = [fs.astype(torch.bfloat16) for fs in data]
   step = train.make_train_step(
       predictor, train.graphcast_optimizer(model.parameters(), peak_lr=1e-3))
   before = [p.detach().clone() for p in model.parameters()]
@@ -1884,16 +1919,32 @@ def phase_sp_attention(torch, results):
         raise AssertionError(f"sp_attention S={shards}: summed partials "
                              f"vs unsharded K8 rel_rms {rel} (tol "
                              f"{SP_DKV_RTOL})")
-      # The library yardstick of the first shard's K6: SDPA with its rows
-      # of the dense mask, where they fit.
+      # The library yardsticks of the first shard: SDPA with its rows of
+      # the dense mask for K6, and that SDPA's backward (dq, dk and dv) for
+      # K7 and K8 together, in turns with the pair, where they fit.
       a, b, m, args, bounds, plain, ms = first
-      library_ms = None
+      library_ms = library_bwd_ms = pair_ms = None
       try:
         dense = torch.as_tensor(mask[a:b].toarray(), device=DEVICE)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q[:, a:b], k, v))
-        library_ms = _time_ms(
-            torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=dense, scale=scale), reps=5)
+        with torch.inference_mode(False), torch.enable_grad():
+          qt, kt, vt = (x.transpose(1, 2).clone().requires_grad_()
+                        for x in (q[:, a:b], k, v))
+          library_ms = _time_ms(
+              torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                  qt, kt, vt, attn_mask=dense, scale=scale), reps=5)
+          out = torch.nn.functional.scaled_dot_product_attention(
+              qt, kt, vt, attn_mask=dense, scale=scale)
+          dot = do[:, a:b].transpose(1, 2).clone()
+
+          def pair():
+            with torch.inference_mode():
+              splash.splash_dq(*args)
+              splash.splash_dkv(*args)
+
+          pair_ms, library_bwd_ms = _time_in_turns(
+              torch, pair, lambda: torch.autograd.grad(
+                  out, (qt, kt, vt), dot, retain_graph=True), reps=5)
+          del out, dot
         del dense, qt, kt, vt
       except torch.cuda.OutOfMemoryError:
         torch.cuda.empty_cache()
@@ -1905,7 +1956,11 @@ def phase_sp_attention(torch, results):
                   "plain_ms" + suffix: plain[i],
                   "unsharded_ms": whole_ms[i],
                   **{key + suffix: val for key, val in bounds[name].items()}})
-        e["library_ms" + suffix] = library_ms if i == 0 else None
+        e["library_ms" + suffix] = library_ms if i == 0 else library_bwd_ms
+        if i:
+          e["pair_ms" + suffix] = pair_ms
+          e["library_covers"] = ("SDPA backward on shard 0's rows of the "
+                                 "dense mask: dq, dk and dv (K7 + K8)")
         if shards == SP_SHARDS[0]:
           e.update(ms=ms[i], plain_ms=plain[i], library_ms=e["library_ms"
                                                              + suffix],
@@ -1916,7 +1971,10 @@ def phase_sp_attention(torch, results):
            dk_rel_rms=f"{rel['dk']:.3g}", dv_rel_rms=f"{rel['dv']:.3g}",
            unsharded_ms="/".join(f"{t:.4f}" for t in whole_ms),
            slowest_shard_ms="/".join(f"{t:.4f}" for t in slowest),
-           library_ms="none" if library_ms is None else f"{library_ms:.4f}")
+           library_ms="none" if library_ms is None else f"{library_ms:.4f}",
+           k7k8_pair_ms="none" if pair_ms is None else f"{pair_ms:.4f}",
+           library_bwd_ms=("none" if library_bwd_ms is None
+                           else f"{library_bwd_ms:.4f}"))
   for name in names:
     entries[name]["max_abs_err"] = worst[name]
     results[name] = entries[name]
@@ -2295,12 +2353,14 @@ def _redraw_degenerate(model, seed):
   params.load_params(model, flat)
 
 
-def _gencast_stack(torch, preset, seed, device=None, sequence_parallel=None):
+def _gencast_stack(torch, preset, seed, device=None, sequence_parallel=None,
+                   **forms):
   from graphcast_tpu_torch.data import synthetic
   from graphcast_tpu_torch.wrappers import InputsAndResiduals, NaNCleaner
   device = device or DEVICE
   model = preset.build(generator=torch.Generator().manual_seed(seed),
-                       device=device, sequence_parallel=sequence_parallel)
+                       device=device, sequence_parallel=sequence_parallel,
+                       **forms)
   _redraw_degenerate(model, seed)
   stats = synthetic.make_norm_stats(preset.task_config, device=device)
   return model, NaNCleaner(InputsAndResiduals(model, *stats),
@@ -2392,7 +2452,7 @@ def phase_gencast(torch, results, profile_dir=None):
 
 MINI_SEED = 12             # weights of the GenCast Mini phases
 MINI_SIGMAS = (80.0, 1.0, 0.03)
-MINI_LAYERS = 4            # their transformer depth (the preset has 16)
+MINI_LAYERS = 2            # their transformer depth (the preset has 16)
 
 
 def _mini_preset():
@@ -3533,6 +3593,284 @@ def phase_gencast_0p25(torch, results, profile_dir=None):
   torch.cuda.empty_cache()
 
 
+# ----- the memory forms (train_forms, ensemble_0p25_chunked) -----
+
+# The JAX package's 0.25° training form (tools/bench_train_025.py:55-83).
+TRAINING_FORM = dict(fused_aggregation="processor", remat_processor=True,
+                     encode_chunks=50, decode_chunks=64)
+OFFLOAD_FORM = dict(loss_carry_offload=True,
+                    loss_offload_processor_carries=True)
+# (name, GraphCast forms, Autoregressive forms, AR steps)
+TRAIN_FORMS = (
+    ("A", {}, {}, 2),
+    ("A_remat", {"remat_processor": True}, {}, 2),
+    ("B", TRAINING_FORM, {"loss_scan_unroll": 4}, 2),
+    ("C", TRAINING_FORM, {"loss_scan_unroll": 4, **OFFLOAD_FORM}, 2),
+    ("C_ar4", TRAINING_FORM, {"loss_scan_unroll": 4, **OFFLOAD_FORM}, 4),
+)
+FORMS_RTOL = 1e-2  # bf16 noise floor: B vs A loss and gradient rel RMS
+# The 0.25° GenCast form of tools/bench_train_gencast.py:34-39.
+ENSEMBLE_0P25_FORM = dict(encode_chunks=32, decode_chunks=32,
+                          fused_aggregation=False)
+ENSEMBLE_0P25_MEMBERS = 8
+FORM_KERNELS = ("fused_edge", "fused_edge_encoder", "fused_decoder",
+                "fused_edge_bwd", "fused_decoder_bwd", "weight_grad",
+                "segment_sum", "segment_sum_sender")
+
+
+def _launches():
+  counts = {k: fn.launches for k, fn in _counters().items()}
+  counts.update(_mode_counts())
+  return counts
+
+
+def _rel_rms(torch, got, want):
+  """rms(got - want) / rms(want), 0 where both are all zero."""
+  den = _rms(torch, want)
+  num = _rms(torch, got.double() - want.double())
+  return num / den if den else (0.0 if num == 0 else float("inf"))
+
+
+def phase_train_forms(torch, results):
+  """zoo.graphcast()'s AR training step in the memory forms (module doc):
+  A (fused, no remat), A_remat, B (the JAX package's 0.25° training form),
+  C (B with both host offloads) at AR-2 and AR-4, from one seed and one
+  batch. Each form takes two steps: the first (learning rate 0) gives the
+  loss and gradients compared, the second is timed (s/step, peak GB,
+  launches) and gives the parameters compared."""
+  from graphcast_tpu_torch import train
+  from graphcast_tpu_torch.examples.graphcast_demo import (
+      era5_inputs_targets_forcings)
+  from graphcast_tpu_torch.params import flat_params
+  from graphcast_tpu_torch.models import zoo
+  t0 = time.perf_counter()
+  preset = zoo.graphcast()
+  mc = preset.model_config
+  # An ERA5-shaped batch made from a seed on the card (data/era5.py).
+  data = era5_inputs_targets_forcings(
+      preset.task_config, mc.resolution, max(n for *_, n in TRAIN_FORMS), 6,
+      seed=0, device=DEVICE)
+  data = [fs.astype(torch.bfloat16) for fs in data]
+  setup_s = time.perf_counter() - t0
+  got = {}
+  for name, model_kw, ar_kw, steps in TRAIN_FORMS:
+    t1 = time.perf_counter()
+    model, predictor = _stack(torch, preset, seed=0, device=DEVICE,
+                              model_kw=model_kw, gradient_checkpointing=True,
+                              **ar_kw)
+    batch = (data[0], *(fs.isel(time=slice(0, steps)) for fs in data[1:]))
+    step = train.make_train_step(predictor, train.graphcast_optimizer(
+        model.parameters(), peak_lr=1e-3))
+    before = {k: p.detach().to("cpu", copy=True)
+              for k, p in flat_params(model).items()}
+    loss = float(step(*batch)[0].mean())
+    grads = {k: torch.zeros(p.shape) if p.grad is None
+             else p.grad.detach().to("cpu", torch.float32, copy=True)
+             for k, p in flat_params(model).items()}
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t1
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t2 = time.perf_counter()
+    loss2 = float(step(*batch)[0].mean())
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t2
+    counts = _launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    params = {k: p.detach().to("cpu", copy=True)
+              for k, p in flat_params(model).items()}
+    if not (np.isfinite(loss) and np.isfinite(loss2)):
+      raise AssertionError(f"train_forms {name}: losses {loss}, {loss2}")
+    if all(torch.equal(before[k], params[k]) for k in params):
+      raise AssertionError(f"train_forms {name} changed no parameter")
+    # Every form runs the fused processor; A's encoder and decoder are
+    # fused too, B's and C's chunked (K3 sums and gathers).
+    fused_ends = "fused_aggregation" not in model_kw
+    ends = {"fused_edge_encoder", "fused_decoder", "fused_decoder_bwd"}
+    must = {"fused_edge", "fused_edge_bwd", "weight_grad",
+            "segment_sum_sender"} | (ends if fused_ends else {"segment_sum"})
+    never = {"segment_sum"} if fused_ends else ends
+    if (any(counts[k] == 0 for k in must)
+        or any(counts[k] for k in never)):
+      raise AssertionError(f"train_forms {name}: launches {counts}")
+    got[name] = dict(loss=loss, grads=grads, params=params)
+    for k in FORM_KERNELS:
+      results.setdefault(k, {"name": k}).setdefault(
+          "train_forms_launches_per_step", {})[name] = counts[k]
+    _log("train_forms", t1, form=name, ar_steps=steps,
+         model_forms=json.dumps(model_kw, sort_keys=True).replace(" ", ""),
+         loss_forms=json.dumps(ar_kw, sort_keys=True).replace(" ", ""),
+         first_step_s=f"{first_s:.2f}", s_per_step=f"{step_s:.4f}",
+         peak_mem_gb=f"{peak_gb:.2f}", loss=f"{loss:.6g}",
+         **{f"{k}_launches": counts[k] for k in FORM_KERNELS})
+    del model, predictor, step, grads, params, before
+    torch.cuda.empty_cache()
+
+  def bit_equal(a, b):
+    same = (got[a]["loss"] == got[b]["loss"]
+            and all(torch.equal(got[a][part][k], got[b][part][k])
+                    for part in ("grads", "params") for k in got[a][part]))
+    if not same:
+      raise AssertionError(f"train_forms: {a} is not bit-equal to {b}")
+
+  bit_equal("A_remat", "A")
+  bit_equal("C", "B")
+  loss_rel = abs(got["B"]["loss"] - got["A"]["loss"]) / abs(got["A"]["loss"])
+  grad_rel = {k: _rel_rms(torch, got["B"]["grads"][k], g)
+              for k, g in got["A"]["grads"].items()}
+  worst = max(grad_rel, key=grad_rel.get)
+  if not (loss_rel <= FORMS_RTOL and grad_rel[worst] <= FORMS_RTOL):
+    raise AssertionError(f"train_forms B vs A: loss rel {loss_rel:.3g}, "
+                         f"worst gradient {worst} rel RMS "
+                         f"{grad_rel[worst]:.3g} (tol {FORMS_RTOL})")
+  _log("train_forms", t0, config=_label(preset), setup_s=f"{setup_s:.1f}",
+       A_remat_vs_A="bit-equal (loss, gradients, parameters)",
+       C_vs_B="bit-equal (loss, gradients, parameters)",
+       B_vs_A_loss_rel=f"{loss_rel:.3g}",
+       B_vs_A_worst_grad_rel_rms=f"{grad_rel[worst]:.3g}",
+       B_vs_A_worst_grad=worst, tol=FORMS_RTOL)
+  del got
+  torch.cuda.empty_cache()
+
+
+def phase_ensemble_0p25_chunked(torch, results):
+  """zoo.gencast_0p25deg() in the chunked unfused form (module doc): (a) a
+  2-member evaluation against the unchunked general path, rerun bit-equal;
+  (b) an 8-member evaluation; (c) a training step; and the general path's
+  grid2mesh sender gather in ns/row."""
+  from graphcast_tpu_torch import train
+  from graphcast_tpu_torch.data import synthetic
+  from graphcast_tpu_torch.models import zoo
+  from graphcast_tpu_torch.rollout import tile_batch
+  t0 = time.perf_counter()
+  preset = zoo.gencast_0p25deg()
+  model, stack = _gencast_stack(torch, preset, seed=0, **ENSEMBLE_0P25_FORM)
+  data = synthetic.make_example_batch(
+      preset.task_config, resolution=preset.resolution, batch=1,
+      num_target_times=1, time_step_hours=12, device=DEVICE)
+  inputs, targets, forcings = (fs.astype(torch.bfloat16) for fs in data)
+  del data
+  sigma = preset.sampler_config.max_noise_level  # the first noise level
+  gen = torch.Generator(device=DEVICE).manual_seed(31)
+
+  def members(count):
+    """(inputs, noisy targets, forcings) of ``count`` members, each with
+    its own noise at σ."""
+    tiled = [tile_batch(fs, count) for fs in (inputs, targets, forcings)]
+    noisy = tiled[1].map_data(lambda x: x + sigma * torch.randn(
+        x.shape, generator=gen, device=DEVICE, dtype=x.dtype))
+    return tiled[0], noisy, tiled[2]
+
+  def evaluate(m, batch):
+    ins, noisy, frc = batch
+    levels = torch.full((noisy.sizes["batch"],), sigma)
+    return _denoise(torch, m, ins, noisy, levels, frc, torch.bfloat16,
+                    DEVICE)
+
+  two = members(2)
+  setup_s = time.perf_counter() - t0
+  t1 = time.perf_counter()
+  out = evaluate(model, two)  # warm-up: graph, chunk plans, mask
+  torch.cuda.synchronize()
+  warm_s = time.perf_counter() - t1
+  _reset_counters()
+  again = evaluate(model, two)
+  k3_per_eval = _launches()["segment_sum"]
+  names = list(targets.var_names)
+  if not all(torch.equal(out.data(n), again.data(n)) for n in names):
+    raise AssertionError("ensemble_0p25_chunked: the chunked rerun is not "
+                         "bit-equal")
+  del again
+  plain, _ = _gencast_stack(torch, preset, seed=0, fused_aggregation=False)
+  torch.cuda.synchronize()
+  t2 = time.perf_counter()
+  want = evaluate(plain, two)
+  torch.cuda.synchronize()
+  unchunked_s = time.perf_counter() - t2
+  rel = {n: _rel_rms(torch, out.data(n).float(), want.data(n).float())
+         for n in names}
+  worst = max(rel, key=rel.get)
+  _check_fieldset(torch, "ensemble_0p25_chunked", out, two[1])
+  if rel[worst] > FORMS_RTOL:
+    raise AssertionError(f"ensemble_0p25_chunked: {worst} chunked vs "
+                         f"unchunked rel RMS {rel[worst]:.3g} (tol "
+                         f"{FORMS_RTOL})")
+  # The general path's grid2mesh sender gather, [G, 2, 512] rows onto the
+  # 0.25° grid2mesh edges (the gather the TPU's window_gather speeds up).
+  st = plain.architecture._statics(out.data(names[0]).device)
+  table = torch.randn((plain.architecture._artifact.num_grid_nodes, 2, 512),
+                      generator=gen, device=DEVICE, dtype=torch.bfloat16)
+  senders = st["g2m"].senders
+  gather_ms = _time_ms(torch, lambda: table.index_select(0, senders), reps=10)
+  gather_ns_per_row = gather_ms * 1e6 / senders.numel()
+  del plain, want, out, two, table
+  torch.cuda.empty_cache()
+
+  # (b) 8 members.
+  eight = members(ENSEMBLE_0P25_MEMBERS)
+  torch.cuda.reset_peak_memory_stats()
+  torch.cuda.synchronize()
+  t3 = time.perf_counter()
+  out8 = evaluate(model, eight)
+  torch.cuda.synchronize()
+  eval8_s = time.perf_counter() - t3
+  peak8_gb = torch.cuda.max_memory_allocated() / 1e9
+  _check_fieldset(torch, "ensemble_0p25_chunked", out8, eight[1])
+  del out8, eight
+  torch.cuda.empty_cache()
+
+  # (c) a training step in the same form, batch 1.
+  batch = _gencast_train_data(torch, preset, DEVICE, torch.bfloat16)
+  step = train.make_train_step(
+      stack, train.graphcast_optimizer(model.parameters(), peak_lr=1e-3))
+  before = [p.detach().clone() for p in model.parameters()]
+  tgen = torch.Generator(device=DEVICE).manual_seed(5)
+  losses = [float(step(*batch, generator=tgen)[0].mean())]
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  _reset_counters()
+  t4 = time.perf_counter()
+  losses.append(float(step(*batch, generator=tgen)[0].mean()))
+  torch.cuda.synchronize()
+  train_s = time.perf_counter() - t4
+  train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+  counts = _launches()
+  if not all(np.isfinite(losses)):
+    raise AssertionError(f"ensemble_0p25_chunked train losses {losses}")
+  if all(torch.equal(a, p) for a, p in zip(before, model.parameters())):
+    raise AssertionError("ensemble_0p25_chunked: the train step changed no "
+                         "parameter")
+  layers = preset.denoiser_architecture_config.sparse_transformer_config
+  if (counts["segment_sum"] == 0 or counts["fused_edge"]
+      or counts["fused_decoder"] or counts["splash_dq"] != layers.num_layers):
+    raise AssertionError(f"ensemble_0p25_chunked train launches {counts}")
+  results.setdefault("segment_sum", {"name": "segment_sum"}).update(
+      ensemble_0p25_chunked_launches_per_evaluation=k3_per_eval,
+      ensemble_0p25_chunked_train_launches_per_step=counts["segment_sum"])
+  for name in ("splash_fwd", "splash_dq", "splash_dkv"):
+    results.setdefault(name, {"name": name})[
+        "ensemble_0p25_chunked_train_launches_per_step"] = counts[name]
+  _log("ensemble_0p25_chunked", t0, config=_gencast_label(preset),
+       forms=json.dumps(ENSEMBLE_0P25_FORM, sort_keys=True).replace(" ", ""),
+       setup_s=f"{setup_s:.1f}", warmup_evaluation_s=f"{warm_s:.2f}",
+       sigma=sigma, rerun="bit-equal",
+       chunked_vs_unchunked_worst_rel_rms=f"{rel[worst]:.3g}",
+       worst_variable=worst, unchunked_2_member_s=f"{unchunked_s:.3f}",
+       k3_per_evaluation=k3_per_eval, members=ENSEMBLE_0P25_MEMBERS,
+       s_per_evaluation=f"{eval8_s:.4f}",
+       s_per_member_evaluation=f"{eval8_s / ENSEMBLE_0P25_MEMBERS:.4f}",
+       peak_mem_gb=f"{peak8_gb:.2f}", train_s_per_step=f"{train_s:.4f}",
+       train_peak_mem_gb=f"{train_peak_gb:.2f}",
+       train_losses="[" + ",".join(f"{v:.6g}" for v in losses) + "]",
+       **{f"train_{k}_launches": counts[k]
+          for k in ("segment_sum", "splash_fwd", "splash_dq", "splash_dkv",
+                    "weight_grad")},
+       general_g2m_sender_gather_ns_per_row=f"{gather_ns_per_row:.3f}",
+       finite=True, params_changed=True)
+  del model, stack, step, batch, before
+  torch.cuda.empty_cache()
+
+
 _ENSEMBLE_OUT = {}  # the ensemble phase's members and targets, for triblock
 
 
@@ -3837,6 +4175,9 @@ def main(argv=None) -> int:
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device", file=sys.stderr)
     return 2
+  # No geometry disk cache: the script writes nothing outside the checkout
+  # and times each artifact's build (an empty variable turns it off).
+  os.environ["GRAPHCAST_TPU_CACHE"] = ""
   torch.backends.cuda.matmul.allow_tf32 = False  # twins in true f32
   torch.backends.cudnn.allow_tf32 = False
   import graphcast_tpu_torch  # noqa: F401  (fails outside the repository)
@@ -3883,6 +4224,8 @@ def main(argv=None) -> int:
     phase_small(torch)
   if "train" in phases:
     phase_train(torch, results, args.profile)
+  if "train_forms" in phases:
+    phase_train_forms(torch, results)
   if "train_small" in phases:
     phase_train_small(torch)
   if "gencast" in phases:
@@ -3915,6 +4258,8 @@ def main(argv=None) -> int:
     phase_forecast(torch, results)
   if "gencast_0p25" in phases:
     phase_gencast_0p25(torch, results, args.profile)
+  if "ensemble_0p25_chunked" in phases:
+    phase_ensemble_0p25_chunked(torch, results)
   if "triblock" in phases:
     phase_triblock(torch, results)
   if {"k1p", "main_pipelined", "bench"} & set(phases):

@@ -4,9 +4,9 @@ Pinned numpy copy of graphcast_tpu/geometry/artifact.py, cut to what
 GraphCast and GenCast need: the multi-mesh (GraphCast) or finest-level
 (GenCast) processor graph, the latter in the banded node order that keeps
 the transformer's k-hop attention mask block-compact (RCM bands, or BFS
-patches with ``banded_patch_size``); no disk cache, no multi-mesh spatial
-permutation and no C++ backend. ``sort_edges_by_receiver`` comes along
-from graphcast_tpu/nn/typed_graph.py.
+patches with ``banded_patch_size``), and the disk cache; no multi-mesh
+spatial permutation and no C++ backend. ``sort_edges_by_receiver`` comes
+along from graphcast_tpu/nn/typed_graph.py.
 tests/test_torch_geometry.py asserts that every array of this artifact
 equals the JAX package's (numpy backend).
 
@@ -17,15 +17,24 @@ receiver-sorted rows (ops/fused_edge.py) or as exactly 3 rows per grid node
 The models take their artifact from ``cached_artifact``: one build per
 process for each grid and mesh configuration (the last
 ``ARTIFACT_CACHE_SIZE`` kept), shared read-only by every model of that
-configuration, where the JAX package keeps a disk cache (``cache_dir``,
-not ported).
+configuration. Behind it, ``build_artifact`` reads and writes the JAX
+package's disk cache (``cache_dir``, artifact.py:330-381 there): the same
+key, file name and arrays, so a file written by either package serves the
+other. The key names the connectivity backend; the port's is always
+"numpy". ``cache_dir=None`` means ``$GRAPHCAST_TPU_CACHE``, else
+``~/.cache/graphcast_tpu``; ``""`` disables the cache. One difference: an
+empty ``GRAPHCAST_TPU_CACHE`` disables the port's cache, where the JAX
+package reads it as the current directory.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
 import inspect
+import os
+import pathlib
 from typing import Optional
 
 import numpy as np
@@ -94,8 +103,9 @@ def build_artifact(
     multimesh: bool = True,
     permute_banded: bool = False,
     banded_patch_size: Optional[int] = None,
+    cache_dir: Optional[str] = None,
 ) -> GridMeshArtifact:
-  """Builds the full graph artifact.
+  """Builds (or loads from the disk cache) the full graph artifact.
 
   Args:
     grid_lat/grid_lon: 1D coordinate arrays in degrees.
@@ -111,11 +121,23 @@ def build_artifact(
       attention mask is block-compact (GenCast; only with multimesh=False).
     banded_patch_size: with permute_banded, contiguous BFS patches of this
       many nodes instead of RCM bands (see ``patch_permutation``).
+    cache_dir: disk cache directory (module doc); "" disables it.
   """
   grid_lat = np.asarray(grid_lat, dtype=np.float32)
   grid_lon = np.asarray(grid_lon, dtype=np.float32)
   if permute_banded and multimesh:
     raise ValueError("permute_banded requires multimesh=False")
+  # The JAX package's key tuple: (multimesh, permute_banded,
+  # spatial_permutation, resolved backend[, banded_patch_size]).
+  options = (multimesh, permute_banded, False, CONNECTIVITY_BACKEND)
+  if banded_patch_size is not None:
+    options += (banded_patch_size,)
+  cache_path = _cache_path(
+      cache_dir, grid_lat, grid_lon, mesh_size,
+      radius_query_fraction_edge_length, mesh2grid_edge_normalization_factor,
+      options)
+  if cache_path is not None and cache_path.exists():
+    return _load(cache_path, mesh_size, grid_lat, grid_lon)
 
   meshes = icosahedron.get_mesh_hierarchy(mesh_size)
   finest = meshes[-1]
@@ -163,7 +185,7 @@ def build_artifact(
       edge_normalization_factor=mesh2grid_edge_normalization_factor)
   mesh2grid = _sorted_edges(m2g_mesh, m2g_grid, m2g_edge_feats)
 
-  return GridMeshArtifact(
+  artifact = GridMeshArtifact(
       mesh_size=mesh_size,
       grid_lat=grid_lat,
       grid_lon=grid_lon,
@@ -178,6 +200,77 @@ def build_artifact(
       grid2mesh=grid2mesh,
       mesh=mesh_edges,
       mesh2grid=mesh2grid)
+  if cache_path is not None:
+    _save(cache_path, artifact)
+  return artifact
+
+
+# --- disk cache (graphcast_tpu/geometry/artifact.py:330-381) ---
+
+CONNECTIVITY_BACKEND = "numpy"  # the only connectivity backend ported
+_CACHE_VERSION = 2
+CACHE_ENV = "GRAPHCAST_TPU_CACHE"
+
+
+def default_cache_dir() -> Optional[str]:
+  """``$GRAPHCAST_TPU_CACHE``, else ``~/.cache/graphcast_tpu``; None (no
+  cache) where the variable is set and empty."""
+  value = os.environ.get(CACHE_ENV)
+  if value is None:
+    return os.path.join(os.path.expanduser("~"), ".cache", "graphcast_tpu")
+  return value or None
+
+
+def _cache_path(cache_dir, grid_lat, grid_lon, mesh_size, fraction,
+                norm_factor, options) -> Optional[pathlib.Path]:
+  """The JAX package's cache file for these arguments, or None."""
+  if cache_dir == "":
+    return None
+  if cache_dir is None:
+    cache_dir = default_cache_dir()
+    if cache_dir is None:
+      return None
+  h = hashlib.sha256()
+  h.update(grid_lat.tobytes())
+  h.update(grid_lon.tobytes())
+  h.update(repr((mesh_size, fraction, norm_factor, options,
+                 _CACHE_VERSION)).encode())
+  return pathlib.Path(cache_dir) / f"artifact_{h.hexdigest()[:16]}.npz"
+
+
+_ARRAY_FIELDS = (
+    "mesh_vertices", "mesh_faces", "mesh_nodes_lat", "mesh_nodes_lon",
+    "grid_nodes_lat", "grid_nodes_lon", "grid_node_features",
+    "mesh_node_features")
+_EDGE_FIELDS = ("grid2mesh", "mesh", "mesh2grid")
+
+
+def _save(path: pathlib.Path, artifact: GridMeshArtifact):
+  """Writes the artifact's arrays under the JAX package's names, through a
+  temporary file renamed into place (a reader never sees half a file)."""
+  path.parent.mkdir(parents=True, exist_ok=True)
+  payload = {f: getattr(artifact, f) for f in _ARRAY_FIELDS}
+  for name in _EDGE_FIELDS:
+    e = getattr(artifact, name)
+    payload[f"{name}_senders"] = e.senders
+    payload[f"{name}_receivers"] = e.receivers
+    payload[f"{name}_features"] = e.features
+  tmp = path.with_suffix(".tmp.npz")
+  np.savez_compressed(tmp, **payload)
+  os.replace(tmp, path)
+
+
+def _load(path: pathlib.Path, mesh_size, grid_lat, grid_lon
+          ) -> GridMeshArtifact:
+  with np.load(path) as data:
+    kwargs = {f: data[f] for f in _ARRAY_FIELDS}
+    for name in _EDGE_FIELDS:
+      kwargs[name] = EdgeArrays(
+          senders=data[f"{name}_senders"],
+          receivers=data[f"{name}_receivers"],
+          features=data[f"{name}_features"])
+  return GridMeshArtifact(mesh_size=mesh_size, grid_lat=grid_lat,
+                          grid_lon=grid_lon, **kwargs)
 
 
 ARTIFACT_CACHE_SIZE = 4
@@ -190,14 +283,16 @@ def cached_artifact(grid_lat: np.ndarray, grid_lon: np.ndarray,
   models of one configuration (a card and a CPU copy, a model loaded from
   a checkpoint beside a fresh one) share the artifact, which nobody
   modifies. The least recently used entry beyond ``ARTIFACT_CACHE_SIZE``
-  is dropped."""
+  is dropped. ``cache_dir`` (the disk cache behind this one) is not part
+  of the key: it changes where an artifact is kept, not the artifact."""
   grid_lat = np.asarray(grid_lat, dtype=np.float32)
   grid_lon = np.asarray(grid_lon, dtype=np.float32)
   args = inspect.signature(build_artifact).bind(grid_lat, grid_lon,
                                                 mesh_size, **kwargs)
   args.apply_defaults()  # a default given or left out is the same key
   key = (grid_lat.tobytes(), grid_lon.tobytes(),
-         tuple(args.arguments.items())[2:])
+         tuple((k, v) for k, v in args.arguments.items()
+               if k not in ("grid_lat", "grid_lon", "cache_dir")))
   if key in _ARTIFACTS:
     _ARTIFACTS.move_to_end(key)
   else:

@@ -172,5 +172,5 @@ def dryrun_multichip(n_devices: int, init_method: str | None = None) -> None:
   CPU. ``init_method``: the group's address (default tcp://localhost:<free
   port>)."""
   from graphcast_tpu_torch.parallel import launch
-  launch.spawn(_dryrun_rank, n_devices, args=(n_devices,),
+  launch.spawn(_dryrun_rank, n_devices, args=(n_devices,), device="cpu",
                init_method=init_method)

@@ -27,26 +27,6 @@ from graphcast_tpu_torch.fields import FieldSet
 from graphcast_tpu_torch.losses import LossAndDiagnostics
 
 
-def refuse_unported_forms(model: str, cache_dir=None, decode_chunks=1,
-                          encode_chunks=1, fused_aggregation=None, **forms):
-  """Raises NotImplementedError, naming the form, where a keyword of the JAX
-  package's constructor asks for a form the port does not have. Accepted:
-  ``cache_dir`` None or "" (no artifact cache), ``decode_chunks`` and
-  ``encode_chunks`` 1, ``fused_aggregation`` None or True (the fused
-  kernels, which the port always runs at batch 1). ``forms`` maps the name
-  of any other form to whether the caller asked for it."""
-  forms = {
-      "the geometry artifact cache (cache_dir)": cache_dir not in (None, ""),
-      f"chunked decode (decode_chunks={decode_chunks!r})": decode_chunks != 1,
-      f"chunked encode (encode_chunks={encode_chunks!r})": encode_chunks != 1,
-      f"fused_aggregation={fused_aggregation!r} (the XLA-only and split "
-      "modes)": fused_aggregation not in (None, True),
-      **forms}
-  for form, asked in forms.items():
-    if asked:
-      raise NotImplementedError(f"{model}: {form} is not ported")
-
-
 class Predictor(nn.Module, abc.ABC):
   """A one-or-multi-step weather predictor over FieldSets."""
 

@@ -23,8 +23,17 @@ the per-member conditioning [batch, K], the grid2mesh aggregation through
 K3 (ops/segment_sum.py) and the mesh2grid one through the plain segment
 sum, as in the JAX package; the transformer folds batch and heads for K6.
 The TPU's windowed grid2mesh gather and its ``node_order`` layout are
-Mosaic-specific; the port keeps the artifact's receiver order. The chunked
-encode/decode forms are not ported. ``GC_PIPELINED_EDGE`` (env_flags.py),
+Mosaic-specific; the port keeps the artifact's receiver order.
+
+``fused_aggregation=False`` runs the general path at batch 1 too (the JAX
+package's None means "on a TPU"; the port's None and any other value run
+the fused stages at batch 1). ``encode_chunks`` / ``decode_chunks`` > 1
+run the encoder / decoder in chunks, as GraphCast's chunked stages do
+(models/graphcast.py; JAX denoiser.py:411-552, dispatch :700-745), with the
+norm conditioning applied inside each chunk: the encoder where it is not
+fused, the decoder where it is not fused or the batch is > 1. The edge
+embedding MLP runs once per edge and its conditioning per member.
+``cache_dir`` is the geometry artifact's disk cache. ``GC_PIPELINED_EDGE`` (env_flags.py),
 read once at the first call, as the JAX package builds its grid2mesh
 ``FusedEdgeStep`` then, runs the embed-mode grid2mesh step through K1p
 instead of K1.
@@ -44,10 +53,12 @@ from torch import nn
 from graphcast_tpu_torch import env_flags
 from graphcast_tpu_torch.fields import Field, FieldSet, from_stacked, to_stacked
 from graphcast_tpu_torch.geometry import artifact as artifact_lib
+from graphcast_tpu_torch.geometry import chunking
 from graphcast_tpu_torch.models import configs
 from graphcast_tpu_torch.models.graphcast import (
-    EDGE_STRUCT_FEATURES, NODE_STRUCT_FEATURES, grid2mesh_graph,
-    mesh2grid_graph, num_grid_input_channels)
+    EDGE_STRUCT_FEATURES, NODE_STRUCT_FEATURES, choose_chunks,
+    decode_chunk_senders, fused_stages, grid2mesh_chunked, grid2mesh_graph,
+    mesh2grid_chunked, mesh2grid_graph, node_chunks, num_grid_input_channels)
 from graphcast_tpu_torch.models.sparse_transformer import (
     SparseTransformerConfig)
 from graphcast_tpu_torch.models.transformer import MeshTransformer
@@ -137,7 +148,9 @@ class DenoiserArchitecture(nn.Module):
   (reference: denoiser.py:248-731)."""
 
   def __init__(self, cfg: DenoiserArchitectureConfig,
-               task_config: configs.TaskConfig, cond_size: int):
+               task_config: configs.TaskConfig, cond_size: int,
+               cache_dir: Optional[str] = None, decode_chunks: int = 1,
+               encode_chunks: int = 1, fused_aggregation=None):
     super().__init__()
     if cfg.node_output_size is None:
       raise ValueError("node_output_size must be set (by GenCast)")
@@ -147,8 +160,13 @@ class DenoiserArchitecture(nn.Module):
       raise ValueError("unknown node_ordering "
                        f"{cfg.sparse_transformer_config.node_ordering!r}")
     self._cfg = cfg
+    self._cache_dir = cache_dir
+    self._decode_chunks = decode_chunks
+    self._encode_chunks = encode_chunks
+    self._fused = fused_stages(fused_aggregation)[0]
     self._pipelined: Optional[bool] = None
     self._artifact: Optional[artifact_lib.GridMeshArtifact] = None
+    self._g2m_plan: Optional[chunking.NodeChunkPlan] = None
     self._graph: dict = {}
     latent = cfg.latent_size
     # Stacked inputs (noise encodings split out) + forcings + noisy targets.
@@ -192,8 +210,12 @@ class DenoiserArchitecture(nn.Module):
             self._cfg.radius_query_fraction_edge_length),
         multimesh=False, permute_banded=True,
         banded_patch_size=(st_cfg.block_q
-                           if st_cfg.node_ordering == "patch" else None))
+                           if st_cfg.node_ordering == "patch" else None),
+        cache_dir=self._cache_dir)
     art = self._artifact
+    if self._encode_chunks > 1 and not self._fused:
+      self._g2m_plan = chunking.plan_balanced_node_chunks(
+          art.grid2mesh.receivers, art.num_mesh_nodes, self._encode_chunks)
     self.mesh_transformer.prepare(art.mesh.senders, art.mesh.receivers,
                                   art.num_mesh_nodes)
 
@@ -220,6 +242,13 @@ class DenoiserArchitecture(nn.Module):
             "g2m_edge_features": tensor(art.grid2mesh.features),
             "m2g_edge_features": tensor(art.mesh2grid.features),
         }
+        if self._g2m_plan is not None:
+          self._graph[key]["g2m_chunks"] = node_chunks(
+              self._g2m_plan, art.grid2mesh, g, device)
+        if self._decode_chunks > 1:
+          self._graph[key]["m2g_chunks"] = decode_chunk_senders(
+              art.mesh2grid, m, choose_chunks(g, self._decode_chunks),
+              device)
     return self._graph[key]
 
   # ----- fused stages (batch 1; conditioning folded into vectors) -----
@@ -308,17 +337,20 @@ class DenoiserArchitecture(nn.Module):
     stacked = stacked.permute(1, 2, 0, 3)  # [lat, lon, batch, C]
     return stacked.reshape((-1,) + tuple(stacked.shape[2:])), cond
 
-  def _run_general(self, st, features, cond):
-    """Batch > 1: the two GNNs' general path on [nodes, batch, C] with the
-    per-member conditioning cond [batch, K] (graphcast_tpu models/
-    denoiser.py:715-744); K3 aggregates the grid2mesh edge set."""
+  # ----- the general path (any batch; a conditioning row per member) -----
+
+  def _run_grid2mesh_general(self, st, features, cond):
+    """graphcast_tpu models/denoiser.py:715-730; K3 aggregates the
+    grid2mesh edge set."""
     g2m = self.grid2mesh_gnn(
         grid2mesh_graph(st, features), cond=cond, edge_aggregators={
             "grid2mesh": functools.partial(sorted_segment_sum, st["g2m"])})
-    latent_mesh = self.mesh_transformer(g2m.nodes["mesh_nodes"].features,
-                                        cond)
-    m2g = self.mesh2grid_gnn(mesh2grid_graph(
-        st, latent_mesh, g2m.nodes["grid_nodes"].features), cond=cond)
+    return (g2m.nodes["mesh_nodes"].features,
+            g2m.nodes["grid_nodes"].features)
+
+  def _run_mesh2grid_general(self, st, latent_mesh, latent_grid, cond):
+    m2g = self.mesh2grid_gnn(mesh2grid_graph(st, latent_mesh, latent_grid),
+                             cond=cond)
     return m2g.nodes["grid_nodes"].features
 
   def forward(self, inputs: FieldSet, targets_template: FieldSet,
@@ -326,13 +358,26 @@ class DenoiserArchitecture(nn.Module):
     features, cond = self._split_features_and_conditioning(inputs, forcings)
     self._maybe_init(inputs)
     st = self._statics(features.device)
-    if features.shape[1] != 1:
-      out = self._run_general(st, features, cond)
+    fused = self._fused and features.shape[1] == 1
+    if fused:
+      latent_mesh, latent_grid = (t[:, None] for t in self._run_grid2mesh(
+          st, features[:, 0], cond))
+    elif self._g2m_plan is not None:
+      latent_mesh, latent_grid = grid2mesh_chunked(
+          self.grid2mesh_gnn, st, features, cond,
+          normalization=self._cfg.grid2mesh_aggregate_normalization)
     else:
-      x = features[:, 0]
-      latent_mesh, latent_grid = self._run_grid2mesh(st, x, cond)
-      latent_mesh = self.mesh_transformer(latent_mesh[:, None], cond)[:, 0]
-      out = self._run_mesh2grid(st, latent_mesh, latent_grid, cond)[:, None]
+      latent_mesh, latent_grid = self._run_grid2mesh_general(st, features,
+                                                             cond)
+    latent_mesh = self.mesh_transformer(latent_mesh, cond)
+    if fused:
+      out = self._run_mesh2grid(st, latent_mesh[:, 0], latent_grid[:, 0],
+                                cond)[:, None]
+    elif self._decode_chunks > 1:
+      out = mesh2grid_chunked(self.mesh2grid_gnn, st, latent_mesh,
+                              latent_grid, cond)
+    else:
+      out = self._run_mesh2grid_general(st, latent_mesh, latent_grid, cond)
     art = self._artifact
     data = out.reshape(art.grid_lat.shape[0], art.grid_lon.shape[0],
                        *out.shape[1:])
@@ -346,12 +391,15 @@ class Denoiser(nn.Module):
 
   def __init__(self, noise_encoder_config: Optional[NoiseEncoderConfig],
                architecture_config: DenoiserArchitectureConfig,
-               task_config: configs.TaskConfig):
+               task_config: configs.TaskConfig, **forms):
+    """``forms``: DenoiserArchitecture's ``cache_dir``, ``decode_chunks``,
+    ``encode_chunks`` and ``fused_aggregation``."""
     super().__init__()
     self.noise_encoder = FourierFeaturesMLP(noise_encoder_config
                                             or NoiseEncoderConfig())
     self.architecture = DenoiserArchitecture(
-        architecture_config, task_config, self.noise_encoder.output_size)
+        architecture_config, task_config, self.noise_encoder.output_size,
+        **forms)
 
   def _assemble(self, inputs: FieldSet, noisy_targets: FieldSet,
                 noise_levels: torch.Tensor, forcings: Optional[FieldSet]):

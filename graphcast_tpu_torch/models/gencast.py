@@ -27,7 +27,7 @@ from graphcast_tpu_torch.diffusion import noise as noise_lib
 from graphcast_tpu_torch.diffusion.samplers import DPMSolverPlusPlus2S
 from graphcast_tpu_torch.fields import Field, FieldSet, align_for_broadcast
 from graphcast_tpu_torch.models import configs
-from graphcast_tpu_torch.models.base import Predictor, refuse_unported_forms
+from graphcast_tpu_torch.models.base import Predictor
 from graphcast_tpu_torch.models.denoiser import (
     Denoiser, DenoiserArchitectureConfig, NoiseEncoderConfig)
 from graphcast_tpu_torch.nn import core
@@ -130,23 +130,27 @@ class GenCast(Denoiser, Predictor):
     """Parameters are drawn on the CPU from ``generator`` (a CPU generator),
     then moved to ``device`` (the card unless the caller asks for "cpu");
     or loaded later with params.load_params. The keywords between are the
-    JAX package's: the artifact cache, chunked encode/decode, the XLA-only
-    and split ``fused_aggregation`` modes and ``interpret_attention`` (the
-    tensors' device picks the kernel or its plain version) are not
-    ported, and asking for them raises NotImplementedError (models/base.py
-    refuse_unported_forms). ``sequence_parallel``, a (parallel.sharding
-    mesh, axis name) pair, splits the transformer's node axis over that
-    axis (sparse_transformer.Transformer.enable_sequence_parallel; every
-    rank of the axis runs the same call)."""
-    refuse_unported_forms(
-        "GenCast", cache_dir, decode_chunks, encode_chunks, fused_aggregation,
-        **{f"interpret_attention={interpret_attention!r}":
-               interpret_attention is not None})
+    JAX package's: ``cache_dir``, ``decode_chunks``, ``encode_chunks`` and
+    ``fused_aggregation`` go to the denoiser (models/denoiser.py);
+    ``interpret_attention``, the JAX package's Pallas interpret-mode
+    switch, is not ported (the tensors' device picks the kernel or its
+    plain version), and asking for it raises NotImplementedError.
+    ``sequence_parallel``, a (parallel.sharding mesh, axis name) pair,
+    splits the transformer's node axis over that axis
+    (sparse_transformer.Transformer.enable_sequence_parallel; every rank of
+    the axis runs the same call)."""
+    if interpret_attention is not None:
+      raise NotImplementedError(
+          f"GenCast: interpret_attention={interpret_attention!r} (Pallas "
+          "interpret mode) is not ported")
     device = devices.resolve(device)
     super().__init__(noise_encoder_config, dataclasses.replace(
         denoiser_architecture_config,
         node_output_size=configs.num_output_channels(task_config)),
-                     task_config)
+                     task_config, cache_dir=cache_dir,
+                     decode_chunks=decode_chunks,
+                     encode_chunks=encode_chunks,
+                     fused_aggregation=fused_aggregation)
     self._sampler_config = sampler_config
     self._noise_config = noise_config
     self._task_config = task_config

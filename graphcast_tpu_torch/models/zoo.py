@@ -76,10 +76,13 @@ class GenCastPreset:
 
   def build(self, *, generator: torch.Generator,
             device: torch.device | str = devices.DEFAULT_DEVICE,
-            sequence_parallel=None):
+            **gencast_kwargs):
     """The GenCast predictor of this preset, parameters drawn from
-    ``generator`` (CPU) and moved to ``device``; ``sequence_parallel`` as
-    GenCast's."""
+    ``generator`` (CPU) and moved to ``device``. Other keywords pass through
+    to ``gencast.GenCast``, as the JAX preset's do (``decode_chunks``,
+    ``encode_chunks``, ``fused_aggregation``, ``cache_dir``,
+    ``sequence_parallel``): execution forms that do not change the
+    architecture."""
     from graphcast_tpu_torch.models import gencast
     return gencast.GenCast(
         task_config=self.task_config,
@@ -87,8 +90,7 @@ class GenCastPreset:
         sampler_config=self.sampler_config,
         noise_config=self.noise_config,
         noise_encoder_config=self.noise_encoder_config,
-        sequence_parallel=sequence_parallel,
-        generator=generator, device=device)
+        generator=generator, device=device, **gencast_kwargs)
 
 
 def gencast_custom(resolution: float, mesh_size: int, d_model: int = 512,

@@ -107,11 +107,10 @@ class MLP(nn.ModuleDict):
 
 def layer_norm_no_params(x):
   """The parameter-free LayerNorm: statistics in float32, eps 1e-5, the
-  normalised value rounded to x's dtype."""
-  x32 = x.float()
-  mean = x32.mean(-1, keepdim=True)
-  var = (x32 - mean).square().mean(-1, keepdim=True)
-  return ((x32 - mean) * torch.rsqrt(var + LayerNorm.eps)).to(x.dtype)
+  normalised value rounded to x's dtype. One ``F.layer_norm`` pass, which
+  keeps the float32 work in registers: over [1M grid nodes, 8 members,
+  512] an f32 copy of x alone would take 17 GB."""
+  return F.layer_norm(x, x.shape[-1:], eps=LayerNorm.eps)
 
 
 class LayerNorm(nn.Module):

@@ -22,18 +22,30 @@ With ``norm_conditioning_size`` (GenCast's denoiser) every MLP but the
 decoder's is norm-conditioned: a parameter-free LayerNorm, then a
 ``NormConditioning`` of the noise-level encoding (graphcast_tpu nn/
 deep_gnn.py:75-96). All MLPs are swish MLPs with layer norm, as in both
-models. ``remat_steps`` (the JAX package's processor rematerialisation) is
-not ported and raises NotImplementedError.
+models.
+
+``remat_steps`` (graphcast_tpu nn/deep_gnn.py:268-314), the processor's
+two-level checkpointing under grad: ``run_steps`` groups the message-passing
+steps into blocks of round(sqrt(N)), each block a recompute region
+(nn/remat.py) around one region per step, so that the forward keeps only
+the blocks' boundaries. The boundaries between blocks are the carries
+``"mp_block_carry"``, which an enclosing ``remat.offloading`` moves to the
+host (Autoregressive's ``loss_offload_processor_carries``); the final
+output is not one of them. ``forward`` and the models' fused step loops
+both run through ``run_steps``; under remat, K1's forward (the fused step's
+``autograd.Function``) launches again in each recompute.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Mapping, Optional
 
 import torch
 from torch import nn
 
 from graphcast_tpu_torch.nn import message_passing as mp
+from graphcast_tpu_torch.nn import remat
 from graphcast_tpu_torch.nn.core import MLPWithNorm
 from graphcast_tpu_torch.nn.typed_graph import Context, TypedGraph
 from graphcast_tpu_torch.ops import segment
@@ -65,10 +77,8 @@ class DeepGraphNet(nn.ModuleDict):
                f32_aggregation: bool = False,
                aggregate_normalization: Optional[float] = None,
                remat_steps: bool = False):
-    if remat_steps:
-      raise NotImplementedError("DeepGraphNet(remat_steps=True) is not "
-                                "ported")
     super().__init__()
+    self.remat_steps = remat_steps
     self.node_latent_size = dict(node_latent_size)
     self.edge_latent_size = dict(edge_latent_size)
     self.node_output_size = dict(node_output_size or {})
@@ -175,26 +185,71 @@ class DeepGraphNet(nn.ModuleDict):
                        if self.embed_nodes else None))
 
     # 3. Process, with node and edge residuals (reference:
-    # deep_typed_graph_net.py:373-394).
-    for i in range(self.num_message_passing_steps):
-      prev = graph
-      graph = mp.apply_graph_network(
-          graph,
+    # deep_typed_graph_net.py:373-394). The steps see the features as a
+    # flat tuple, so that a recompute region keeps them as its arguments.
+    node_keys, edge_keys = list(graph.nodes), list(graph.edges)
+    template = graph._replace(
+        nodes={k: ns._replace(features=None) for k, ns in graph.nodes.items()},
+        edges={k: es._replace(features=None) for k, es in graph.edges.items()})
+
+    def unflatten(features):
+      nodes = dict(zip(node_keys, features[:len(node_keys)]))
+      edges = dict(zip(edge_keys, features[len(node_keys):]))
+      return template._replace(
+          nodes={k: ns._replace(features=nodes[k])
+                 for k, ns in template.nodes.items()},
+          edges={k: es._replace(features=edges[k])
+                 for k, es in template.edges.items()})
+
+    def one_step(i, *features):
+      prev = unflatten(features)
+      new = mp.apply_graph_network(
+          prev,
           update_edge_fn={n: factored_fn(f"processor_{i}_edges_{n}")
                           for n in self.edge_latent_size},
           update_node_fn={n: fn(f"processor_{i}_nodes_{n}")
                           for n in self.node_latent_size},
           aggregate_edges_for_nodes_fn=aggregate, factored_edge_fns=True)
-      graph = graph._replace(
-          nodes={k: ns._replace(features=prev.nodes[k].features + ns.features)
-                 for k, ns in graph.nodes.items()},
-          edges={k: es._replace(features=prev.edges[k].features + es.features)
-                 for k, es in graph.edges.items()})
+      return tuple(
+          [prev.nodes[k].features + new.nodes[k].features for k in node_keys]
+          + [prev.edges[k].features + new.edges[k].features
+             for k in edge_keys])
+
+    graph = unflatten(self.run_steps(one_step, tuple(
+        [graph.nodes[k].features for k in node_keys]
+        + [graph.edges[k].features for k in edge_keys])))
 
     # 4. Decode.
     return mp.apply_graph_map_features(
         graph, embed_node_fn={n: fn(f"decoder_nodes_{n}")
                               for n in self.node_output_size})
+
+  # ----- the processor loop -----
+
+  def run_steps(self, step: Callable, state: tuple) -> tuple:
+    """state ← step(i, *state) for each message-passing step i; with
+    ``remat_steps`` under grad, in √N recompute blocks (module doc)."""
+    n = self.num_message_passing_steps
+    if not (self.remat_steps and torch.is_grad_enabled()):
+      for i in range(n):
+        state = step(i, *state)
+      return state
+    block = max(1, int(round(n ** 0.5)))
+
+    def run_block(i0, count, *state):
+      for j in range(count):
+        state = remat.checkpoint(functools.partial(step, i0 + j), *state)
+      return state
+
+    i = 0
+    while i < n:
+      count = min(block, n - i)
+      run = functools.partial(run_block, i, count)
+      # Block inputs after the first are the previous block's outputs.
+      state = (remat.named_checkpoint("mp_block_carry", run, *state) if i
+               else remat.checkpoint(run, *state))
+      i += count
+    return state
 
   # ----- the batch-1 fused step -----
 

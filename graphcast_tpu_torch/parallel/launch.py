@@ -5,7 +5,8 @@
 ``init_method`` (default ``tcp://localhost:<a free port>``; tests pass a
 ``file://`` path of their own), takes one CPU thread for torch, pins its
 card where there is one per rank, runs ``fn(rank, *args)`` and leaves the
-group. ``fn`` must be a
+group. The ranks run on the card unless the caller passes
+``device="cpu"``; without a card, the default raises. ``fn`` must be a
 module-level function. Backends: ``nccl`` with one card per rank, ``gloo``
 otherwise (the CPU, or several ranks on one card: gloo's collectives take
 CUDA tensors). An exception in any rank raises here.
@@ -20,6 +21,8 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+
+from graphcast_tpu_torch import devices
 
 
 def free_port() -> int:
@@ -50,11 +53,13 @@ def _run(rank: int, fn: Callable, world_size: int, backend: str,
 
 
 def spawn(fn: Callable, world_size: int, args: tuple = (),
-          device: str = "cpu", init_method: Optional[str] = None,
-          timeout_s: float = 600.0):
+          device: str = devices.DEFAULT_DEVICE,
+          init_method: Optional[str] = None, timeout_s: float = 600.0):
   """Runs fn(rank, *args) in ``world_size`` processes (module doc) on
-  ``device`` ("cpu" or "cuda") over ``default_backend``; ``timeout_s``:
-  how long a collective waits for the other ranks before it raises."""
+  ``device`` ("cuda", the default, or "cpu") over ``default_backend``;
+  ``timeout_s``: how long a collective waits for the other ranks before it
+  raises."""
+  device = devices.resolve(device).type
   backend = default_backend(world_size, device)
   init_method = init_method or f"tcp://localhost:{free_port()}"
   mp.start_processes(_run, args=(fn, world_size, backend, init_method,

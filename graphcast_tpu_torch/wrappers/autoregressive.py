@@ -12,23 +12,43 @@ carry, and each step takes its own forcings time slice.
   predictions back as inputs and averages the per-step losses over time.
   It hoists nothing: the static edge parts are functions of the parameters,
   so each step computes its own. With ``gradient_checkpointing`` every AR
-  step of a multi-step loss is a ``torch.utils.checkpoint`` region: only
-  the carried windows are kept, and each step's forward is recomputed in
-  the backward.
+  step of a multi-step loss is a recompute region (nn/remat.py): only the
+  carried windows are kept, and each step's forward is recomputed in the
+  backward.
 
-The JAX package's XLA- and TPU-memory forms of the loss scan
-(``loss_scan_unroll``, ``loss_scan_block``, ``loss_carry_offload``,
-``loss_offload_processor_carries``) are not ported and raise
-NotImplementedError when set.
+The JAX package's memory forms of the loss (autoregressive.py:84-164 and
+:306-526 there), same math in each, checked as there:
+
+- ``loss_scan_unroll``: the scan's unroll factor, which the JAX package
+  clamps to [1, steps]. The port's loop runs eagerly, step after step, so
+  no value changes a number or the memory; any is accepted, as there.
+- ``loss_scan_block = k`` (1 < k < steps, k dividing steps): a recompute
+  region around each block of k per-step regions, so that only the windows
+  at block boundaries are kept.
+- ``loss_carry_offload``: the carried windows wait for the backward in
+  host memory (pinned where they come from the card). Block 1: every
+  step's window (the JAX host-carry scan); 1 < block < steps: block
+  boundaries kept, the windows inside a block on the host; block ≥ steps:
+  one region around all the steps, every window after the first on the
+  host (the JAX unrolled form).
+- ``loss_offload_processor_carries``: during each AR step, the processor's
+  √N block boundaries (nn/deep_gnn.py ``run_steps``, with
+  ``remat_processor``) go to the host instead of staying on the card.
+
+Copies to the host are exact, so every form gives the per-step
+checkpointed loss and gradients bit for bit.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import torch
-from torch.utils import checkpoint
 
 from graphcast_tpu_torch.fields import Field, FieldSet
 from graphcast_tpu_torch.models.base import Predictor, WrapperPredictor
+from graphcast_tpu_torch.nn import remat
 
 
 def _split_constant_inputs(inputs: FieldSet, targets: FieldSet,
@@ -95,16 +115,29 @@ class Autoregressive(WrapperPredictor):
                loss_scan_unroll: int = 1, loss_scan_block: int = 1,
                loss_carry_offload: bool = False,
                loss_offload_processor_carries: bool = False):
+    """The memory forms of the loss (module doc), validated as the JAX
+    package validates them."""
     super().__init__(predictor)
-    unported = {"loss_scan_unroll": loss_scan_unroll != 1,
-                "loss_scan_block": loss_scan_block != 1,
-                "loss_carry_offload": loss_carry_offload,
-                "loss_offload_processor_carries":
-                    loss_offload_processor_carries}
-    for name, value in unported.items():
-      if value:
-        raise NotImplementedError(f"Autoregressive({name}=...) is not ported")
+    if loss_scan_block < 1:
+      raise ValueError(f"loss_scan_block must be >= 1, got {loss_scan_block}")
+    if loss_scan_block > 1 and not gradient_checkpointing:
+      raise ValueError(
+          "loss_scan_block > 1 requires gradient_checkpointing=True (the "
+          "block level IS a checkpoint boundary)")
+    if loss_carry_offload and not gradient_checkpointing:
+      raise ValueError(
+          "loss_carry_offload requires gradient_checkpointing=True (the "
+          "offloaded carries are checkpoint residuals)")
+    if loss_offload_processor_carries and not gradient_checkpointing:
+      raise ValueError(
+          "loss_offload_processor_carries requires "
+          "gradient_checkpointing=True (the offloaded boundaries are "
+          "checkpoint residuals)")
+    del loss_scan_unroll  # no effect on an eager loop (module doc)
     self._gradient_checkpointing = gradient_checkpointing
+    self._loss_scan_block = loss_scan_block
+    self._loss_carry_offload = loss_carry_offload
+    self._loss_offload_processor_carries = loss_offload_processor_carries
 
   def _steps(self, inputs, targets_template, forcings, num_steps, kwargs):
     """Yields (step's predictions, window after the step)."""
@@ -144,6 +177,7 @@ class Autoregressive(WrapperPredictor):
 
   def loss(self, inputs, targets, forcings, **kwargs):
     if targets.sizes["time"] == 1:
+      self._check_processor_offload_applies(1)
       # No feedback: delegate (reference: autoregressive.py:231-236).
       return self._predictor.loss(inputs, targets, forcings, **kwargs)
     loss, _ = self._loss_loop(inputs, targets, forcings, kwargs,
@@ -153,38 +187,90 @@ class Autoregressive(WrapperPredictor):
   def loss_and_predictions(self, inputs, targets, forcings, **kwargs):
     return self._loss_loop(inputs, targets, forcings, kwargs)
 
+  def _check_processor_offload_applies(self, num_steps):
+    """The processor offload rides the per-AR-step recompute region, which
+    exists only for num_steps > 1 (graphcast_tpu
+    wrappers/autoregressive.py:306-318)."""
+    if self._loss_offload_processor_carries and num_steps == 1:
+      raise ValueError(
+          "loss_offload_processor_carries has no effect for 1-step losses "
+          "(there is no per-AR-step checkpoint to attach the offload "
+          "policy to) — disable it, or train with multiple AR steps")
+
   def _loss_loop(self, inputs, targets, forcings, kwargs,
                  want_predictions=True):
     """The AR loss: per-step loss_and_predictions with feedback, averaged
-    over time (reference: autoregressive.py:239-312)."""
+    over time (reference: autoregressive.py:239-312), in the memory form
+    the constructor chose (module doc)."""
     constant_inputs, window, targets_nc, forcings = _prepare(
         inputs, targets, forcings)
     num_steps = targets.sizes["time"]
+    self._check_processor_offload_applies(num_steps)
+    names = window.var_names
+    k = self._loss_scan_block
+    if k > 1 and num_steps > k and num_steps % k:
+      raise ValueError(
+          f"loss_scan_block={k} must divide the number of AR steps "
+          f"({num_steps})")
 
-    def step(window, targets_t, forcings_t):
+    def step(t, *carry):
+      """AR step t from the window's tensors (the carry): ((loss,
+      diagnostics), predictions or None) and the next window's tensors."""
+      window = FieldSet({n: Field(c, dims) for n, c, dims
+                         in zip(names, carry, window_dims)},
+                        coords=window_coords)
+      forcings_t = forcings.isel(time=slice(t, t + 1))
       all_inputs = FieldSet.merge([constant_inputs, window])
-      loss, predictions = self._predictor.loss_and_predictions(
-          all_inputs, targets_t, forcings_t, **kwargs)
+      offload = (remat.offloading("mp_block_carry")
+                 if self._loss_offload_processor_carries
+                 else contextlib.nullcontext())
+      with offload:
+        loss, predictions = self._predictor.loss_and_predictions(
+            all_inputs, targets_nc.isel(time=slice(t, t + 1)), forcings_t,
+            **kwargs)
       next_window = _update_window(
           window, FieldSet.merge([predictions, forcings_t]))
-      return loss, predictions, next_window
+      return ((loss, predictions if want_predictions else None),
+              tuple(next_window[n].data for n in names))
 
-    losses, diagnostics, preds = [], [], []
-    for t in range(num_steps):
-      args = (window, targets_nc.isel(time=slice(t, t + 1)),
-              forcings.isel(time=slice(t, t + 1)))
-      if self._gradient_checkpointing and num_steps > 1:
-        (loss, diag), predictions, window = checkpoint.checkpoint(
-            step, *args, use_reentrant=False)
-      else:
-        (loss, diag), predictions, window = step(*args)
-      losses.append(loss)
-      diagnostics.append(diag)
-      if want_predictions:
-        preds.append(predictions)
-    loss = torch.stack(losses).mean(0)
-    diagnostics = {k: torch.stack([d[k] for d in diagnostics]).mean(0)
-                   for k in diagnostics[0]}
+    window_dims = [window[n].dims for n in names]
+    window_coords = window.coords
+    carry = tuple(window[n].data for n in names)
+    checkpointed = self._gradient_checkpointing and num_steps > 1
+    offload = self._loss_carry_offload and checkpointed
+
+    def checkpointed_step(t, carry, on_host):
+      with (remat.on_host() if on_host else contextlib.nullcontext()):
+        return remat.checkpoint(functools.partial(step, t), *carry)
+
+    outputs = []
+    if checkpointed and (1 < k < num_steps or (offload and k > 1)):
+      # Two-level: a region around each block of k per-step regions, the
+      # windows inside a block on the host with loss_carry_offload.
+      k = min(k, num_steps)
+
+      def block(t0, *carry):
+        ys = []
+        for i in range(k):
+          y, carry = checkpointed_step(t0 + i, carry, offload and i > 0)
+          ys.append(y)
+        return ys, carry
+
+      for t0 in range(0, num_steps, k):
+        ys, carry = remat.checkpoint(functools.partial(block, t0), *carry)
+        outputs.extend(ys)
+    else:
+      for t in range(num_steps):
+        if checkpointed:
+          y, carry = checkpointed_step(t, carry, offload)
+        else:
+          y, carry = step(t, *carry)
+        outputs.append(y)
+
+    per_step = [loss_and_diagnostics for loss_and_diagnostics, _ in outputs]
+    loss = torch.stack([loss for loss, _ in per_step]).mean(0)
+    diagnostics = {n: torch.stack([d[n] for _, d in per_step]).mean(0)
+                   for n in per_step[0][1]}
     if not want_predictions:
       return (loss, diagnostics), None
-    return (loss, diagnostics), _stack_time(preds, targets)
+    return (loss, diagnostics), _stack_time([p for _, p in outputs], targets)

@@ -51,12 +51,24 @@ def test_north_star_line_and_metric_name(tiny_knobs, monkeypatch, capsys,
       "graphcast_30.0deg_37lev_mesh1_2step_rollout")
 
 
-def test_unported_bench_fused_value_raises(tiny_knobs, monkeypatch):
-  """BENCH_FUSED=0 asks bench.py's XLA-only path, which the port does not
-  have: the run ends in an error, with no fallback."""
+def test_unported_bench_fused_value_raises(tiny_knobs, monkeypatch, capsys):
+  """BENCH_FUSED=0 asks bench.py's XLA-only path. The port refused it
+  until it had the unfused form (models/graphcast.py); now the mirror
+  builds its model with ``fused_aggregation=False`` and prints its line."""
+  from graphcast_tpu_torch.models import graphcast
   monkeypatch.setenv("BENCH_FUSED", "0")
-  with pytest.raises(NotImplementedError, match="fused_aggregation=False"):
-    bench.main(device="cpu")
+  built = []
+  init = graphcast.GraphCast.__init__
+
+  def recording(self, *args, **kwargs):
+    built.append(kwargs["fused_aggregation"])
+    init(self, *args, **kwargs)
+
+  monkeypatch.setattr(graphcast.GraphCast, "__init__", recording)
+  result = bench.main(device="cpu")
+  assert built == [False]
+  assert result["value"] > 0
+  assert json.loads(capsys.readouterr().out.splitlines()[-1]) == result
 
 
 def test_gencast_and_skip_together_are_refused(tiny_knobs, monkeypatch):

@@ -1115,3 +1115,78 @@ def test_edge_smem_layout_matches_kernels(cuda_device):
     buf = (ctypes.c_int * len(keys))()
     lib.gc_pipelined_layout(int(staged), buf)
     assert dict(zip(keys, buf)) == fe.pipelined_smem_layout(staged)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sorted_index", [False, True])
+def test_row_gather_sums_its_gradient_with_k3_and_reruns_bit_equal(
+    sorted_index, cuda_device):
+  """ops/gather.py: the gather of [N, B, C] rows onto edges, its backward
+  (K3 over the index's sorted order, each row written once) against the
+  f32 sum of the same rows, and a rerun bit-equal."""
+  from graphcast_tpu_torch.ops.gather import RowGather
+  from graphcast_tpu_torch.ops.segment_sum import sorted_segment_sum
+  rng = np.random.RandomState(3)
+  index = rng.randint(0, 3000, size=40_000)
+  if sorted_index:
+    index = np.sort(index)
+  gather = RowGather(index, 3500, cuda_device)
+  gen = torch.Generator().manual_seed(4)
+  table = _rand(gen, 3500, 2, C, dtype=torch.bfloat16).to(
+      cuda_device).requires_grad_()
+  cot = _rand(gen, index.size, 2, C, dtype=torch.bfloat16).to(cuda_device)
+  out = gather(table)
+  assert torch.equal(out, table.detach()[torch.as_tensor(
+      index, device=cuda_device)])
+  launches = sorted_segment_sum.launches
+  grads = [torch.autograd.grad(gather(table), table, cot)[0]
+           for _ in range(2)]
+  assert sorted_segment_sum.launches == launches + 2
+  assert torch.equal(grads[0], grads[1])
+  want = torch.zeros(3500, 2, C, device=cuda_device)
+  want.index_add_(0, torch.as_tensor(index, device=cuda_device), cot.float())
+  _assert_close(grads[0], want.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_training_form_gradients_rerun_bit_equal(cuda_device):
+  """GraphCast in the 0.25° training form (processor remat, chunked
+  encoder and decoder, models/graphcast.py) at latent 128 on the card:
+  AR-2 loss and every gradient twice, bit-equal, with and without the host
+  offloads of the carries; and the fused form with remat equal to it
+  without."""
+  from graphcast_tpu_torch.data import synthetic
+  from graphcast_tpu_torch.models import configs
+  from graphcast_tpu_torch.models.graphcast import GraphCast
+  from graphcast_tpu_torch.wrappers import (
+      Autoregressive, Bfloat16Cast, InputsAndResiduals)
+  task = configs.TaskConfig(
+      input_variables=("2m_temperature", "temperature",
+                       "toa_incident_solar_radiation", "land_sea_mask"),
+      target_variables=("2m_temperature", "temperature"),
+      forcing_variables=("toa_incident_solar_radiation",),
+      pressure_levels=(500, 850), input_duration="12h")
+  mc = configs.ModelConfig(resolution=5.0, mesh_size=3, latent_size=128,
+                           gnn_msg_steps=4)
+  data = [fs.astype(torch.bfloat16) for fs in synthetic.make_example_batch(
+      task, 5.0, num_target_times=2, device=cuda_device)]
+  stats = synthetic.make_norm_stats(task, device=cuda_device)
+  training = dict(fused_aggregation="processor", remat_processor=True,
+                  encode_chunks=5, decode_chunks=6)
+
+  def grads(model_kw, **ar_kw):
+    model = GraphCast(mc, task, **model_kw,
+                      generator=torch.Generator().manual_seed(0),
+                      device=cuda_device)
+    stack = Autoregressive(InputsAndResiduals(Bfloat16Cast(model), *stats),
+                           gradient_checkpointing=True, **ar_kw)
+    loss = stack.loss(*data)[0].mean()
+    loss.backward()
+    return [loss.detach()] + [p.grad for p in model.parameters()
+                              if p.grad is not None]
+
+  offload = dict(loss_carry_offload=True, loss_offload_processor_carries=True)
+  runs = [grads(training), grads(training), grads(training, **offload),
+          grads({}), grads({"remat_processor": True})]
+  for a, b in ((0, 1), (0, 2), (3, 4)):
+    assert all(torch.equal(x, y) for x, y in zip(runs[a], runs[b])), (a, b)

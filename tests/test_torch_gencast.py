@@ -483,14 +483,11 @@ def test_constructor_takes_the_jax_keywords(keywords):
 
 
 @pytest.mark.parametrize("keywords,form", [
-    ({"decode_chunks": 4}, "chunked decode"),
-    ({"encode_chunks": 4}, "chunked encode"),
-    ({"fused_aggregation": False}, "XLA-only and split"),
-    ({"cache_dir": "/tmp/artifacts"}, "artifact cache"),
     ({"interpret_attention": True}, "interpret_attention"),
 ])
 def test_constructor_refuses_unported_forms(keywords, form):
-  """Each unported value raises NotImplementedError naming its form."""
+  """The one unported value, the JAX package's Pallas interpret-mode
+  switch, raises NotImplementedError naming it."""
   with pytest.raises(NotImplementedError, match=form):
     _port_model_with(**keywords)
 

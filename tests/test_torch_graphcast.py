@@ -10,7 +10,8 @@ tests/test_graphcast_model.py:245-247; and at batch 1 with
 port's K1p path). Both packages build the geometry with the numpy
 connectivity backend (the port has no other), so the JAX side's
 ``build_artifact`` is pinned to it here. The constructor takes the JAX
-package's keywords and refuses the values of the forms it does not port.
+package's keywords; tests/test_torch_memory_forms.py holds the forms they
+select to the JAX package's.
 """
 
 import functools
@@ -198,20 +199,3 @@ def test_constructor_takes_the_jax_keywords(keywords):
   with torch.inference_mode():
     out = model(*data)
   assert torch.isfinite(out.data("temperature")).all()
-
-
-@pytest.mark.parametrize("keywords,form", [
-    ({"decode_chunks": 32}, "chunked decode"),
-    ({"encode_chunks": 25}, "chunked encode"),
-    ({"fused_aggregation": False}, "XLA-only and split"),
-    ({"fused_aggregation": "processor"}, "XLA-only and split"),
-    ({"fused_aggregation": "encoder"}, "XLA-only and split"),
-    ({"remat_processor": True}, "processor remat"),
-    ({"cache_dir": "/tmp/artifacts"}, "artifact cache"),
-])
-def test_constructor_refuses_unported_forms(keywords, form):
-  """Each unported value raises NotImplementedError naming its form (a
-  call written for JAX gets no TypeError)."""
-  with pytest.raises(NotImplementedError, match=form):
-    GraphCast(*_TINY_ARGS, **keywords, generator=torch.Generator(),
-              device="cpu")

@@ -118,6 +118,77 @@ def test_train_step_runs_without_jax():
   assert proc.stdout.startswith("losses"), proc.stdout
 
 
+def test_memory_forms_run_without_jax(tmp_path):
+  """The memory forms with jax unimportable: an AR-2 train step of
+  GraphCast in the 0.25° training form with both host offloads, a chunked
+  unfused GenCast denoiser evaluation at batch 2, and the geometry
+  artifact written to and read from the disk cache."""
+  code = textwrap.dedent(f"""
+      import sys
+      sys.modules["jax"] = None           # any `import jax` now raises
+      sys.modules["graphcast_tpu"] = None
+      import torch
+      from graphcast_tpu_torch import train
+      from graphcast_tpu_torch.data import synthetic
+      from graphcast_tpu_torch.geometry import artifact
+      from graphcast_tpu_torch.models import configs, zoo
+      from graphcast_tpu_torch.models.graphcast import GraphCast
+      from graphcast_tpu_torch.wrappers import (
+          Autoregressive, Bfloat16Cast, InputsAndResiduals)
+      task = configs.TaskConfig(
+          input_variables=("2m_temperature", "toa_incident_solar_radiation",
+                           "land_sea_mask"),
+          target_variables=("2m_temperature",),
+          forcing_variables=("toa_incident_solar_radiation",),
+          pressure_levels=(500,), input_duration="12h")
+      model = GraphCast(
+          configs.ModelConfig(resolution=30.0, mesh_size=1, latent_size=8,
+                              gnn_msg_steps=4),
+          task, cache_dir={str(tmp_path)!r}, decode_chunks=4,
+          encode_chunks=3, fused_aggregation="processor",
+          remat_processor=True, generator=torch.Generator().manual_seed(0),
+          device="cpu")
+      stack = Autoregressive(InputsAndResiduals(
+          Bfloat16Cast(model),
+          *synthetic.make_norm_stats(task, device="cpu")),
+          gradient_checkpointing=True, loss_scan_unroll=4,
+          loss_carry_offload=True, loss_offload_processor_carries=True)
+      step = train.make_train_step(
+          stack, train.graphcast_optimizer(model.parameters(), peak_lr=1e-3,
+                                           warmup_steps=1))
+      data = synthetic.make_example_batch(task, 30.0, num_target_times=2,
+                                          device="cpu")
+      losses = [float(step(*data)[0]) for _ in range(2)]
+      assert all(torch.isfinite(torch.tensor(losses)))
+      lat, lon = synthetic.grid_coords(30.0)
+      again = artifact.build_artifact(lat, lon, 1,
+                                      cache_dir={str(tmp_path)!r})
+      assert (again.grid2mesh.senders == model._artifact.grid2mesh.senders
+              ).all()
+      preset = zoo.gencast_custom(30.0, 1, d_model=16, num_layers=1,
+                                  num_heads=2, latent_size=16)
+      gencast = preset.build(generator=torch.Generator().manual_seed(0),
+                             device="cpu", encode_chunks=3, decode_chunks=4,
+                             fused_aggregation=False, cache_dir="")
+      inputs, targets, forcings = synthetic.make_example_batch(
+          preset.task_config, 30.0, batch=2, time_step_hours=12,
+          device="cpu")
+      with torch.inference_mode():
+        out = gencast.denoise(inputs, targets, torch.tensor([80.0, 1.0]),
+                              forcings)
+      assert torch.isfinite(out.data("2m_temperature")).all()
+      assert not any(m == "jax" or m.startswith(("jax.", "graphcast_tpu."))
+                     for m in sys.modules if sys.modules[m] is not None)
+      print("losses", *losses)
+      """)
+  env = {**os.environ, "PYTHONPATH": str(REPO)}
+  proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                        text=True, env=env, cwd=REPO, timeout=300)
+  assert proc.returncode == 0, proc.stderr
+  assert proc.stdout.startswith("losses"), proc.stdout
+  assert len(list(tmp_path.glob("artifact_*.npz"))) == 1
+
+
 def test_bench_mirror_and_pipelined_step_run_without_jax():
   code = textwrap.dedent("""
       import json, os, sys
@@ -550,3 +621,19 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
       call()
   assert devices.resolve("cpu") == torch.device("cpu")
+
+
+def test_spawn_defaults_to_the_card(monkeypatch):
+  """parallel/launch.py spawn runs its ranks on the card unless asked for
+  the CPU: without a card the default raises before any process starts."""
+  import torch
+  from graphcast_tpu_torch.parallel import launch
+  started = []
+  monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+  monkeypatch.setattr(launch.mp, "start_processes",
+                      lambda *a, **k: started.append(k))
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    launch.spawn(print, 2)
+  assert not started
+  launch.spawn(print, 2, device="cpu")
+  assert started and started[0]["nprocs"] == 2

@@ -207,7 +207,47 @@ def test_deep_graph_net_general_path_matches_jax(conditioned):
     net(tgraph, cond=None if conditioned else torch.from_numpy(cond))
 
 
-def test_deep_graph_net_unported_forms_raise():
-  with pytest.raises(NotImplementedError, match="remat_steps"):
-    deep_gnn.DeepGraphNet({"a": C}, {"aa": C}, {"a": C}, {"aa": 4},
-                          {"aa": ("a", "a")}, 16, 1, 1, remat_steps=True)
+def test_deep_graph_net_remat_steps_matches_jax(monkeypatch):
+  """``remat_steps``: four processor steps in √4 = 2 recompute blocks of two
+  per-step regions, the second block's inputs the named carries. Every
+  parameter gradient of a fixed projection of the output against the JAX
+  package's remat (5e-4), and bit-equal to the port without remat."""
+  from graphcast_tpu_torch.nn import remat
+  jgraph, tgraph = _graphs(context=True, edge_width=4, node_width=5)
+  cfg = dict(node_latent_size={"a": C, "b": C},
+             edge_latent_size={n: C for n in EDGE_SETS},
+             mlp_hidden_size=16, mlp_num_hidden_layers=1,
+             num_message_passing_steps=4, node_output_size={"b": 3},
+             f32_aggregation=True, remat_steps=True)
+  jnet = jax_deep_gnn.DeepGraphNet(activation="swish", **cfg)
+  jparams = jnet.init(jax.random.PRNGKey(0), jgraph)
+  flat = params.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
+  cot = np.random.RandomState(6).randn(NODES["b"], BATCH, 3).astype(
+      np.float32)
+  want = params.params_from_jax(jax.tree_util.tree_map(np.asarray, jax.grad(
+      lambda p: jnp.sum(jnet.apply(p, jgraph).nodes["b"].features * cot))(
+          jparams)))
+  regions, named = [], []
+  checkpoint, named_checkpoint = remat.checkpoint, remat.named_checkpoint
+  monkeypatch.setattr(remat, "checkpoint", lambda fn, *a: regions.append(
+      1) or checkpoint(fn, *a))
+  monkeypatch.setattr(remat, "named_checkpoint", lambda name, fn, *a: (
+      named.append(name) or named_checkpoint(name, fn, *a)))
+  grads = {}
+  for remat_steps in (True, False):
+    net = deep_gnn.DeepGraphNet(
+        node_input_size={n: 5 + 3 for n in NODES},
+        edge_input_size={n: 4 for n in EDGE_SETS}, edge_sets=EDGE_SETS,
+        **{**cfg, "remat_steps": remat_steps})
+    params.load_params(net, flat)
+    out = net(tgraph).nodes["b"].features
+    (out * torch.from_numpy(cot)).sum().backward()
+    grads[remat_steps] = {
+        k: torch.zeros_like(p) if p.grad is None else p.grad
+        for k, p in params.flat_params(net).items()}
+  assert named == ["mp_block_carry"]
+  assert len(regions) >= 1 + 4  # the first block and the per-step regions
+  for k, w in want.items():
+    np.testing.assert_allclose(grads[True][k].numpy(), w, rtol=5e-4,
+                               atol=5e-4, err_msg=k)
+    assert torch.equal(grads[True][k], grads[False][k]), k

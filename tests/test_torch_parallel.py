@@ -67,7 +67,7 @@ def numpy_geometry(monkeypatch):
 
 
 def _spawn(tmp_path, fn, world, *args):
-  launch.spawn(fn, world, args=(str(tmp_path),) + args,
+  launch.spawn(fn, world, args=(str(tmp_path),) + args, device="cpu",
                init_method=f"file://{tmp_path}/rendezvous", timeout_s=60)
 
 

@@ -480,7 +480,7 @@ def test_sequence_parallel_attention_matches_unsharded_and_jax(n, tmp_path):
   scale = 128 ** -0.5
   workers.save(tmp_path, "attention", mask=mask.toarray(), q=q, k=k, v=v,
                target=target, scale=np.array(scale))
-  launch.spawn(workers.sp_attention, 2, args=(str(tmp_path),),
+  launch.spawn(workers.sp_attention, 2, args=(str(tmp_path),), device="cpu",
                init_method=f"file://{tmp_path}/rendezvous", timeout_s=60)
   ranks = [workers.load(tmp_path, f"attn{r}") for r in range(2)]
 

@@ -257,17 +257,6 @@ def test_ar2_loss_and_predictions_stack_over_time(case):
     assert diagnostics[name].shape == (1,)
 
 
-def test_unported_loss_forms_raise():
-  model = GraphCast(configs.ModelConfig(**TINY_MODEL),
-                    configs.TaskConfig(**TINY_TASK),
-                    generator=torch.Generator().manual_seed(0), device="cpu")
-  for kw in (dict(loss_scan_unroll=2), dict(loss_scan_block=2),
-             dict(loss_carry_offload=True),
-             dict(loss_offload_processor_carries=True)):
-    with pytest.raises(NotImplementedError):
-      Autoregressive(model, **kw)
-
-
 def test_optimizer_matches_optax_chain():
   rng = np.random.RandomState(0)
   shapes = {"w": (6, 5), "b": (5,), "s": (3,)}
