@@ -29,9 +29,11 @@ Phases, each printing one line with its seconds and results:
          GraphCast))).rollout_final for 4 six-hour steps at batch 1 in bf16
          from an ERA5-shaped series made on the card (data/era5.py); checks
          finiteness and the kernels' launch counts.
-  small  zoo.graphcast_small() one step on the card (bf16, kernels) against
-         the same port on the CPU (twins): per variable,
-         rms(card bf16 - cpu f32) <= 2 * rms(cpu bf16 - cpu f32) + eps.
+  small  zoo.graphcast_small() (message-passing steps cut to
+         SMALL_MP_STEPS, for the CPU side's sake) one step on the card
+         (bf16, kernels) against the same port on the CPU (twins): per
+         variable, rms(card bf16 - cpu f32) <= 2 * rms(cpu bf16 - cpu f32)
+         + eps.
   k4     the edge step's backward kernel against torch.autograd.grad of the
          K1 twin, seeded random cotangents: processor mode on the mesh-6
          edge set, encoder mode on the 0.25° grid2mesh edge set; a rerun
@@ -182,21 +184,25 @@ Phases, each printing one line with its seconds and results:
          weights as in gencast, ENSEMBLE_MEMBERS members as the batch axis,
          bf16; one warm-up chunk, then ENSEMBLE_STEPS timed 12 h chunks:
          s per step and per member-step, peak memory; checks finite output
-         of the template's shape, distinct members and the launches per
-         step (K3 once per evaluation, K6 once per layer per evaluation, K1
-         and K2 none).
+         of the template's shape, distinct members, the launches per step
+         (K3 twice per evaluation, grid2mesh and mesh2grid; K6 once per
+         layer per evaluation; K1 and K2 none) and a rerun of the first
+         chunk bit-equal to the timed run's first step (torch's
+         deterministic algorithms off).
   ensemble_small  zoo.gencast_mini() at batch 2 on the card: one
          preconditioned denoiser evaluation (the general path, K3) per pair
          of gencast_small's three noise levels, a level per member; each
          member against the port on the CPU at its level (gencast_small's
          own CPU runs, made once) with the small phase's noise-floor rule.
-  graphcast_batch  zoo.graphcast_small() at batch BATCH through Autoregressive(
+  graphcast_batch  small's model at batch BATCH through Autoregressive(
          InputsAndResiduals(Bfloat16Cast(GraphCast))): the general path with
          K3. Member 0 of one step (the small phase's inputs) against a
          batch-1 card step of its inputs (K1, K2) and against the small
          phase's CPU f32 run, each within the small phase's noise floor;
          then rollout_final over BATCH_STEPS timed steps: s per step, peak
-         memory, K3 once per aggregation (17 a step), K1 and K2 none.
+         memory, K3 once per aggregation (2 + SMALL_MP_STEPS a step), K1
+         and K2 none, and
+         a rerun bit-equal (torch's deterministic algorithms off).
   parallel  PARALLEL_WORLD ranks (processes; nccl with one card each where
          the machine has them, else gloo on the one card; the backend and
          world size on a line of their own) over parallel/sharding.py
@@ -210,10 +216,10 @@ Phases, each printing one line with its seconds and results:
          each) against the unsharded step on the same weights, σ and
          noise, within SP_TRAIN_RTOL; (c) the ENSEMBLE_MEMBERS-member 12 h
          step with the members split over "batch", member by member
-         against the unsharded ensemble on the same member streams, both
-         under torch's deterministic algorithms (which fix the order of
-         the general path's index_add_ sums): the unsharded ensemble's
-         rerun bit-equal, the sharded members bit-equal to it.
+         against the unsharded ensemble on the same member streams, with
+         torch's deterministic algorithms off (every sum of the general
+         path runs in a fixed order): the unsharded ensemble's rerun
+         bit-equal, the sharded members bit-equal to it.
   forecast  the GraphCast demo's path (examples/graphcast_demo.py) at
          zoo.graphcast() (0.25°, 37 levels, mesh-6, latent 512, 16 steps):
          the port's random weights written as a reference-format bundle
@@ -270,6 +276,31 @@ Phases, each printing one line with its seconds and results:
          39 a step) and the 1.0° GraphCast fallback rollout (K1p processor
          and encoder modes); checks its lines' keys and metric names and
          that K1p ran where K1 would have.
+  train_curve  the training curve driver (graphcast_tpu_torch/tools/
+         train_curve.py) in process: GraphCast 1.0°, 13 levels, mesh-5,
+         latent 512, 16 steps in its form (fused processor, √N remat,
+         per-step checkpoints, bf16) for CURVE_STEPS steps on a fixed
+         batch, and GenCast 1p0deg unfused for CURVE_GENCAST_STEPS; checks
+         every loss finite, GraphCast's last CURVE_WINDOW losses' mean
+         below its first CURVE_WINDOW's, and each path's kernels launched
+         (K1, K4, the weight-gradient reduction, K3 and its sender mode;
+         K6, K7, K8 and K3).
+  gencast_rollout  the ensemble rollout driver (tools/
+         bench_gencast_rollout.py) at 1.0°, ROLLOUT_MEMBERS members x
+         ROLLOUT_STEPS 12 h steps after a one-step warm-up: seconds per
+         member-step; checks finite output of the template's shape,
+         distinct members, K3 and K6 launched, and a rerun bit-equal with
+         torch's deterministic algorithms off.
+  bench_train  the train-step drivers (tools/bench_train_025.py at 1.0°
+         AR-2 in its training form, tools/bench_train_gencast.py at 1.0°),
+         one timed step each after a first: seconds, peak GB, their JSON
+         records, the kernels each path launched.
+  memdump  the memory breakdown driver (tools/memdump_train_025.py) at
+         1.0° AR-2 (37 levels, its chunked training form): the step run
+         once with the allocator's history on, the blocks live at the
+         peak grouped by the port's allocating line; checks that they sum
+         to within MEMDUMP_RTOL of the peak torch.cuda reports for the
+         step.
 
 Kernel-vs-twin tolerances (both sides round at the same points and differ
 only in f32 summation order, which flips an occasional bf16 rounding):
@@ -330,7 +361,7 @@ GENCAST_STEPS = 2
 SST_NAN_ROWS = 10       # latitude rows of NaN SST in the GenCast train data
 GENCAST_TRAIN_SMALL_SIGMA = 1.0
 ENSEMBLE_MEMBERS = 4    # GenCast ensemble members, the batch axis
-ENSEMBLE_STEPS = 2      # timed 12 h chunks of the ensemble rollout
+ENSEMBLE_STEPS = 1      # timed 12 h chunks of the ensemble rollout
 BATCH = 4               # GraphCast_small batch of the graphcast_batch phase
 BATCH_STEPS = 2         # its timed 6 h steps
 MAIN_PIPELINED_RTOL = 1e-2  # relative RMS per variable, vs main's final
@@ -350,7 +381,8 @@ PHASES = ("build", "k1", "k2", "k4", "k5", "wgrad", "k6", "k7k8",
           "gencast_train", "gencast_train_small", "ensemble", "ensemble_small",
           "graphcast_batch", "parallel", "forecast", "gencast_0p25",
           "ensemble_0p25_chunked", "triblock", "k1p", "main_pipelined",
-          "bench")
+          "bench", "train_curve", "gencast_rollout", "bench_train",
+          "memdump")
 
 
 def _log(phase, t0, **fields):
@@ -1251,17 +1283,27 @@ def phase_main_pipelined(torch, results, profile_dir=None):
 
 
 SMALL_SEED = 3  # weights of the GraphCast_small phases
+SMALL_MP_STEPS = 4  # message-passing steps of small and graphcast_batch
+
+
+def _small_preset():
+  """zoo.graphcast_small() with its processor cut to SMALL_MP_STEPS steps
+  (for the CPU side's sake and the script's time limit), in the small and
+  graphcast_batch phases."""
+  from graphcast_tpu_torch.models import zoo
+  preset = zoo.graphcast_small()
+  return dataclasses.replace(preset, model_config=dataclasses.replace(
+      preset.model_config, gnn_msg_steps=SMALL_MP_STEPS))
 
 
 @functools.lru_cache(maxsize=None)
 def _small_references(torch):
-  """zoo.graphcast_small()'s batch-1 synthetic (inputs, targets, forcings)
-  on the CPU and one step of the port on the CPU from them, {bf16: out}
-  for f32 and bf16 (the small phase's noise floor). Built once: the
+  """_small_preset()'s batch-1 synthetic (inputs, targets, forcings) on the
+  CPU and one step of the port on the CPU from them, {bf16: out} for f32
+  and bf16 (the small phase's noise floor). Built once: the
   graphcast_batch phase holds its member 0 to the same runs."""
   from graphcast_tpu_torch.data import synthetic
-  from graphcast_tpu_torch.models import zoo
-  preset = zoo.graphcast_small()
+  preset = _small_preset()
   data = synthetic.make_example_batch(
       preset.task_config, resolution=preset.model_config.resolution, batch=1,
       device="cpu")
@@ -1294,10 +1336,9 @@ def _check_noise_floor(torch, phase, got, outs, names, ref=None):
 
 
 def phase_small(torch):
-  from graphcast_tpu_torch.models import zoo
   from graphcast_tpu_torch.params import flat_params
   t0 = time.perf_counter()
-  preset = zoo.graphcast_small()
+  preset = _small_preset()
   (inputs, targets, forcings), outs = _small_references(torch)
   model, card = _stack(torch, preset, seed=SMALL_SEED)
   card = card.to(DEVICE)
@@ -2895,13 +2936,20 @@ def phase_ensemble(torch, results, profile_dir=None):
 
   evals = 2 * preset.sampler_config.num_noise_levels - 1
   layers = preset.denoiser_architecture_config.sparse_transformer_config
-  expected = {"segment_sum": evals, "splash_fwd": evals * layers.num_layers,
+  expected = {"segment_sum": 2 * evals,
+              "splash_fwd": evals * layers.num_layers,
               "fused_edge": 0, "fused_decoder": 0, "fused_edge_embed": 0,
               "fused_decoder_embed": 0}
   if any(counts[k] != n * ENSEMBLE_STEPS for k, n in expected.items()):
     raise AssertionError(f"ensemble launches {counts}, expected {expected} "
                          "per 12 h step")
   _check_fieldset(torch, "ensemble", preds, tile_batch(targets, ENSEMBLE_MEMBERS))
+  again = run(1, 1)
+  differ = [n for n in preds.var_names
+            if not torch.equal(again.data(n), preds.data(n)[:, :1])]
+  if differ:
+    raise AssertionError(f"ensemble: the rerun of the first chunk differs "
+                         f"in {differ}")
   t = preds.data("temperature").float()
   spread = (t[0] - t[1]).square().mean().sqrt().item()
   if not all((t[0] - t[m]).abs().max().item() > 0
@@ -2922,8 +2970,8 @@ def phase_ensemble(torch, results, profile_dir=None):
        s_per_member_step=f"{steps_s / ENSEMBLE_STEPS / ENSEMBLE_MEMBERS:.4f}",
        peak_mem_gb=f"{peak_gb:.2f}",
        **{f"{k}_per_step": counts[k] // ENSEMBLE_STEPS for k in expected},
-       member_spread_t_rms=f"{spread:.4g}", finite=True)
-  del model, stack, preds
+       member_spread_t_rms=f"{spread:.4g}", rerun="bit-equal", finite=True)
+  del model, stack, preds, again
   torch.cuda.empty_cache()
 
 
@@ -2966,13 +3014,13 @@ def phase_ensemble_small(torch):
           torch, f"ensemble_small member {member} sigma={sigma}",
           {n: out.data(n)[member:member + 1] for n in targets.var_names},
           refs[sigma][1], targets.var_names))
-  if k3.launches - launches_before != len(pairs):
+  if k3.launches - launches_before != 2 * len(pairs):
     raise AssertionError(f"ensemble_small: K3 launched "
                          f"{k3.launches - launches_before} times, expected "
-                         f"{len(pairs)}")
+                         f"{2 * len(pairs)}")
   _log("ensemble_small", t0, config=_gencast_label(preset), batch=2,
        sigma_pairs=",".join(f"({a:g},{b:g})" for a, b in pairs),
-       k3_launches=len(pairs), worst_err_over_bound=f"{worst:.3f}")
+       k3_launches=2 * len(pairs), worst_err_over_bound=f"{worst:.3f}")
   del card
   torch.cuda.empty_cache()
 
@@ -2982,9 +3030,8 @@ def phase_graphcast_batch(torch, results, profile_dir=None):
   (the small phase's inputs) against the small phase's CPU runs and a
   batch-1 card step, then the timed rollout."""
   from graphcast_tpu_torch.data import synthetic
-  from graphcast_tpu_torch.models import zoo
   t0 = time.perf_counter()
-  preset = zoo.graphcast_small()
+  preset = _small_preset()
   mc = preset.model_config
   _, card = _stack(torch, preset, seed=SMALL_SEED)
   card = card.to(DEVICE)
@@ -3026,13 +3073,18 @@ def phase_graphcast_batch(torch, results, profile_dir=None):
   rollout_s = time.perf_counter() - t2
   counts = {k: fn.launches for k, fn in _counters().items()}
   peak_gb = torch.cuda.max_memory_allocated() / 1e9
-  expected = {"segment_sum": 1 + mc.gnn_msg_steps, "fused_edge": 0,
+  expected = {"segment_sum": 2 + mc.gnn_msg_steps, "fused_edge": 0,
               "fused_decoder": 0}
   if any(counts[k] != n * BATCH_STEPS for k, n in expected.items()):
     raise AssertionError(f"graphcast_batch launches {counts}, expected "
                          f"{expected} per step")
   _check_fieldset(torch, "graphcast_batch", final,
                   inputs.select(list(final.var_names)))
+  again = card.rollout_final(inputs, targets.isel(time=one), forcings)
+  differ = [n for n in final.var_names
+            if not torch.equal(again.data(n), final.data(n))]
+  if differ:
+    raise AssertionError(f"graphcast_batch: the rerun differs in {differ}")
   if profile_dir:
     _profile_step(torch, lambda: card.rollout_final(
         inputs, targets.isel(time=one), forcings.isel(time=one)), profile_dir,
@@ -3045,8 +3097,9 @@ def phase_graphcast_batch(torch, results, profile_dir=None):
        peak_mem_gb=f"{peak_gb:.2f}",
        **{f"{k}_per_step": counts[k] // BATCH_STEPS for k in expected},
        member0_vs_batch1_over_bound=f"{worst:.3f}",
-       member0_vs_cpu_over_bound=f"{worst_cpu:.3f}", finite=True)
-  del card, step, single, final
+       member0_vs_cpu_over_bound=f"{worst_cpu:.3f}", rerun="bit-equal",
+       finite=True)
+  del card, step, single, final, again
   torch.cuda.empty_cache()
 
 
@@ -3159,10 +3212,9 @@ def _parallel_rank(rank, out_dir):
   del grads, data
   torch.cuda.empty_cache()
 
-  # (c) The ensemble's members split over "batch", under deterministic
-  # algorithms: the general path's index_add_ sums then run in a fixed
-  # order, so the sharded and unsharded ensembles can be held bit for bit.
-  torch.use_deterministic_algorithms(True, warn_only=True)
+  # (c) The ensemble's members split over "batch": every sum of the
+  # general path runs in a fixed order, so the sharded and unsharded
+  # ensembles can be held bit for bit.
   t0 = time.perf_counter()
   mesh = sharding.make_mesh({"batch": PARALLEL_WORLD})
   model, stack = _gencast_stack(torch, preset, seed=0)
@@ -3312,8 +3364,7 @@ def phase_parallel(torch, results):
     if not torch.equal(ens["again"][name], whole):
       raise AssertionError(
           f"parallel ensemble: the unsharded ensemble's rerun differs in "
-          f"{name} (rel_rms {max(rerun_rel):.3g}) under deterministic "
-          f"algorithms")
+          f"{name} (rel_rms {max(rerun_rel):.3g})")
   if differ:
     raise AssertionError(
         f"parallel ensemble: {len(differ)} member fields differ from the "
@@ -4154,6 +4205,162 @@ def phase_bench(torch, card, results):
        // (calls * BENCH_STEPS),
        k1_launches=counts["fused_edge"], lines_ok=True)
 
+CURVE_STEPS = 30          # GraphCast steps of the train_curve phase
+CURVE_GENCAST_STEPS = 10  # its GenCast 1.0° steps
+CURVE_WINDOW = 5          # steps in its first and last loss windows
+ROLLOUT_MEMBERS = 2       # the gencast_rollout phase's members
+ROLLOUT_STEPS = 3         # and its 12 h steps
+MEMDUMP_RTOL = 0.1        # memdump: listed blocks vs the measured peak
+CURVE_KERNELS = {
+    "graphcast": ("fused_edge", "fused_edge_bwd", "weight_grad",
+                  "segment_sum", "segment_sum_sender"),
+    "gencast": ("splash_fwd", "splash_dq", "splash_dkv", "segment_sum")}
+
+
+def _path_launches(phase, results, counts, kernels, key=None):
+  """Records the launches of ``kernels`` on a path (``counts`` read just
+  after it, every count set to 0 just before) as ``<key>_launches``; fails
+  if any of them launched no time."""
+  missing = [k for k in kernels if not counts[k]]
+  if missing:
+    raise AssertionError(f"{phase}: {missing} never launched ({counts})")
+  for k in kernels:
+    results.setdefault(k, {"name": k})[f"{key or phase}_launches"] = (
+        counts[k])
+
+
+def phase_train_curve(torch, results):
+  """The training curve (graphcast_tpu_torch/tools/train_curve.py) at full
+  width, cut in steps (module doc)."""
+  from graphcast_tpu_torch.models import configs, zoo
+  from graphcast_tpu_torch.tools import train_curve
+  t0 = time.perf_counter()
+  log = lambda line: print(f"[train_curve] {line}", flush=True)  # noqa: E731
+  mc = configs.ModelConfig(resolution=1.0, mesh_size=5, latent_size=512,
+                           gnn_msg_steps=16, hidden_layers=1,
+                           radius_query_fraction_edge_length=0.6)
+  curve = train_curve.graphcast_curve(mc, configs.TASK_13, 1.0, DEVICE)
+  _reset_counters()
+  run = train_curve.run_curve(curve, CURVE_STEPS, log=log)
+  _path_launches("train_curve", results, _launches(),
+                 CURVE_KERNELS["graphcast"], "train_curve_graphcast")
+  losses = run["losses"]
+  first = float(np.mean(losses[:CURVE_WINDOW]))
+  last = float(np.mean(losses[-CURVE_WINDOW:]))
+  if not last < first:
+    raise AssertionError(f"train_curve: GraphCast's last {CURVE_WINDOW} "
+                         f"losses average {last:.5f}, not below the first "
+                         f"{CURVE_WINDOW}'s {first:.5f}: {losses}")
+  del curve
+  torch.cuda.empty_cache()
+  curve = train_curve.gencast_curve(zoo.gencast_1p0deg(), DEVICE)
+  _reset_counters()
+  grun = train_curve.run_curve(curve, CURVE_GENCAST_STEPS, log=log)
+  _path_launches("train_curve", results, _launches(),
+                 CURVE_KERNELS["gencast"], "train_curve_gencast")
+  _log("train_curve", t0, graphcast=f"1.0deg/13lev/mesh5/latent512/16mp",
+       steps=CURVE_STEPS, first_window=f"{first:.5f}",
+       last_window=f"{last:.5f}", drop_pct=f"{(1 - last / first) * 100:.2f}",
+       first_step_s=f"{run['compile_s']:.2f}",
+       s_per_step=f"{run['s_per_step']:.4f}",
+       gencast=_gencast_label(zoo.gencast_1p0deg()),
+       gencast_steps=CURVE_GENCAST_STEPS,
+       gencast_losses="[" + ",".join(f"{v:.5g}" for v in grun["losses"])
+       + "]", gencast_s_per_step=f"{grun['s_per_step']:.4f}", finite=True)
+  del curve
+  torch.cuda.empty_cache()
+
+
+def phase_gencast_rollout(torch, results):
+  """The ensemble rollout driver (graphcast_tpu_torch/tools/
+  bench_gencast_rollout.py) at 1.0°, cut in members and steps (module
+  doc)."""
+  from graphcast_tpu_torch.rollout import tile_batch
+  from graphcast_tpu_torch.tools import bench_gencast_rollout as tool
+  t0 = time.perf_counter()
+  predictor, inputs, targets, forcings = tool.build(1.0, 5, ROLLOUT_STEPS,
+                                                    DEVICE)
+  tool.rollout(predictor, inputs, targets.isel(time=slice(0, 1)),
+               forcings.isel(time=slice(0, 1)), ROLLOUT_MEMBERS, 0)
+  _reset_counters()
+  seconds, preds = _timed_s(torch, lambda: tool.rollout(
+      predictor, inputs, targets, forcings, ROLLOUT_MEMBERS, 1))
+  _path_launches("gencast_rollout", results, _launches(),
+                 ("segment_sum", "splash_fwd"))
+  again = tool.rollout(predictor, inputs, targets, forcings, ROLLOUT_MEMBERS,
+                       1)
+  _check_fieldset(torch, "gencast_rollout", preds,
+                  tile_batch(targets, ROLLOUT_MEMBERS))
+  differ = [n for n in preds.var_names
+            if not torch.equal(preds.data(n), again.data(n))]
+  if differ:
+    raise AssertionError(f"gencast_rollout: the rerun differs in {differ}")
+  t = preds.data("temperature")
+  if torch.equal(t[0], t[1]):
+    raise AssertionError("gencast_rollout: the members are equal")
+  _log("gencast_rollout", t0, members=ROLLOUT_MEMBERS, steps=ROLLOUT_STEPS,
+       rollout_s=f"{seconds:.3f}",
+       s_per_member_step=f"{seconds / ROLLOUT_MEMBERS / ROLLOUT_STEPS:.4f}",
+       final_mean_t=f"{tool.final_mean(preds):.6g}", rerun="bit-equal",
+       members_differ=True, finite=True)
+  del predictor, preds, again
+  torch.cuda.empty_cache()
+
+
+def phase_bench_train(torch, results):
+  """The train-step drivers (graphcast_tpu_torch/tools/bench_train_025.py
+  at 1.0° AR-2, bench_train_gencast.py at 1.0°), one timed step each
+  after a first (module doc)."""
+  from graphcast_tpu_torch.tools import bench_train_025, bench_train_gencast
+  t0 = time.perf_counter()
+  _reset_counters()
+  gc = bench_train_025.run(2, torch.device(DEVICE),
+                           bench_train_025.training_config(resolution=1.0),
+                           timed_steps=1)
+  _path_launches("bench_train", results, _launches(),
+                 CURVE_KERNELS["graphcast"], "bench_train_025")
+  torch.cuda.empty_cache()
+  _reset_counters()
+  gen = bench_train_gencast.run(1.0, 5, torch.device(DEVICE), timed_steps=1)
+  _path_launches("bench_train", results, _launches(),
+                 CURVE_KERNELS["gencast"], "bench_train_gencast")
+  for rec in (gc, gen):
+    print(f"[bench_train] {json.dumps(rec)}", flush=True)
+  _log("bench_train", t0, graphcast_ar2_s=gc["value"],
+       graphcast_peak_gb=f"{gc['peak_gb']:.2f}", gencast_s=gen["value"],
+       gencast_peak_gb=f"{gen['peak_gb']:.2f}")
+  torch.cuda.empty_cache()
+
+
+def phase_memdump(torch, results):
+  """The memory breakdown driver (graphcast_tpu_torch/tools/
+  memdump_train_025.py) at 1.0° AR-2 (module doc)."""
+  from graphcast_tpu_torch.tools import memdump_train_025
+  t0 = time.perf_counter()
+  _reset_counters()
+  rec = memdump_train_025.run(2, 1.0, 5, torch.device(DEVICE), top=8)
+  _path_launches("memdump", results, _launches(), CURVE_KERNELS["graphcast"])
+  ratio = rec["listed_over_measured"]
+  if abs(ratio - 1) > MEMDUMP_RTOL:
+    raise AssertionError(f"memdump: the listed blocks make {ratio:.4f} of "
+                         f"the measured peak")
+  _log("memdump", t0, config="1.0deg/37lev/mesh5/latent512/16mp/AR2",
+       form=rec["fused"], peak_gb=f"{rec['peak_gb']:.3f}",
+       measured_peak_gb=f"{rec['measured_peak_gb']:.3f}",
+       listed_over_measured=f"{ratio:.4f}", sites=len(rec["sites"]),
+       trace_events=rec["trace_events"],
+       top_site=rec["sites"][0]["site"].replace(" ", "/"))
+  torch.cuda.empty_cache()
+
+
+def _timed_s(torch, fn):
+  """(seconds, result) of ``fn()``, the card synchronized at both ends."""
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  out = fn()
+  torch.cuda.synchronize()
+  return time.perf_counter() - t0, out
+
 
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4272,6 +4479,14 @@ def main(argv=None) -> int:
     phase_main_pipelined(torch, results, args.profile)
   if "bench" in phases:
     phase_bench(torch, card, results)
+  if "train_curve" in phases:
+    phase_train_curve(torch, results)
+  if "gencast_rollout" in phases:
+    phase_gencast_rollout(torch, results)
+  if "bench_train" in phases:
+    phase_bench_train(torch, results)
+  if "memdump" in phases:
+    phase_memdump(torch, results)
   print(f"[total] {time.perf_counter() - t_start:.1f}s", flush=True)
   print(card)
   print(json.dumps({"kernels": list(results.values())}))

@@ -191,7 +191,7 @@ def _bench_gencast(device="cuda"):
   return metric, steady, compile_s
 
 
-def _card(device) -> tuple[str, str | None]:
+def card_info(device) -> tuple[str, str | None]:
   """(name, power limit) of the card as nvidia-smi reports them; ("cpu",
   None) on the CPU."""
   device = devices.resolve(device)
@@ -206,22 +206,22 @@ def _card(device) -> tuple[str, str | None]:
   return name, limit
 
 
-def _line(metric, seconds, card_info):
+def _line(metric, seconds, card):
   return {"metric": metric, "value": seconds, "unit": "s",
-          "card": card_info[0], "power_limit": card_info[1]}
+          "card": card[0], "power_limit": card[1]}
 
 
 def main(device="cuda") -> dict:
   """Runs the paths the knobs select (module doc), prints the result line
   and returns it."""
   num_steps = int(os.environ.get("BENCH_NUM_STEPS", "40"))
-  card_info = _card(device)
+  card = card_info(device)
   if env_flag("BENCH_GENCAST") and env_flag("BENCH_SKIP_GENCAST"):
     raise SystemExit("BENCH_GENCAST=1 asks for the GenCast result, "
                      "BENCH_SKIP_GENCAST=1 skips it")
   if not env_flag("BENCH_SKIP_GENCAST"):
     metric, steady, compile_s = _bench_gencast(device)
-    gencast_line = _line(metric, steady, card_info)
+    gencast_line = _line(metric, steady, card)
     print(f"# gencast: {json.dumps(gencast_line)} compile={compile_s:.1f}s "
           "(39 denoiser evaluations per 12 h step in the port; the name "
           "keeps bench.py's 40evals)", file=sys.stderr)
@@ -233,10 +233,10 @@ def main(device="cuda") -> dict:
     metric, steady, compile_s = _bench_fallback(num_steps, device)
   else:
     metric, steady, compile_s = _bench_north_star(num_steps, device)
-  result = _line(metric, steady, card_info)
+  result = _line(metric, steady, card)
   print(json.dumps(result))
   print(f"# compile+first={compile_s:.1f}s steady={steady:.3f}s "
-        f"card={card_info[0]!r} power_limit={card_info[1]!r}",
+        f"card={card[0]!r} power_limit={card[1]!r}",
         file=sys.stderr)
   return result
 

@@ -19,9 +19,10 @@ b0' = o_e·We + b0 in the activation dtype, and the grid2mesh and mesh2grid
 stages run through K1 and K2 in embed mode on the raw structural edge
 features (ops/fused_edge.py, ops/fused_decoder.py). At batch > 1 (an
 ensemble's members), its general path: the DeepGraphNets' ``forward`` with
-the per-member conditioning [batch, K], the grid2mesh aggregation through
-K3 (ops/segment_sum.py) and the mesh2grid one through the plain segment
-sum, as in the JAX package; the transformer folds batch and heads for K6.
+the per-member conditioning [batch, K], both aggregations through K3
+(ops/segment_sum.py; the JAX package sums mesh2grid plainly) and the
+gathers through ``RowGather`` pairs (ops/gather.py), all in a fixed order,
+as GraphCast's general path; the transformer folds batch and heads for K6.
 The TPU's windowed grid2mesh gather and its ``node_order`` layout are
 Mosaic-specific; the port keeps the artifact's receiver order.
 
@@ -349,8 +350,10 @@ class DenoiserArchitecture(nn.Module):
             g2m.nodes["grid_nodes"].features)
 
   def _run_mesh2grid_general(self, st, latent_mesh, latent_grid, cond):
-    m2g = self.mesh2grid_gnn(mesh2grid_graph(st, latent_mesh, latent_grid),
-                             cond=cond)
+    m2g = self.mesh2grid_gnn(
+        mesh2grid_graph(st, latent_mesh, latent_grid), cond=cond,
+        edge_aggregators={
+            "mesh2grid": functools.partial(sorted_segment_sum, st["m2g"])})
     return m2g.nodes["grid_nodes"].features
 
   def forward(self, inputs: FieldSet, targets_template: FieldSet,

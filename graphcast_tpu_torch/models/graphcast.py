@@ -20,10 +20,13 @@ dispatch, graphcast.py:842-903, and its setup, :152-253):
   a reshape-sum (a fixed order); else the general path.
 
 The general path is the three DeepGraphNets' ``forward`` on TypedGraphs
-laid out [nodes, batch, C], with the grid2mesh and mesh aggregations
-through K3 (ops/segment_sum.py), where the JAX package installs
-``BlockedSegmentSum``, and the mesh2grid one through the plain segment sum,
-as there.
+laid out [nodes, batch, C], with every aggregation through K3
+(ops/segment_sum.py: f32 sums, one rounding to the messages' dtype), where
+the JAX package installs ``BlockedSegmentSum`` for grid2mesh and the mesh
+and sums mesh2grid plainly, and every node-row gather through the edge
+sets' ``RowGather`` pairs (ops/gather.py), whose backward sums by K3: all
+of its sums run in a fixed order, so a rerun is bit-equal, as the fused
+and chunked forms' are.
 
 ``fused_aggregation`` picks the fused stages: None and True all three (the
 JAX package's None means "on a TPU"; the port's kernels run on the card and
@@ -78,7 +81,7 @@ from graphcast_tpu_torch.nn.typed_graph import (
     Context, EdgeSet, EdgeSetKey, EdgesIndices, NodeSet, TypedGraph)
 from graphcast_tpu_torch.ops.fused_decoder import fused_decode
 from graphcast_tpu_torch.ops.fused_edge import EdgeIndex, fused_edge
-from graphcast_tpu_torch.ops.gather import RowGather
+from graphcast_tpu_torch.ops.gather import RowGather, edge_gathers
 from graphcast_tpu_torch.ops.segment_sum import sorted_segment_sum
 
 NODE_STRUCT_FEATURES = 3   # sin(lat), cos(lon), sin(lon)
@@ -91,9 +94,16 @@ def add_batch_second_axis(data: torch.Tensor, batch: int, dtype):
   return data.to(dtype)[:, None].expand(data.shape[0], batch, data.shape[-1])
 
 
-def edge_set(edges: EdgeIndex, features: torch.Tensor) -> EdgeSet:
-  """A TypedGraph edge set over ``edges``' sender and receiver indices."""
-  return EdgeSet(EdgesIndices(edges.senders, edges.receivers), features)
+def edge_set(st: dict, name: str, features: torch.Tensor) -> EdgeSet:
+  """A TypedGraph edge set over the sender and receiver indices of the
+  edge list ``st[name]``, with their gathers (ops/gather.py: fixed-order
+  backward sums), built at the first call and kept in ``st``."""
+  edges = st[name]
+  key = f"{name}_gathers"
+  if key not in st:
+    st[key] = edge_gathers(edges)
+  return EdgeSet(EdgesIndices(edges.senders, edges.receivers, st[key]),
+                 features)
 
 
 def grid2mesh_graph(st: dict, grid_node_features: torch.Tensor
@@ -117,8 +127,8 @@ def grid2mesh_graph(st: dict, grid_node_features: torch.Tensor
                                             dtype)], dim=-1)),
       },
       edges={EdgeSetKey("grid2mesh", ("grid_nodes", "mesh_nodes")): edge_set(
-          edges, add_batch_second_axis(st["g2m_edge_features"], batch,
-                                       dtype))})
+          st, "g2m", add_batch_second_axis(st["g2m_edge_features"], batch,
+                                           dtype))})
 
 
 def mesh2grid_graph(st: dict, latent_mesh_nodes: torch.Tensor,
@@ -131,8 +141,8 @@ def mesh2grid_graph(st: dict, latent_mesh_nodes: torch.Tensor,
       nodes={"grid_nodes": NodeSet(edges.num_receivers, latent_grid_nodes),
              "mesh_nodes": NodeSet(edges.num_senders, latent_mesh_nodes)},
       edges={EdgeSetKey("mesh2grid", ("mesh_nodes", "grid_nodes")): edge_set(
-          edges, add_batch_second_axis(st["m2g_edge_features"], batch,
-                                       dtype))})
+          st, "m2g", add_batch_second_axis(st["m2g_edge_features"], batch,
+                                           dtype))})
 
 
 def num_grid_input_channels(task_config: configs.TaskConfig,
@@ -573,7 +583,7 @@ class GraphCast(Predictor):
             context=Context(features=()), nodes={"mesh_nodes": NodeSet(
                 st["mesh"].num_receivers, mesh_nodes)},
             edges={EdgeSetKey("mesh", ("mesh_nodes", "mesh_nodes")): edge_set(
-                st["mesh"], add_batch_second_axis(st["mesh_edge_features"],
+                st, "mesh", add_batch_second_axis(st["mesh_edge_features"],
                                                   batch, dtype))}),
         edge_aggregators={
             "mesh": functools.partial(sorted_segment_sum, st["mesh"])})
@@ -606,8 +616,10 @@ class GraphCast(Predictor):
                         latent_mesh_nodes @ ws, const, weights)
 
   def _run_mesh2grid_general(self, st, latent_mesh_nodes, latent_grid_nodes):
-    m2g = self.mesh2grid_gnn(mesh2grid_graph(st, latent_mesh_nodes,
-                                             latent_grid_nodes))
+    m2g = self.mesh2grid_gnn(
+        mesh2grid_graph(st, latent_mesh_nodes, latent_grid_nodes),
+        edge_aggregators={
+            "mesh2grid": functools.partial(sorted_segment_sum, st["m2g"])})
     return m2g.nodes["grid_nodes"].features
 
   # ----- feature packing -----

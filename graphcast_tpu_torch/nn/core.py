@@ -36,6 +36,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from graphcast_tpu_torch.ops.gather import gather_rows
+
 
 def gelu(x):
   """GELU, tanh approximation (jax.nn.gelu's default; F.gelu's default is
@@ -197,8 +199,9 @@ class MLPWithNorm(nn.Module):
     """The edge update with the first layer factored (graphcast_tpu nn/
     core.py:237-263): edge_feats @ We + (sender_full @ Ws)[senders] +
     (receiver_full @ Wr)[receivers] + b0, then the remaining layers and the
-    norm, all in edge_feats' dtype. Node arrays are [nodes, ...], indices
-    int32 [edges]."""
+    norm, all in edge_feats' dtype. Node arrays are [nodes, ...]; indices
+    int32 [edges], or ops.gather.RowGathers of them (fixed-order backward
+    sums)."""
     dtype = edge_feats.dtype
     lin = self.mlp["linear_0"]
     w, b0 = lin.w, lin.b
@@ -210,8 +213,8 @@ class MLPWithNorm(nn.Module):
     we, ws, wr = _split_rows(w.to(dtype), edge_feats.shape[-1],
                              sender_full.shape[-1])
     x = (edge_feats @ we
-         + (sender_full @ ws).index_select(0, senders)
-         + (receiver_full @ wr).index_select(0, receivers)
+         + gather_rows(sender_full @ ws, senders)
+         + gather_rows(receiver_full @ wr, receivers)
          + b0.to(dtype))
     for layer in list(self.mlp.values())[1:]:
       x = layer(F.silu(x))

@@ -7,7 +7,10 @@ batch, channels] with receiver-sorted edge indices:
 - edge update: gather sender and receiver node features, concat with the
   edge features (and the broadcast context), apply the edge function; or,
   with ``factored_edge_fns``, hand the edge function the full node arrays
-  and the indices so it can project per node before gathering;
+  and the indices so it can project per node before gathering. Where the
+  edge set carries ``EdgesIndices.gathers``, the gathers run through them
+  (and the factored edge function gets them in place of the indices), so
+  their backward sums in a fixed order (ops/gather.py);
 - node update: aggregate the updated edge messages into their receivers
   (and, with ``include_sent_messages_in_node_update``, into their senders:
   an unsorted aggregation), concat with the node features, apply the node
@@ -26,6 +29,7 @@ import torch
 
 from graphcast_tpu_torch.nn.typed_graph import TypedGraph
 from graphcast_tpu_torch.ops import segment
+from graphcast_tpu_torch.ops.gather import gather_rows
 
 UpdateFn = Callable[..., torch.Tensor]
 AggregateFn = Callable[..., torch.Tensor]
@@ -87,8 +91,8 @@ def apply_graph_network(
   for name, edge_fn in update_edge_fn.items():
     key = graph.edge_key_by_name(name)
     edge_set = graph.edges[key]
-    senders = edge_set.indices.senders
-    receivers = edge_set.indices.receivers
+    senders, receivers = (edge_set.indices.gathers
+                          or edge_set.indices[:2])
     sender_full = graph.nodes[key.node_sets[0]].features
     receiver_full = graph.nodes[key.node_sets[1]].features
     if factored_edge_fns:
@@ -100,8 +104,8 @@ def apply_graph_network(
       new_feats = edge_fn(edge_set.features, sender_full, receiver_full,
                           senders, receivers)
     else:
-      inputs = [edge_set.features, sender_full.index_select(0, senders),
-                receiver_full.index_select(0, receivers)]
+      inputs = [edge_set.features, gather_rows(sender_full, senders),
+                gather_rows(receiver_full, receivers)]
       if has_ctx:
         inputs.append(_broadcast_context(graph, edge_set.features))
       new_feats = edge_fn(*inputs)

@@ -16,6 +16,9 @@ from typing import Any, Mapping, NamedTuple
 class EdgesIndices(NamedTuple):
   senders: Any    # [num_edges] int32
   receivers: Any  # [num_edges] int32
+  # Optional (sender, receiver) ops.gather.RowGather pair of these indices:
+  # the edge update gathers node rows through it (a fixed-order backward).
+  gathers: Any = None
 
 
 class EdgeSet(NamedTuple):

@@ -51,6 +51,16 @@ class RowGather:
     self.edges = EdgeIndex(order, inverse[order], max(index.size, 1),
                            rows.size, device=device)
 
+  @classmethod
+  def receivers_of(cls, edges: EdgeIndex) -> "RowGather":
+    """The gather of ``edges``' receiver rows: the receiver-sorted list is
+    its own plan (and K3's plan is shared with the list's receiver sums)."""
+    self = cls.__new__(cls)
+    self.num_rows, self.num_edges = edges.num_receivers, edges.num_edges
+    self.index, self.rows, self.perm, self.edges = (edges.receivers, None,
+                                                    None, edges)
+    return self
+
   def __call__(self, table: torch.Tensor) -> torch.Tensor:
     """table[index], [E, ...]."""
     return _GatherFunction.apply(self, table)
@@ -81,3 +91,19 @@ class _GatherFunction(torch.autograd.Function):
   @staticmethod
   def backward(ctx, grad):
     return None, ctx.gather.sum_into_rows(grad)
+
+
+def edge_gathers(edges: EdgeIndex) -> tuple[RowGather, RowGather]:
+  """(senders, receivers): the gathers of a receiver-sorted edge list's
+  node rows, on its device (module doc)."""
+  with torch.inference_mode(False):
+    return (RowGather(edges.senders.cpu().numpy(), edges.num_senders,
+                      edges.device), RowGather.receivers_of(edges))
+
+
+def gather_rows(table: torch.Tensor, index) -> torch.Tensor:
+  """table[index] along the first axis: through ``index`` where it is a
+  ``RowGather`` (a fixed-order backward), else ``index_select``."""
+  if isinstance(index, RowGather):
+    return index(table)
+  return table.index_select(0, index)

@@ -22,7 +22,10 @@ embed modes' backwards (K4, K5) against autograd of their twins: the
 backward tolerance. No sum of any kernel uses atomics: K1's receiver sums,
 every gradient of K4 and K5 (K3's sender mode sums the per-edge sender
 gradients) and feature_grad's rerun bit-equal, and K1p's e' and sums equal
-K1's bit for bit.
+K1's bit for bit. The general path (batch 2: a GenCast Mini evaluation and
+a GraphCast_small train step) reruns bit-equal in its outputs and every
+gradient with torch's deterministic algorithms off: its gathers'
+gradients and all its aggregations are K3 sums.
 """
 
 import numpy as np
@@ -1190,3 +1193,82 @@ def test_training_form_gradients_rerun_bit_equal(cuda_device):
           grads({}), grads({"remat_processor": True})]
   for a, b in ((0, 1), (0, 2), (3, 4)):
     assert all(torch.equal(x, y) for x, y in zip(runs[a], runs[b])), (a, b)
+
+
+def _rerun_bit_equal(run):
+  """Runs ``run`` twice ({name: tensor} each) with torch's deterministic
+  algorithms off: every tensor equal bit for bit."""
+  assert not torch.are_deterministic_algorithms_enabled()
+  first, second = run(), run()
+  assert first.keys() == second.keys()
+  differ = [k for k in first if not torch.equal(first[k], second[k])]
+  assert not differ, differ[:5]
+
+
+@pytest.mark.cuda
+def test_general_path_gencast_evaluation_reruns_bit_equal(cuda_device):
+  """GenCast Mini's denoiser (its transformer cut to 2 layers) at batch 2,
+  the general path (K3 sums, RowGather gathers): one preconditioned
+  evaluation and the gradient of its outputs' sum for every parameter,
+  twice."""
+  import dataclasses
+  from graphcast_tpu_torch.data import synthetic
+  from graphcast_tpu_torch.models import zoo
+  preset = zoo.gencast_mini()
+  arch = preset.denoiser_architecture_config
+  preset = dataclasses.replace(preset, denoiser_architecture_config=(
+      dataclasses.replace(arch, sparse_transformer_config=dataclasses.replace(
+          arch.sparse_transformer_config, num_layers=2))))
+  model = preset.build(generator=torch.Generator().manual_seed(0),
+                       device=cuda_device)
+  inputs, targets, forcings = (
+      fs.astype(torch.bfloat16) for fs in synthetic.make_example_batch(
+          preset.task_config, preset.resolution, batch=2,
+          time_step_hours=12, device=cuda_device))
+  levels = torch.tensor([80.0, 1.0], dtype=torch.bfloat16,
+                        device=cuda_device)
+
+  def run():
+    model.zero_grad(set_to_none=True)
+    out = model._preconditioned_denoiser(inputs, targets, levels, forcings)
+    sum(out.data(n).float().sum() for n in out.var_names).backward()
+    result = {n: out.data(n).detach().clone() for n in out.var_names}
+    result.update({k: p.grad.clone() for k, p in model.named_parameters()
+                   if p.grad is not None})
+    return result
+
+  _rerun_bit_equal(run)
+
+
+@pytest.mark.cuda
+def test_general_path_graphcast_small_train_step_reruns_bit_equal(
+    cuda_device):
+  """GraphCast_small at batch 2 through Autoregressive(InputsAndResiduals(
+  Bfloat16Cast(GraphCast)), gradient_checkpointing=True), the general path:
+  a train step's loss and every gradient, twice."""
+  from graphcast_tpu_torch.data import synthetic
+  from graphcast_tpu_torch.models import zoo
+  from graphcast_tpu_torch.models.graphcast import GraphCast
+  from graphcast_tpu_torch.wrappers import (
+      Autoregressive, Bfloat16Cast, InputsAndResiduals)
+  preset = zoo.graphcast_small()
+  model = GraphCast(preset.model_config, preset.task_config,
+                    generator=torch.Generator().manual_seed(0),
+                    device=cuda_device)
+  stack = Autoregressive(InputsAndResiduals(
+      Bfloat16Cast(model), *synthetic.make_norm_stats(
+          preset.task_config, device=cuda_device)),
+                         gradient_checkpointing=True)
+  data = [fs.astype(torch.bfloat16) for fs in synthetic.make_example_batch(
+      preset.task_config, preset.model_config.resolution, batch=2,
+      device=cuda_device)]
+
+  def run():
+    model.zero_grad(set_to_none=True)
+    loss = stack.loss(*data)[0].mean()
+    loss.backward()
+    return {"loss": loss.detach(),
+            **{k: p.grad.clone() for k, p in model.named_parameters()
+               if p.grad is not None}}
+
+  _rerun_bit_equal(run)

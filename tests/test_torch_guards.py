@@ -373,9 +373,36 @@ def test_port_sources_name_no_jax_package():
       r"^\s*(import\s+(jax|graphcast_tpu)([.\s,]|$)"
       r"|from\s+(jax|graphcast_tpu)(\.\w+)*\s+import\b)", re.MULTILINE)
   files = sorted((REPO / "graphcast_tpu_torch").rglob("*.py"))
+  assert {f.name for f in files if f.parent.name == "tools"} >= {
+      "train_curve.py", "bench_gencast_rollout.py", "bench_train_025.py",
+      "bench_train_gencast.py", "memdump_train_025.py",
+      "memdump_gencast.py"}
   files += [REPO / "chip_smoke.py", REPO / "edge_study.py"]
   offenders = [str(f) for f in files if pattern.search(f.read_text())]
   assert not offenders, offenders
+
+
+def test_port_tools_write_no_root_records():
+  """The TPU's records at the repository's root (TRAINCURVE_*, BENCH_*,
+  MULTICHIP_*) are never a port tool's output: a tool writes only the
+  path given with --out (none by default), and no string in the tools
+  names such a file."""
+  import ast
+  import importlib
+  import re
+  root_record = re.compile(r"(TRAINCURVE|BENCH|MULTICHIP)_\w*(\.json)?$")
+  tools = REPO / "graphcast_tpu_torch" / "tools"
+  drivers = ("train_curve", "bench_gencast_rollout", "bench_train_025",
+             "bench_train_gencast", "memdump_train_025", "memdump_gencast")
+  for name in drivers:
+    module = importlib.import_module(f"graphcast_tpu_torch.tools.{name}")
+    assert module.parse_args([]).out is None, name
+  for path in sorted(tools.glob("*.py")):
+    strings = [n.value for n in ast.walk(ast.parse(path.read_text()))
+               if isinstance(n, ast.Constant) and isinstance(n.value, str)]
+    named = [v for v in strings if any(
+        root_record.match(word) for word in re.split(r"[\s/'\"`]+", v))]
+    assert not named, (path.name, named)
 
 
 def test_demo_path_runs_without_jax_pandas_or_xarray():
@@ -596,9 +623,10 @@ def test_parallel_and_dry_run_run_without_jax(tmp_path):
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
-  """Model constructors and the synthetic data name no device by default:
-  they run on the card, and where torch sees none they raise instead of
-  running quietly on the CPU."""
+  """Model constructors, the synthetic data and the multi-step drivers
+  (graphcast_tpu_torch/tools/) name no device by default: they run on the
+  card, and where torch sees none they raise instead of running quietly on
+  the CPU."""
   import torch
   from graphcast_tpu_torch import devices
   from graphcast_tpu_torch.data import synthetic
@@ -617,6 +645,12 @@ def test_entry_points_default_to_the_card(monkeypatch):
       lambda: synthetic.make_example_batch(task, 30.0),
       lambda: synthetic.make_norm_stats(task),
   ]
+  from graphcast_tpu_torch.tools import (
+      bench_gencast_rollout, bench_train_025, bench_train_gencast,
+      memdump_gencast, memdump_train_025, train_curve)
+  calls += [(lambda tool=tool: tool.main([])) for tool in (
+      train_curve, bench_gencast_rollout, bench_train_025,
+      bench_train_gencast, memdump_train_025, memdump_gencast)]
   for call in calls:
     with pytest.raises(RuntimeError, match="no CUDA device"):
       call()
