@@ -8,7 +8,21 @@ Usage: python3 chip_smoke.py            (all phases; needs one CUDA device)
 
 Phases, each printing one line with its seconds and results:
   build  compile csrc/*.cu with nvcc for sm_90a and load it; print the
-         card's name and power limit (nvidia-smi).
+         card's name and power limit (nvidia-smi). Beside it, in a thread
+         of its own ([prelude]), the host work that needs no card: the
+         geometry phase, the geometry artifacts and attention masks the
+         later phases take from the per-process caches, and the small
+         phases' CPU references (the build's last ptxas keeps one core
+         busy for minutes).
+  geometry  the native connectivity library (graphcast_tpu_torch/native/
+         geometry_kernels.cc, built with g++ at first use and asked for
+         as "native": a failed build fails the phase) and the numpy
+         backend at 1.0°/mesh-5 and 0.25°/mesh-6: each artifact's build
+         seconds (beside the kernels' build), grid2mesh and the multi-mesh
+         edge lists bit-equal between the two, the number of mesh2grid
+         rows (and grid nodes) that differ, and the backend that "auto"
+         resolves to, which must be native (the later phases' models
+         take "auto").
   k1     the fused edge kernel against its plain-PyTorch twin on the card,
          latent 512, bf16: processor mode, We without e' and e' without We
          on the real mesh-6 multi-mesh edge set, encoder mode on the real
@@ -287,8 +301,8 @@ Phases, each printing one line with its seconds and results:
          K6, K7, K8 and K3).
   gencast_rollout  the ensemble rollout driver (tools/
          bench_gencast_rollout.py) at 1.0°, ROLLOUT_MEMBERS members x
-         ROLLOUT_STEPS 12 h steps after a one-step warm-up: seconds per
-         member-step; checks finite output of the template's shape,
+         GENCAST_ROLLOUT_STEPS 12 h steps after a one-step warm-up: seconds
+         per member-step; checks finite output of the template's shape,
          distinct members, K3 and K6 launched, and a rerun bit-equal with
          torch's deterministic algorithms off.
   bench_train  the train-step drivers (tools/bench_train_025.py at 1.0°
@@ -301,6 +315,39 @@ Phases, each printing one line with its seconds and results:
          peak grouped by the port's allocating line; checks that they sum
          to within MEMDUMP_RTOL of the peak torch.cuda reports for the
          step.
+
+  hidden_layers  zoo.graphcast() (0.25°, 37 levels, mesh-6, latent 512, 16
+         message-passing steps) with HL_DEPTH hidden layers in every MLP,
+         random weights from seed 0, bf16, batch 1: the fused kernels
+         compute one hidden layer, so the model runs the general path
+         (K3 sums, RowGather gathers). (a) Autoregressive(
+         InputsAndResiduals(Bfloat16Cast(GraphCast))).rollout_final over
+         ROLLOUT_STEPS steps of main's ERA5-shaped data, in turns with the
+         same model at hidden_layers=1 (the fused path): s/step of each
+         run, K3 launches and row gathers a step, no fused kernel
+         launched, and each model's peak GB in a run of its own (the other
+         freed), the reruns' final states bit-equal; (b) the AR-1
+         training step in the JAX package's 0.25° form (form B, tools/
+         bench_train_025.py: chunked encoder and decoder, processor remat)
+         at HL_DEPTH and then at 1: the first step's seconds, a rerun from
+         the same parameters bit-equal in the loss and every gradient,
+         s/step (least of HL_TRAIN_STEPS), peak GB, K3 launches and row
+         gathers a step.
+  gencast_hidden_layers  zoo.gencast_1p0deg() with HL_DEPTH hidden layers
+         (the general path at batch 1: K3 twice an evaluation, K6 once a
+         layer an evaluation): one 12 h step of 39 evaluations after a
+         warm-up, s/step, peak GB, launches, finite samples; then a
+         training step (NaN SST) after a warm-up step: s, peak GB, finite
+         losses, changed parameters, K6, K7 and K8 once a layer and K3.
+  hidden_layers_small  on the card against the port on the CPU, with the
+         small phases' noise-floor rule: GraphCast at HL_SMALL_MODEL with
+         each of HL_SMALL_DEPTHS hidden layers (one step, and the AR-1
+         loss with every gradient), GenCast Mini (its transformer cut to
+         HL_MINI_LAYERS) at HL_DEPTH (one evaluation, and the loss with
+         every gradient at σ = HL_MINI_SIGMA on numpy noise), and a
+         DeepGraphNet with each option of HL_GNN_OPTIONS and each
+         activation name (its outputs and every gradient, K3 summing the
+         receivers).
 
 Kernel-vs-twin tolerances (both sides round at the same points and differ
 only in f32 summation order, which flips an occasional bf16 rounding):
@@ -339,11 +386,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import gc
 import json
 import os
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 
@@ -375,19 +424,36 @@ PEAK_FLOPS = 989e12     # H100 SXM, dense bf16 tensor cores
 PEAK_F32 = 67e12        # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3, bytes/s
 DEVICE = "cuda"
-PHASES = ("build", "k1", "k2", "k4", "k5", "wgrad", "k6", "k7k8",
-          "sp_attention", "embed", "embed_bwd", "k3", "main", "small",
+PHASES = ("build", "geometry", "k1", "k2", "k4", "k5", "wgrad", "k6",
+          "k7k8", "sp_attention", "embed", "embed_bwd", "k3", "main", "small",
           "train", "train_forms", "train_small", "gencast", "gencast_small",
           "gencast_train", "gencast_train_small", "ensemble", "ensemble_small",
           "graphcast_batch", "parallel", "forecast", "gencast_0p25",
           "ensemble_0p25_chunked", "triblock", "k1p", "main_pipelined",
           "bench", "train_curve", "gencast_rollout", "bench_train",
-          "memdump")
+          "memdump", "hidden_layers", "gencast_hidden_layers",
+          "hidden_layers_small")
+
+
+_last_log = [""]  # the last phase line, repeated on stderr if a phase fails
 
 
 def _log(phase, t0, **fields):
   parts = " ".join(f"{k}={v}" for k, v in fields.items())
-  print(f"[{phase}] {time.perf_counter() - t0:.1f}s {parts}", flush=True)
+  _last_log[0] = f"[{phase}] {time.perf_counter() - t0:.1f}s {parts}"
+  print(_last_log[0], flush=True)
+
+
+def _failed_phase(tb) -> str:
+  """The outermost phase function on a traceback, else the outermost named
+  function of this script below main and the prelude's threads (a prelude
+  part)."""
+  here = [f.f_code.co_name for f, _ in traceback.walk_tb(tb)
+          if f.f_code.co_filename == __file__]
+  named = [n for n in here
+           if n not in ("<module>", "<lambda>", "main", "run", "wait")]
+  return next((n for n in here if n.startswith("phase_")),
+              named[0] if named else "?")
 
 
 def _errors(got, want):
@@ -584,6 +650,10 @@ def phase_build(torch):
   _log("build", t0, nvcc="ok", card=repr(card))
   for ln in usage:
     print(f"[build] ptxas {ln}", flush=True)
+  units = sorted(build.unit_seconds().items(), key=lambda kv: -kv[1])
+  if units:
+    print("[build] nvcc_s_by_source " + " ".join(
+        f"{name}={s:.1f}" for name, s in units), flush=True)
   return card
 
 
@@ -1530,17 +1600,41 @@ def _noise_floor_checks(torch, phase, card_diag, card_grads, cpu):
   return worst
 
 
-def phase_train_small(torch):
-  import dataclasses
-  from graphcast_tpu_torch.data import synthetic
+def _train_small_preset():
+  """zoo.graphcast_small() with its processor cut to
+  TRAIN_SMALL_MP_STEPS steps (train_small)."""
   from graphcast_tpu_torch.models import zoo
-  t0 = time.perf_counter()
   preset = zoo.graphcast_small()
-  preset = dataclasses.replace(preset, model_config=dataclasses.replace(
+  return dataclasses.replace(preset, model_config=dataclasses.replace(
       preset.model_config, gnn_msg_steps=TRAIN_SMALL_MP_STEPS))
-  inputs, targets, forcings = synthetic.make_example_batch(
+
+
+@functools.lru_cache(maxsize=None)
+def _train_small_references(torch):
+  """train_small's batch (2 target steps, CPU) and its CPU runs, the AR-1
+  loss, per-variable losses and every gradient in f32 and bf16, with
+  their seconds."""
+  from graphcast_tpu_torch.data import synthetic
+  t0 = time.perf_counter()
+  preset = _train_small_preset()
+  data = synthetic.make_example_batch(
       preset.task_config, resolution=preset.model_config.resolution,
       batch=1, num_target_times=2, device="cpu")
+  inputs, targets, forcings = data
+  one = (inputs, targets.isel(time=slice(0, 1)),
+         forcings.isel(time=slice(0, 1)))
+  cpu = {}
+  for bf16 in (False, True):
+    cpu_model, stack = _stack(torch, preset, seed=6, bf16=bf16,
+                              device="cpu")
+    cpu[bf16] = _loss_and_grads(torch, stack, cpu_model, one, "cpu")
+  return data, cpu, time.perf_counter() - t0
+
+
+def phase_train_small(torch):
+  t0 = time.perf_counter()
+  preset = _train_small_preset()
+  (inputs, targets, forcings), cpu, cpu_s = _train_small_references(torch)
 
   def steps(n):
     return (inputs, targets.isel(time=slice(0, n)),
@@ -1552,13 +1646,6 @@ def phase_train_small(torch):
                                              DEVICE)
   torch.cuda.synchronize()
   card_s = time.perf_counter() - t0
-  t1 = time.perf_counter()
-  cpu = {}
-  for bf16 in (False, True):
-    cpu_model, stack = _stack(torch, preset, seed=6, bf16=bf16,
-                              device="cpu")
-    cpu[bf16] = _loss_and_grads(torch, stack, cpu_model, steps(1), "cpu")
-  cpu_s = time.perf_counter() - t1
   worst = _noise_floor_checks(torch, "train_small", card_diag, card_grads,
                               cpu)
 
@@ -2698,11 +2785,35 @@ def _fix_noise_draw(torch, model, sigma, seed):
   model._draw_noise = draw
 
 
+@functools.lru_cache(maxsize=None)
+def _gencast_train_small_references(torch):
+  """gencast_train_small's CPU runs, the loss, per-variable losses and
+  every gradient in f32 and bf16 on fixed σ and numpy noise; the CPU
+  model's parameters; their seconds."""
+  from graphcast_tpu_torch import params
+  t0 = time.perf_counter()
+  preset = _mini_preset()
+  cpu = {}
+  for bf16 in (False, True):
+    cpu_model, stack = _gencast_stack(torch, preset, seed=16, device="cpu")
+    _fix_noise_draw(torch, cpu_model, GENCAST_TRAIN_SMALL_SIGMA, seed=17)
+    data = _gencast_train_data(
+        torch, preset, "cpu", torch.bfloat16 if bf16 else torch.float32)
+    cpu[bf16] = _loss_and_grads(torch, stack, cpu_model, data, "cpu",
+                                generator=torch.Generator())
+  weights = {k: p.detach() for k, p in params.flat_params(cpu_model).items()}
+  return cpu, weights, time.perf_counter() - t0
+
+
 def phase_gencast_train_small(torch):
   from graphcast_tpu_torch import params
   t0 = time.perf_counter()
   preset = _mini_preset()
+  cpu, weights, cpu_s = _gencast_train_small_references(torch)
   card_model, card = _gencast_stack(torch, preset, seed=16)
+  if not all(torch.equal(p.cpu(), weights[k]) for k, p in
+             params.flat_params(card_model).items()):
+    raise AssertionError("CPU and card models differ in their weights")
   _fix_noise_draw(torch, card_model, GENCAST_TRAIN_SMALL_SIGMA, seed=17)
   data = _gencast_train_data(torch, preset, "cpu", torch.bfloat16)
   card_loss, card_diag, card_grads = _loss_and_grads(
@@ -2710,20 +2821,6 @@ def phase_gencast_train_small(torch):
       generator=torch.Generator(device=DEVICE))
   torch.cuda.synchronize()
   card_s = time.perf_counter() - t0
-  t1 = time.perf_counter()
-  cpu = {}
-  for bf16 in (False, True):
-    cpu_model, stack = _gencast_stack(torch, preset, seed=16, device="cpu")
-    if not all(torch.equal(a.cpu(), b) for a, b in zip(
-        params.flat_params(card_model).values(),
-        params.flat_params(cpu_model).values())):
-      raise AssertionError("CPU and card models differ in their weights")
-    _fix_noise_draw(torch, cpu_model, GENCAST_TRAIN_SMALL_SIGMA, seed=17)
-    data = _gencast_train_data(
-        torch, preset, "cpu", torch.bfloat16 if bf16 else torch.float32)
-    cpu[bf16] = _loss_and_grads(torch, stack, cpu_model, data, "cpu",
-                                generator=torch.Generator())
-  cpu_s = time.perf_counter() - t1
   worst = _noise_floor_checks(
       torch, "gencast_train_small", {"loss": card_loss, **card_diag},
       card_grads, {k: (None, {"loss": v[0], **v[1]}, v[2])
@@ -3549,6 +3646,32 @@ def _gencast_0p25_check_preset():
               num_layers=GENCAST_0P25_CHECK_LAYERS)))
 
 
+@functools.lru_cache(maxsize=None)
+def _gencast_0p25_check_references(torch):
+  """gencast_0p25's card-vs-CPU check on the CPU: (the check preset, its
+  model on the CPU, (inputs, noisy targets at σ = 1, the level,
+  forcings), {bf16: one preconditioned evaluation}, seconds). One model:
+  its graph and attention mask are built once, here, and the phase then
+  moves the same module to the card."""
+  from graphcast_tpu_torch.data import synthetic
+  t0 = time.perf_counter()
+  check = _gencast_0p25_check_preset()
+  inputs, targets, forcings = synthetic.make_example_batch(
+      check.task_config, resolution=check.resolution, batch=1,
+      num_target_times=1, time_step_hours=12, device="cpu")
+  model, _ = _gencast_stack(torch, check, seed=MINI_SEED, device="cpu")
+  rng = np.random.RandomState(13)
+  sigma = 1.0
+  noisy = targets.map_data(lambda x: x + sigma * torch.from_numpy(
+      rng.randn(*x.shape).astype(np.float32)))
+  level = torch.tensor([sigma])
+  outs = {bf16: _denoise(torch, model, inputs, noisy, level, forcings,
+                         torch.bfloat16 if bf16 else torch.float32, "cpu")
+          for bf16 in (False, True)}
+  return (check, model, (inputs, noisy, level, forcings), outs,
+          time.perf_counter() - t0)
+
+
 def phase_gencast_0p25(torch, results, profile_dir=None):
   """One 12 h step of zoo.gencast_0p25deg() (module doc)."""
   from graphcast_tpu_torch.examples.graphcast_demo import (
@@ -3605,31 +3728,16 @@ def phase_gencast_0p25(torch, results, profile_dir=None):
   torch.cuda.empty_cache()
 
   # The card against the CPU on the same weights, one preconditioned
-  # denoiser evaluation per noise level, at a lower resolution.
+  # denoiser evaluation, at a lower resolution.
   t3 = time.perf_counter()
-  from graphcast_tpu_torch.data import synthetic
-  check = _gencast_0p25_check_preset()
-  inputs, targets, forcings = synthetic.make_example_batch(
-      check.task_config, resolution=check.resolution, batch=1,
-      num_target_times=1, time_step_hours=12, device="cpu")
-  # One model: its graph and attention mask are built once, on the CPU
-  # run, and the same module then moves to the card.
-  model, _ = _gencast_stack(torch, check, seed=MINI_SEED, device="cpu")
-  rng = np.random.RandomState(13)
-  sigma = 1.0
-  noisy = targets.map_data(lambda x: x + sigma * torch.from_numpy(
-      rng.randn(*x.shape).astype(np.float32)))
-  level = torch.tensor([sigma])
-  outs = {bf16: _denoise(torch, model, inputs, noisy, level, forcings,
-                         torch.bfloat16 if bf16 else torch.float32, "cpu")
-          for bf16 in (False, True)}
+  check, model, (inputs, noisy, level, forcings), outs, cpu_s = (
+      _gencast_0p25_check_references(torch))
   out_card = _denoise(torch, model.to(DEVICE), inputs, noisy, level,
                       forcings, torch.bfloat16, DEVICE)
   worst = _check_noise_floor(
-      torch, f"gencast_0p25 check sigma={sigma}",
-      {n: out_card.data(n) for n in targets.var_names}, outs,
-      targets.var_names)
-  check_s = time.perf_counter() - t3
+      torch, f"gencast_0p25 check sigma={float(level[0])}",
+      {n: out_card.data(n) for n in noisy.var_names}, outs, noisy.var_names)
+  check_s = time.perf_counter() - t3 + cpu_s
   _log("gencast_0p25", t0, config=_gencast_label(preset),
        steps=GENCAST_0P25_STEPS, setup_s=f"{setup_s:.1f}",
        warmup_evaluation_s=f"{warm_s:.2f}",
@@ -3641,6 +3749,7 @@ def phase_gencast_0p25(torch, results, profile_dir=None):
        check=_gencast_label(check), check_s=f"{check_s:.1f}",
        check_worst_err_over_bound=f"{worst:.3f}", finite=True)
   del model
+  _gencast_0p25_check_references.cache_clear()  # its model is on the card
   torch.cuda.empty_cache()
 
 
@@ -3936,12 +4045,12 @@ def _triblock_run(torch, block, cfg, x, cot, masks, n, pad, size):
   return out.detach(), dict(zip(leaves, grads))
 
 
-def phase_triblock(torch, results):
-  """triblockdiag_mha at the GenCast 1.0° shape, card against CPU, and the
-  ensemble's CRPS card against CPU (module doc)."""
-  from graphcast_tpu_torch import evaluation
+@functools.lru_cache(maxsize=None)
+def _triblock_case(torch):
+  """triblock's CPU side: the block (seeded weights), its config, inputs,
+  cotangent and masks, and the CPU output and gradients with their
+  seconds."""
   from graphcast_tpu_torch.models import sparse_transformer as st
-  t0 = time.perf_counter()
   mask = _k_hop_block_map(5)[0]
   size = st.get_mask_block_size(mask)
   host_masks, pad = st.build_triblock_masks(mask, size)
@@ -3962,7 +4071,21 @@ def phase_triblock(torch, results):
   want, want_grads = _triblock_run(torch, block, cfg, x, cot,
                                    torch.from_numpy(host_masks), n, pad,
                                    size)
-  cpu_s = time.perf_counter() - t1
+  return dict(block=block, cfg=cfg, x=x, cot=cot, host_masks=host_masks,
+              n=n, pad=pad, size=size, want=want, want_grads=want_grads,
+              cpu_s=time.perf_counter() - t1)
+
+
+def phase_triblock(torch, results):
+  """triblockdiag_mha at the GenCast 1.0° shape, card against CPU, and the
+  ensemble's CRPS card against CPU (module doc)."""
+  from graphcast_tpu_torch import evaluation
+  t0 = time.perf_counter()
+  case = _triblock_case(torch)
+  block, cfg, x, cot, host_masks, n, pad, size = (case[k] for k in (
+      "block", "cfg", "x", "cot", "host_masks", "n", "pad", "size"))
+  want, want_grads, cpu_s = (case[k] for k in ("want", "want_grads",
+                                                "cpu_s"))
   block.to(DEVICE)
   args = (cfg, x.to(DEVICE), cot.to(DEVICE),
           torch.from_numpy(host_masks).to(DEVICE), n, pad, size)
@@ -3982,7 +4105,8 @@ def phase_triblock(torch, results):
       raise AssertionError(f"triblock {name}: card vs CPU max-abs {err:.3g}"
                            f" of the max (tol {TRIBLOCK_ATOL})")
     worst = max(worst, err)
-  del block, transformer, args, got, got_grads
+  del case, block, args, got, got_grads
+  _triblock_case.cache_clear()  # its block is on the card
   torch.cuda.empty_cache()
 
   # The ensemble's members scored on the card and on the CPU.
@@ -4209,7 +4333,7 @@ CURVE_STEPS = 30          # GraphCast steps of the train_curve phase
 CURVE_GENCAST_STEPS = 10  # its GenCast 1.0° steps
 CURVE_WINDOW = 5          # steps in its first and last loss windows
 ROLLOUT_MEMBERS = 2       # the gencast_rollout phase's members
-ROLLOUT_STEPS = 3         # and its 12 h steps
+GENCAST_ROLLOUT_STEPS = 3  # and its 12 h steps
 MEMDUMP_RTOL = 0.1        # memdump: listed blocks vs the measured peak
 CURVE_KERNELS = {
     "graphcast": ("fused_edge", "fused_edge_bwd", "weight_grad",
@@ -4278,8 +4402,8 @@ def phase_gencast_rollout(torch, results):
   from graphcast_tpu_torch.rollout import tile_batch
   from graphcast_tpu_torch.tools import bench_gencast_rollout as tool
   t0 = time.perf_counter()
-  predictor, inputs, targets, forcings = tool.build(1.0, 5, ROLLOUT_STEPS,
-                                                    DEVICE)
+  predictor, inputs, targets, forcings = tool.build(
+      1.0, 5, GENCAST_ROLLOUT_STEPS, DEVICE)
   tool.rollout(predictor, inputs, targets.isel(time=slice(0, 1)),
                forcings.isel(time=slice(0, 1)), ROLLOUT_MEMBERS, 0)
   _reset_counters()
@@ -4298,9 +4422,11 @@ def phase_gencast_rollout(torch, results):
   t = preds.data("temperature")
   if torch.equal(t[0], t[1]):
     raise AssertionError("gencast_rollout: the members are equal")
-  _log("gencast_rollout", t0, members=ROLLOUT_MEMBERS, steps=ROLLOUT_STEPS,
+  _log("gencast_rollout", t0, members=ROLLOUT_MEMBERS,
+       steps=GENCAST_ROLLOUT_STEPS,
        rollout_s=f"{seconds:.3f}",
-       s_per_member_step=f"{seconds / ROLLOUT_MEMBERS / ROLLOUT_STEPS:.4f}",
+       s_per_member_step=(
+           f"{seconds / ROLLOUT_MEMBERS / GENCAST_ROLLOUT_STEPS:.4f}"),
        final_mean_t=f"{tool.final_mean(preds):.6g}", rerun="bit-equal",
        members_differ=True, finite=True)
   del predictor, preds, again
@@ -4353,6 +4479,669 @@ def phase_memdump(torch, results):
   torch.cuda.empty_cache()
 
 
+# ----- the native geometry and hidden_layers > 1 (GraphCast and GenCast) --
+
+GEOMETRY_CASES = ((1.0, 5), (0.25, 6))  # the geometry phase's grid, mesh
+HL_DEPTH = 2                # the hidden_layers phases' MLP hidden layers
+HL_TRAIN_STEPS = 2          # timed form-B train steps of hidden_layers
+HL_GENCAST_STEPS = 1        # timed 12 h steps of gencast_hidden_layers
+HL_SMALL_DEPTHS = (2, 3)    # hidden_layers_small's GraphCast depths
+HL_SMALL_SEED = 21
+HL_SMALL_MODEL = dict(resolution=5.0, mesh_size=3, latent_size=128,
+                      gnn_msg_steps=4)
+HL_SMALL_TASK = dict(
+    input_variables=("2m_temperature", "temperature",
+                     "toa_incident_solar_radiation", "land_sea_mask"),
+    target_variables=("2m_temperature", "temperature"),
+    forcing_variables=("toa_incident_solar_radiation",),
+    pressure_levels=(500, 850), input_duration="12h")
+HL_MINI_LAYERS = 1          # GenCast Mini's transformer depth there
+HL_MINI_SIGMA = 1.0
+# The DeepGraphNet options of hidden_layers_small (graphcast_tpu nn/
+# deep_gnn.py:28-71), each beside the defaults of HL_GNN_BASE; then every
+# activation name of nn/core.py ACTIVATIONS.
+HL_GNN_NODES = {"a": 600, "b": 900}
+HL_GNN_EDGE_SETS = {"ab": ("a", "b"), "ba": ("b", "a"), "bb": ("b", "b")}
+HL_GNN_BASE = dict(mlp_hidden_size=64, mlp_num_hidden_layers=1,
+                   num_message_passing_steps=2, node_output_size={"b": 3})
+HL_GNN_OPTIONS = {
+    "num_processor_repetitions": dict(num_processor_repetitions=2),
+    "embed_edges_false": dict(embed_edges=False),
+    "embed_nodes_false": dict(embed_nodes=False),
+    "edge_output_size": dict(edge_output_size={"ab": 3, "bb": 5}),
+    "include_sent_messages": dict(include_sent_messages_in_node_update=True),
+    "use_layer_norm_false": dict(use_layer_norm=False),
+    "factored_edge_updates_false": dict(factored_edge_updates=False),
+    "norm_conditioning": dict(norm_conditioning_size=4),
+    "mlp_num_hidden_layers_2": dict(mlp_num_hidden_layers=2),
+    "mlp_num_hidden_layers_3": dict(mlp_num_hidden_layers=3),
+    "remat_steps": dict(remat_steps=True, num_message_passing_steps=4),
+}
+HL_GNN_C = 64
+
+
+def phase_geometry(torch):
+  """Both connectivity backends at GEOMETRY_CASES (module doc), each
+  artifact built afresh."""
+  from graphcast_tpu_torch.data import synthetic
+  from graphcast_tpu_torch.geometry import artifact as artifact_lib
+  from graphcast_tpu_torch.geometry import connectivity
+  from graphcast_tpu_torch.native import geometry as native
+  t0 = time.perf_counter()
+  native.load_library()  # "native" is asked for: a failed build fails here
+  library_s = time.perf_counter() - t0
+  auto = connectivity.resolve_backend("auto")
+  if auto != "native":
+    raise AssertionError(f"geometry: 'auto' resolved to {auto!r}")
+  for resolution, mesh_size in GEOMETRY_CASES:
+    lat, lon = synthetic.grid_coords(resolution)
+    t1 = time.perf_counter()
+    by_numpy = artifact_lib.build_artifact(lat, lon, mesh_size, cache_dir="",
+                                           backend="numpy")
+    numpy_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    by_native = artifact_lib.build_artifact(lat, lon, mesh_size, cache_dir="",
+                                            backend="native")
+    native_s = time.perf_counter() - t1
+    for name in ("grid2mesh", "mesh"):
+      for field in ("senders", "receivers", "features"):
+        a = getattr(getattr(by_numpy, name), field)
+        b = getattr(getattr(by_native, name), field)
+        if not np.array_equal(a, b):
+          raise AssertionError(f"geometry {resolution}deg: {name}.{field} "
+                               "differs between the backends")
+    m2g_np, m2g_nat = by_numpy.mesh2grid, by_native.mesh2grid
+    if not np.array_equal(m2g_np.receivers, m2g_nat.receivers):
+      raise AssertionError("geometry: mesh2grid receivers differ")
+    differ = m2g_np.senders != m2g_nat.senders
+    _log("geometry", t0, grid=f"{resolution}deg", mesh=mesh_size,
+         grid_nodes=by_native.num_grid_nodes,
+         mesh_nodes=by_native.num_mesh_nodes,
+         g2m_edges=by_native.grid2mesh.senders.size,
+         mesh_edges=by_native.mesh.senders.size,
+         m2g_edges=m2g_nat.senders.size, numpy_build_s=f"{numpy_s:.2f}",
+         native_build_s=f"{native_s:.2f}",
+         g2m_and_mesh_edges="bit-equal",
+         m2g_rows_differ=int(differ.sum()),
+         m2g_grid_nodes_differ=int(differ.reshape(-1, 3).any(1).sum()))
+    del by_numpy, by_native
+  _log("geometry", t0, library_build_s=f"{library_s:.2f}",
+       auto_backend=auto, library=str(native.SOURCE.name))
+
+
+def _host_prelude(torch, phases):
+  """Host work that needs no card, run beside the kernels' build (whose
+  last ptxas runs for minutes on one core) in two threads, each part
+  timed: one for the geometry phase and the artifacts, attention masks and
+  block maps that later phases take from the per-process caches (and the
+  CPU sides that read them), one for the small phases' CPU references
+  (each builds its own graphs). Returns a function that waits for both,
+  prints when each part ended, and raises what they raised."""
+  import threading
+  selected = set(phases)
+  geometry, references = [], []
+  if "geometry" in selected:
+    geometry.append(("geometry", lambda: phase_geometry(torch)))
+  if selected & {"k1", "k2", "k4", "k5", "embed", "embed_bwd", "k3", "main",
+                 "k1p", "train", "train_forms", "forecast", "hidden_layers"}:
+    geometry.append(("graphcast_0p25", lambda: _geometry(0.25, 6)))
+  if selected & {"gencast", "gencast_train", "ensemble", "parallel",
+                  "triblock", "bench", "train_curve", "gencast_rollout",
+                  "bench_train", "gencast_hidden_layers"}:
+    geometry.append(("gencast_1p0", lambda: _gencast_geometry(1.0, 5)))
+  if selected & {"gencast_0p25", "ensemble_0p25_chunked"}:
+    geometry.append(("gencast_0p25", lambda: _gencast_geometry(0.25, 6)))
+  if "gencast_0p25" in selected:
+    geometry.append(("gencast_0p25_check",
+                     lambda: _gencast_0p25_check_references(torch)))
+  for mesh_size in (5, 6):
+    if selected & {"k6", "k7k8", "sp_attention", "triblock"}:
+      geometry.append((f"block_map_{mesh_size}",
+                       functools.partial(_k_hop_block_map, mesh_size)))
+  if "triblock" in selected:
+    geometry.append(("triblock", lambda: _triblock_case(torch)))
+  if "hidden_layers_small" in selected:
+    references.append(("hidden_layers_small",
+                       lambda: _hl_small_references(torch)))
+  if selected & {"small", "graphcast_batch"}:
+    references.append(("small", lambda: _small_references(torch)))
+  if "train_small" in selected:
+    references.append(("train_small",
+                       lambda: _train_small_references(torch)))
+  if selected & {"gencast_small", "ensemble_small"}:
+    references.append(("gencast_small", lambda: _mini_references(torch)))
+  if "gencast_train_small" in selected:
+    references.append(("gencast_train_small",
+                       lambda: _gencast_train_small_references(torch)))
+  errors, ended = [], {}
+  t0 = time.perf_counter()
+
+  def run(work):
+    torch.set_num_threads(num_threads)
+    try:
+      for name, fn in work:
+        fn()
+        ended[name] = time.perf_counter() - t0
+    except BaseException as e:  # noqa: BLE001  (re-raised by wait)
+      errors.append(e)
+
+  threads = torch.get_num_threads()
+  num_threads = max(1, min(threads, (os.cpu_count() or 2) - 1))
+  torch.set_num_threads(num_threads)  # a core stays with the compiler
+  workers = [threading.Thread(target=run, args=(work,),
+                              name=f"prelude_{name}", daemon=True)
+             for name, work in (("geometry", geometry),
+                                ("references", references))]
+  for w in workers:
+    w.start()
+
+  def wait():
+    for w in workers:
+      w.join()
+    torch.set_num_threads(threads)
+    _log("prelude", t0, beside_build=True,
+         parts=len(geometry) + len(references),
+         ended_s=",".join(f"{k}:{v:.1f}" for k, v in ended.items()))
+    if errors:
+      raise errors[0]
+
+  return wait
+
+
+def _gencast_geometry(resolution, mesh_size):
+  """GenCast's banded artifact and its k-hop-16 splash mask, built into the
+  per-process caches its models read (geometry/artifact.py
+  cached_artifact, sparse_transformer.prepared_mask)."""
+  from graphcast_tpu_torch.models import sparse_transformer, transformer
+  art = _gencast_artifact(resolution, mesh_size)
+  sparse_transformer.prepared_mask(transformer.adjacency_from_edges(
+      art.mesh.senders, art.mesh.receivers, art.num_mesh_nodes), 16,
+                                   "splash_mha")
+
+
+def _with_hidden_layers(preset, hidden_layers):
+  """A GraphCast preset with its MLPs at ``hidden_layers``."""
+  return dataclasses.replace(preset, model_config=dataclasses.replace(
+      preset.model_config, hidden_layers=hidden_layers))
+
+
+class _GatherCount:
+  """Counts the ops.gather.RowGather calls (the general and chunked paths'
+  row gathers; their backward sums are K3 launches) while active."""
+
+  def __enter__(self):
+    from graphcast_tpu_torch.ops import gather
+    self.cls, self.call, self.n = gather.RowGather, gather.RowGather.__call__, 0
+
+    def counted(g, table):
+      self.n += 1
+      return self.call(g, table)
+
+    self.cls.__call__ = counted
+    return self
+
+  def __exit__(self, *exc):
+    self.cls.__call__ = self.call
+
+
+_FUSED_KERNELS = ("fused_edge", "fused_decoder", "fused_edge_bwd",
+                  "fused_decoder_bwd", "weight_grad", "segment_sum_sender")
+
+
+def phase_hidden_layers(torch, results):
+  """zoo.graphcast() at hidden_layers=HL_DEPTH against 1 (module doc)."""
+  from graphcast_tpu_torch.models import zoo
+  from graphcast_tpu_torch.tools import bench_train_025
+  t0 = time.perf_counter()
+  preset = zoo.graphcast()
+  mp = preset.model_config.gnn_msg_steps
+  inputs, targets1, forcings_n = _main_data(torch)
+  predictors, warm = {}, {}
+
+  def alone(hl):
+    """(peak GB, final state) of a rollout by the one predictor alive."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, final = _timed_s(torch, lambda: predictors[hl].rollout_final(
+        inputs, targets1, forcings_n))
+    return torch.cuda.max_memory_allocated() / 1e9, final
+
+  peak = {}
+  for hl in (HL_DEPTH, 1):
+    predictors[hl] = _stack(torch, _with_hidden_layers(preset, hl),
+                            seed=0)[1].to(DEVICE)
+    warm[hl] = _timed_s(torch, lambda: predictors[hl].rollout_final(
+        inputs, targets1, forcings_n.isel(time=slice(0, 1))))[0]
+    if hl == HL_DEPTH:
+      peak[hl], first = alone(hl)
+  _check_fieldset(torch, "hidden_layers", first, inputs.select(
+      first.var_names))
+  runs = {HL_DEPTH: [], 1: []}
+  for hl in (HL_DEPTH, 1, 1, HL_DEPTH):  # in turns, both alive
+    _reset_counters()
+    with _GatherCount() as gathers:
+      seconds, final = _timed_s(torch, lambda: predictors[hl].rollout_final(
+          inputs, targets1, forcings_n))
+    runs[hl].append(dict(s=seconds / ROLLOUT_STEPS, counts=_launches(),
+                         gathers=gathers.n))
+    differ = [n for n in first.var_names if hl == HL_DEPTH
+              and not torch.equal(first.data(n), final.data(n))]
+    if differ:
+      raise AssertionError(f"hidden_layers: a rerun of the rollout differs "
+                           f"in {differ}")
+    del final
+  del predictors[HL_DEPTH], first
+  peak[1] = alone(1)[0]
+  deep, one = runs[HL_DEPTH], runs[1]
+  k3 = deep[0]["counts"]["segment_sum"]
+  if (k3 != (2 + mp) * ROLLOUT_STEPS
+      or any(deep[0]["counts"][k] for k in _FUSED_KERNELS)
+      or not one[0]["counts"]["fused_edge"]
+      or one[0]["counts"]["segment_sum"]):
+    raise AssertionError(f"hidden_layers rollout launches: hidden_layers="
+                         f"{HL_DEPTH} {deep[0]['counts']}, 1 "
+                         f"{one[0]['counts']}")
+  _path_launches("hidden_layers", results, deep[0]["counts"],
+                 ("segment_sum",), "hidden_layers_rollout")
+  _log("hidden_layers", t0, config=_label(_with_hidden_layers(
+      preset, HL_DEPTH)), hidden_layers=HL_DEPTH, steps=ROLLOUT_STEPS,
+       warmup_1step_s=f"{warm[HL_DEPTH]:.2f}",
+       s_per_step="[" + ",".join(f"{r['s']:.4f}" for r in deep) + "]",
+       s_per_step_hidden_layers_1="[" + ",".join(
+           f"{r['s']:.4f}" for r in one) + "]",
+       peak_mem_gb=f"{peak[HL_DEPTH]:.2f}",
+       peak_mem_gb_hidden_layers_1=f"{peak[1]:.2f}",
+       k3_per_step=k3 // ROLLOUT_STEPS,
+       row_gathers_per_step=deep[0]["gathers"] // ROLLOUT_STEPS,
+       k1_per_step_hidden_layers_1=one[0]["counts"]["fused_edge"]
+       // ROLLOUT_STEPS, reruns="bit-equal", finite=True)
+  del predictors, runs, deep, one, inputs, targets1, forcings_n
+
+  # The AR-1 training step in the JAX package's 0.25° form (form B), on
+  # one ERA5-shaped batch made on the card (data/era5.py) for both models.
+  from graphcast_tpu_torch.examples.graphcast_demo import (
+      era5_inputs_targets_forcings)
+  cfg = bench_train_025.training_config(resolution=0.25)
+  batch = tuple(fs.astype(torch.bfloat16) for fs in
+                era5_inputs_targets_forcings(cfg["task"], cfg["resolution"],
+                                             1, 6, seed=0, device=DEVICE))
+  train = {}
+  for hl in (HL_DEPTH, 1):
+    gc.collect()  # the models before it are freed
+    torch.cuda.empty_cache()
+    # What stays resident from earlier phases (main's cached data among
+    # them) counts in the peak; it is printed beside it.
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    t1 = time.perf_counter()
+    model, step, batch = bench_train_025.build_step(
+        cfg, 1, torch.device(DEVICE), hidden_layers=hl, batch=batch)
+    start = [p.detach().to("cpu", copy=True) for p in model.parameters()]
+
+    def grads():
+      return [p.grad.detach().to("cpu", copy=True) for p in
+              model.parameters() if p.grad is not None]
+
+    first_s, (loss_a, _) = _timed_s(torch, lambda: step(*batch))
+    grads_a = grads()
+    with torch.no_grad():  # the same parameters again: a rerun
+      for p, s in zip(model.parameters(), start):
+        p.copy_(s)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    with _GatherCount() as gathers:
+      seconds, (loss_b, _) = _timed_s(torch, lambda: step(*batch))
+    counts = _launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    grads_b = grads()
+    if not (torch.equal(loss_a, loss_b) and len(grads_a) == len(grads_b)
+            and all(torch.equal(a, b) for a, b in zip(grads_a, grads_b))):
+      raise AssertionError(f"hidden_layers train (hidden_layers={hl}): the "
+                           "rerun's loss or gradients differ")
+    times = [seconds]
+    for _ in range(HL_TRAIN_STEPS - 1):
+      times.append(_timed_s(torch, lambda: step(*batch))[0])
+    if not np.isfinite(float(loss_a)):
+      raise AssertionError(f"hidden_layers train: loss {float(loss_a)}")
+    train[hl] = dict(first_s=first_s, s=min(times), peak_gb=peak_gb,
+                     resident_gb=resident_gb,
+                     counts=counts, gathers=gathers.n, loss=float(loss_a),
+                     build_s=time.perf_counter() - t1)
+    del model, step, start, grads_a, grads_b
+  del batch
+  gc.collect()
+  torch.cuda.empty_cache()
+  deep, one = train[HL_DEPTH], train[1]
+  if (not deep["counts"]["segment_sum"]
+      or any(deep["counts"][k] for k in _FUSED_KERNELS)
+      or not one["counts"]["fused_edge_bwd"]):
+    raise AssertionError(f"hidden_layers train launches: {deep['counts']}, "
+                         f"hidden_layers=1 {one['counts']}")
+  _path_launches("hidden_layers", results, deep["counts"], ("segment_sum",),
+                 "hidden_layers_train")
+  _log("hidden_layers", t0, train_form=json.dumps(
+      {k: str(v) for k, v in cfg.items() if k != "task"},
+      sort_keys=True).replace(" ", ""), ar_steps=1,
+       first_step_s=f"{deep['first_s']:.2f}", s_per_step=f"{deep['s']:.4f}",
+       peak_mem_gb=f"{deep['peak_gb']:.2f}",
+       resident_before_gb=f"{deep['resident_gb']:.2f}",
+       loss=f"{deep['loss']:.6g}",
+       k3_per_step=deep["counts"]["segment_sum"],
+       row_gathers_per_step=deep["gathers"],
+       s_per_step_hidden_layers_1=f"{one['s']:.4f}",
+       peak_mem_gb_hidden_layers_1=f"{one['peak_gb']:.2f}",
+       resident_before_gb_hidden_layers_1=f"{one['resident_gb']:.2f}",
+       k3_per_step_hidden_layers_1=one["counts"]["segment_sum"],
+       k4_per_step_hidden_layers_1=one["counts"]["fused_edge_bwd"],
+       rerun="bit-equal (loss, every gradient)")
+
+
+def _gencast_hidden_layers_preset(preset, hidden_layers, layers=None):
+  """A GenCast preset with its MLPs at ``hidden_layers`` (and, given
+  ``layers``, its transformer cut to that depth)."""
+  arch = preset.denoiser_architecture_config
+  st = arch.sparse_transformer_config
+  if layers is not None:
+    st = dataclasses.replace(st, num_layers=layers)
+  return dataclasses.replace(preset, denoiser_architecture_config=(
+      dataclasses.replace(arch, hidden_layers=hidden_layers,
+                          sparse_transformer_config=st)))
+
+
+def phase_gencast_hidden_layers(torch, results):
+  """zoo.gencast_1p0deg() at hidden_layers=HL_DEPTH (module doc)."""
+  from graphcast_tpu_torch import train
+  from graphcast_tpu_torch.models import zoo
+  t0 = time.perf_counter()
+  preset = _gencast_hidden_layers_preset(zoo.gencast_1p0deg(), HL_DEPTH)
+  model, stack = _gencast_stack(torch, preset, seed=0)
+  data = _gencast_train_data(torch, preset, DEVICE, torch.bfloat16)
+  inputs, targets, forcings = (fs.map_data(torch.nan_to_num)
+                               for fs in data)
+
+  def sample(seed):
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    with torch.inference_mode():
+      return stack(inputs, targets, forcings, generator=gen)
+
+  warm_s, _ = _timed_s(torch, lambda: sample(100))
+  torch.cuda.reset_peak_memory_stats()
+  _reset_counters()
+  steps_s, samples = _timed_s(torch, lambda: [
+      sample(1 + i) for i in range(HL_GENCAST_STEPS)])
+  counts = _launches()
+  peak_gb = torch.cuda.max_memory_allocated() / 1e9
+  for s in samples:
+    _check_fieldset(torch, "gencast_hidden_layers", s, targets)
+  evals = 2 * preset.sampler_config.num_noise_levels - 1
+  layers = preset.denoiser_architecture_config.sparse_transformer_config
+  want = {"splash_fwd": evals * layers.num_layers, "segment_sum": 2 * evals}
+  if (any(counts[k] != n * HL_GENCAST_STEPS for k, n in want.items())
+      or any(counts[k] for k in _FUSED_KERNELS)):
+    raise AssertionError(f"gencast_hidden_layers launches {counts}, expected "
+                         f"{want} a step and no fused kernel")
+  _path_launches("gencast_hidden_layers", results, counts,
+                 ("splash_fwd", "segment_sum"), "gencast_hidden_layers")
+
+  # One training step, NaN SST in the batch, after a warm-up step.
+  step = train.make_train_step(
+      stack, train.graphcast_optimizer(model.parameters(), peak_lr=1e-3))
+  gen = torch.Generator(device=DEVICE).manual_seed(5)
+  before = [p.detach().to("cpu", copy=True) for p in model.parameters()]
+  train_warm_s, (loss0, _) = _timed_s(torch, lambda: step(
+      *data, generator=gen))
+  torch.cuda.reset_peak_memory_stats()
+  _reset_counters()
+  train_s, (loss1, _) = _timed_s(torch, lambda: step(*data, generator=gen))
+  tcounts = _launches()
+  train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+  losses = [float(loss0), float(loss1)]
+  if not all(np.isfinite(losses)):
+    raise AssertionError(f"gencast_hidden_layers: training losses {losses}")
+  if all(torch.equal(a, p.detach().cpu())
+         for a, p in zip(before, model.parameters())):
+    raise AssertionError("gencast_hidden_layers: no parameter changed")
+  want = {k: layers.num_layers for k in ("splash_fwd", "splash_dq",
+                                         "splash_dkv")}
+  if (any(tcounts[k] != n for k, n in want.items())
+      or not tcounts["segment_sum"]
+      or any(tcounts[k] for k in _FUSED_KERNELS)):
+    raise AssertionError(f"gencast_hidden_layers train launches {tcounts}")
+  _path_launches("gencast_hidden_layers", results, tcounts,
+                 ("splash_fwd", "splash_dq", "splash_dkv", "segment_sum"),
+                 "gencast_hidden_layers_train")
+  _log("gencast_hidden_layers", t0, config=_gencast_label(preset),
+       hidden_layers=HL_DEPTH, steps=HL_GENCAST_STEPS,
+       warmup_step_s=f"{warm_s:.2f}",
+       s_per_12h_step=f"{steps_s / HL_GENCAST_STEPS:.4f}",
+       peak_mem_gb=f"{peak_gb:.2f}",
+       k6_per_step=counts["splash_fwd"] // HL_GENCAST_STEPS,
+       k3_per_step=counts["segment_sum"] // HL_GENCAST_STEPS,
+       train_warmup_s=f"{train_warm_s:.2f}", train_s=f"{train_s:.4f}",
+       train_peak_mem_gb=f"{train_peak_gb:.2f}",
+       train_losses="[" + ",".join(f"{v:.6g}" for v in losses) + "]",
+       train_k6_k7_k8=f"{tcounts['splash_fwd']},{tcounts['splash_dq']},"
+       f"{tcounts['splash_dkv']}", train_k3=tcounts["segment_sum"],
+       finite=True, params_changed=True)
+  del model, stack, step, samples, before
+  torch.cuda.empty_cache()
+
+
+def _hl_small_preset(hidden_layers):
+  from graphcast_tpu_torch.models import configs, zoo
+  return zoo.GraphCastPreset(
+      name=f"GraphCast tiny hidden_layers={hidden_layers}",
+      model_config=configs.ModelConfig(hidden_layers=hidden_layers,
+                                       **HL_SMALL_MODEL),
+      task_config=configs.TaskConfig(**HL_SMALL_TASK))
+
+
+def _hl_mini_preset():
+  from graphcast_tpu_torch.models import zoo
+  return _gencast_hidden_layers_preset(zoo.gencast_mini(), HL_DEPTH,
+                                       HL_MINI_LAYERS)
+
+
+def _gnn_graph(torch, device, dtype, edge_width, node_width):
+  """hidden_layers_small's typed graph (two node sets, three edge sets,
+  one within a set; batch 2), its K3 aggregators and a conditioning,
+  from numpy seeds, on ``device`` in ``dtype``."""
+  import functools as ft
+  from graphcast_tpu_torch.nn import typed_graph as tg
+  from graphcast_tpu_torch.ops.fused_edge import EdgeIndex
+  from graphcast_tpu_torch.ops.segment_sum import sorted_segment_sum
+  rng = np.random.RandomState(HL_SMALL_SEED)
+  nodes, edges, aggregators = {}, {}, {}
+  for name, count in HL_GNN_NODES.items():
+    nodes[name] = tg.NodeSet(count, torch.from_numpy(rng.randn(
+        count, 2, node_width).astype(np.float32)).to(device, dtype))
+  for name, (s, r) in HL_GNN_EDGE_SETS.items():
+    n = 4 * HL_GNN_NODES[r]
+    senders = rng.randint(0, HL_GNN_NODES[s], n)
+    receivers = rng.randint(0, HL_GNN_NODES[r], n)
+    order = np.lexsort((senders, receivers))
+    senders, receivers = senders[order], receivers[order]
+    index = EdgeIndex(senders, receivers, HL_GNN_NODES[s], HL_GNN_NODES[r],
+                      device=device)
+    aggregators[name] = ft.partial(sorted_segment_sum, index)
+    edges[tg.EdgeSetKey(name, (s, r))] = tg.EdgeSet(
+        tg.EdgesIndices(torch.as_tensor(senders, device=device),
+                        torch.as_tensor(receivers, device=device)),
+        torch.from_numpy(rng.randn(n, 2, edge_width).astype(
+            np.float32)).to(device, dtype))
+  cond = torch.from_numpy(rng.randn(2, 4).astype(np.float32)).to(device,
+                                                                 dtype)
+  graph = tg.TypedGraph(context=tg.Context(features=()), nodes=nodes,
+                        edges=edges)
+  return graph, aggregators, cond
+
+
+def _gnn_run(torch, options, device, dtype):
+  """{name: tensor} of one DeepGraphNet (HL_GNN_BASE with ``options``):
+  its output features and every parameter gradient of a fixed projection
+  of them, f32 on the CPU."""
+  from graphcast_tpu_torch.nn import core, deep_gnn
+  cfg = dict(HL_GNN_BASE, **options)
+  c = HL_GNN_C
+  edge_width = 4 if cfg.get("embed_edges", True) else c
+  node_width = 5 if cfg.get("embed_nodes", True) else c
+  graph, aggregators, cond = _gnn_graph(torch, device, dtype, edge_width,
+                                        node_width)
+  net = deep_gnn.DeepGraphNet(
+      node_latent_size={n: c for n in HL_GNN_NODES},
+      edge_latent_size={n: c for n in HL_GNN_EDGE_SETS},
+      node_input_size={n: node_width for n in HL_GNN_NODES},
+      edge_input_size={n: edge_width for n in HL_GNN_EDGE_SETS},
+      edge_sets=HL_GNN_EDGE_SETS, **cfg)
+  core.reset_parameters(net, torch.Generator().manual_seed(HL_SMALL_SEED))
+  net = net.to(device)
+  out = net(graph, cond=cond if cfg.get("norm_conditioning_size") else None,
+            edge_aggregators=aggregators)
+  feats = {f"node {n}": ns.features for n, ns in out.nodes.items()}
+  feats.update({f"edge {k.name}": es.features for k, es in out.edges.items()})
+  rng = np.random.RandomState(HL_SMALL_SEED + 1)
+  total = sum((f.float() * torch.from_numpy(rng.randn(*f.shape).astype(
+      np.float32)).to(device)).sum() for _, f in sorted(feats.items()))
+  total.backward()
+  result = {k: f.detach().float().cpu() for k, f in feats.items()}
+  result.update({f"grad {k}": (torch.zeros(p.shape) if p.grad is None
+                               else p.grad.detach().float().cpu())
+                 for k, p in net.named_parameters()})
+  return result
+
+
+def _gnn_cases():
+  from graphcast_tpu_torch.nn import core
+  cases = dict(HL_GNN_OPTIONS)
+  cases.update({f"activation_{a}": dict(activation=a)
+                for a in sorted(core.ACTIVATIONS)})
+  return cases
+
+
+_HL_SMALL_REFS = {}
+
+
+def _hl_small_references(torch):
+  """hidden_layers_small's CPU runs, f32 and bf16 (its noise floor), made
+  once: GraphCast tiny at each of HL_SMALL_DEPTHS (one step, and the AR-1
+  loss with every gradient), GenCast Mini at HL_DEPTH (one evaluation,
+  and the loss with every gradient at σ = HL_MINI_SIGMA on numpy noise),
+  and each DeepGraphNet case."""
+  from graphcast_tpu_torch.data import synthetic
+  if _HL_SMALL_REFS:
+    return _HL_SMALL_REFS
+  t0 = time.perf_counter()
+  refs = {}
+  for hl in HL_SMALL_DEPTHS:
+    preset = _hl_small_preset(hl)
+    data = synthetic.make_example_batch(
+        preset.task_config, resolution=preset.model_config.resolution,
+        batch=1, device="cpu")
+    outs, train = {}, {}
+    for bf16 in (False, True):
+      model, stack = _stack(torch, preset, seed=HL_SMALL_SEED, bf16=bf16,
+                            device="cpu", gradient_checkpointing=True)
+      with torch.inference_mode():
+        outs[bf16] = stack(*data)
+      train[bf16] = _loss_and_grads(torch, stack, model, data, "cpu")
+    refs[("graphcast", hl)] = data, outs, train
+  preset = _hl_mini_preset()
+  data = _gencast_train_data(torch, preset, "cpu", torch.float32)
+  noisy = data[1].map_data(lambda x: torch.nan_to_num(x) + HL_MINI_SIGMA
+                           * torch.from_numpy(np.random.RandomState(
+                               HL_SMALL_SEED).randn(*x.shape).astype(
+                                   np.float32)))
+  outs, train = {}, {}
+  for bf16 in (False, True):
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    model, stack = _gencast_stack(torch, preset, seed=HL_SMALL_SEED,
+                                  device="cpu")
+    outs[bf16] = _denoise(torch, model, data[0].map_data(torch.nan_to_num),
+                          noisy, torch.tensor([HL_MINI_SIGMA]),
+                          data[2], dtype, "cpu")
+    _fix_noise_draw(torch, model, HL_MINI_SIGMA, seed=HL_SMALL_SEED)
+    train[bf16] = _loss_and_grads(
+        torch, stack, model, [fs.astype(dtype) for fs in data], "cpu",
+        generator=torch.Generator())
+  refs["gencast"] = data, noisy, outs, train
+  for name, options in _gnn_cases().items():
+    refs[("gnn", name)] = {bf16: _gnn_run(
+        torch, options, "cpu", torch.bfloat16 if bf16 else torch.float32)
+                           for bf16 in (False, True)}
+  refs["cpu_s"] = time.perf_counter() - t0
+  _HL_SMALL_REFS.update(refs)
+  return _HL_SMALL_REFS
+
+
+def _train_floor(torch, phase, card, cpu):
+  """_noise_floor_checks on _loss_and_grads results: the loss, each
+  per-variable loss and each gradient."""
+  return _noise_floor_checks(
+      torch, phase, {"loss": card[0], **card[1]}, card[2],
+      {k: (None, {"loss": v[0], **v[1]}, v[2]) for k, v in cpu.items()})
+
+
+def phase_hidden_layers_small(torch):
+  """Tiny GraphCast at HL_SMALL_DEPTHS, GenCast Mini at HL_DEPTH and each
+  DeepGraphNet case on the card against the port on the CPU (module
+  doc)."""
+  t0 = time.perf_counter()
+  refs = _hl_small_references(torch)
+  worst = {}
+  for hl in HL_SMALL_DEPTHS:
+    data, outs, train = refs[("graphcast", hl)]
+    preset = _hl_small_preset(hl)
+    model, stack = _stack(torch, preset, seed=HL_SMALL_SEED, device=DEVICE,
+                          gradient_checkpointing=True)
+    stack = stack.to(DEVICE)
+    card_data = [fs.to(DEVICE) for fs in data]
+    with torch.inference_mode():
+      out = stack(*card_data)
+    names = data[1].var_names
+    w = _check_noise_floor(torch, f"hidden_layers_small graphcast {hl}",
+                           {n: out.data(n) for n in names}, outs, names)
+    t = _train_floor(torch, f"hidden_layers_small graphcast {hl}",
+                     _loss_and_grads(torch, stack, model, card_data, DEVICE),
+                     train)
+    worst[f"graphcast_{hl}"] = max(w, t["var"], t["param"])
+    del model, stack
+  data, noisy, outs, train = refs["gencast"]
+  preset = _hl_mini_preset()
+  model, stack = _gencast_stack(torch, preset, seed=HL_SMALL_SEED)
+  out = _denoise(torch, model, data[0].map_data(torch.nan_to_num), noisy,
+                 torch.tensor([HL_MINI_SIGMA]), data[2], torch.bfloat16,
+                 DEVICE)
+  names = data[1].var_names
+  w = _check_noise_floor(torch, "hidden_layers_small gencast",
+                         {n: out.data(n) for n in names}, outs, names)
+  _fix_noise_draw(torch, model, HL_MINI_SIGMA, seed=HL_SMALL_SEED)
+  t = _train_floor(torch, "hidden_layers_small gencast", _loss_and_grads(
+      torch, stack, model, [fs.astype(torch.bfloat16) for fs in data],
+      DEVICE, generator=torch.Generator(device=DEVICE)), train)
+  worst["gencast_mini"] = max(w, t["var"], t["param"])
+  del model, stack
+  for name in _gnn_cases():
+    cpu = refs[("gnn", name)]
+    card = _gnn_run(torch, _gnn_cases()[name], DEVICE, torch.bfloat16)
+    bound_ratio = 0.0
+    for k, f32 in cpu[False].items():
+      floor = _rms(torch, cpu[True][k] - f32)
+      bound = 2 * floor + SMALL_EPS * _rms(torch, f32)
+      err = _rms(torch, card[k] - f32)
+      if not (np.isfinite(err) and err <= bound):
+        raise AssertionError(f"hidden_layers_small {name} {k}: rms(card-f32)"
+                             f"={err:.4g} > 2*floor+eps={bound:.4g}")
+      bound_ratio = max(bound_ratio, err / bound if bound else 0.0)
+    worst[name] = bound_ratio
+  torch.cuda.empty_cache()
+  _log("hidden_layers_small", t0, graphcast=f"{HL_SMALL_MODEL}".replace(
+      " ", ""), graphcast_hidden_layers=",".join(map(str, HL_SMALL_DEPTHS)),
+       gencast=_gencast_label(preset), gencast_hidden_layers=HL_DEPTH,
+       gnn_cases=len(_gnn_cases()), cpu_s=f"{refs['cpu_s']:.1f}",
+       worst_err_over_bound=json.dumps(
+           {k: round(v, 3) for k, v in worst.items()}).replace(" ", ""))
+
+
 def _timed_s(torch, fn):
   """(seconds, result) of ``fn()``, the card synchronized at both ends."""
   torch.cuda.synchronize()
@@ -4389,18 +5178,21 @@ def main(argv=None) -> int:
   torch.backends.cudnn.allow_tf32 = False
   import graphcast_tpu_torch  # noqa: F401  (fails outside the repository)
 
+  # The phases use more grid and mesh configurations than one model does:
+  # keep every geometry artifact and attention mask built in this run.
+  from graphcast_tpu_torch.geometry import artifact as artifact_lib
+  from graphcast_tpu_torch.models import sparse_transformer
+  artifact_lib.ARTIFACT_CACHE_SIZE = 16
+  sparse_transformer.MASK_CACHE_SIZE = 16
+
   t_start = time.perf_counter()
+  prelude = _host_prelude(torch, phases)
   card = phase_build(torch)
+  prelude()
   results = {}
   if {"k1", "k2", "k4", "k5", "embed", "embed_bwd", "k3", "main",
       "k1p"} & set(phases):
-    t0 = time.perf_counter()
     art = _geometry(0.25, 6)
-    _log("geometry", t0, grid_nodes=art.num_grid_nodes,
-         mesh_nodes=art.num_mesh_nodes,
-         g2m_edges=art.grid2mesh.senders.size,
-         mesh_edges=art.mesh.senders.size,
-         m2g_edges=art.mesh2grid.senders.size)
   if "k1" in phases:
     phase_k1(torch, art, results)
   if "k2" in phases:
@@ -4487,6 +5279,14 @@ def main(argv=None) -> int:
     phase_bench_train(torch, results)
   if "memdump" in phases:
     phase_memdump(torch, results)
+  if {"hidden_layers", "gencast_hidden_layers"} & set(phases):
+    results.setdefault("segment_sum", {"name": "segment_sum"})
+  if "hidden_layers" in phases:
+    phase_hidden_layers(torch, results)
+  if "gencast_hidden_layers" in phases:
+    phase_gencast_hidden_layers(torch, results)
+  if "hidden_layers_small" in phases:
+    phase_hidden_layers_small(torch)
   print(f"[total] {time.perf_counter() - t_start:.1f}s", flush=True)
   print(card)
   print(json.dumps({"kernels": list(results.values())}))
@@ -4500,4 +5300,11 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-  sys.exit(main())
+  try:
+    sys.exit(main())
+  except Exception as e:  # noqa: BLE001  (re-raised after the name)
+    traceback.print_exc()
+    print(f"chip_smoke: failed in {_failed_phase(e.__traceback__)} "
+          f"(last line: {_last_log[0][:300]!r}): {type(e).__name__}",
+          file=sys.stderr, flush=True)
+    sys.exit(1)

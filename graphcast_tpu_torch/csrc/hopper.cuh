@@ -84,15 +84,25 @@ __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
   return done != 0;
 }
 
+// The card's global nanosecond timer. Unlike %clock64, a counter of each
+// SM's own cycles from its own origin, it reads the same on every SM, so a
+// thread that a preemption resumes on another SM (PTX ISA, %smid) still
+// measures its wait right.
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
 // Waits until the barrier's phase of parity `parity` has completed. A wait
-// that lasts ~10 s (a ring out of step, a TMA that never lands) traps, so a
+// that lasts 10 s (a ring out of step, a TMA that never lands) traps, so a
 // fault shows as a launch error instead of a hung card.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
   if (mbar_try_wait(addr, parity)) return;
-  const long long t0 = clock64();
+  const unsigned long long t0 = global_ns();
   while (!mbar_try_wait(addr, parity)) {
-    if (clock64() - t0 > 20000000000ll) __trap();
+    if (global_ns() - t0 > 10000000000ull) __trap();
   }
 }
 

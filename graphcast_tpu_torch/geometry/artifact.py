@@ -5,10 +5,13 @@ GraphCast and GenCast need: the multi-mesh (GraphCast) or finest-level
 (GenCast) processor graph, the latter in the banded node order that keeps
 the transformer's k-hop attention mask block-compact (RCM bands, or BFS
 patches with ``banded_patch_size``), and the disk cache; no multi-mesh
-spatial permutation and no C++ backend. ``sort_edges_by_receiver`` comes
-along from graphcast_tpu/nn/typed_graph.py.
-tests/test_torch_geometry.py asserts that every array of this artifact
-equals the JAX package's (numpy backend).
+spatial permutation. ``sort_edges_by_receiver`` comes along from
+graphcast_tpu/nn/typed_graph.py. ``backend`` picks the connectivity
+backend as the JAX package does (geometry/connectivity.py
+``resolve_backend``): ``"auto"``, the default, is the native C++ library
+whenever it builds, else numpy. tests/test_torch_geometry.py and
+tests/test_torch_native_geometry.py assert that every array of this
+artifact equals the JAX package's, backend by backend.
 
 All edge lists are sorted by receiver: the port's kernels walk them as
 receiver-sorted rows (ops/fused_edge.py) or as exactly 3 rows per grid node
@@ -20,11 +23,11 @@ process for each grid and mesh configuration (the last
 configuration. Behind it, ``build_artifact`` reads and writes the JAX
 package's disk cache (``cache_dir``, artifact.py:330-381 there): the same
 key, file name and arrays, so a file written by either package serves the
-other. The key names the connectivity backend; the port's is always
-"numpy". ``cache_dir=None`` means ``$GRAPHCAST_TPU_CACHE``, else
-``~/.cache/graphcast_tpu``; ``""`` disables the cache. One difference: an
-empty ``GRAPHCAST_TPU_CACHE`` disables the port's cache, where the JAX
-package reads it as the current directory.
+other. The key names the resolved connectivity backend, so an artifact of
+one backend is never served as the other's. ``cache_dir=None`` means
+``$GRAPHCAST_TPU_CACHE``, else ``~/.cache/graphcast_tpu``; ``""`` disables
+the cache. One difference: an empty ``GRAPHCAST_TPU_CACHE`` disables the
+port's cache, where the JAX package reads it as the current directory.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import hashlib
 import inspect
 import os
 import pathlib
+import threading
 from typing import Optional
 
 import numpy as np
@@ -104,6 +108,7 @@ def build_artifact(
     permute_banded: bool = False,
     banded_patch_size: Optional[int] = None,
     cache_dir: Optional[str] = None,
+    backend: str = "auto",
 ) -> GridMeshArtifact:
   """Builds (or loads from the disk cache) the full graph artifact.
 
@@ -122,6 +127,9 @@ def build_artifact(
     banded_patch_size: with permute_banded, contiguous BFS patches of this
       many nodes instead of RCM bands (see ``patch_permutation``).
     cache_dir: disk cache directory (module doc); "" disables it.
+    backend: connectivity backend, "auto" (native if it builds, else
+      numpy), "native" (raises if it does not build) or "numpy"; the
+      resolved name is part of the cache key.
   """
   grid_lat = np.asarray(grid_lat, dtype=np.float32)
   grid_lon = np.asarray(grid_lon, dtype=np.float32)
@@ -129,7 +137,8 @@ def build_artifact(
     raise ValueError("permute_banded requires multimesh=False")
   # The JAX package's key tuple: (multimesh, permute_banded,
   # spatial_permutation, resolved backend[, banded_patch_size]).
-  options = (multimesh, permute_banded, False, CONNECTIVITY_BACKEND)
+  backend = connectivity.resolve_backend(backend)
+  options = (multimesh, permute_banded, False, backend)
   if banded_patch_size is not None:
     options += (banded_patch_size,)
   cache_path = _cache_path(
@@ -160,7 +169,7 @@ def build_artifact(
 
   # --- grid2mesh (radius query), receivers are mesh nodes ---
   g2m_grid, g2m_mesh = connectivity.radius_query_indices(
-      grid_lat, grid_lon, finest, radius)
+      grid_lat, grid_lon, finest, radius, backend=backend)
   grid_feats, mesh_feats, g2m_edge_feats = (
       features.bipartite_graph_spatial_features(
           grid_nodes_lat, grid_nodes_lon, mesh_lat, mesh_lon,
@@ -178,7 +187,7 @@ def build_artifact(
 
   # --- mesh2grid (triangle containment), receivers are grid nodes ---
   m2g_grid, m2g_mesh = connectivity.in_mesh_triangle_indices(
-      grid_lat, grid_lon, finest)
+      grid_lat, grid_lon, finest, backend=backend)
   _, _, m2g_edge_feats = features.bipartite_graph_spatial_features(
       mesh_lat, mesh_lon, grid_nodes_lat, grid_nodes_lon,
       m2g_mesh, m2g_grid,
@@ -207,7 +216,6 @@ def build_artifact(
 
 # --- disk cache (graphcast_tpu/geometry/artifact.py:330-381) ---
 
-CONNECTIVITY_BACKEND = "numpy"  # the only connectivity backend ported
 _CACHE_VERSION = 2
 CACHE_ENV = "GRAPHCAST_TPU_CACHE"
 
@@ -247,7 +255,9 @@ _EDGE_FIELDS = ("grid2mesh", "mesh", "mesh2grid")
 
 def _save(path: pathlib.Path, artifact: GridMeshArtifact):
   """Writes the artifact's arrays under the JAX package's names, through a
-  temporary file renamed into place (a reader never sees half a file)."""
+  temporary file of this process and thread renamed into place (a reader
+  never sees half a file, and processes that build the same artifact at
+  once, the ranks of a job, never write one file)."""
   path.parent.mkdir(parents=True, exist_ok=True)
   payload = {f: getattr(artifact, f) for f in _ARRAY_FIELDS}
   for name in _EDGE_FIELDS:
@@ -255,7 +265,7 @@ def _save(path: pathlib.Path, artifact: GridMeshArtifact):
     payload[f"{name}_senders"] = e.senders
     payload[f"{name}_receivers"] = e.receivers
     payload[f"{name}_features"] = e.features
-  tmp = path.with_suffix(".tmp.npz")
+  tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp.npz")
   np.savez_compressed(tmp, **payload)
   os.replace(tmp, path)
 
@@ -284,19 +294,23 @@ def cached_artifact(grid_lat: np.ndarray, grid_lon: np.ndarray,
   a checkpoint beside a fresh one) share the artifact, which nobody
   modifies. The least recently used entry beyond ``ARTIFACT_CACHE_SIZE``
   is dropped. ``cache_dir`` (the disk cache behind this one) is not part
-  of the key: it changes where an artifact is kept, not the artifact."""
+  of the key: it changes where an artifact is kept, not the artifact.
+  ``backend`` enters the key resolved: "auto" and the backend it resolves
+  to share an entry."""
   grid_lat = np.asarray(grid_lat, dtype=np.float32)
   grid_lon = np.asarray(grid_lon, dtype=np.float32)
   args = inspect.signature(build_artifact).bind(grid_lat, grid_lon,
                                                 mesh_size, **kwargs)
   args.apply_defaults()  # a default given or left out is the same key
+  args.arguments["backend"] = connectivity.resolve_backend(
+      args.arguments["backend"])
   key = (grid_lat.tobytes(), grid_lon.tobytes(),
          tuple((k, v) for k, v in args.arguments.items()
                if k not in ("grid_lat", "grid_lon", "cache_dir")))
   if key in _ARTIFACTS:
     _ARTIFACTS.move_to_end(key)
   else:
-    _ARTIFACTS[key] = build_artifact(grid_lat, grid_lon, mesh_size, **kwargs)
+    _ARTIFACTS[key] = build_artifact(*args.args, **args.kwargs)
     while len(_ARTIFACTS) > ARTIFACT_CACHE_SIZE:
       _ARTIFACTS.popitem(last=False)
   return _ARTIFACTS[key]

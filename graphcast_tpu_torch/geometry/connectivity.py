@@ -1,9 +1,12 @@
-"""Grid ↔ mesh connectivity queries. Host-side numpy/scipy, runs once.
+"""Grid ↔ mesh connectivity queries. Host-side, runs once.
 
-Pinned numpy copy of graphcast_tpu/geometry/connectivity.py with only its
-numpy/scipy backend (the C++ ``native`` backend is not ported);
-tests/test_torch_geometry.py asserts that the port's artifact equals the
-JAX package's numpy-backend artifact.
+Pinned copy of graphcast_tpu/geometry/connectivity.py with both of its
+backends: ``"numpy"`` (numpy/scipy) and ``"native"`` (the port's copy of
+the JAX package's C++ kernels, native/geometry.py). ``"auto"`` resolves as
+the JAX package resolves it: native whenever the library builds, so that on
+one machine the port's default graph is the JAX package's.
+tests/test_torch_geometry.py and tests/test_torch_native_geometry.py assert
+that the port's artifacts equal the JAX package's, backend by backend.
 
 - grid2mesh edges: every (grid point, mesh vertex) pair within a fixed
   3D radius, via a cKDTree ball query (reference: radius_query_indices,
@@ -21,18 +24,44 @@ from scipy import spatial
 from graphcast_tpu_torch.geometry.features import (
     grid_lat_lon_to_node_coordinates)
 from graphcast_tpu_torch.geometry.icosahedron import TriangularMesh
+from graphcast_tpu_torch.native import geometry as native
+
+BACKENDS = ("auto", "native", "numpy")
+
+
+def resolve_backend(backend: str = "auto") -> str:
+  """A connectivity backend name resolved to "native" or "numpy"
+  (graphcast_tpu geometry/connectivity.py:22-39): "auto" is native when
+  the library builds, else numpy; "native" raises, with the compiler's
+  message, when it does not build. Points on an edge shared by two
+  triangles may resolve to different (both valid) faces in the two
+  backends, so the resolved name is part of the artifact's cache key
+  (artifact.py)."""
+  if backend not in BACKENDS:
+    raise ValueError(f"unknown geometry backend {backend!r}; one of "
+                     f"{BACKENDS}")
+  if backend == "auto":
+    return "native" if native.available() else "numpy"
+  if backend == "native":
+    native.load_library()
+  return backend
 
 
 def radius_query_indices(
     grid_lat: np.ndarray,
     grid_lon: np.ndarray,
     mesh: TriangularMesh,
-    radius: float) -> tuple[np.ndarray, np.ndarray]:
+    radius: float,
+    backend: str = "auto") -> tuple[np.ndarray, np.ndarray]:
   """Edges (grid_idx, mesh_idx) for all pairs within `radius` in R3.
 
   Grid nodes are flattened lat-major (index = i_lat * num_lon + i_lon).
   """
   grid_positions = grid_lat_lon_to_node_coordinates(grid_lat, grid_lon)
+  if resolve_backend(backend) == "native":
+    # The library's pair order differs; the artifact sorts the edges.
+    return native.radius_query(grid_positions.astype(np.float64),
+                               mesh.vertices.astype(np.float64), radius)
   kd_tree = spatial.cKDTree(mesh.vertices)
   query = kd_tree.query_ball_point(x=grid_positions, r=radius)
   grid_edge_indices = []
@@ -48,7 +77,8 @@ def radius_query_indices(
 def containing_triangle_indices(
     points: np.ndarray,
     mesh: TriangularMesh,
-    num_candidates: int = 12) -> np.ndarray:
+    num_candidates: int = 12,
+    backend: str = "auto") -> np.ndarray:
   """Index of the mesh face whose spherical triangle contains each point.
 
   For each unit-norm point we take the `num_candidates` nearest face
@@ -57,6 +87,9 @@ def containing_triangle_indices(
   margins are ≥ 0. Points on shared edges/vertices resolve to an arbitrary
   adjacent face (margin 0), like the reference's closest-point query.
   """
+  if resolve_backend(backend) == "native":
+    return native.containing_triangles(
+        points, mesh.vertices.astype(np.float64), mesh.faces)
   verts = mesh.vertices.astype(np.float64)
   faces = mesh.faces
   centroids = verts[faces].mean(axis=1)
@@ -96,13 +129,15 @@ def containing_triangle_indices(
 def in_mesh_triangle_indices(
     grid_lat: np.ndarray,
     grid_lon: np.ndarray,
-    mesh: TriangularMesh) -> tuple[np.ndarray, np.ndarray]:
+    mesh: TriangularMesh,
+    backend: str = "auto") -> tuple[np.ndarray, np.ndarray]:
   """Edges (grid_idx, mesh_idx): each grid point to the 3 vertices of its
   containing triangle. Exactly 3 edges per grid point."""
   grid_positions = grid_lat_lon_to_node_coordinates(
       grid_lat, grid_lon).astype(np.float64)
   grid_positions /= np.linalg.norm(grid_positions, axis=-1, keepdims=True)
-  face_idx = containing_triangle_indices(grid_positions, mesh)
+  face_idx = containing_triangle_indices(grid_positions, mesh,
+                                         backend=backend)
   mesh_edge_indices = mesh.faces[face_idx].reshape(-1)  # [n_grid * 3]
   grid_edge_indices = np.repeat(
       np.arange(grid_positions.shape[0], dtype=np.int32), 3)

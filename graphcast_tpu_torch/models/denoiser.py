@@ -28,16 +28,18 @@ Mosaic-specific; the port keeps the artifact's receiver order.
 
 ``fused_aggregation=False`` runs the general path at batch 1 too (the JAX
 package's None means "on a TPU"; the port's None and any other value run
-the fused stages at batch 1). ``encode_chunks`` / ``decode_chunks`` > 1
+the fused stages at batch 1), and so does ``hidden_layers`` other than 1
+(the kernels compute one hidden layer; graphcast_tpu models/
+denoiser.py:208). ``encode_chunks`` / ``decode_chunks`` > 1
 run the encoder / decoder in chunks, as GraphCast's chunked stages do
 (models/graphcast.py; JAX denoiser.py:411-552, dispatch :700-745), with the
 norm conditioning applied inside each chunk: the encoder where it is not
 fused, the decoder where it is not fused or the batch is > 1. The edge
 embedding MLP runs once per edge and its conditioning per member.
-``cache_dir`` is the geometry artifact's disk cache. ``GC_PIPELINED_EDGE`` (env_flags.py),
-read once at the first call, as the JAX package builds its grid2mesh
-``FusedEdgeStep`` then, runs the embed-mode grid2mesh step through K1p
-instead of K1.
+``cache_dir`` is the geometry artifact's disk cache. ``GC_PIPELINED_EDGE``
+(env_flags.py), read once at the first call, as the JAX package builds its
+grid2mesh ``FusedEdgeStep`` then, runs the embed-mode grid2mesh step through
+K1p instead of K1.
 """
 
 from __future__ import annotations
@@ -155,8 +157,6 @@ class DenoiserArchitecture(nn.Module):
     super().__init__()
     if cfg.node_output_size is None:
       raise ValueError("node_output_size must be set (by GenCast)")
-    if cfg.hidden_layers != 1:
-      raise NotImplementedError("only hidden_layers=1 is ported")
     if cfg.sparse_transformer_config.node_ordering not in ("rcm", "patch"):
       raise ValueError("unknown node_ordering "
                        f"{cfg.sparse_transformer_config.node_ordering!r}")
@@ -164,7 +164,7 @@ class DenoiserArchitecture(nn.Module):
     self._cache_dir = cache_dir
     self._decode_chunks = decode_chunks
     self._encode_chunks = encode_chunks
-    self._fused = fused_stages(fused_aggregation)[0]
+    self._fused = fused_stages(fused_aggregation, cfg.hidden_layers)[0]
     self._pipelined: Optional[bool] = None
     self._artifact: Optional[artifact_lib.GridMeshArtifact] = None
     self._g2m_plan: Optional[chunking.NodeChunkPlan] = None
@@ -173,7 +173,8 @@ class DenoiserArchitecture(nn.Module):
     # Stacked inputs (noise encodings split out) + forcings + noisy targets.
     node_in = (num_grid_input_channels(task_config, STEP_HOURS)
                + cfg.node_output_size + NODE_STRUCT_FEATURES)
-    common = dict(mlp_hidden_size=latent, mlp_num_hidden_layers=1,
+    common = dict(mlp_hidden_size=latent,
+                  mlp_num_hidden_layers=cfg.hidden_layers,
                   num_message_passing_steps=1,
                   norm_conditioning_size=cond_size)
     self.grid2mesh_gnn = DeepGraphNet(

@@ -37,7 +37,12 @@ fused decoder or the batch is > 1, as in the JAX package.
 
 Which code runs is decided by the tensors' device alone: CUDA tensors go
 through the CUDA kernels, CPU tensors through their plain-PyTorch twins
-(ops/). ``hidden_layers != 1`` raises NotImplementedError.
+(ops/). ``hidden_layers`` (the MLPs' hidden layers, as in the JAX
+package's ``ModelConfig``) other than 1 turns the fused stages off, as the
+JAX package's setup does (graphcast.py:184,236 and its processor's
+``_fused_step_target``): the kernels compute one hidden layer. At batch 1
+such a model then runs the chunked stages where their chunks are > 1 and
+the general path elsewhere, with every sum in a fixed order.
 ``GC_PIPELINED_EDGE`` (env_flags.py), read once at the first call, as the
 JAX package builds its ``FusedEdgeStep``s then, runs the encoder's and the
 processor's edge steps through K1p instead of K1. ``cache_dir`` is the
@@ -67,7 +72,6 @@ from typing import Optional, Union
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from graphcast_tpu_torch import devices, env_flags, losses
 from graphcast_tpu_torch.fields import FieldSet, from_stacked, to_stacked
@@ -165,13 +169,15 @@ def num_grid_input_channels(task_config: configs.TaskConfig,
   return inputs + sum(width(n) for n in task_config.forcing_variables)
 
 
-def fused_stages(fused_aggregation) -> tuple[bool, bool, bool]:
+def fused_stages(fused_aggregation, hidden_layers: int = 1
+                 ) -> tuple[bool, bool, bool]:
   """(processor, encoder, decoder): which stages run fused at batch 1 for
-  a ``fused_aggregation`` value (module doc)."""
+  a ``fused_aggregation`` value and the MLPs' ``hidden_layers`` (module
+  doc): none unless ``hidden_layers`` is 1."""
   if fused_aggregation not in FUSED_FORMS:
     raise ValueError(f"fused_aggregation must be one of {FUSED_FORMS}, got "
                      f"{fused_aggregation!r}")
-  processor = fused_aggregation is not False
+  processor = fused_aggregation is not False and hidden_layers == 1
   encoder = processor and fused_aggregation != "processor"
   return processor, encoder, encoder and fused_aggregation != "encoder"
 
@@ -233,10 +239,9 @@ def three_per_node(x: torch.Tensor) -> torch.Tensor:
 
 
 def edge_mlp_tail(pe: core.MLPWithNorm, x: torch.Tensor, cond=None):
-  """The layers of an edge MLP after its first, then its norm."""
-  for layer in list(pe.mlp.values())[1:]:
-    x = layer(F.silu(x))
-  return pe._norm(x, cond)
+  """The layers of an edge MLP after its first (each behind the MLP's
+  activation), then its norm."""
+  return pe._norm(pe.mlp.tail(x), cond)
 
 
 def embed_nodes(gnn: DeepGraphNet, st: dict, features: torch.Tensor,
@@ -365,15 +370,14 @@ class GraphCast(Predictor):
     JAX package's (module doc)."""
     device = devices.resolve(device)
     super().__init__()
-    if model_config.hidden_layers != 1:
-      raise NotImplementedError("only hidden_layers=1 is ported")
     self._mc = model_config
     self._tc = task_config
     self._cache_dir = cache_dir
     self._decode_chunks = decode_chunks
     self._encode_chunks = encode_chunks
     (self._fused_processor, self._fused_encoder,
-     self._fused_decoder) = fused_stages(fused_aggregation)
+     self._fused_decoder) = fused_stages(fused_aggregation,
+                                         model_config.hidden_layers)
     self._pipelined: Optional[bool] = None
     self._artifact: Optional[artifact_lib.GridMeshArtifact] = None
     self._g2m_plan: Optional[chunking.NodeChunkPlan] = None
@@ -381,7 +385,8 @@ class GraphCast(Predictor):
     latent = model_config.latent_size
     node_in = num_grid_input_channels(task_config) + NODE_STRUCT_FEATURES
     self.num_outputs = configs.num_output_channels(task_config)
-    common = dict(mlp_hidden_size=latent, mlp_num_hidden_layers=1)
+    common = dict(mlp_hidden_size=latent,
+                  mlp_num_hidden_layers=model_config.hidden_layers)
 
     # Encoder (reference: graphcast.py:261-277).
     self.grid2mesh_gnn = DeepGraphNet(

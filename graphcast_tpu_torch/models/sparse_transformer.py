@@ -373,7 +373,7 @@ class Transformer(nn.Module):
     return block["mha_final"](out.flatten(-2))
 
   def _ffw(self, block, x):
-    act = core.ACTIVATIONS[self.cfg.activation]
+    act = core.get_activation(self.cfg.activation)
     return block["ffw_down"](act(block["ffw_up"](x)))
 
   def forward(self, x, global_norm_conditioning):

@@ -21,6 +21,7 @@ import pathlib
 import shutil
 import subprocess
 import threading
+import time
 
 import torch
 
@@ -32,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _lib = None
 _build_log = ""
+_unit_seconds: dict[str, float] = {}
 
 
 def find_nvcc() -> str:
@@ -63,10 +65,24 @@ def _compile(nvcc: str) -> pathlib.Path:
   tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
   cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(BUILD_DIR / f"{src.stem}.{tag}.o"),
            str(src)] for src in sorted(CSRC.glob("*.cu"))]
+  t0 = time.perf_counter()
   procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True) for cmd in cmds]
-  logs = [proc.communicate()[0] for proc in procs]
+  logs, seconds = [""] * len(procs), [0.0] * len(procs)
+
+  def wait(i):
+    logs[i] = procs[i].communicate()[0]
+    seconds[i] = time.perf_counter() - t0
+
+  waiters = [threading.Thread(target=wait, args=(i,))
+             for i in range(len(procs))]
+  for w in waiters:
+    w.start()
+  for w in waiters:
+    w.join()
   _build_log = "".join(logs)
+  _unit_seconds.update(
+      (pathlib.Path(cmd[-1]).name, s) for cmd, s in zip(cmds, seconds))
   objs = [cmd[cmd.index("-o") + 1] for cmd in cmds]
   try:
     for cmd, proc, log in zip(cmds, procs, logs):
@@ -159,6 +175,12 @@ def build_log() -> str:
   """The compiler's output of the build this process ran ("" if the
   library was already built)."""
   return _build_log
+
+
+def unit_seconds() -> dict[str, float]:
+  """Seconds from the build's start to the end of each source's ``nvcc``,
+  by file name (empty if the library was already built)."""
+  return dict(_unit_seconds)
 
 
 def check(lib: ctypes.CDLL, code: int, what: str):

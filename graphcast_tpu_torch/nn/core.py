@@ -7,9 +7,12 @@ JAX package's flat param keys (tests/goldens/zoo_param_shapes.json) and
 weights cross between the packages without transposes.
 
 Parameters always live in float32; ``forward`` casts them to the activation
-dtype at use (the precision policy of docs/ARCHITECTURE.md §4). The graph
-nets use swish; GenCast's transformer and noise encoder use GELU in its
-tanh form (``gelu``), which is jax.nn.gelu's default.
+dtype at use (the precision policy of docs/ARCHITECTURE.md §4). MLPs take
+their activation by name, as the JAX package's ``get_activation`` does
+(nn/core.py:26-34 there): "identity" or a jax.nn name, with jax.nn's
+semantics (``ACTIVATIONS``). The models' graph nets use swish; GenCast's
+transformer and noise encoder use GELU in its tanh form (``gelu``), which is
+jax.nn.gelu's default.
 
 Random init draws what the JAX package draws (nn/core.py:43): a normal
 truncated to [-2, 2], scaled by 1/sqrt(fan_in) (or a given stddev) with no
@@ -45,7 +48,45 @@ def gelu(x):
   return F.gelu(x, approximate="tanh")
 
 
-ACTIVATIONS = {"swish": F.silu, "gelu": gelu}
+def softplus(x):
+  """log(1 + exp(x)) as jax.nn.softplus computes it, logaddexp(x, 0)
+  (F.softplus returns x itself above a threshold)."""
+  return torch.logaddexp(x, torch.zeros_like(x))
+
+
+# The jax.nn activations a graph net can take, by their jax.nn names, each
+# with jax.nn's default constants (elu and celu alpha 1, leaky_relu slope
+# 0.01, gelu its tanh form).
+ACTIVATIONS = {
+    "identity": lambda x: x,
+    "relu": F.relu,
+    "relu6": F.relu6,
+    "swish": F.silu,
+    "silu": F.silu,
+    "gelu": gelu,
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+    "softplus": softplus,
+    "elu": F.elu,
+    "leaky_relu": F.leaky_relu,
+    "celu": F.celu,
+    "selu": F.selu,
+    "soft_sign": F.softsign,
+    "log_sigmoid": F.logsigmoid,
+    "hard_tanh": F.hardtanh,
+    "hard_sigmoid": F.hardsigmoid,
+    "hard_swish": F.hardswish,
+    "hard_silu": F.hardswish,
+    "mish": F.mish,
+}
+
+
+def get_activation(name: str):
+  """The activation of a jax.nn name (``ACTIVATIONS``); an unknown name
+  raises ValueError, as graphcast_tpu nn/core.py ``get_activation``."""
+  if name not in ACTIVATIONS:
+    raise ValueError(f"unknown activation {name!r}")
+  return ACTIVATIONS[name]
 
 
 class Linear(nn.Module):
@@ -90,20 +131,28 @@ class Linear(nn.Module):
 
 
 class MLP(nn.ModuleDict):
-  """Swish MLP with layers named like Haiku's hk.nets.MLP: linear_0, ..."""
+  """MLP with ``num_hidden_layers`` hidden layers and layers named like
+  Haiku's hk.nets.MLP: linear_0, ...; ``activation`` a jax.nn name,
+  applied after every layer but the last."""
 
   def __init__(self, in_size: int, hidden_size: int, num_hidden_layers: int,
-               out_size: int):
+               out_size: int, activation: str = "swish"):
     sizes = [in_size] + [hidden_size] * num_hidden_layers + [out_size]
     super().__init__({f"linear_{i}": Linear(a, b)
                       for i, (a, b) in enumerate(zip(sizes[:-1], sizes[1:]))})
+    get_activation(activation)  # an unknown name raises here
+    self.activation = activation
 
   def forward(self, x):
-    layers = list(self.values())
-    for i, layer in enumerate(layers):
-      x = layer(x)
-      if i + 1 < len(layers):
-        x = F.silu(x)
+    x = self["linear_0"](x)
+    return self.tail(x)
+
+  def tail(self, x):
+    """The layers after the first, on the first layer's output (before its
+    activation)."""
+    act = get_activation(self.activation)
+    for layer in list(self.values())[1:]:
+      x = layer(act(x))
     return x
 
 
@@ -160,7 +209,7 @@ class NormConditioning(Linear):
 
 class MLPWithNorm(nn.Module):
   """MLP → optional LayerNorm → optional norm conditioning (reference:
-  deep_typed_graph_net.py:212-248).
+  deep_typed_graph_net.py:212-248); ``activation`` a jax.nn name.
 
   Inputs passed as several tensors are concatenated on the last axis.
   With ``norm_conditioning_size`` the LayerNorm is parameter-free and a
@@ -169,11 +218,13 @@ class MLPWithNorm(nn.Module):
 
   def __init__(self, in_size: int, hidden_size: int, num_hidden_layers: int,
                out_size: int, use_layer_norm: bool = True,
-               norm_conditioning_size: int | None = None):
+               norm_conditioning_size: int | None = None,
+               activation: str = "swish"):
     super().__init__()
     if norm_conditioning_size and not use_layer_norm:
       raise ValueError("norm conditioning requires layer norm")
-    self.mlp = MLP(in_size, hidden_size, num_hidden_layers, out_size)
+    self.mlp = MLP(in_size, hidden_size, num_hidden_layers, out_size,
+                   activation)
     self.layer_norm = (LayerNorm(out_size)
                        if use_layer_norm and not norm_conditioning_size
                        else None)
@@ -216,9 +267,7 @@ class MLPWithNorm(nn.Module):
          + gather_rows(sender_full @ ws, senders)
          + gather_rows(receiver_full @ wr, receivers)
          + b0.to(dtype))
-    for layer in list(self.mlp.values())[1:]:
-      x = layer(F.silu(x))
-    return self._norm(x, cond)
+    return self._norm(self.mlp.tail(x), cond)
 
   def factored_first_layer(self, edge_size: int, sender_size: int, dtype):
     """(We, Ws, Wr, b0) of the whole first linear layer, cast to ``dtype``.

@@ -6,29 +6,44 @@ package (encoder_*/processor_{i}_*/decoder_*), so its parameter names are
 that package's flat param keys. Two ways to run it:
 
 - ``forward``, the general path (graphcast_tpu nn/deep_gnn.py:166-322):
-  context concat, embed, ``num_message_passing_steps`` InteractionNetwork
-  steps (nn/message_passing.py, factored edge updates) with node and edge
-  residuals, node decode, on any TypedGraph with features laid out
-  [entities, batch, channels]. The receiver aggregation of an edge set
-  named in ``edge_aggregators`` goes through that aggregator, K3 in the
+  context concat, embed, ``num_processor_repetitions`` passes over
+  ``num_message_passing_steps`` InteractionNetwork steps (nn/
+  message_passing.py; the steps' parameters shared across passes) with node
+  and edge residuals, node and edge decode, on any TypedGraph with features
+  laid out [entities, batch, channels]. The receiver aggregation of an edge
+  set named in ``edge_aggregators`` goes through that aggregator, K3 in the
   models (ops/segment_sum.py); other sets through the plain segment sum
   (ops/segment.py). The models run it at batch > 1.
 - ``processor_step``, the batch-1 fused step: the edge MLP, LayerNorm, edge
   residual and aggregation go through ops.fused_edge (K1, or K1p with
-  ``pipelined``); the node update and residual run here. It takes one hidden layer, layer norm on and no
-  norm conditioning.
+  ``pipelined``); the node update and residual run here. It takes what
+  the kernels compute: one hidden layer, swish, layer norm on, no norm
+  conditioning and no sent messages (where graphcast_tpu nn/deep_gnn.py
+  ``_fused_step_target`` returns None, it raises; the models route those
+  nets to ``forward``).
+
+The constructor takes the JAX ``DeepGraphNet``'s options (nn/
+deep_gnn.py:28-71 there): ``num_processor_repetitions``, ``embed_nodes``,
+``embed_edges``, ``node_output_size``, ``edge_output_size`` (``decoder_*``,
+plain MLPs), ``include_sent_messages_in_node_update`` (each node set's
+update also takes the sum of the messages it sent; the node MLP's input
+grows by those widths), ``use_layer_norm``, ``activation`` (a jax.nn name,
+nn/core.py ``ACTIVATIONS``) and ``factored_edge_updates`` (False: the
+edge MLP's first layer on the gathered, concatenated rows, algebraically
+the same). Its defaults are the JAX package's but for ``activation``:
+swish, the models' (the JAX package's default is relu).
 
 With ``norm_conditioning_size`` (GenCast's denoiser) every MLP but the
 decoder's is norm-conditioned: a parameter-free LayerNorm, then a
 ``NormConditioning`` of the noise-level encoding (graphcast_tpu nn/
-deep_gnn.py:75-96). All MLPs are swish MLPs with layer norm, as in both
-models.
+deep_gnn.py:75-96).
 
 ``remat_steps`` (graphcast_tpu nn/deep_gnn.py:268-314), the processor's
 two-level checkpointing under grad: ``run_steps`` groups the message-passing
 steps into blocks of round(sqrt(N)), each block a recompute region
 (nn/remat.py) around one region per step, so that the forward keeps only
-the blocks' boundaries. The boundaries between blocks are the carries
+the blocks' boundaries (the blocks restart with each processor
+repetition). The boundaries between blocks are the carries
 ``"mp_block_carry"``, which an enclosing ``remat.offloading`` moves to the
 host (Autoregressive's ``loss_offload_processor_carries``); the final
 output is not one of them. ``forward`` and the models' fused step loops
@@ -71,36 +86,51 @@ class DeepGraphNet(nn.ModuleDict):
                mlp_hidden_size: int,
                mlp_num_hidden_layers: int,
                num_message_passing_steps: int,
+               num_processor_repetitions: int = 1,
                embed_nodes: bool = True,
+               embed_edges: bool = True,
                node_output_size: Optional[Mapping[str, int]] = None,
+               edge_output_size: Optional[Mapping[str, int]] = None,
+               include_sent_messages_in_node_update: bool = False,
+               use_layer_norm: bool = True,
                norm_conditioning_size: Optional[int] = None,
+               activation: str = "swish",
                f32_aggregation: bool = False,
                aggregate_normalization: Optional[float] = None,
+               factored_edge_updates: bool = True,
                remat_steps: bool = False):
     super().__init__()
     self.remat_steps = remat_steps
     self.node_latent_size = dict(node_latent_size)
     self.edge_latent_size = dict(edge_latent_size)
     self.node_output_size = dict(node_output_size or {})
+    self.edge_output_size = dict(edge_output_size or {})
     self.num_message_passing_steps = num_message_passing_steps
+    self.num_processor_repetitions = num_processor_repetitions
     self.embed_nodes = embed_nodes
+    self.embed_edges = embed_edges
+    self.include_sent_messages_in_node_update = (
+        include_sent_messages_in_node_update)
+    self.activation = activation
     self.norm_conditioning_size = norm_conditioning_size
     self.f32_aggregation = f32_aggregation
     self.aggregate_normalization = aggregate_normalization
+    self.factored_edge_updates = factored_edge_updates
 
-    def mlp(in_size, out_size, use_layer_norm=True):
+    def mlp(in_size, out_size, decoder=False):
       return MLPWithNorm(
           in_size, mlp_hidden_size, mlp_num_hidden_layers, out_size,
-          use_layer_norm=use_layer_norm,
-          norm_conditioning_size=(norm_conditioning_size if use_layer_norm
-                                  else None))
+          use_layer_norm=use_layer_norm and not decoder,
+          norm_conditioning_size=None if decoder else norm_conditioning_size,
+          activation=activation)
 
     def node_latent(name):
       return node_latent_size.get(name, node_input_size[name])
 
     specs = {}
-    for name, latent in edge_latent_size.items():
-      specs[f"encoder_edges_{name}"] = mlp(edge_input_size[name], latent)
+    if embed_edges:
+      for name, latent in edge_latent_size.items():
+        specs[f"encoder_edges_{name}"] = mlp(edge_input_size[name], latent)
     if embed_nodes:
       for name, latent in node_latent_size.items():
         specs[f"encoder_nodes_{name}"] = mlp(node_input_size[name], latent)
@@ -110,12 +140,18 @@ class DeepGraphNet(nn.ModuleDict):
         specs[f"processor_{i}_edges_{name}"] = mlp(
             latent + node_latent(sender) + node_latent(receiver), latent)
       for name, latent in node_latent_size.items():
-        received = sum(edge_latent_size[e] for e in edge_latent_size
-                       if edge_sets[e][1] == name)
-        specs[f"processor_{i}_nodes_{name}"] = mlp(latent + received, latent)
+        in_size = latent + sum(edge_latent_size[e] for e in edge_latent_size
+                               if edge_sets[e][1] == name)
+        if include_sent_messages_in_node_update:
+          in_size += sum(edge_latent_size[e] for e in edge_latent_size
+                         if edge_sets[e][0] == name)
+        specs[f"processor_{i}_nodes_{name}"] = mlp(in_size, latent)
+    for name, out in self.edge_output_size.items():
+      specs[f"decoder_edges_{name}"] = mlp(edge_latent_size[name], out,
+                                           decoder=True)
     for name, out in self.node_output_size.items():
       specs[f"decoder_nodes_{name}"] = mlp(node_latent_size[name], out,
-                                           use_layer_norm=False)
+                                           decoder=True)
     for name in sorted(specs):
       self[name] = specs[name]
 
@@ -178,8 +214,9 @@ class DeepGraphNet(nn.ModuleDict):
     # 2. Embed.
     graph = mp.apply_graph_map_features(
         graph,
-        embed_edge_fn={n: fn(f"encoder_edges_{n}")
-                       for n in self.edge_latent_size},
+        embed_edge_fn=({n: fn(f"encoder_edges_{n}")
+                        for n in self.edge_latent_size}
+                       if self.embed_edges else None),
         embed_node_fn=({n: fn(f"encoder_nodes_{n}")
                         for n in self.node_latent_size}
                        if self.embed_nodes else None))
@@ -203,13 +240,17 @@ class DeepGraphNet(nn.ModuleDict):
 
     def one_step(i, *features):
       prev = unflatten(features)
+      edge_fn = factored_fn if self.factored_edge_updates else fn
       new = mp.apply_graph_network(
           prev,
-          update_edge_fn={n: factored_fn(f"processor_{i}_edges_{n}")
+          update_edge_fn={n: edge_fn(f"processor_{i}_edges_{n}")
                           for n in self.edge_latent_size},
           update_node_fn={n: fn(f"processor_{i}_nodes_{n}")
                           for n in self.node_latent_size},
-          aggregate_edges_for_nodes_fn=aggregate, factored_edge_fns=True)
+          aggregate_edges_for_nodes_fn=aggregate,
+          include_sent_messages_in_node_update=(
+              self.include_sent_messages_in_node_update),
+          factored_edge_fns=self.factored_edge_updates)
       return tuple(
           [prev.nodes[k].features + new.nodes[k].features for k in node_keys]
           + [prev.edges[k].features + new.edges[k].features
@@ -221,18 +262,23 @@ class DeepGraphNet(nn.ModuleDict):
 
     # 4. Decode.
     return mp.apply_graph_map_features(
-        graph, embed_node_fn={n: fn(f"decoder_nodes_{n}")
-                              for n in self.node_output_size})
+        graph,
+        embed_edge_fn={n: fn(f"decoder_edges_{n}")
+                       for n in self.edge_output_size},
+        embed_node_fn={n: fn(f"decoder_nodes_{n}")
+                       for n in self.node_output_size})
 
   # ----- the processor loop -----
 
   def run_steps(self, step: Callable, state: tuple) -> tuple:
-    """state ← step(i, *state) for each message-passing step i; with
-    ``remat_steps`` under grad, in √N recompute blocks (module doc)."""
+    """state ← step(i, *state) for each message-passing step i, the steps
+    run ``num_processor_repetitions`` times; with ``remat_steps`` under
+    grad, in √N recompute blocks (module doc)."""
     n = self.num_message_passing_steps
     if not (self.remat_steps and torch.is_grad_enabled()):
-      for i in range(n):
-        state = step(i, *state)
+      for _ in range(self.num_processor_repetitions):
+        for i in range(n):
+          state = step(i, *state)
       return state
     block = max(1, int(round(n ** 0.5)))
 
@@ -241,14 +287,17 @@ class DeepGraphNet(nn.ModuleDict):
         state = remat.checkpoint(functools.partial(step, i0 + j), *state)
       return state
 
-    i = 0
-    while i < n:
-      count = min(block, n - i)
-      run = functools.partial(run_block, i, count)
-      # Block inputs after the first are the previous block's outputs.
-      state = (remat.named_checkpoint("mp_block_carry", run, *state) if i
-               else remat.checkpoint(run, *state))
-      i += count
+    first = True
+    for _ in range(self.num_processor_repetitions):
+      i = 0
+      while i < n:
+        count = min(block, n - i)
+        run = functools.partial(run_block, i, count)
+        # Block inputs after the first are the previous block's outputs.
+        state = (remat.checkpoint(run, *state) if first
+                 else remat.named_checkpoint("mp_block_carry", run, *state))
+        first = False
+        i += count
     return state
 
   # ----- the batch-1 fused step -----
@@ -264,9 +313,12 @@ class DeepGraphNet(nn.ModuleDict):
       raise ValueError(f"{e.shape[0]} edge rows for {edges.num_edges} edges")
     dtype = e.dtype
     pe = self[f"processor_{i}_edges_{edge_name}"]
-    if len(pe.mlp) != 2 or pe.layer_norm is None:
-      raise NotImplementedError("the fused edge step takes one hidden layer "
-                                "and layer norm without conditioning")
+    if (len(pe.mlp) != 2 or pe.layer_norm is None
+        or self.activation != "swish"
+        or self.include_sent_messages_in_node_update):
+      raise NotImplementedError(
+          "the fused edge step takes one hidden layer, swish, and layer "
+          "norm without conditioning, and no sent messages")
     we, ws, wr, b0 = pe.factored_first_layer(e.shape[-1], x.shape[-1], dtype)
     lin1 = pe.mlp["linear_1"]
     e_new, agg = fused_edge(edges, e, x @ ws, x @ wr, we, b0, lin1.full_w,

@@ -64,8 +64,12 @@ def training_config(resolution: float | None = None,
   }
 
 
-def build_step(cfg: dict, ar_steps: int, device):
-  """(model, train step, bf16 batch) of the configured training step."""
+def build_step(cfg: dict, ar_steps: int, device, hidden_layers: int = 1,
+               batch=None):
+  """(model, train step, bf16 batch) of the configured training step;
+  ``hidden_layers``: the MLPs' hidden layers (the JAX script's 1);
+  ``batch``: the bf16 (inputs, targets, forcings) to train on, made from
+  the synthetic data where None."""
   from graphcast_tpu_torch.data import synthetic
   from graphcast_tpu_torch.models import configs
   from graphcast_tpu_torch.models.graphcast import GraphCast
@@ -73,7 +77,7 @@ def build_step(cfg: dict, ar_steps: int, device):
       Autoregressive, Bfloat16Cast, InputsAndResiduals)
   model_config = configs.ModelConfig(
       resolution=cfg["resolution"], mesh_size=cfg["mesh_size"],
-      latent_size=512, gnn_msg_steps=16, hidden_layers=1,
+      latent_size=512, gnn_msg_steps=16, hidden_layers=hidden_layers,
       radius_query_fraction_edge_length=0.6)
   task = cfg["task"]
   model = GraphCast(model_config, task, decode_chunks=cfg["decode_chunks"],
@@ -89,10 +93,11 @@ def build_step(cfg: dict, ar_steps: int, device):
       loss_scan_block=cfg["loss_scan_block"],
       loss_carry_offload=cfg["loss_carry_offload"],
       loss_offload_processor_carries=cfg["loss_offload_processor_carries"])
-  batch = tuple(fs.astype(torch.bfloat16) for fs in
-                synthetic.make_example_batch(
-                    task, resolution=cfg["resolution"], batch=1,
-                    num_target_times=ar_steps, device=device))
+  if batch is None:
+    batch = tuple(fs.astype(torch.bfloat16) for fs in
+                  synthetic.make_example_batch(
+                      task, resolution=cfg["resolution"], batch=1,
+                      num_target_times=ar_steps, device=device))
   step = train.make_train_step(
       predictor, train.graphcast_optimizer(model.parameters(), peak_lr=1e-3))
   return model, step, batch

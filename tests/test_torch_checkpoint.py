@@ -6,7 +6,6 @@ forward then equals JAX's at f32 5e-4 (the port's standing f32 tolerance,
 tests/test_torch_graphcast.py); GenCast's parameters cross through the
 GenCast Haiku naming. Tiny config: 30° grid, mesh-1, latent 16."""
 
-import functools
 import inspect
 import io
 
@@ -19,7 +18,6 @@ from graphcast_tpu import checkpoint as jax_checkpoint
 from graphcast_tpu import train as jax_train
 from graphcast_tpu.compat import haiku_checkpoint as jax_haiku
 from graphcast_tpu.data import synthetic as jax_synthetic
-from graphcast_tpu.geometry import artifact as jax_artifact
 from graphcast_tpu.models import configs as jax_configs
 from graphcast_tpu.models.graphcast import GraphCast as JaxGraphCast
 from graphcast_tpu_torch import checkpoint, params
@@ -28,12 +26,6 @@ from graphcast_tpu_torch.data import synthetic
 from graphcast_tpu_torch.models import configs
 from graphcast_tpu_torch.models.graphcast import GraphCast
 from tests.test_torch_graphcast import TINY_MODEL, TINY_TASK
-
-
-@pytest.fixture
-def numpy_geometry(monkeypatch):
-  monkeypatch.setattr(jax_artifact, "build_artifact", functools.partial(
-      jax_artifact.build_artifact, backend="numpy"))
 
 
 @pytest.mark.parametrize("name", ["_flatten", "dump", "_unflatten",
@@ -71,8 +63,7 @@ def _learned_flat(tree):
   return params.params_from_jax(jax.tree_util.tree_map(np.asarray, learned))
 
 
-def test_jax_bundle_loads_into_port_bit_equal_and_forward_matches(
-    numpy_geometry):
+def test_jax_bundle_loads_into_port_bit_equal_and_forward_matches():
   model, tree, mc, task, data = _jax_tiny()
   buf = io.BytesIO()
   jax_haiku.save_graphcast_checkpoint(buf, tree, mc, task,
@@ -135,7 +126,7 @@ def test_port_bundle_round_trips_in_the_port():
     assert k == k2 and torch.equal(a, b)
 
 
-def test_gencast_params_cross_both_ways(numpy_geometry):
+def test_gencast_params_cross_both_ways():
   from tests.test_torch_gencast import _batch, _jax_model, _port_model
   (inputs, targets, forcings), _ = _batch()
   tree = _jax_model("mha", fused=False).init(jax.random.PRNGKey(0), inputs,

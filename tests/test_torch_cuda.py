@@ -1272,3 +1272,86 @@ def test_general_path_graphcast_small_train_step_reruns_bit_equal(
                if p.grad is not None}}
 
   _rerun_bit_equal(run)
+
+
+def _hidden_layers_2_small():
+  """zoo.graphcast_small() at hidden_layers=2, its processor cut to 2
+  steps for the CPU side's sake: the general path on the card (the fused
+  kernels compute one hidden layer)."""
+  import dataclasses
+  from graphcast_tpu_torch.models import zoo
+  preset = zoo.graphcast_small()
+  return preset, dataclasses.replace(preset.model_config, hidden_layers=2,
+                                     gnn_msg_steps=2)
+
+
+def _hidden_layers_2_stack(mc, task, device, bf16=True):
+  from graphcast_tpu_torch.data import synthetic
+  from graphcast_tpu_torch.models.graphcast import GraphCast
+  from graphcast_tpu_torch.wrappers import (
+      Autoregressive, Bfloat16Cast, InputsAndResiduals)
+  model = GraphCast(mc, task, generator=torch.Generator().manual_seed(0),
+                    device=device)
+  return model, Autoregressive(
+      InputsAndResiduals(Bfloat16Cast(model, enabled=bf16),
+                         *synthetic.make_norm_stats(task, device=device)),
+      gradient_checkpointing=True)
+
+
+def _assert_within_noise_floor(got, cpu_f32, cpu_bf16):
+  """Per tensor: rms(card bf16 - cpu f32) <= 2 rms(cpu bf16 - cpu f32) +
+  1e-4 rms(cpu f32) (chip_smoke.py's rule for the small phases)."""
+  for k, f32 in cpu_f32.items():
+    f32 = f32.double()
+    floor = (cpu_bf16[k].double() - f32).square().mean().sqrt()
+    err = (got[k].cpu().double() - f32).square().mean().sqrt()
+    bound = 2 * floor + 1e-4 * f32.square().mean().sqrt()
+    assert torch.isfinite(err) and err <= bound, (k, err.item(),
+                                                  bound.item())
+
+
+@pytest.mark.cuda
+def test_hidden_layers_2_graphcast_small_step_matches_cpu_and_reruns(
+    cuda_device):
+  """One rollout step of GraphCast_small at hidden_layers=2 on the card
+  against the port on the CPU within the bf16 noise floor, and a rerun on
+  the card bit-equal."""
+  from graphcast_tpu_torch.data import synthetic
+  preset, mc = _hidden_layers_2_small()
+  task = preset.task_config
+  data = synthetic.make_example_batch(task, mc.resolution, device="cpu")
+
+  def step(device, bf16=True):
+    _, stack = _hidden_layers_2_stack(mc, task, device, bf16)
+    batch = [fs.to(device) for fs in data]
+    with torch.inference_mode():
+      out = stack.rollout_final(*batch)
+    return {n: out.data(n).float().cpu() for n in out.var_names}
+
+  card = step(cuda_device)
+  _assert_within_noise_floor(card, step("cpu", bf16=False), step("cpu"))
+  _rerun_bit_equal(lambda: step(cuda_device))
+
+
+@pytest.mark.cuda
+def test_hidden_layers_2_graphcast_small_train_step_matches_cpu_and_reruns(
+    cuda_device):
+  """The AR-1 loss and every parameter gradient of GraphCast_small at
+  hidden_layers=2 on the card against the port on the CPU within the bf16
+  noise floor, and a rerun on the card bit-equal."""
+  from graphcast_tpu_torch.data import synthetic
+  preset, mc = _hidden_layers_2_small()
+  task = preset.task_config
+  data = synthetic.make_example_batch(task, mc.resolution, device="cpu")
+
+  def grads(device, bf16=True):
+    model, stack = _hidden_layers_2_stack(mc, task, device, bf16)
+    loss = stack.loss(*[fs.to(device) for fs in data])[0].mean()
+    loss.backward()
+    return {"loss": loss.detach().float().cpu().reshape(1),
+            **{k: p.grad.float().cpu() for k, p in model.named_parameters()
+               if p.grad is not None}}
+
+  card = grads(cuda_device)
+  _assert_within_noise_floor(card, grads("cpu", bf16=False), grads("cpu"))
+  _rerun_bit_equal(lambda: grads(cuda_device))

@@ -19,10 +19,8 @@ The whole-sample test feeds both samplers the same numpy noise: it replaces
 level, initial or churn) and runs the JAX sampler under
 ``jax.disable_jit()`` so that its ``fori_loop`` is a Python loop.
 
-Both packages build the geometry with the numpy connectivity backend (the
-port has no other; the JAX package's native one breaks ties at grid points
-on mesh edges differently), so the JAX side's ``build_artifact`` is pinned
-to it here.
+Both packages build the geometry with their default connectivity backend,
+which resolves alike in both (native where g++ builds it, else numpy).
 
 Tolerance: f32 5e-4 relative to each output's largest element, the port's
 standing f32 bound (summation order only); the sample, after 7 denoiser
@@ -39,7 +37,6 @@ path.
 """
 
 import dataclasses
-import functools
 import json
 import pathlib
 import sys
@@ -66,7 +63,6 @@ import pytest
 from graphcast_tpu import fields as jax_fields
 from graphcast_tpu.data import synthetic as jax_synthetic
 from graphcast_tpu.diffusion import noise as jax_noise
-from graphcast_tpu.geometry import artifact as jax_artifact
 from graphcast_tpu.models import configs as jax_configs
 from graphcast_tpu.models import denoiser as jax_denoiser
 from graphcast_tpu.models import gencast as jax_gencast
@@ -96,12 +92,6 @@ TINY_TASK = dict(
 NOISE_LEVELS = 4
 GOLDENS = pathlib.Path(__file__).parent / "goldens" / "zoo_param_shapes.json"
 _DEGENERATE = ("norm_conditioning", "mha_final", "ffw_down")
-
-
-@pytest.fixture(autouse=True)
-def numpy_geometry(monkeypatch):
-  monkeypatch.setattr(jax_artifact, "build_artifact", functools.partial(
-      jax_artifact.build_artifact, backend="numpy"))
 
 
 def _st(mod, attention_type, **tiling):

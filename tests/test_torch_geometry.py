@@ -1,7 +1,9 @@
-"""The port's pinned numpy geometry copy must build the JAX package's
-artifact exactly (graphcast_tpu numpy backend): every array, bit for bit,
-for GraphCast's multi-mesh and for GenCast's finest-only mesh in banded
-(RCM) and patch-permuted node order."""
+"""The port's pinned geometry copy must build the JAX package's artifact
+exactly, both sides with the numpy connectivity backend: every array, bit
+for bit, for GraphCast's multi-mesh and for GenCast's finest-only mesh in
+banded (RCM) and patch-permuted node order. tests/
+test_torch_native_geometry.py holds the native backend and the default
+one."""
 
 import numpy as np
 import pytest
@@ -34,7 +36,8 @@ def test_artifact_arrays_equal_jax_package(resolution, mesh_size, kwargs):
   jlat, jlon = jax_synthetic.grid_coords(resolution)
   np.testing.assert_array_equal(lat, jlat)
   np.testing.assert_array_equal(lon, jlon)
-  ours = artifact.build_artifact(lat, lon, mesh_size, **kwargs)
+  ours = artifact.build_artifact(lat, lon, mesh_size, backend="numpy",
+                                 **kwargs)
   ref = jax_artifact.build_artifact(jlat, jlon, mesh_size, cache_dir="",
                                     backend="numpy", **kwargs)
   assert ours.num_grid_nodes == ref.num_grid_nodes

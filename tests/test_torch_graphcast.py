@@ -7,14 +7,12 @@ The JAX model runs with ``fused_aggregation=True`` (Pallas kernels in
 interpret mode) and ``False`` (plain XLA); tolerance 5e-4, that of
 tests/test_graphcast_model.py:245-247; and at batch 1 with
 ``GC_PIPELINED_EDGE=1`` on both sides (JAX's pipelined edge kernel, the
-port's K1p path). Both packages build the geometry with the numpy
-connectivity backend (the port has no other), so the JAX side's
-``build_artifact`` is pinned to it here. The constructor takes the JAX
+port's K1p path). Both packages build the geometry with their default
+connectivity backend, which resolves alike in both. The constructor takes the JAX
 package's keywords; tests/test_torch_memory_forms.py holds the forms they
 select to the JAX package's.
 """
 
-import functools
 
 import jax
 import numpy as np
@@ -23,7 +21,6 @@ import torch
 
 from graphcast_tpu import train
 from graphcast_tpu.data import synthetic as jax_synthetic
-from graphcast_tpu.geometry import artifact as jax_artifact
 from graphcast_tpu.models import configs as jax_configs
 from graphcast_tpu.models.graphcast import GraphCast as JaxGraphCast
 from graphcast_tpu.ops import pallas_edge
@@ -43,12 +40,6 @@ TINY_TASK = dict(
     input_duration="12h")
 TINY_MODEL = dict(resolution=30.0, mesh_size=1, latent_size=16,
                   gnn_msg_steps=2, hidden_layers=1)
-
-
-@pytest.fixture
-def numpy_geometry(monkeypatch):
-  monkeypatch.setattr(jax_artifact, "build_artifact", functools.partial(
-      jax_artifact.build_artifact, backend="numpy"))
 
 
 def _port_model(jax_params):
@@ -100,7 +91,7 @@ def _assert_matches(got, want):
 
 @pytest.mark.parametrize("batch", [1, 2])
 @pytest.mark.parametrize("fused", [False, True])
-def test_one_step_matches_jax_graphcast(fused, batch, numpy_geometry):
+def test_one_step_matches_jax_graphcast(fused, batch):
   """Batch 1 (fused K1/K2 twins) and batch 2 (the general path, K3's plain
   version) against JAX's fused and plain paths."""
   got, want = _one_step_both(fused, batch)
@@ -149,8 +140,7 @@ def test_batch_members_match_batch_one_runs():
                                    atol=1e-4, err_msg=name)
 
 
-def test_one_step_with_pipelined_edge_matches_jax(monkeypatch,
-                                                  numpy_geometry):
+def test_one_step_with_pipelined_edge_matches_jax(monkeypatch):
   """GC_PIPELINED_EDGE=1 on both sides: JAX's fused path runs its pipelined
   edge kernel (interpret mode), and the port hands pipelined=True to every
   edge step (the processor's and the encoder's), read once at the first

@@ -21,15 +21,16 @@ GenCast as in tests/test_torch_gencast.py), on shared weights and inputs.
   the other reads), "" writes nothing, the environment variable and HOME
   set the default, and the one known difference: an empty variable.
 
-Both packages build the geometry with the numpy connectivity backend (the
-port has no other), so the JAX side's ``build_artifact`` is pinned to it,
-and every JAX model gets ``cache_dir=""``: no run leaves a cache file in
-the tree.
+Both packages build the geometry with their default connectivity backend,
+which resolves alike in both, and every JAX model gets ``cache_dir=""``: no
+run leaves a cache file in the tree.
 """
 
 import functools
 import os
+import pathlib
 import sys
+import threading
 
 import torch
 
@@ -63,7 +64,8 @@ from graphcast_tpu.wrappers import Autoregressive as JaxAutoregressive
 from graphcast_tpu.wrappers import InputsAndResiduals as JaxInputsAndResiduals
 from graphcast_tpu_torch import params
 from graphcast_tpu_torch.data import synthetic
-from graphcast_tpu_torch.geometry import artifact, chunking, icosahedron
+from graphcast_tpu_torch.geometry import (
+    artifact, chunking, connectivity, icosahedron)
 from graphcast_tpu_torch.models import configs, denoiser, gencast
 from graphcast_tpu_torch.models import sparse_transformer
 from graphcast_tpu_torch.models.graphcast import GraphCast
@@ -96,12 +98,6 @@ FORMS = {
     "fused_remat": dict(fused_aggregation=True, remat_processor=True),
     "training_form": TRAINING_FORM,
 }
-
-
-@pytest.fixture(autouse=True)
-def numpy_geometry(monkeypatch):
-  monkeypatch.setattr(jax_artifact, "build_artifact", functools.partial(
-      jax_artifact.build_artifact, backend="numpy"))
 
 
 # ----- the node-chunk plan -----
@@ -233,7 +229,7 @@ def test_graphcast_form_loss_and_grads_match_jax(form):
 CHUNKED = dict(fused_aggregation=False, encode_chunks=3, decode_chunks=4)
 
 
-def _jax_gencast(attention_type, fused=True, **form):
+def _jax_gencast(attention_type, fused=True, hidden_layers=1, **form):
   del fused
   tc = gencast_case
   return jax_gencast.GenCast(
@@ -241,7 +237,7 @@ def _jax_gencast(attention_type, fused=True, **form):
       denoiser_architecture_config=jax_denoiser.DenoiserArchitectureConfig(
           sparse_transformer_config=tc._st(jax_st, attention_type,
                                            block_kv=64),
-          mesh_size=1, latent_size=16, hidden_layers=1),
+          mesh_size=1, latent_size=16, hidden_layers=hidden_layers),
       sampler_config=jax_gencast.SamplerConfig(
           num_noise_levels=tc.NOISE_LEVELS),
       noise_config=jax_gencast.NoiseConfig(),
@@ -250,14 +246,14 @@ def _jax_gencast(attention_type, fused=True, **form):
       cache_dir="", interpret_attention=True, **form)
 
 
-def _port_gencast(attention_type, seed=0, **form):
+def _port_gencast(attention_type, seed=0, hidden_layers=1, **form):
   tc = gencast_case
   return gencast.GenCast(
       configs.TaskConfig(**tc.TINY_TASK),
       denoiser.DenoiserArchitectureConfig(
           sparse_transformer_config=tc._st(sparse_transformer,
                                            attention_type),
-          mesh_size=1, latent_size=16, hidden_layers=1),
+          mesh_size=1, latent_size=16, hidden_layers=hidden_layers),
       gencast.SamplerConfig(num_noise_levels=tc.NOISE_LEVELS),
       gencast.NoiseConfig(),
       denoiser.NoiseEncoderConfig(num_frequencies=8, output_sizes=(16, 8)),
@@ -492,6 +488,25 @@ def test_cache_written_by_the_port_serves_jax(tmp_path, monkeypatch,
   _assert_artifacts_equal(got, want)
 
 
+def test_cache_writes_through_a_file_of_its_own(tmp_path, monkeypatch):
+  """Processes that build one artifact at once (the ranks of a job) each
+  write their own temporary file and rename it into place."""
+  written = []
+  save = artifact.np.savez_compressed
+
+  def record(file, **arrays):
+    written.append(pathlib.Path(file).name)
+    save(file, **arrays)
+
+  monkeypatch.setattr(artifact.np, "savez_compressed", record)
+  artifact.build_artifact(*_coords(), cache_dir=str(tmp_path), **ARGS)
+  assert len(written) == 1 and written[0].endswith(".tmp.npz")
+  assert f".{os.getpid()}.{threading.get_ident()}." in written[0]
+  files = [p.name for p in tmp_path.iterdir()]
+  assert len(files) == 1 and files[0].startswith("artifact_")
+  assert not files[0].endswith(".tmp.npz")
+
+
 def test_empty_cache_dir_writes_nothing(tmp_path, monkeypatch):
   monkeypatch.chdir(tmp_path)
   monkeypatch.setenv("HOME", str(tmp_path))
@@ -547,4 +562,5 @@ def test_models_take_their_cache_dir(tmp_path):
   assert len(list(tmp_path.glob("artifact_*.npz"))) == 1
   assert model._artifact is other._artifact
   assert os.path.exists(artifact._cache_path(
-      str(tmp_path), lat, lon, 1, 0.6, None, (True, False, False, "numpy")))
+      str(tmp_path), lat, lon, 1, 0.6, None,
+      (True, False, False, connectivity.resolve_backend())))

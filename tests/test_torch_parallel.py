@@ -43,7 +43,6 @@ from graphcast_tpu import rollout as jax_rollout
 from graphcast_tpu import train as jax_train
 from graphcast_tpu.data import synthetic as jax_synthetic
 from graphcast_tpu.diffusion import noise as jax_noise
-from graphcast_tpu.geometry import artifact as jax_artifact
 from graphcast_tpu.models import configs as jax_configs
 from graphcast_tpu.models import denoiser as jax_denoiser
 from graphcast_tpu.models import gencast as jax_gencast
@@ -57,13 +56,6 @@ from graphcast_tpu_torch import graft_entry, params, rollout
 from graphcast_tpu_torch.parallel import launch, sharding
 
 TOL = 5e-4
-
-
-@pytest.fixture(autouse=True)
-def numpy_geometry(monkeypatch):
-  """Both packages build the geometry with the numpy backend."""
-  monkeypatch.setattr(jax_artifact, "build_artifact", functools.partial(
-      jax_artifact.build_artifact, backend="numpy"))
 
 
 def _spawn(tmp_path, fn, world, *args):

@@ -137,10 +137,3 @@ def core_factor():
   from graphcast_tpu.nn.core import TRUNCATED_NORMAL_STDDEV_FACTOR
   return TRUNCATED_NORMAL_STDDEV_FACTOR
 
-
-def test_hidden_layers_other_than_one_raise():
-  mc = dataclasses.replace(configs.ModelConfig(**TINY_MODEL),
-                           hidden_layers=2)
-  with pytest.raises(NotImplementedError):
-    GraphCast(mc, configs.TaskConfig(**TINY_TASK),
-              generator=torch.Generator().manual_seed(0), device="cpu")

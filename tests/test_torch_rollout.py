@@ -19,7 +19,6 @@ InputsAndResiduals(GraphCast) predictor, f32, 2e-4: ``chunked_prediction``
 the error on uneven target times, and one generator drawn in chunk order.
 """
 
-import functools
 
 import jax
 import numpy as np
@@ -29,7 +28,6 @@ import torch
 from graphcast_tpu import rollout as jax_rollout
 from graphcast_tpu import train
 from graphcast_tpu.data import synthetic as jax_synthetic
-from graphcast_tpu.geometry import artifact as jax_artifact
 from graphcast_tpu.models import configs as jax_configs
 from graphcast_tpu.models.graphcast import GraphCast as JaxGraphCast
 from graphcast_tpu.wrappers import (
@@ -58,40 +56,37 @@ STEPS = 3
 @pytest.fixture(scope="module")
 def case():
   """JAX params + both packages' stacks (bf16 on/off) and inputs."""
-  with pytest.MonkeyPatch.context() as mp:
-    mp.setattr(jax_artifact, "build_artifact", functools.partial(
-        jax_artifact.build_artifact, backend="numpy"))
-    jtask = jax_configs.TaskConfig(**TINY_TASK)
-    task = configs.TaskConfig(**TINY_TASK)
-    j_in, j_tg, j_fc = jax_synthetic.make_example_batch(
-        jtask, resolution=30.0, batch=1, num_target_times=STEPS)
-    t_in, t_tg, t_fc = synthetic.make_example_batch(
-        task, resolution=30.0, batch=1, num_target_times=STEPS, device="cpu")
-    jax_model = JaxGraphCast(jax_configs.ModelConfig(**TINY_MODEL), jtask,
-                             cache_dir="", fused_aggregation=False)
-    jax_params = jax_model.init(
-        jax.random.PRNGKey(0), j_in, j_tg.isel(time=slice(0, 1)),
-        j_fc.isel(time=slice(0, 1)))
-    j_stats = jax_synthetic.make_norm_stats(jtask)
-    t_stats = synthetic.make_norm_stats(task, device="cpu")
-    model = GraphCast(configs.ModelConfig(**TINY_MODEL), task,
-                      generator=torch.Generator().manual_seed(0), device="cpu")
-    learned, _ = train.partition_params(jax_params)
-    params.load_params(model, params.params_from_jax(
-        jax.tree_util.tree_map(np.asarray, learned)))
-    jax_out = {}
-    for bf16 in (False, True):
-      stack = JaxAutoregressive(JaxInputsAndResiduals(
-          JaxBfloat16Cast(jax_model, enabled=bf16),
-          stddev_by_level=j_stats[0], mean_by_level=j_stats[1],
-          diffs_stddev_by_level=j_stats[2]))
-      jax_out[bf16] = stack.rollout_final(
+  jtask = jax_configs.TaskConfig(**TINY_TASK)
+  task = configs.TaskConfig(**TINY_TASK)
+  j_in, j_tg, j_fc = jax_synthetic.make_example_batch(
+      jtask, resolution=30.0, batch=1, num_target_times=STEPS)
+  t_in, t_tg, t_fc = synthetic.make_example_batch(
+      task, resolution=30.0, batch=1, num_target_times=STEPS, device="cpu")
+  jax_model = JaxGraphCast(jax_configs.ModelConfig(**TINY_MODEL), jtask,
+                           cache_dir="", fused_aggregation=False)
+  jax_params = jax_model.init(
+      jax.random.PRNGKey(0), j_in, j_tg.isel(time=slice(0, 1)),
+      j_fc.isel(time=slice(0, 1)))
+  j_stats = jax_synthetic.make_norm_stats(jtask)
+  t_stats = synthetic.make_norm_stats(task, device="cpu")
+  model = GraphCast(configs.ModelConfig(**TINY_MODEL), task,
+                    generator=torch.Generator().manual_seed(0), device="cpu")
+  learned, _ = train.partition_params(jax_params)
+  params.load_params(model, params.params_from_jax(
+      jax.tree_util.tree_map(np.asarray, learned)))
+  jax_out = {}
+  for bf16 in (False, True):
+    stack = JaxAutoregressive(JaxInputsAndResiduals(
+        JaxBfloat16Cast(jax_model, enabled=bf16),
+        stddev_by_level=j_stats[0], mean_by_level=j_stats[1],
+        diffs_stddev_by_level=j_stats[2]))
+    jax_out[bf16] = stack.rollout_final(
+        jax_params, jax.random.PRNGKey(0), j_in,
+        j_tg.isel(time=slice(0, 1)), j_fc)
+    if not bf16:
+      jax_out["stacked"] = stack(
           jax_params, jax.random.PRNGKey(0), j_in,
-          j_tg.isel(time=slice(0, 1)), j_fc)
-      if not bf16:
-        jax_out["stacked"] = stack(
-            jax_params, jax.random.PRNGKey(0), j_in,
-            j_tg.isel(time=slice(0, 2)), j_fc.isel(time=slice(0, 2)))
+          j_tg.isel(time=slice(0, 2)), j_fc.isel(time=slice(0, 2)))
 
   def port_stack(bf16):
     return Autoregressive(InputsAndResiduals(

@@ -1,7 +1,7 @@
 """The port's multi-step drivers (graphcast_tpu_torch/tools/) on the CPU, at
 tiny sizes (30° grid, mesh-1, latent 16, 2 message-passing steps; GenCast
 also d_model 16, 2 layers, 4 noise levels; both packages build the
-geometry with the numpy backend).
+geometry with their default backend, which resolves alike in both).
 
 - ``train_curve``'s loop against a JAX loop (graphcast_tpu.train.
   make_train_step) from the same numpy weights and seeded batches, f32, 5
@@ -21,7 +21,6 @@ geometry with the numpy backend).
 """
 
 import ast
-import functools
 import json
 import pathlib
 import sys
@@ -43,7 +42,6 @@ import pytest
 
 from graphcast_tpu import train as jax_train
 from graphcast_tpu.data import synthetic as jax_synthetic
-from graphcast_tpu.geometry import artifact as jax_artifact
 from graphcast_tpu.models import configs as jax_configs
 from graphcast_tpu.models.graphcast import GraphCast as JaxGraphCast
 from graphcast_tpu.wrappers import (
@@ -79,12 +77,6 @@ GENCAST_TASK = dict(
     input_duration="24h")
 TOL = 5e-4
 LR = 0.05  # CURVE_LR: with the 1,000-step warmup, 5e-5 a step here
-
-
-@pytest.fixture(autouse=True)
-def numpy_geometry(monkeypatch):
-  monkeypatch.setattr(jax_artifact, "build_artifact", functools.partial(
-      jax_artifact.build_artifact, backend="numpy"))
 
 
 def _tiny_curve(model=None):

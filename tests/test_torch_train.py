@@ -1,7 +1,7 @@
 """The port's training path against graphcast_tpu's, on shared weights and
 inputs (tiny config: 30° grid, mesh-1, latent 16, 2 message-passing steps,
 batch 1, and batch 2 where named; both packages build the geometry with
-the numpy backend).
+their default backend, which resolves alike in both).
 
 - ``GraphCast.loss`` and every parameter gradient, f32, against the JAX
   model with ``fused_aggregation`` False (plain XLA) and True (Pallas
@@ -29,7 +29,6 @@ the numpy backend).
 - ``autoregressive_curriculum`` against the JAX package's.
 """
 
-import functools
 import sys
 
 import torch
@@ -54,7 +53,6 @@ import pytest
 
 from graphcast_tpu import train as jax_train
 from graphcast_tpu.data import synthetic as jax_synthetic
-from graphcast_tpu.geometry import artifact as jax_artifact
 from graphcast_tpu.models import configs as jax_configs
 from graphcast_tpu.models.graphcast import GraphCast as JaxGraphCast
 from graphcast_tpu.wrappers import (
@@ -91,27 +89,24 @@ def case2():
 
 def build_case(batch=1):
   """JAX models/params and data, the port's data and a model factory."""
-  with pytest.MonkeyPatch.context() as mp:
-    mp.setattr(jax_artifact, "build_artifact", functools.partial(
-        jax_artifact.build_artifact, backend="numpy"))
-    jtask = jax_configs.TaskConfig(**TINY_TASK)
-    task = configs.TaskConfig(**TINY_TASK)
-    j_data = jax_synthetic.make_example_batch(
-        jtask, resolution=30.0, batch=batch, num_target_times=2)
-    t_data = synthetic.make_example_batch(
-        task, resolution=30.0, batch=batch, num_target_times=2,
-        device="cpu")
-    models = {fused: JaxGraphCast(jax_configs.ModelConfig(**TINY_MODEL),
-                                  jtask, cache_dir="",
-                                  fused_aggregation=fused)
-              for fused in (False, True)}
-    j1 = [fs.isel(time=slice(0, 1)) if i else fs
-          for i, fs in enumerate(j_data)]
-    jax_params = models[False].init(jax.random.PRNGKey(0), *j1)
-    learned, statics = jax_train.partition_params(jax_params)
-    fused_params = models[True].attach_graph_statics(dict(learned),
-                                                     j_data[0])
-    _, fused_statics = jax_train.partition_params(fused_params)
+  jtask = jax_configs.TaskConfig(**TINY_TASK)
+  task = configs.TaskConfig(**TINY_TASK)
+  j_data = jax_synthetic.make_example_batch(
+      jtask, resolution=30.0, batch=batch, num_target_times=2)
+  t_data = synthetic.make_example_batch(
+      task, resolution=30.0, batch=batch, num_target_times=2,
+      device="cpu")
+  models = {fused: JaxGraphCast(jax_configs.ModelConfig(**TINY_MODEL),
+                                jtask, cache_dir="",
+                                fused_aggregation=fused)
+            for fused in (False, True)}
+  j1 = [fs.isel(time=slice(0, 1)) if i else fs
+        for i, fs in enumerate(j_data)]
+  jax_params = models[False].init(jax.random.PRNGKey(0), *j1)
+  learned, statics = jax_train.partition_params(jax_params)
+  fused_params = models[True].attach_graph_statics(dict(learned),
+                                                   j_data[0])
+  _, fused_statics = jax_train.partition_params(fused_params)
   flat = params.params_from_jax(jax.tree_util.tree_map(np.asarray, learned))
 
   def port_model():
