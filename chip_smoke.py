@@ -14,6 +14,18 @@ Phases, each printing one line with its seconds and results:
          later phases take from the per-process caches, and the small
          phases' CPU references (the build's last ptxas keeps one core
          busy for minutes).
+  shared_card  SHARED_CARD_WORLD processes on the one card (parallel/
+         launch.py, as parallel starts its ranks), which the card
+         time-slices: each launches, back to back and with no
+         synchronisation in between, K2 and then K5 for at least 20 s each,
+         K1, K4 and K6 for at least 10 s each (SHARED_CARD_PLAN, at
+         GraphCast_small's shapes: graphcast_tpu_torch/tools/
+         shared_card_study.py hammer), then synchronises once. Fails unless
+         both processes report no error (a call that launched nothing, a
+         non-finite output; a fault raises in the process and so here) and
+         each one's last outputs of every kernel equal one call's in this
+         process bit for bit. Prints each kernel's launches and device
+         seconds per process.
   geometry  the native connectivity library (graphcast_tpu_torch/native/
          geometry_kernels.cc, built with g++ at first use and asked for
          as "native": a failed build fails the phase) and the numpy
@@ -417,6 +429,10 @@ MAIN_PIPELINED_RTOL = 1e-2  # relative RMS per variable, vs main's final
 BENCH_STEPS = 4         # the bench phase's BENCH_NUM_STEPS
 SP_SHARDS = (2, 4)      # sequence-parallel shard counts of sp_attention
 SP_DKV_RTOL = 1e-2      # relative RMS, summed dk/dv partials vs whole K8
+SHARED_CARD_WORLD = 2   # processes of the shared_card phase, one card
+# (kernel, seconds) that each shared_card process launches back to back.
+SHARED_CARD_PLAN = (("k2", 20.0), ("k5", 20.0), ("k1", 10.0), ("k4", 10.0),
+                    ("k6", 10.0))
 PARALLEL_WORLD = 2      # ranks of the parallel phase
 PARALLEL_STEPS = 2      # its timed data-parallel train steps
 SP_TRAIN_RTOL = 1e-2    # bf16 noise floor: sp vs unsharded loss and grads
@@ -424,7 +440,7 @@ PEAK_FLOPS = 989e12     # H100 SXM, dense bf16 tensor cores
 PEAK_F32 = 67e12        # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3, bytes/s
 DEVICE = "cuda"
-PHASES = ("build", "geometry", "k1", "k2", "k4", "k5", "wgrad", "k6",
+PHASES = ("build", "shared_card", "geometry", "k1", "k2", "k4", "k5", "wgrad", "k6",
           "k7k8", "sp_attention", "embed", "embed_bwd", "k3", "main", "small",
           "train", "train_forms", "train_small", "gencast", "gencast_small",
           "gencast_train", "gencast_train_small", "ensemble", "ensemble_small",
@@ -655,6 +671,33 @@ def phase_build(torch):
     print("[build] nvcc_s_by_source " + " ".join(
         f"{name}={s:.1f}" for name, s in units), flush=True)
   return card
+
+
+def phase_shared_card(torch):
+  """Every kernel of SHARED_CARD_PLAN launched back to back in
+  SHARED_CARD_WORLD processes that time-share the card (module doc)."""
+  import tempfile
+  from graphcast_tpu_torch.parallel import launch
+  from graphcast_tpu_torch.tools import shared_card_study as study
+  t0 = time.perf_counter()
+  block_map = _k_hop_block_map(5)[1]
+  torch.cuda.empty_cache()
+  with tempfile.TemporaryDirectory(dir=os.path.dirname(
+      os.path.abspath(__file__))) as out_dir:
+    launch.spawn(study.hammer, SHARED_CARD_WORLD,
+                 args=(out_dir, SHARED_CARD_PLAN, block_map), device="cuda",
+                 timeout_s=300)
+    spawn_s = time.perf_counter() - t0
+    reports = study.collect(out_dir, SHARED_CARD_WORLD,
+                            study.reference(SHARED_CARD_PLAN, block_map))
+  torch.cuda.empty_cache()
+  per_rank = lambda key, fmt: {  # noqa: E731
+      f"{k}_{key}": "/".join(fmt(r["kernels"][k][key]) for r in reports)
+      for k, _ in SHARED_CARD_PLAN}
+  _log("shared_card", t0, processes=SHARED_CARD_WORLD,
+       spawn_s=f"{spawn_s:.1f}", errors=0,
+       last_outputs="bit-equal to one process", **per_rank("launches", str),
+       **per_rank("device_s", lambda s: f"{s:.1f}"))
 
 
 def _geometry(resolution, mesh_size):
@@ -993,13 +1036,20 @@ def phase_k5(torch, art, results):
   # The backward recomputes the forward and takes 2 products per forward
   # product; it reads the forward's inputs and dout, writes dgrid, dconst,
   # dmesh_proj and the weight grads (f32).
-  fwd_flops, fwd_bytes = _decoder_cost(K5_NODES, m, C, num_out, embed=False)
+  def bound(nodes):
+    fwd_flops, fwd_bytes = _decoder_cost(nodes, m, C, num_out, embed=False)
+    return _bound(3 * fwd_flops, 2 * fwd_bytes + 4 * nodes * C * 2)
+
+  full = bound(g)
+  print(f"[k5] full_grid_nodes={g} ms_full={ms_full:.3f} "
+        f"bound_ms_full={full['bound_ms']:.4f} "
+        f"bound_by_full={full['bound_by']}", flush=True)
   results["fused_decoder_bwd"] = _entry(
       "fused_decoder_bwd", "fused_decoder_bwd.cu",
       "graphcast_tpu/ops/pallas_decoder.py:160", launches=None,
       max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, ms_full_grid=ms_full,
-      kernel_ms=kernel_ms, gemm_ms=gemm_ms,
-      **_bound(3 * fwd_flops, 2 * fwd_bytes + 4 * K5_NODES * C * 2))
+      bound_ms_full_grid=full["bound_ms"], kernel_ms=kernel_ms,
+      gemm_ms=gemm_ms, **bound(K5_NODES))
   del edges, acts, dout, det
   torch.cuda.empty_cache()
 
@@ -4595,7 +4645,7 @@ def _host_prelude(torch, phases):
     geometry.append(("gencast_0p25_check",
                      lambda: _gencast_0p25_check_references(torch)))
   for mesh_size in (5, 6):
-    if selected & {"k6", "k7k8", "sp_attention", "triblock"}:
+    if selected & {"k6", "k7k8", "sp_attention", "triblock", "shared_card"}:
       geometry.append((f"block_map_{mesh_size}",
                        functools.partial(_k_hop_block_map, mesh_size)))
   if "triblock" in selected:
@@ -5189,6 +5239,8 @@ def main(argv=None) -> int:
   prelude = _host_prelude(torch, phases)
   card = phase_build(torch)
   prelude()
+  if "shared_card" in phases:
+    phase_shared_card(torch)
   results = {}
   if {"k1", "k2", "k4", "k5", "embed", "embed_bwd", "k3", "main",
       "k1p"} & set(phases):

@@ -71,8 +71,9 @@ constexpr int kDecBarSync = 1;                   // consumers' named barrier
 // base: A (a_cols / 64 boxes), G (C / 64 boxes), the ring, the row
 // exchange, K5's column sums (`sums` floats) and their per-warp parts (4
 // warps x C floats), the barriers (full and empty per stage, the G load's,
-// the A load's). The ring takes what is left, up to kDecMaxStages boxes.
-// ops/fused_decoder.py smem_layout mirrors it.
+// the A load's). The ring takes what is left, up to kDecMaxStages boxes,
+// rounded down to an even count (ClusterRing). ops/fused_decoder.py
+// smem_layout mirrors it.
 struct DecLayout {
   int a, g, ring, exchange, sums, colred, bars, stages, total;
 };
@@ -87,7 +88,7 @@ __host__ __device__ constexpr DecLayout dec_layout(int C, int a_cols,
   const int bars = (2 * kDecMaxStages + 2) * 8;
   const int tail = kDecExchange + sums * 4 + colred + bars;
   const int st = (kDecSmemLimit - kDecAlign - L.ring - tail) / kDecBox;
-  L.stages = st < kDecMaxStages ? st : kDecMaxStages;
+  L.stages = (st < kDecMaxStages ? st : kDecMaxStages) & ~1;
   L.exchange = L.ring + L.stages * kDecBox;
   L.sums = L.exchange + kDecExchange;
   L.colred = L.sums + sums * 4;
@@ -221,7 +222,16 @@ struct DecThread {
 };
 
 // A warpgroup's view of the ring: its i-th box sits at stream position
-// 2 i + w.
+// 2 i + w. The ring's depth is even (the layouts round it down), so
+// warpgroup w owns the stages of its parity and every phase of their full
+// barriers is waited for by w alone, in order: a parity wait cannot tell
+// phase k from phase k + 2, and is right only for a waiter that saw phase
+// k - 1 complete. At an odd depth a stage alternates between the
+// warpgroups, and a warpgroup could wait for round k + 1 of a stage whose
+// round k (the other warpgroup's, multicast by a partner running behind)
+// had not landed: the wait passed at once, the stale box was read and
+// released early, and the ring's counts went out of step. A partner falls
+// that far behind when the card time-slices two contexts (PERF.md §6).
 template <int kCl>
 struct ClusterRing {
   uint32_t ring;

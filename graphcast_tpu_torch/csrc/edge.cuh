@@ -15,8 +15,8 @@
 //     edge rows (the wmma kernels this replaces: 64 in K1, 32 in K4);
 //   * per block one producer thread (decoder.cuh ClusterProducer,
 //     setmaxnreg 40) streams the boxes through a ring as deep as shared
-//     memory allows beside the one 64 KB operand tile A (19 boxes in K1,
-//     16-17 in K4); two consumer warpgroups (232 registers) split every
+//     memory allows beside the one 64 KB operand tile A, rounded down to an
+//     even count (18 boxes in K1, 16 in K4); two consumer warpgroups (232 registers) split every
 //     product by columns and issue wgmma m64n64k16 per box (dec_mma);
 //   * the operand A holds, in turn, each product's bf16 input as K-major
 //     64 x 64 boxes with the 128-byte swizzle: the edge rows e by TMA tile
@@ -79,8 +79,9 @@ constexpr int kEdgeWork = 64 + 64 + 32 + 32;
 // ring, the row exchange, the tile's receivers, K4's column sums (`sums`
 // floats) and their per-warp parts (kEdgeSlots x 4 warps x kDecWidth
 // floats), the barriers (full and empty per stage, the tile load's). The
-// ring takes what is left, up to kEdgeMaxStages boxes. ops/fused_edge.py
-// smem_layout mirrors it.
+// ring takes what is left, up to kEdgeMaxStages boxes, rounded down to an
+// even count (decoder.cuh ClusterRing). ops/fused_edge.py smem_layout
+// mirrors it.
 struct EdgeLayout {
   int a, e, ring, exchange, idx, sums, colred, bars, stages, total;
 };
@@ -94,7 +95,7 @@ __host__ __device__ constexpr EdgeLayout edge_layout(int sums, bool e_tile) {
   const int bars = (2 * kEdgeMaxStages + 1) * 8;
   const int tail = kDecExchange + kEdgeIdx + sums * 4 + colred + bars;
   const int st = (kDecSmemLimit - kDecAlign - L.ring - tail) / kDecBox;
-  L.stages = st < kEdgeMaxStages ? st : kEdgeMaxStages;
+  L.stages = (st < kEdgeMaxStages ? st : kEdgeMaxStages) & ~1;  // even
   L.exchange = L.ring + L.stages * kDecBox;
   L.idx = L.exchange + kDecExchange;
   L.sums = L.idx + kEdgeIdx;

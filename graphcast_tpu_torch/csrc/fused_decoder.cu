@@ -32,7 +32,7 @@
 //   * a cluster of two blocks of 64 grid nodes shares every weight box by
 //     TMA multicast: each weight byte fetched from L2 serves 128 nodes (4x
 //     the 32 of the wmma kernel this replaces); one producer thread per
-//     block keeps a ring of 11 boxes of 8 KB full;
+//     block keeps a ring of 10 boxes of 8 KB full;
 //   * two consumer warpgroups split each product by columns and issue wgmma
 //     m64n64k16 per box (A from shared memory, B MN-major from the ring),
 //     the f32 product in registers (128 a thread at C = 512);
@@ -46,7 +46,7 @@
 //     128 KB scratch in device memory (L2-resident), written after slot 0,
 //     read and rewritten after slot 1, read after slot 2 straight into
 //     bf16(agg), the A operand of Wna. Shared memory: A 64 KB, G 64 KB,
-//     ring 88 KB, row exchange and barriers 2.3 KB;
+//     ring 80 KB, row exchange and barriers 2.3 KB;
 //   * the sender rows mesh_proj[snd] and the const rows (embed mode: the
 //     raw features) are gathered by index in the epilogue that needs them;
 //     the [3, G, C] gathered rows never reach device memory;

@@ -22,12 +22,12 @@
 //   * a cluster of kEdgeCluster blocks of 64 consecutive edge rows shares
 //     every 64 x 64 weight box by TMA multicast, so each weight byte from L2
 //     serves 64 kEdgeCluster rows; one producer thread per block keeps a
-//     ring of 19 boxes of 8 KB full; two consumer warpgroups split each
+//     ring of 18 boxes of 8 KB full; two consumer warpgroups split each
 //     product by columns and issue wgmma m64n64k16 per box, the f32 product
 //     in registers (128 a thread);
 //   * the edge rows e arrive by TMA tile load, in the operand tile A or,
 //     in the modes that write e', in a second tile E (the ring then holds
-//     11 boxes); the first epilogue writes h into A, the LayerNorm epilogue
+//     10 boxes); the first epilogue writes h into A, the LayerNorm epilogue
 //     writes bf16(y) over h and e' = bf16(e + y) over e in E, which leaves
 //     by TMA store: e and e' are read and written a whole tile at a time,
 //     not element by element in the accumulator's layout;

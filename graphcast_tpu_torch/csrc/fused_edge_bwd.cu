@@ -36,7 +36,7 @@
 //   * a cluster of kEdgeCluster blocks of 64 rows shares every weight box
 //     by TMA multicast (64 kEdgeCluster rows per weight byte from L2; the
 //     wmma kernel this replaces: 32); a producer thread per block streams
-//     the boxes of the tile's products through a ring of 16-17 boxes, two
+//     the boxes of the tile's products through a ring of 16 boxes, two
 //     consumer warpgroups split each product by columns on wgmma m64n64k16;
 //   * the products by W1^T and We^T (and Ew1^T) read the same boxes of the
 //     same weights K-major: the wrapper makes no transposed copy;

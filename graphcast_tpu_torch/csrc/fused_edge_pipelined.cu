@@ -27,7 +27,7 @@
 //     hh @ Ew1, LN0 and en @ We), which read the tile E, not A; the
 //     epilogue warps hand A back at a second barrier, waited for just
 //     before the next tile's first write to A. The receivers alternate
-//     between two buffers. Shared memory: A, E and a ring of 11 boxes,
+//     between two buffers. Shared memory: A, E and a ring of 10 boxes,
 //     K1's plan in the modes that write e';
 //   * without (encoder mode, where the sender rows come from the 1 GB grid
 //     table): the next tile's gathered sender rows staged ahead. While the
@@ -38,7 +38,7 @@
 //     reads them from S (rows 16 bytes apart beyond their width, so that a
 //     warp's 8 rows fall in different banks) instead of gathering them
 //     from device memory. e stays in A as in K1, S takes E's place, the
-//     ring keeps 11 boxes (K1's encoder mode: 19); the consumers keep the
+//     ring keeps 10 boxes (K1's encoder mode: 18); the consumers keep the
 //     run sums (the next tile's first step, e's load into A, leaves
 //     nothing to overlap them with). The receiver rows repeat along the
 //     sorted receivers and stay direct loads;
@@ -79,7 +79,7 @@ __host__ __device__ constexpr EdgeLayout pipe_layout(bool staged) {
   const int bars = (2 * kEdgeMaxStages + 1) * 8;
   const int tail = kDecExchange + 2 * kEdgeIdx + 16 + bars;
   const int st = (kDecSmemLimit - kDecAlign - L.ring - tail) / kDecBox;
-  L.stages = st < kEdgeMaxStages ? st : kEdgeMaxStages;
+  L.stages = (st < kEdgeMaxStages ? st : kEdgeMaxStages) & ~1;  // even
   L.exchange = L.ring + L.stages * kDecBox;
   L.idx = L.exchange + kDecExchange;
   L.sums = L.idx + 2 * kEdgeIdx;  // S's mbarrier

@@ -95,14 +95,20 @@ __device__ __forceinline__ unsigned long long global_ns() {
 }
 
 // Waits until the barrier's phase of parity `parity` has completed. A wait
-// that lasts 10 s (a ring out of step, a TMA that never lands) traps, so a
-// fault shows as a launch error instead of a hung card.
+// that lasts 10 s on the card's clock traps, so a fault shows as a launch
+// error ("unspecified launch failure") instead of a hung card. A trap here
+// means that this barrier's phase never completed: an arrival or a TMA's
+// bytes that never came (a ring out of step, a box never loaded), not a
+// slow neighbour, whose time slices last milliseconds. The elapsed time is
+// signed: a clock read below t0 (a thread resumed elsewhere after a
+// preemption) counts as no time, where an unsigned difference would wrap
+// to ~2^64 and trap at once.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
   if (mbar_try_wait(addr, parity)) return;
   const unsigned long long t0 = global_ns();
   while (!mbar_try_wait(addr, parity)) {
-    if (global_ns() - t0 > 10000000000ull) __trap();
+    if ((long long)(global_ns() - t0) > 10000000000ll) __trap();
   }
 }
 

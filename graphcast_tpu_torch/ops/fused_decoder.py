@@ -99,7 +99,8 @@ def smem_layout(C: int, outputs: int, embed: bool = False,
   dec_layout lays it out. Every width runs in the layout of WIDTH: the
   operand A (K5: wide enough for the padded outputs), the grid latents G,
   the weight ring (``stages`` boxes of BOX bytes, what is left up to
-  MAX_STAGES), the row exchange, K5's column sums and their
+  MAX_STAGES, rounded down to an even count: csrc/decoder.cuh ClusterRing),
+  the row exchange, K5's column sums and their
   per-warp parts, the barriers; ``total`` is the dynamic shared memory the
   launch asks for (with ALIGN bytes of slack)."""
   if C % 128 or not 128 <= C <= WIDTH or not 1 <= outputs <= 512:
@@ -114,7 +115,7 @@ def smem_layout(C: int, outputs: int, embed: bool = False,
   bars = (2 * MAX_STAGES + 2) * 8
   tail = EXCHANGE + sums * 4 + colred + bars
   lay["stages"] = min(MAX_STAGES, (SMEM_LIMIT - ALIGN - lay["ring"] - tail)
-                      // BOX)
+                      // BOX) & ~1
   lay["exchange"] = lay["ring"] + lay["stages"] * BOX
   lay["sums"] = lay["exchange"] + EXCHANGE
   lay["colred"] = lay["sums"] + sums * 4

@@ -115,7 +115,7 @@ def smem_layout(C: int, backward: bool = False, embed: bool = False,
   edge_layout lays it out. Every width and mode runs in the layout of
   WIDTH: the operand A, in K1's modes that write e' (``write_edges``) the
   edge tile E, the weight ring (``stages`` boxes of BOX bytes, what is left
-  up to MAX_STAGES), the row exchange, the tile's receivers, K4's column
+  up to MAX_STAGES, rounded down to an even count), the row exchange, the tile's receivers, K4's column
   sums (room for embed mode's 6 kinds, or 4) and their per-warp parts, the
   barriers; ``total`` is the dynamic shared memory the launch asks for
   (with ALIGN bytes of slack)."""
@@ -131,7 +131,7 @@ def smem_layout(C: int, backward: bool = False, embed: bool = False,
   bars = (2 * MAX_STAGES + 1) * 8
   tail = EXCHANGE + IDX + sums * 4 + colred + bars
   lay["stages"] = min(MAX_STAGES,
-                      (SMEM_LIMIT - ALIGN - lay["ring"] - tail) // BOX)
+                      (SMEM_LIMIT - ALIGN - lay["ring"] - tail) // BOX) & ~1
   lay["exchange"] = lay["ring"] + lay["stages"] * BOX
   lay["idx"] = lay["exchange"] + EXCHANGE
   lay["sums"] = lay["idx"] + IDX
@@ -153,7 +153,7 @@ def pipelined_smem_layout(staged: bool = False) -> dict:
   lay = {"a": 0, "e": tile}
   lay["ring"] = tile + (ROWS * STAGE_STRIDE if staged else tile)
   lay["stages"] = min(MAX_STAGES, (SMEM_LIMIT - ALIGN - lay["ring"] - EXCHANGE
-                                   - 2 * IDX - 16 - bars) // BOX)
+                                   - 2 * IDX - 16 - bars) // BOX) & ~1
   lay["exchange"] = lay["ring"] + lay["stages"] * BOX
   lay["idx"] = lay["exchange"] + EXCHANGE
   lay["sums"] = lay["idx"] + 2 * IDX

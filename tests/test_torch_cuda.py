@@ -1355,3 +1355,23 @@ def test_hidden_layers_2_graphcast_small_train_step_matches_cpu_and_reruns(
   card = grads(cuda_device)
   _assert_within_noise_floor(card, grads("cpu", bf16=False), grads("cpu"))
   _rerun_bit_equal(lambda: grads(cuda_device))
+
+
+@pytest.mark.cuda
+def test_k2_in_two_processes_on_one_card_is_bit_equal_to_one(cuda_device,
+                                                             tmp_path):
+  """Two processes that time-share the card launch K2 back to back for a
+  few seconds (graphcast_tpu_torch/tools/shared_card_study.py hammer, as
+  chip_smoke.py's shared_card phase does): neither faults, each launches
+  K2 on every call, and each one's last output equals one call's in this
+  process bit for bit."""
+  from graphcast_tpu_torch.parallel import launch
+  from graphcast_tpu_torch.tools import shared_card_study as study
+  plan = (("k2", 4.0),)
+  launch.spawn(study.hammer, 2, args=(str(tmp_path), plan),
+               device="cuda", init_method=f"file://{tmp_path}/rendezvous",
+               timeout_s=300)
+  reports = study.collect(str(tmp_path), 2, study.reference(plan))
+  for r in reports:
+    k2 = r["kernels"]["k2"]
+    assert k2["launches"] == k2["calls"] > 1, k2
